@@ -20,7 +20,30 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    kernels' launch counts read around it; the GAME model must beat a
    fixed-effect-only model on a held-out draw;
 4. the same fit at 20k rows on the card (kernels) and on the CPU (plain
-   versions), which must agree.
+   versions), which must agree;
+5. kernels 3 (TRON's Hessian-vector product) and 4 (value+gradient for M
+   coefficient rows) against their plain versions on the card — f32 and
+   bf16, all four losses, M in {1, 5, 11}, ragged n, d in {33, 1024}, rows
+   at the shared-memory limit of M lanes, weight-0 rows with huge x,
+   bit-identical reruns, kernel 4's lanes against kernel 1, and kernel 4
+   at one lane timed against kernel 1 — and timed at the GLM path's shape
+   beside their plain versions, the torch.mv / torch.mm two-pass forms and
+   the bound;
+6. the GLM path at full width: the JAX package's bench GLM configuration
+   (``bench.py::_make_problem``: 200k x 1024 dense f32 logistic, 64
+   nonzeros a row, column scales over 3 decades; 20k more rows held out),
+   L2 with lambda 100;10;1;0.1;0.01, through ``train_glm_sweep`` with TRON
+   (maxIter 80) and ``train_glm_sweep_batched`` with L-BFGS (maxIter 50),
+   then ``validate_and_select`` by AUC, with the kernels' launch counts
+   read around each sweep; at every lambda the optimizer's reported |grad|
+   must match the exact f64 gradient at its coefficients within that
+   gradient's f32 rounding scale;
+7. the two sweeps and TRON through ``train_glm_sweep_batched`` at 20k x 128
+   (tolerance 1e-4) on the card (kernels) and on the CPU (plain versions):
+   the same gradient check on both devices, the f64 objectives at the two
+   devices' coefficients within OBJECTIVE_RTOL, AUCs within 1e-4 where
+   both converged; kernels 3 and 4 must launch in the batched TRON sweep;
+   SIMPLE variances on both.
 
 Any failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the ``kernels``
@@ -29,6 +52,7 @@ summary. Data and coefficients are random, made from fixed seeds.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -43,6 +67,27 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 #: kernel vs plain version: both sum the same f32 products, in another order
 KERNEL_RTOL = 1e-5
+#: kernels 3 and 4 with a bf16 design vs their plain versions: both round
+#: d2w·t (kernel 3) or wt·d1 (kernel 4) to bf16, and where the kernel's and
+#: the plain version's f32 inputs to that rounding differ in the last bit
+#: (another summation order of the margin) the term lands on the other bf16
+#: neighbour, 2^-8 apart; at 5*10^4-10^5 rows such flips moved a gradient
+#: by up to 1.4e-5 of its scale on an H100. Kernel 4's lanes are
+#: also held to kernel 1 at KERNEL_RTOL: the same margins, so the same
+#: roundings (bit-identical where the two kernels' thread plans match).
+BF16_RTOL = 1e-4
+GLM = dict(rows=200_000, valid_rows=20_000, dim=1024, nnz=64)
+GLM_LAMBDAS = [100.0, 10.0, 1.0, 0.1, 0.01]
+GLM_TRON_MAX_ITER = 80
+GLM_LBFGS_MAX_ITER = 50
+GLM_SMALL = dict(rows=20_000, valid_rows=4_000, dim=128, nnz=8)
+GLM_SMALL_TOLERANCE = 1e-4
+#: card vs CPU at 20k x 128: the f64 objective at the two devices'
+#: coefficients, relative — where both solves converged, and where either
+#: stopped on the iteration cap or the radius rule, which lets the two f32
+#: trajectories drift apart (set from the readings recorded in PERF.md: at
+#: most 1.5e-7 and 1.2e-4 on an H100)
+OBJECTIVE_RTOL = {True: 1e-6, False: 5e-4}
 E2E = dict(rows=1_000_000, users=40_000, songs=15_000, valid_rows=100_000)
 E2E_MAX_ITER = 25
 SMALL = dict(rows=20_000, users=40_000, songs=15_000, valid_rows=5_000)
@@ -155,18 +200,32 @@ def time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_live, n_rows, d, itemsize, n_out):
-    """Least time for one evaluation: X's live rows and their label and
-    offset read once, every row's weight read once, w read and the outputs
-    written once — over the HBM rate; or ~4 f32 operations per element of
-    the live rows plus ~10 per live row for the loss, over the f32 rate —
-    whichever is larger."""
-    nbytes = (n_live * d * itemsize + n_live * 8 + n_rows * 4
-              + n_out * d * 4 + n_out * (d + 1) * 4)
-    ops = 4.0 * n_live * d + 10.0 * n_live
+def roofline_ms(nbytes, ops):
+    """(least ms, what binds): bytes over the HBM rate or f32 operations
+    over the f32 rate, whichever is larger."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def bound_ms(n_live, n_rows, d, itemsize, n_out, lanes=1):
+    """Least time for one evaluation: X's live rows and their label and
+    offset read once, every row's weight read once, the n_out coefficient
+    rows read and the outputs written once — over the HBM rate; or ~4 f32
+    operations per element of the live rows plus ~10 per live row for the
+    loss, for each of ``lanes`` coefficient rows sharing X (kernel 4), over
+    the f32 rate — whichever is larger."""
+    nbytes = (n_live * d * itemsize + n_live * 8 + n_rows * 4
+              + n_out * d * 4 + n_out * (d + 1) * 4)
+    return roofline_ms(nbytes, lanes * (4.0 * n_live * d + 10.0 * n_live))
+
+
+def hvp_bound_ms(n_live, n_rows, d, itemsize):
+    """Least time for one Hessian-vector product: the rows with nonzero
+    curvature read once, every row's d2w read once, v read and the output
+    written once; 4 f32 operations per element of those rows."""
+    return roofline_ms(n_live * d * itemsize + n_rows * 4 + 2 * d * 4,
+                       4.0 * n_live * d)
 
 
 # --------------------------------------------------------------------------
@@ -465,6 +524,344 @@ def profile_fit(fit, unprofiled_wall):
 
 
 # --------------------------------------------------------------------------
+# phase 5: kernels 3 and 4 vs plain versions
+# --------------------------------------------------------------------------
+
+def _grad_err(got, want):
+    """(max |kernel - plain|, that relative to max(1, max |plain|))."""
+    err = float((got - want).abs().max())
+    return err, err / max(1.0, float(want.abs().max()))
+
+
+def check_hvp(fused_hvp, gen):
+    """Kernel 3 vs its plain version; returns the largest relative error
+    per design dtype."""
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for n, d in [(200_003, 1024), (5_001, 33), (20_011, 8192)]:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(n, d, device="cuda", generator=gen).to(dt)
+            v = torch.randn(d, device="cuda", generator=gen) / math.sqrt(d)
+            d2w = torch.rand(n, device="cuda", generator=gen)
+            d2w[::9] = 0.0  # no curvature: padding, or a saturated row
+            x[9] = 1e30  # such a row must add exactly 0, whatever its x
+            got = fused_hvp.fused_hvp(x, v, d2w)
+            again = fused_hvp.fused_hvp(x, v, d2w)
+            want = fused_hvp.fused_hvp_plain(x, v, d2w)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), \
+                f"kernel 3 not bit-identical on rerun: {n}x{d} {dt}"
+            assert torch.isfinite(got).all(), (n, d, dt)
+            err, rel = _grad_err(got, want)
+            tol = KERNEL_RTOL if dt == torch.float32 else BF16_RTOL
+            assert rel <= tol, (n, d, dt, err, rel)
+            worst[dt] = max(worst[dt], rel)
+            log(f"  kernel3 n={n} d={d} {str(dt)[6:]}: max_abs_err="
+                f"{err:.3e} rel={rel:.2e}, rerun identical")
+            del x
+    return worst
+
+
+def check_multi(fused_glm, cuda_build, losses, gen):
+    """Kernel 4 vs its plain version (each lane's value and gradient to its
+    own scale) and, lane by lane, vs kernel 1; returns the largest relative
+    error vs the plain version per design dtype, and vs kernel 1."""
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0, "kernel1": 0.0}
+    cases = [(n, d, m, dt) for n, d in [(100_003, 1024), (50_001, 33)]
+             for m in (1, 5, 11) for dt in (torch.float32, torch.bfloat16)]
+    # rows at the shared-memory limit of 5 and 11 lanes (one warp a block),
+    # in f32: with few rows one bf16 rounding flip (BF16_RTOL) of a heavy
+    # Poisson row weighs too much for any fixed tolerance
+    cases += [(3_001, cuda_build.max_row_width(m), m, torch.float32)
+              for m in (5, 11)]
+    for n, d, lanes, dt in cases:
+        x = torch.randn(n, d, device="cuda", generator=gen).to(dt)
+        ws = torch.randn(lanes, d, device="cuda", generator=gen) / math.sqrt(d)
+        off = 0.1 * torch.randn(n, device="cuda", generator=gen)
+        wt = torch.rand(n, device="cuda", generator=gen)
+        wt[::9] = 0.0  # weight-0 (padding) rows
+        x[9] = 300.0  # padded: exp() of its margin would overflow
+        line = []
+        for loss in losses:
+            y = _labels(loss, (n,), gen)
+            args = (loss, x, ws, y, off, wt)
+            got = fused_glm.fused_value_and_grad_multi(*args)
+            again = fused_glm.fused_value_and_grad_multi(*args)
+            want = fused_glm.fused_value_and_grad_plain(*args)
+            one = [fused_glm.fused_value_and_grad(loss, x, ws[m], y, off, wt)
+                   for m in range(lanes)]
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                f"kernel 4 not bit-identical on rerun: {n}x{d} M={lanes} {dt}"
+            assert all(torch.isfinite(t).all() for t in got)
+            err, rel = _max_err(got, want)
+            tol = KERNEL_RTOL if dt == torch.float32 else BF16_RTOL
+            assert rel <= tol, (n, d, lanes, dt, loss.name, err, rel)
+            k1 = (torch.stack([v for v, _ in one]),
+                  torch.stack([g for _, g in one]))
+            same = all(torch.equal(a, b) for a, b in zip(got, k1))
+            _, rel1 = _max_err(got, k1)
+            assert rel1 <= KERNEL_RTOL, (n, d, lanes, dt, loss.name, rel1)
+            worst[dt] = max(worst[dt], rel)
+            worst["kernel1"] = max(worst["kernel1"], rel1)
+            line.append(f"{loss.name} {rel:.1e}/{rel1:.1e}"
+                        f"{' (=k1)' if same else ''}")
+        log(f"  kernel4 n={n} d={d} M={lanes} {str(dt)[6:]}: rel vs plain/"
+            f"vs kernel1: {', '.join(line)}; reruns identical")
+        del x
+    return worst
+
+
+def time_one_lane(fused_glm, loss, gen):
+    """Kernel 4 at M = 1 against kernel 1 at the fixed-effect shapes of the
+    two paths (1M x 33 bf16, 200k x 1024 f32): one device body, run P = 8
+    lanes a pass by kernel 4 and P = 1 by kernel 1; timed k1, k4, k4, k1 in
+    one process. Returns {shape: (kernel 1 ms, kernel 4 ms)}."""
+    out = {}
+    for n, d, dt in [(1_000_000, 33, torch.bfloat16),
+                     (200_000, 1024, torch.float32)]:
+        x = torch.randn(n, d, device="cuda", generator=gen).to(dt)
+        w = torch.randn(d, device="cuda", generator=gen) / math.sqrt(d)
+        y = _labels(loss, (n,), gen)
+        off = torch.zeros(n, device="cuda")
+        wt = torch.ones(n, device="cuda")
+
+        def k1():
+            return fused_glm.fused_value_and_grad(loss, x, w, y, off, wt)
+
+        def k4():
+            return fused_glm.fused_value_and_grad_multi(loss, x, w[None], y,
+                                                        off, wt)
+
+        a1, a4, b4, b1 = (time_ms(f) for f in (k1, k4, k4, k1))
+        ms1, ms4 = (a1 + b1) / 2, (a4 + b4) / 2
+        key = f"{n}x{d} {str(dt)[6:]}"
+        out[key] = (ms1, ms4)
+        log(f"  one lane {key}: kernel1 {ms1:.4f} ms, kernel4 (M=1) "
+            f"{ms4:.4f} ms, ratio {ms4 / ms1:.3f}")
+        del x
+    return out
+
+
+def time_hvp(fused_hvp, x, w, loss, labels, gen):
+    """Kernel 3 at the GLM path's shape: the design and its curvature at
+    ``w`` (as TRON's operator computes it), a random direction."""
+    m = x @ w
+    d2w = loss.d2(m, labels)
+    v = torch.randn(x.shape[1], device="cuda", generator=gen) / math.sqrt(
+        x.shape[1])
+    err, rel = _grad_err(fused_hvp.fused_hvp(x, v, d2w),
+                         fused_hvp.fused_hvp_plain(x, v, d2w))
+    assert rel <= KERNEL_RTOL, ("kernel3 on the GLM design", err, rel)
+    ms = time_ms(lambda: fused_hvp.fused_hvp(x, v, d2w))
+    plain = time_ms(lambda: fused_hvp.fused_hvp_plain(x, v, d2w))
+    lib = time_ms(lambda: torch.mv(x.t(), d2w * torch.mv(x, v)))
+    n, d = x.shape
+    b, by = hvp_bound_ms(int((d2w != 0).sum()), n, d, x.element_size())
+    log(f"  kernel3 {n}x{d} {str(x.dtype)[6:]}: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, torch.mv two-pass {lib:.4f} ms, bound {b:.4f} ms "
+        f"({by}); max_abs_err vs plain {err:.3e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b, bound_by=by, shape=f"{n}x{d} {str(x.dtype)[6:]}")
+
+
+def multi_library(loss, x, ws, y, off, wt):
+    """Two-pass PyTorch closed form (torch.mm) for M coefficient rows, the
+    yardstick the port never calls."""
+    m = ws.to(x.dtype) @ x.t() + off
+    live = wt > 0
+    m = torch.where(live, m, torch.zeros_like(m))
+    values = torch.where(live, wt * loss.loss(m, y),
+                         torch.zeros_like(m)).sum(-1)
+    dvec = torch.where(live, wt * loss.d1(m, y), torch.zeros_like(m))
+    return values, dvec.to(x.dtype) @ x
+
+
+def time_multi(fused_glm, x, ws, loss, labels):
+    """Kernel 4 at the GLM path's shape: the design and one coefficient row
+    per lambda of the sweep."""
+    n, d = x.shape
+    off = torch.zeros(n, device="cuda")
+    wt = torch.ones(n, device="cuda")
+    args = (loss, x, ws, labels, off, wt)
+    err, rel = _max_err(fused_glm.fused_value_and_grad_multi(*args),
+                        fused_glm.fused_value_and_grad_plain(*args))
+    assert rel <= KERNEL_RTOL, ("kernel4 on the GLM design", err, rel)
+    ms = time_ms(lambda: fused_glm.fused_value_and_grad_multi(*args))
+    plain = time_ms(lambda: fused_glm.fused_value_and_grad_plain(*args))
+    lib = time_ms(lambda: multi_library(*args))
+    lanes = ws.shape[0]
+    b, by = bound_ms(n, n, d, x.element_size(), lanes, lanes=lanes)
+    log(f"  kernel4 {n}x{d} M={lanes} {str(x.dtype)[6:]}: kernel {ms:.4f} ms,"
+        f" plain {plain:.4f} ms, torch.mm two-pass {lib:.4f} ms, bound "
+        f"{b:.4f} ms ({by}); max_abs_err vs plain {err:.3e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b, bound_by=by,
+                shape=f"{n}x{d} M={lanes} {str(x.dtype)[6:]}")
+
+
+# --------------------------------------------------------------------------
+# phases 6 and 7: the GLM sweeps
+# --------------------------------------------------------------------------
+
+def make_glm(rows, valid_rows, dim, nnz, seed=0):
+    """The JAX package's bench GLM problem (bench.py::_make_problem):
+    sparse-generated logistic data, densified, with log-uniform column
+    scales over 3 decades; ``rows + valid_rows`` rows drawn, the last
+    ``valid_rows`` held out. Returns host f32 arrays (x, y) of each part."""
+    rng = np.random.default_rng(seed)
+    n, d, k = rows + valid_rows, dim, nnz
+    r = np.repeat(np.arange(n, dtype=np.int32), k)
+    cols = rng.integers(0, d, size=n * k, dtype=np.int32)
+    col_scale = np.power(10.0, rng.uniform(-2.0, 1.0, size=d)).astype(
+        np.float32)
+    vals = (rng.normal(size=n * k).astype(np.float32) / np.sqrt(k)
+            * col_scale[cols])
+    x = np.zeros((n, d), np.float32)
+    np.add.at(x, (r, cols), vals)
+    w_true = rng.normal(size=d).astype(np.float32) / col_scale
+    y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-(x @ w_true)))).astype(
+        np.float32)
+    return (x[:rows], y[:rows]), (x[rows:], y[rows:])
+
+
+def glm_configs(tolerance=1e-6):
+    """The GLM path's two optimization settings: TRON and L-BFGS, L2, at
+    the reference's relative gradient ``tolerance``."""
+    from photon_ml_tpu_torch.glm import GLMOptimizationConfiguration
+    from photon_ml_tpu_torch.ops.regularization import L2Regularization
+    from photon_ml_tpu_torch.optimize import OptimizerConfig
+    from photon_ml_tpu_torch.types import OptimizerType
+
+    return (GLMOptimizationConfiguration(
+                optimizer=OptimizerType.TRON,
+                regularization=L2Regularization,
+                optimizer_config=OptimizerConfig(
+                    max_iterations=GLM_TRON_MAX_ITER, tolerance=tolerance)),
+            GLMOptimizationConfiguration(
+                optimizer=OptimizerType.LBFGS,
+                regularization=L2Regularization,
+                optimizer_config=OptimizerConfig(
+                    max_iterations=GLM_LBFGS_MAX_ITER, tolerance=tolerance)))
+
+
+def glm_sweeps(tolerance=1e-6, batched_tron=False):
+    """(name, sweep, config) of the GLM path: TRON through
+    ``train_glm_sweep``, L-BFGS through ``train_glm_sweep_batched`` and,
+    with ``batched_tron``, TRON through ``train_glm_sweep_batched`` (kernel
+    4 for the evaluations, kernel 3 once per lane for each CG product)."""
+    from photon_ml_tpu_torch import glm
+
+    tron, lbfgs = glm_configs(tolerance)
+    out = [("tron", glm.train_glm_sweep, tron),
+           ("batched", glm.train_glm_sweep_batched, lbfgs)]
+    if batched_tron:
+        out.append(("batched_tron", glm.train_glm_sweep_batched, tron))
+    return out
+
+
+def run_sweeps(train, valid, sweeps):
+    """Each sweep of ``sweeps`` (:func:`glm_sweeps`) on ``train``'s device,
+    followed by ``validate_and_select`` by AUC; the kernels' launch counts
+    are set to 0 just before each sweep and read just after. Returns
+    {name: (trained, best, seconds, launches)}."""
+    from photon_ml_tpu_torch import glm
+    from photon_ml_tpu_torch.evaluation import parse_evaluators
+    from photon_ml_tpu_torch.ops import fused_glm, fused_hvp
+    from photon_ml_tpu_torch.types import TaskType
+
+    counted = {"fused_glm": fused_glm.fused_value_and_grad,
+               "fused_hvp": fused_hvp.fused_hvp,
+               "fused_glm_multi": fused_glm.fused_value_and_grad_multi}
+    cuda = train.design.x.is_cuda
+    out = {}
+    for name, sweep, cfg in sweeps:
+        for fn in counted.values():
+            fn.launches = 0
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trained = sweep(TaskType.LOGISTIC_REGRESSION, train, GLM_LAMBDAS,
+                        cfg)
+        if cuda:
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counted.items()}
+        best, trained = glm.validate_and_select(
+            trained, parse_evaluators(["AUC"]), valid)
+        out[name] = (trained, best, sec, launches)
+    return out
+
+
+#: f32 unit roundoff
+U32 = 2.0 ** -24
+
+
+def check_gradients(label, train, trained):
+    """Per lambda, in f64 on ``train``'s device, at the coefficients the
+    sweep returned: the L2-regularized logistic objective f(w), the exact
+    gradient, and its f32 rounding scale U32 * | |X|^T (|wt d1| + wt d2
+    |X||w|) + lambda |w| | (every term of the gradient and of the margins
+    it depends on, in absolute value). Asserts that the optimizer's own
+    |grad| (f32, from the kernels on the card) matches the exact |grad f(w)|
+    within that scale: a kernel that returns a wrong gradient, or a lane
+    solved with another lane's lambda, reports a |grad| that f(w) does not
+    have. Returns [(f(w), |grad f(w)|)] per lambda."""
+    x = train.design.x.double()
+    y, wt = train.labels.double(), train.weights.double()
+    off = train.offsets.double()
+    ax = x.abs()
+    out = []
+    for tm in trained:
+        lam = tm.regularization_weight
+        w = tm.model.coefficients.means.to(x.device).double()
+        m = x @ w + off
+        p = torch.sigmoid(m)
+        g = x.t() @ (wt * (p - y)) + lam * w
+        scale = ax.t() @ (wt * ((p - y).abs() + p * (1 - p) * (ax @ w.abs()))
+                          ) + lam * w.abs()
+        f = float((wt * (torch.nn.functional.softplus(m) - y * m)).sum()
+                  + 0.5 * lam * (w @ w))
+        gn = float(torch.linalg.vector_norm(g))
+        eps = U32 * float(torch.linalg.vector_norm(scale))
+        reported = float(tm.result.grad_norm)
+        log(f"  {label} lambda={lam:g}: |grad f| f64 {gn:.6e} vs reported "
+            f"{reported:.6e}: |diff| {abs(gn - reported):.3e} <= f32 scale "
+            f"{eps:.3e}; f64 f(w) {f:.10e}")
+        assert abs(gn - reported) <= eps, (label, lam, gn, reported, eps)
+        out.append((f, gn))
+    return out
+
+
+def hold_to_bound(label, runs_a, runs_b, grads_a, grads_b):
+    """Log every lambda's two solutions against (|grad f(w_a)| + |grad
+    f(w_b)|) / lambda: each objective is lambda-strongly convex (L2, no
+    intercept, no mask), so any iterate w lies within |grad f(w)| / lambda
+    of the optimum. That holds for ANY two points, so it only catches a
+    non-finite result; :func:`check_gradients` is what a wrong card path
+    fails."""
+    for lam, a, b, (_, g1), (_, g2) in zip(GLM_LAMBDAS, runs_a, runs_b,
+                                           grads_a, grads_b):
+        gap = float(torch.linalg.vector_norm(
+            a.model.coefficients.means.cpu().double()
+            - b.model.coefficients.means.cpu().double()))
+        bound = (g1 + g2) / lam
+        log(f"  {label} lambda={lam:g}: |w_a - w_b| {gap:.3e} <= bound "
+            f"{bound:.3e} (|grad f| {g1:.2e} / {g2:.2e})")
+        assert gap <= bound, (label, lam, gap, bound)
+
+
+def log_sweep(name, trained, best, sec, launches):
+    log(f"  {name} sweep: {sec:.3f} s; launches {launches}; best lambda "
+        f"{trained[best].regularization_weight:g}")
+    for tm in trained:
+        r = tm.result
+        log(f"    lambda={tm.regularization_weight:g}: iterations "
+            f"{int(r.iterations)}, converged {bool(r.converged)}, value "
+            f"{float(r.value):.6f}, |grad| {float(r.grad_norm):.3e}, AUC "
+            f"{tm.evaluation.primary[1]:.6f}")
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -476,7 +873,10 @@ def main() -> int:
     sys.path.insert(0, root)
     import photon_ml_tpu_torch.game as tg
     from photon_ml_tpu_torch.evaluation import parse_evaluators
-    from photon_ml_tpu_torch.ops import cuda_build, fused_glm, fused_re
+    from photon_ml_tpu_torch import glm
+    from photon_ml_tpu_torch.convert import glm_data_from_arrays
+    from photon_ml_tpu_torch.ops import cuda_build, fused_glm, fused_hvp
+    from photon_ml_tpu_torch.ops import fused_re
     from photon_ml_tpu_torch.ops import losses as tl
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -492,7 +892,8 @@ def main() -> int:
 
     # 1. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    report = cuda_build.build(["fused_glm", "fused_re"])
+    report = cuda_build.build(["fused_glm", "fused_re", "fused_hvp",
+                               "fused_glm_multi"])
     log(f"[1] built kernels in {time.perf_counter() - t0:.2f} s "
         + ", ".join(f"{k}: {'cached' if v['cached'] else 'nvcc'}"
                     for k, v in report.items()))
@@ -607,6 +1008,134 @@ def main() -> int:
     log(f"  |AUC cuda - AUC cpu| = {d_auc:.2e}")
     # a few of the 5k validation rows may swap ranks
     assert d_auc < 1e-4, d_auc
+    del small, small_valid, fits, gpu, cpu
+    log(f"[1-4] done at {time.perf_counter() - t_start:.1f} s")
+
+    # 5. kernels 3 and 4 vs plain versions ----------------------------------
+    t0 = time.perf_counter()
+    err3 = check_hvp(fused_hvp, gen)
+    err4 = check_multi(fused_glm, cuda_build, losses, gen)
+    time_one_lane(fused_glm, tl.LogisticLoss, gen)
+    log(f"[5] kernels 3 and 4 agree with their plain versions: worst "
+        f"relative error kernel3 f32 {err3[torch.float32]:.2e} bf16 "
+        f"{err3[torch.bfloat16]:.2e}; kernel4 f32 {err4[torch.float32]:.2e} "
+        f"bf16 {err4[torch.bfloat16]:.2e} (rtol {KERNEL_RTOL} f32, "
+        f"{BF16_RTOL} bf16), kernel4 vs kernel1 {err4['kernel1']:.2e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
+    # 6. the GLM path at full width ----------------------------------------
+    t0 = time.perf_counter()
+    (x_tr, y_tr), (x_va, y_va) = make_glm(**GLM)
+    train = glm_data_from_arrays(x_tr, y_tr)
+    valid = glm_data_from_arrays(x_va, y_va)
+    del x_tr, x_va
+    log(f"[6] generated the GLM data ({GLM}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    glm_runs = run_sweeps(train, valid, glm_sweeps())
+    grads = {}
+    for name, (trained, best, sec, n_launch) in glm_runs.items():
+        log(f"[6] {name}:")
+        log_sweep(name, trained, best, sec, n_launch)
+        for tm in trained:
+            c = tm.model.coefficients.means
+            assert c.shape == (GLM["dim"],) and bool(torch.isfinite(c).all())
+            assert tm.evaluation.primary[1] > 0.5, (name, tm.evaluation)
+        grads[name] = check_gradients(name, train, trained)
+    glm_launches = {k: v[3] for k, v in glm_runs.items()}
+    assert glm_launches["tron"]["fused_glm"] > 0, glm_launches
+    assert glm_launches["tron"]["fused_hvp"] > 0, glm_launches
+    assert glm_launches["batched"]["fused_glm_multi"] > 0, glm_launches
+    hold_to_bound("TRON vs batched L-BFGS", glm_runs["tron"][0],
+                  glm_runs["batched"][0], grads["tron"], grads["batched"])
+
+    # kernel times at the GLM path's shape, and their share of each sweep
+    x = train.design.x
+    w_mid = glm_runs["tron"][0][2].model.coefficients.means
+    ones = torch.ones(x.shape[0], device="cuda")
+    k1_ms = time_ms(lambda: fused_glm.fused_value_and_grad(
+        tl.LogisticLoss, x, w_mid, train.labels, 0 * ones, ones))
+    t3 = time_hvp(fused_hvp, x, w_mid, tl.LogisticLoss, train.labels, gen)
+    t4 = time_multi(fused_glm, x, torch.stack(
+        [tm.model.coefficients.means for tm in glm_runs["batched"][0]]),
+        tl.LogisticLoss, train.labels)
+    log(f"  kernel1 {tuple(x.shape)} f32 on the GLM design: {k1_ms:.4f} ms")
+    for name, parts in (("tron", (("fused_glm", k1_ms),
+                                  ("fused_hvp", t3["ms"]))),
+                        ("batched", (("fused_glm_multi", t4["ms"]),))):
+        kern_s = sum(glm_launches[name][k] * ms for k, ms in parts) / 1e3
+        sec = glm_runs[name][2]
+        log(f"  {name} sweep: {sec:.3f} s wall, ~{kern_s:.3f} s of it in "
+            f"its kernels (launches x time per launch, "
+            f"{100 * kern_s / sec:.1f} %)")
+    del train, valid, glm_runs, x
+    torch.cuda.empty_cache()
+
+    # 7. the GLM sweeps, card vs CPU ----------------------------------------
+    # at a tolerance that f32 solves reach: with values ~1.3e4 (an f32 ulp
+    # of ~1e-3) TRON's reduction test stalls long before |grad f| reaches
+    # 1e-6 of its start, so at phase 6's tolerance no lambda converges and
+    # the AUC check below would hold none
+    (x_tr, y_tr), (x_va, y_va) = make_glm(**GLM_SMALL, seed=1)
+    runs, stats, datas = {}, {}, {}
+    sweeps = glm_sweeps(GLM_SMALL_TOLERANCE, batched_tron=True)
+    for device in ("cuda", "cpu"):
+        datas[device] = glm_data_from_arrays(x_tr, y_tr, device=device)
+        t0 = time.perf_counter()
+        runs[device] = run_sweeps(
+            datas[device], glm_data_from_arrays(x_va, y_va, device=device),
+            sweeps)
+        log(f"[7] {GLM_SMALL['rows']}x{GLM_SMALL['dim']} sweeps on {device} "
+            f"(tolerance {GLM_SMALL_TOLERANCE:g}) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for name, (trained, best, sec, n_launch) in runs[device].items():
+            log_sweep(f"{device} {name}", trained, best, sec, n_launch)
+            stats[device, name] = check_gradients(
+                f"{device} {name}", datas[device], trained)
+    bt = runs["cuda"]["batched_tron"][3]
+    assert bt["fused_glm_multi"] > 0 and bt["fused_hvp"] > 0, bt
+    worst_f, n_auc, bad = 0.0, 0, []
+    for name, _, _ in sweeps:
+        hold_to_bound(f"{name} cuda vs cpu", runs["cuda"][name][0],
+                      runs["cpu"][name][0], stats["cuda", name],
+                      stats["cpu", name])
+        for a, b, (fa, _), (fb, _) in zip(
+                runs["cuda"][name][0], runs["cpu"][name][0],
+                stats["cuda", name], stats["cpu", name]):
+            rel_f = abs(fa - fb) / abs(fb)
+            worst_f = max(worst_f, rel_f)
+            d_auc = abs(a.evaluation.primary[1] - b.evaluation.primary[1])
+            both = bool(a.result.converged) and bool(b.result.converged)
+            n_auc += both
+            log(f"    lambda={a.regularization_weight:g}: converged "
+                f"{bool(a.result.converged)}/{bool(b.result.converged)}; f64 "
+                f"f(w) relative |cuda - cpu| {rel_f:.3e} (limit "
+                f"{OBJECTIVE_RTOL[both]:g}); |AUC cuda - AUC cpu| {d_auc:.2e}"
+                + (" (limit 1e-4)" if both else " (not held)"))
+            if rel_f > OBJECTIVE_RTOL[both] or (both and d_auc > 1e-4):
+                bad.append((name, a.regularization_weight, rel_f, d_auc))
+    log(f"[7] card vs CPU: f64 objectives within {worst_f:.3e} relative; "
+        f"AUC held to 1e-4 at the {n_auc} lambdas where both devices "
+        "converged")
+    assert not bad, bad
+    assert n_auc > 0, "no lambda converged on both devices"
+    # SIMPLE variances at one point, the CPU's TRON solution at lambda 1
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+    from photon_ml_tpu_torch.types import VarianceComputationType
+
+    problem = glm.OptimizationProblem(
+        GLMObjective(tl.LogisticLoss), dataclasses.replace(
+            glm_configs()[0],
+            variance_type=VarianceComputationType.SIMPLE))
+    w_cpu = runs["cpu"]["tron"][0][2].model.coefficients.means
+    var = {dev: problem.compute_variances(w_cpu.to(dev), datas[dev],
+                                          GLM_LAMBDAS[2]).cpu()
+           for dev in ("cuda", "cpu")}
+    rel_var = float(((var["cuda"] - var["cpu"]).abs()
+                     / var["cpu"].abs()).max())
+    log(f"  SIMPLE variances at lambda={GLM_LAMBDAS[2]:g}: max relative "
+        f"|cuda - cpu| {rel_var:.2e}")
+    assert rel_var <= 1e-4, rel_var
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [
@@ -619,6 +1148,15 @@ def main() -> int:
              source="photon_ml_tpu_torch/csrc/fused_re.cu",
              replaces="photon_ml_tpu/ops/pallas_re.py:130",
              launches=launches["fused_re"], **t2),
+        dict(name="fused_hvp", route="cuda", status="ported",
+             source="photon_ml_tpu_torch/csrc/fused_hvp.cu",
+             replaces="photon_ml_tpu/ops/pallas_glm.py:447",
+             launches=glm_launches["tron"]["fused_hvp"], **t3),
+        dict(name="fused_value_and_grad_multi", route="cuda",
+             status="ported",
+             source="photon_ml_tpu_torch/csrc/fused_glm_multi.cu",
+             replaces="photon_ml_tpu/ops/pallas_glm.py:301",
+             launches=glm_launches["batched"]["fused_glm_multi"], **t4),
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"):

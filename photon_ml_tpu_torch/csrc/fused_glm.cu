@@ -29,6 +29,7 @@
 namespace {
 
 using photon::block_value_and_grad;
+using photon::fold_kernel;
 
 template <typename T, int LOSS, bool ROUND_BF16>
 __global__ void partials_kernel(const T* __restrict__ x,
@@ -43,24 +44,6 @@ __global__ void partials_kernel(const T* __restrict__ x,
   float* row = scratch + (int64_t)blockIdx.x * (d + 1);
   block_value_and_grad<T, LOSS, ROUND_BF16>(x, w, y, off, wt, begin, end, d,
                                             g, row + d, row);
-}
-
-// out[j] = sum over blocks of scratch[block][j], j in [0, width), summed in
-// a fixed order: a strided serial sum per thread, then a fixed tree.
-__global__ void fold_kernel(const float* __restrict__ scratch, int n_rows,
-                            int width, float* __restrict__ out) {
-  __shared__ float s[256];
-  const int j = blockIdx.x;
-  float acc = 0.f;
-  for (int i = threadIdx.x; i < n_rows; i += blockDim.x)
-    acc += scratch[(int64_t)i * width + j];
-  s[threadIdx.x] = acc;
-  __syncthreads();
-  for (int o = blockDim.x / 2; o > 0; o >>= 1) {
-    if (threadIdx.x < o) s[threadIdx.x] += s[threadIdx.x + o];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[j] = s[0];
 }
 
 constexpr int kThreads = 256;
@@ -83,7 +66,8 @@ struct Launch {
                                                 y, off, wt, n, d, g, scratch);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    fold_kernel<<<d + 1, 256, 0, stream>>>(scratch, n_blocks, d + 1, out);
+    fold_kernel<<<d + 1, photon::kFoldThreads, 0, stream>>>(scratch, n_blocks,
+                                                           d + 1, out);
     return cudaGetLastError();
   }
 };

@@ -1,7 +1,9 @@
-// Device code shared by the fused GLM value+gradient kernels
-// (fused_glm.cu for the fixed effect, fused_re.cu for random-effect buckets).
+// Device code shared by the fused GLM kernels: value+gradient (fused_glm.cu
+// for the fixed effect, fused_re.cu for random-effect buckets,
+// fused_glm_multi.cu for M coefficient rows at once) and the Hessian-vector
+// product (fused_hvp.cu).
 //
-// Both kernels compute, over the rows of a dense design block,
+// The value+gradient kernels compute, over the rows of a dense design block,
 //
 //     value = sum_r wt_r * loss(x_r . w + off_r, y_r)
 //     grad  = sum_r wt_r * loss'(x_r . w + off_r, y_r) * x_r
@@ -75,93 +77,211 @@ inline int group_size(int d) {
   return g;
 }
 
-// Dynamic shared memory of one block: w (d) + per-group gradient partials
-// (n_groups * d) + per-group value partials (n_groups), all f32.
-inline size_t block_smem_bytes(int d, int threads, int g) {
-  const int n_groups = threads / g;
-  return sizeof(float) * ((size_t)d + (size_t)n_groups * d + n_groups);
+// Dynamic shared memory of one block for `lanes` coefficient rows: w
+// (lanes * d) + per-group gradient partials (n_groups * lanes * d) +
+// per-group value partials (n_groups * lanes), all f32. The Hvp kernel uses
+// the same plan with one lane (its value partials go unused).
+// photon_ml_tpu_torch/ops/cuda_build.py::block_smem_bytes mirrors it.
+inline size_t block_smem_bytes(int d, int threads, int g, int lanes = 1) {
+  const size_t n_groups = threads / g;
+  return sizeof(float) * (size_t)lanes * ((size_t)d + n_groups * d + n_groups);
 }
 
 // Shared memory one block may use on Hopper (227 KiB).
 constexpr size_t kMaxBlockSmemBytes = 232448;
 
 // The largest block of at most `threads` threads (a multiple of 32) whose
-// shared memory fits; 0 when not even one warp fits (d > 29055).
-inline int fit_threads(int d, int g, int threads) {
-  while (threads >= 32 && block_smem_bytes(d, threads, g) > kMaxBlockSmemBytes)
+// shared memory fits; 0 when not even one warp fits (for one lane,
+// d > 29055; cuda_build.max_row_width gives the limit for any lane count).
+inline int fit_threads(int d, int g, int threads, int lanes = 1) {
+  while (threads >= 32 &&
+         block_smem_bytes(d, threads, g, lanes) > kMaxBlockSmemBytes)
     threads -= 32;
   return threads >= 32 ? threads : 0;
 }
 
+// Lanes of the warp's row group `g` that shuffle together.
+__device__ __forceinline__ unsigned group_mask(int g) {
+  const int warp_lane = threadIdx.x % 32;
+  return (g == 32) ? 0xffffffffu : (((1u << g) - 1u) << (warp_lane / g * g));
+}
+
+// Coefficient rows one pass over a design row serves in kernel 4: their
+// margins and loss derivatives live in registers (arrays of this size).
+constexpr int kLanesPerPass = 8;
+
 // One block's share of the work: rows [row_begin, row_end) of the row-major
-// (rows, d) matrix x. Leaves the block's value in *value_out and its
-// gradient in grad_out[0..d) (both written by this block only).
+// (rows, d) matrix x, for `lanes` coefficient rows w[m * d + j] sharing the
+// block's pass over x. Leaves value_out[0..lanes) and grad_out[0..lanes * d)
+// (written by this block only). Kernels 1 and 2 run it with one lane
+// (P = 1); kernel 4 with M lanes, P = kLanesPerPass at a time
+// (photon_ml_tpu/ops/pallas_glm.py::_kernel_multi). A group forms a row's
+// margins P lanes at a time from one read of the row (lanes <= P: exactly
+// one read from device memory; beyond that the row is read again from L1
+// for each further pass), applies the loss per lane, then folds the lanes'
+// wt * d1 * x_r into its per-lane gradient partials. Lane m's margin is
+// summed in the same order whatever P and lanes are, so kernel 4's lanes
+// equal kernel 1's where the two launches' thread plans match.
 //
 // ROUND_BF16 reproduces the bf16 path of the fixed-effect TPU kernel
 // (photon_ml_tpu/ops/pallas_glm.py::_kernel): w is rounded to bf16 before
 // the margin product and wt * d1 before the gradient product; both
 // products accumulate in f32. Without it all maths is f32 after the load
 // (photon_ml_tpu/ops/pallas_re.py::_kernel).
-template <typename T, int LOSS, bool ROUND_BF16>
-__device__ void block_value_and_grad(const T* __restrict__ x,
-                                     const float* __restrict__ w,
-                                     const float* __restrict__ y,
-                                     const float* __restrict__ off,
-                                     const float* __restrict__ wt,
-                                     int64_t row_begin, int64_t row_end, int d,
-                                     int g, float* __restrict__ value_out,
-                                     float* __restrict__ grad_out) {
+template <typename T, int LOSS, bool ROUND_BF16, int P = 1>
+__device__ __forceinline__ void block_value_and_grad(
+    const T* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ y, const float* __restrict__ off,
+    const float* __restrict__ wt, int64_t row_begin, int64_t row_end, int d,
+    int g, float* __restrict__ value_out, float* __restrict__ grad_out,
+    int lanes = 1) {
   extern __shared__ float smem[];
   const int n_groups = blockDim.x / g;
+  const int64_t ld = (int64_t)lanes * d;
   float* w_s = smem;
-  float* gpart = smem + d;
-  float* vpart = gpart + (size_t)n_groups * d;
+  float* gpart = smem + ld;
+  float* vpart = gpart + n_groups * ld;
 
-  for (int j = threadIdx.x; j < d; j += blockDim.x)
+  for (int64_t j = threadIdx.x; j < ld; j += blockDim.x)
     w_s[j] = ROUND_BF16 ? round_bf16(w[j]) : w[j];
-  for (int j = threadIdx.x; j < n_groups * d; j += blockDim.x) gpart[j] = 0.f;
+  for (int64_t j = threadIdx.x; j < n_groups * ld; j += blockDim.x)
+    gpart[j] = 0.f;
+  for (int j = threadIdx.x; j < n_groups * lanes; j += blockDim.x)
+    vpart[j] = 0.f;
   __syncthreads();
 
   const int lane = threadIdx.x % g;
   const int group = threadIdx.x / g;
-  const int warp_lane = threadIdx.x % 32;
-  const unsigned mask =
-      (g == 32) ? 0xffffffffu : (((1u << g) - 1u) << (warp_lane / g * g));
-  float* gp = gpart + (size_t)group * d;
-  float vacc = 0.f;
+  const unsigned mask = group_mask(g);
+  float* gp = gpart + group * ld;
+  float* vp = vpart + group * lanes;
   // every lane of a group walks the same rows and takes the same branches,
   // so the group-masked shuffles below always see all of their lanes
   for (int64_t r = row_begin + group; r < row_end; r += n_groups) {
     const float wt_r = wt[r];
     if (!(wt_r > 0.f)) continue;  // padding row: contributes exactly 0
     const T* xr = x + r * (int64_t)d;
-    float part = 0.f;
-    for (int j = lane; j < d; j += g) part += to_f32(xr[j]) * w_s[j];
-    // butterfly: every lane ends with the same, order-fixed sum
-    for (int o = g / 2; o > 0; o >>= 1) part += __shfl_xor_sync(mask, part, o);
-    const float m = part + off[r];
-    float l, d1;
-    loss_and_d1<LOSS>(m, y[r], &l, &d1);
-    float dv = d1 * wt_r;
-    if (ROUND_BF16) dv = round_bf16(dv);
-    if (lane == 0) vacc += wt_r * l;
-    for (int j = lane; j < d; j += g) gp[j] += dv * to_f32(xr[j]);
+    const float off_r = off[r];
+    const float y_r = y[r];
+    for (int m0 = 0; m0 < lanes; m0 += P) {
+      const int mc = min(P, lanes - m0);
+      const float* wm = w_s + (int64_t)m0 * d;
+      float part[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) part[k] = 0.f;
+      for (int j = lane; j < d; j += g) {
+        const float xv = to_f32(xr[j]);
+#pragma unroll
+        for (int k = 0; k < P; ++k)
+          if (k < mc) part[k] += xv * wm[(int64_t)k * d + j];
+      }
+      float dv[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        dv[k] = 0.f;
+        if (k < mc) {
+          // butterfly: every lane ends with the same, order-fixed sum
+          for (int o = g / 2; o > 0; o >>= 1)
+            part[k] += __shfl_xor_sync(mask, part[k], o);
+          float l, d1;
+          loss_and_d1<LOSS>(part[k] + off_r, y_r, &l, &d1);
+          dv[k] = ROUND_BF16 ? round_bf16(d1 * wt_r) : d1 * wt_r;
+          if (lane == 0) vp[m0 + k] += wt_r * l;
+        }
+      }
+      float* gm = gp + (int64_t)m0 * d;
+      for (int j = lane; j < d; j += g) {
+        const float xv = to_f32(xr[j]);
+#pragma unroll
+        for (int k = 0; k < P; ++k)
+          if (k < mc) gm[(int64_t)k * d + j] += dv[k] * xv;
+      }
+    }
   }
-  if (lane == 0) vpart[group] = vacc;
   __syncthreads();
 
   // fold the groups' partials in a fixed order
+  for (int64_t j = threadIdx.x; j < ld; j += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < n_groups; ++k) s += gpart[k * ld + j];
+    grad_out[j] = s;
+  }
+  for (int m = threadIdx.x; m < lanes; m += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < n_groups; ++k) s += vpart[k * lanes + m];
+    value_out[m] = s;
+  }
+}
+
+// One block's share of the GLM Hessian-vector product over rows
+// [row_begin, row_end): out[0..d) = sum_r (d2w_r * (x_r . v)) * x_r
+// (photon_ml_tpu/ops/pallas_glm.py::_hvp_kernel). The row-group plan of
+// block_value_and_grad: a group forms t = x_r . v by a butterfly and folds
+// d2w_r * t * x_r into its gradient partial while the row is in L1. A row
+// whose d2w is 0 (every padded row) is skipped whole, so it contributes
+// exactly 0 whatever its x. ROUND_BF16 rounds v and d2w_r * t to bf16
+// before their products, as the TPU kernel's astype(x.dtype) does.
+template <typename T, bool ROUND_BF16>
+__device__ void block_hvp(const T* __restrict__ x, const float* __restrict__ v,
+                          const float* __restrict__ d2w, int64_t row_begin,
+                          int64_t row_end, int d, int g,
+                          float* __restrict__ out) {
+  extern __shared__ float smem[];
+  const int n_groups = blockDim.x / g;
+  float* v_s = smem;
+  float* gpart = smem + d;
+
+  for (int j = threadIdx.x; j < d; j += blockDim.x)
+    v_s[j] = ROUND_BF16 ? round_bf16(v[j]) : v[j];
+  for (int j = threadIdx.x; j < n_groups * d; j += blockDim.x) gpart[j] = 0.f;
+  __syncthreads();
+
+  const int lane = threadIdx.x % g;
+  const int group = threadIdx.x / g;
+  const unsigned mask = group_mask(g);
+  float* gp = gpart + (size_t)group * d;
+  for (int64_t r = row_begin + group; r < row_end; r += n_groups) {
+    const float c_r = d2w[r];
+    if (c_r == 0.f) continue;  // no curvature (or padding): exactly 0
+    const T* xr = x + r * (int64_t)d;
+    float t = 0.f;
+    for (int j = lane; j < d; j += g) t += to_f32(xr[j]) * v_s[j];
+    for (int o = g / 2; o > 0; o >>= 1) t += __shfl_xor_sync(mask, t, o);
+    float c = c_r * t;
+    if (ROUND_BF16) c = round_bf16(c);
+    for (int j = lane; j < d; j += g) gp[j] += c * to_f32(xr[j]);
+  }
+  __syncthreads();
+
   for (int j = threadIdx.x; j < d; j += blockDim.x) {
     float s = 0.f;
     for (int k = 0; k < n_groups; ++k) s += gpart[(size_t)k * d + j];
-    grad_out[j] = s;
-  }
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int k = 0; k < n_groups; ++k) s += vpart[k];
-    *value_out = s;
+    out[j] = s;
   }
 }
+
+// out[j] = sum over blocks of scratch[block][j], j in [0, width), summed in
+// a fixed order: a strided serial sum per thread, then a fixed tree. The
+// second pass of every kernel that splits rows across blocks.
+static __global__ void fold_kernel(const float* __restrict__ scratch,
+                                   int n_rows, int width,
+                                   float* __restrict__ out) {
+  __shared__ float s[256];
+  const int j = blockIdx.x;
+  float acc = 0.f;
+  for (int i = threadIdx.x; i < n_rows; i += blockDim.x)
+    acc += scratch[(int64_t)i * width + j];
+  s[threadIdx.x] = acc;
+  __syncthreads();
+  for (int o = blockDim.x / 2; o > 0; o >>= 1) {
+    if (threadIdx.x < o) s[threadIdx.x] += s[threadIdx.x + o];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[j] = s[0];
+}
+
+// Threads of a fold_kernel block (its shared array's size).
+constexpr int kFoldThreads = 256;
 
 // Opt a kernel into more than 48 KiB of dynamic shared memory when needed.
 template <typename K>
@@ -188,6 +308,14 @@ template <template <typename, int> class Launch, typename... A>
 inline cudaError_t dispatch(int dtype, int loss, A... args) {
   if (dtype == F32) return dispatch_loss<Launch, float>(loss, args...);
   if (dtype == BF16) return dispatch_loss<Launch, __nv_bfloat16>(loss, args...);
+  return cudaErrorInvalidValue;
+}
+
+// Run Launch<T>::run(args...) for a kernel without a loss (the Hvp).
+template <template <typename> class Launch, typename... A>
+inline cudaError_t dispatch_dtype(int dtype, A... args) {
+  if (dtype == F32) return Launch<float>::run(args...);
+  if (dtype == BF16) return Launch<__nv_bfloat16>::run(args...);
   return cudaErrorInvalidValue;
 }
 

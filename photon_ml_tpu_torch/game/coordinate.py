@@ -37,8 +37,10 @@ CoordinateModel = Union[FixedEffectModel, RandomEffectModel]
 @dataclasses.dataclass(frozen=True)
 class FixedEffectCoordinate:
     """The global GLM solve (reference ``FixedEffectCoordinate.scala``):
-    one-lane L-BFGS whose every evaluation is one launch of the fused
-    fixed-effect kernel (:mod:`~photon_ml_tpu_torch.ops.fused_glm`)."""
+    one-lane L-BFGS or TRON solve whose every evaluation is one launch of
+    the fused fixed-effect kernel (:mod:`~photon_ml_tpu_torch.ops.fused_glm`)
+    and, under TRON, every CG product one launch of the Hvp kernel
+    (:mod:`~photon_ml_tpu_torch.ops.fused_hvp`)."""
 
     coordinate_id: str
     dataset: FixedEffectDataset

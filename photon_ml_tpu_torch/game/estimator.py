@@ -9,8 +9,9 @@ The first validation evaluator is the model-selection criterion.
 ``device`` takes the place of the JAX version's ``mesh``: the fit runs on
 one device, ``cuda`` unless the caller passes ``device="cpu"``. Not ported
 yet (each raises :class:`NotImplementedError` naming the option): meshes,
-factored random effects, down-sampling, partial retraining (``locked``),
-checkpoints, the divergence guard and ``on_result``.
+factored random effects, down-sampling, coefficient variances, partial
+retraining (``locked``), checkpoints, the divergence guard and
+``on_result``.
 """
 
 from __future__ import annotations
@@ -35,9 +36,17 @@ from photon_ml_tpu_torch.game.data import (
 )
 from photon_ml_tpu_torch.game.model import GameModel
 from photon_ml_tpu_torch.glm.problem import GLMOptimizationConfiguration
-from photon_ml_tpu_torch.types import TaskType
+from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
 
 logger = logging.getLogger(__name__)
+
+
+def _check_ported(optimization: GLMOptimizationConfiguration) -> None:
+    optimization.check_ported()
+    if optimization.variance_type != VarianceComputationType.NONE:
+        raise NotImplementedError(
+            f"variance_type {optimization.variance_type.value}: GAME "
+            "coordinate variances are not ported")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +61,7 @@ class FixedEffectCoordinateConfig:
     design_dtype: str = "float32"
 
     def check_ported(self) -> None:
-        self.optimization.check_ported()
+        _check_ported(self.optimization)
         design_dtype_of(self.design_dtype)
         if self.downsampler is not None:
             raise NotImplementedError("downsampler: down-sampling is not "
@@ -69,7 +78,7 @@ class RandomEffectCoordinateConfig:
     design_dtype: str = "float32"
 
     def check_ported(self) -> None:
-        self.optimization.check_ported()
+        _check_ported(self.optimization)
         self.dataset.check_ported()
         design_dtype_of(self.design_dtype)
 

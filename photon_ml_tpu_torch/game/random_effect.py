@@ -1,8 +1,9 @@
 """Random-effect training: batched per-entity solves over fixed-shape buckets.
 
 Counterpart of ``photon_ml_tpu/game/random_effect.py``. Every size bucket is
-one batched L-BFGS solve whose lanes are the bucket's entities; each
-objective evaluation is one launch of the entity kernel
+one batched L-BFGS or TRON solve whose lanes are the bucket's entities
+(TRON's Hessian-vector products take the closed form over the bucket);
+each objective evaluation is one launch of the entity kernel
 (:mod:`~photon_ml_tpu_torch.ops.fused_re`) over the whole ``(E, S, D)``
 bucket. The sweep is a plain loop over buckets — the JAX package's fused
 whole-sweep program (``_sweep_fused``) has no counterpart yet.

@@ -31,9 +31,36 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: the kernels' design storage types (csrc/glm_common.cuh ``F32``/``BF16``)
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
-#: widest row the kernels take: a block's w and one row group's gradient
-#: partial must fit the 227 KiB of shared memory (csrc/glm_common.cuh)
-MAX_ROW_WIDTH = 29_055
+#: shared memory one block may use on Hopper (csrc/glm_common.cuh)
+MAX_BLOCK_SMEM_BYTES = 232_448
+
+
+def _group_size(d: int) -> int:
+    g = 1
+    while g < d and g < 32:
+        g <<= 1
+    return g
+
+
+def block_smem_bytes(d: int, threads: int, lanes: int = 1) -> int:
+    """Dynamic shared memory of one kernel block (``block_smem_bytes`` of
+    csrc/glm_common.cuh): ``lanes`` coefficient rows of width ``d``, and a
+    gradient and a value partial per lane for each row group."""
+    groups = threads // _group_size(d)
+    return 4 * lanes * (d + groups * d + groups)
+
+
+def max_row_width(lanes: int = 1) -> int:
+    """Widest row a kernel takes for ``lanes`` coefficient rows: the rows
+    and one row group's partials must fit one block's shared memory."""
+    d = (MAX_BLOCK_SMEM_BYTES // (4 * lanes) - 1) // 2  # one 32-wide group
+    while d > 0 and block_smem_bytes(d, 32, lanes) > MAX_BLOCK_SMEM_BYTES:
+        d -= 1
+    return d
+
+
+#: widest row the one-lane kernels take (1, 2 and 3)
+MAX_ROW_WIDTH = max_row_width(1)
 #: ctypes type of a device pointer or a stream
 PTR = ctypes.c_void_p
 
@@ -120,20 +147,25 @@ def check(name: str, code: int) -> None:
                            f"code {code}")
 
 
-def check_args(fn: str, x, layout: str, **others) -> tuple[int, ...]:
+def check_args(fn: str, x, layout: str, lanes: int = 1,
+               **others) -> tuple[int, ...]:
     """Check what a kernel takes and return ``x.shape``: ``x`` is float32 or
     bfloat16 with one dimension per letter of ``layout`` (``"nd"``,
-    ``"esd"``), the last at most :data:`MAX_ROW_WIDTH`; each of ``others``
-    is ``name=(tensor, dims)``, a float32 tensor whose shape is ``dims``, in
-    letters of ``layout``; all contiguous on ``x``'s device."""
+    ``"esd"``), the last at most :func:`max_row_width` of ``lanes``; each of
+    ``others`` is ``name=(tensor, dims)``, a float32 tensor whose shape is
+    ``dims``, in letters of ``layout`` and ``m`` (= ``lanes``); all
+    contiguous on ``x``'s device."""
     if x.dim() != len(layout) or x.dtype not in DTYPE_IDS:
         raise ValueError(
             f"{fn}: x must be ({', '.join(layout)}) float32 or bfloat16, got "
             f"{tuple(x.shape)} {x.dtype}")
-    size = dict(zip(layout, x.shape))
-    if x.shape[-1] > MAX_ROW_WIDTH:
+    size = dict(zip(layout, x.shape), m=lanes)
+    width = max_row_width(lanes)
+    if x.shape[-1] > width:
         raise ValueError(f"{fn}: rows of {x.shape[-1]} exceed the kernel's "
-                         f"{MAX_ROW_WIDTH}-column shared-memory plan")
+                         f"{width}-column shared-memory plan for {lanes} "
+                         "coefficient row(s): not even one warp's partials "
+                         "fit a block")
     for name, (t, dims) in others.items():
         shape = tuple(size[c] for c in dims)
         if tuple(t.shape) != shape or t.dtype != torch.float32:

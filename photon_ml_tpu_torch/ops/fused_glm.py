@@ -1,11 +1,16 @@
 """Fused GLM value + gradient in one pass over a dense design: the CUDA
-kernel (``csrc/fused_glm.cu``) and its plain PyTorch version.
+kernels (``csrc/fused_glm.cu`` for one coefficient vector,
+``csrc/fused_glm_multi.cu`` for M of them) and their plain PyTorch version.
 
-Counterpart of ``photon_ml_tpu/ops/pallas_glm.py::fused_value_and_grad``.
-:func:`fused_value_and_grad` launches the kernel for tensors on a CUDA
-device and runs :func:`fused_value_and_grad_plain` for tensors on the CPU;
-there is no fallback from one to the other. The kernel takes any ``(n, d)``
-shape (it masks its own ragged edges), so there is no block-size gate.
+Counterparts of ``photon_ml_tpu/ops/pallas_glm.py::fused_value_and_grad``
+and ``::fused_value_and_grad_multi`` (the batched lambda sweep's kernel,
+which the JAX package reaches through the ``custom_vmap`` rule of
+``vmappable_value_and_grad``; here ``GLMObjective`` calls it for ``w``
+``(M, d)`` against an ``(n, d)`` design). Each wrapper launches its kernel
+for tensors on a CUDA device and runs :func:`fused_value_and_grad_plain`
+for tensors on the CPU; there is no fallback from one to the other. The
+kernels take any ``(n, d)`` shape (they mask their own ragged edges), so
+there is no block-size gate.
 """
 
 from __future__ import annotations
@@ -27,25 +32,38 @@ _P = cuda_build.PTR
 _SIGNATURE = {"photon_fused_glm_value_and_grad": (
     ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int64,
     ctypes.c_int, ctypes.c_int, _P, _P, _P)}
+_MULTI_SIGNATURE = {"photon_fused_glm_value_and_grad_multi": (
+    ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int64,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P)}
 
 
 def fused_value_and_grad_plain(loss: PointwiseLoss, x, w, labels, offsets,
                                weights):
     """``(value, grad)`` of ``Σ_i weights_i·loss(x_i·w + offsets_i, y_i)``
-    with the kernel's arithmetic in PyTorch: ``w`` and ``weights·d1`` are
+    with the kernels' arithmetic in PyTorch: ``w`` and ``weights·d1`` are
     rounded to the design's dtype before their products (a no-op for f32,
-    the bf16 rounding of the TPU kernel for bf16), products accumulate in at
-    least f32, and weight-0 rows are evaluated at margin 0 and zeroed."""
+    the bf16 rounding of the TPU kernels for bf16), products accumulate in
+    at least f32, and weight-0 rows are evaluated at margin 0 and zeroed.
+    ``w`` ``(d,)`` gives kernel 1's ``(value (), grad (d,))``; ``w``
+    ``(M, d)`` kernel 4's ``(values (M,), grads (M, d))``."""
     acc = accumulation_dtype(x.dtype)
     xf = x.to(acc)
-    m = xf @ w.to(x.dtype).to(acc) + offsets.to(acc)
+    wq = w.to(x.dtype).to(acc)
+    m = (xf @ wq if w.dim() == 1 else wq @ xf.T) + offsets.to(acc)
     live = weights > 0
     m_safe = torch.where(live, m, torch.zeros_like(m))
     zero = torch.zeros_like(m)
-    value = torch.where(live, weights * loss.loss(m_safe, labels), zero).sum()
+    value = torch.where(live, weights * loss.loss(m_safe, labels),
+                        zero).sum(-1)
     dvec = torch.where(live, loss.d1(m_safe, labels) * weights, zero)
     grad = dvec.to(x.dtype).to(acc) @ xf
     return value, grad
+
+
+def partial_blocks(n: int) -> int:
+    """Blocks of a kernel that splits n rows across blocks (kernels 1, 3
+    and 4): a function of n alone, so the fold order is too."""
+    return min(MAX_BLOCKS, -(-n // MIN_ROWS_PER_BLOCK))
 
 
 def fused_value_and_grad(loss: PointwiseLoss, x, w, labels, offsets, weights):
@@ -64,7 +82,7 @@ def fused_value_and_grad(loss: PointwiseLoss, x, w, labels, offsets, weights):
     if n == 0 or d == 0:
         out.zero_()
         return out[d], out[:d]
-    n_blocks = min(MAX_BLOCKS, -(-n // MIN_ROWS_PER_BLOCK))
+    n_blocks = partial_blocks(n)
     scratch = torch.empty((n_blocks, d + 1), dtype=torch.float32,
                           device=x.device)
     lib = cuda_build.load("fused_glm", _SIGNATURE)
@@ -81,3 +99,46 @@ def fused_value_and_grad(loss: PointwiseLoss, x, w, labels, offsets, weights):
 #: kernel launches made by :func:`fused_value_and_grad` in this process
 fused_value_and_grad.launches = 0
 
+
+def fused_value_and_grad_multi(loss: PointwiseLoss, x, ws, labels, offsets,
+                               weights):
+    """``(values (M,), grads (M, d))`` for M coefficient rows ``ws``
+    ``(M, d)`` over one pass of ``x`` — kernel 4 on a CUDA device, the
+    plain version on the CPU. ``x`` is ``(n, d)`` f32 or bf16, the ``(n,)``
+    vectors f32, all contiguous on one device; ``d`` at most
+    :func:`cuda_build.max_row_width` of ``M`` on the card."""
+    if ws.dim() != 2 or ws.shape[0] == 0:
+        raise ValueError("fused_value_and_grad_multi: ws must be (M, d) with "
+                         f"M >= 1, got {tuple(ws.shape)}")
+    if x.device.type == "cpu":
+        return fused_value_and_grad_plain(loss, x, ws, labels, offsets,
+                                          weights)
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"fused_value_and_grad_multi: unsupported device {x.device}")
+    lanes = ws.shape[0]
+    n, d = cuda_build.check_args(
+        "fused_value_and_grad_multi", x, "nd", lanes=lanes,
+        ws=(ws, "md"), labels=(labels, "n"), offsets=(offsets, "n"),
+        weights=(weights, "n"))
+    out = torch.empty(lanes * (d + 1), dtype=torch.float32, device=x.device)
+    if n == 0 or d == 0:
+        out.zero_()
+        return out[lanes * d:], out[:lanes * d].view(lanes, d)
+    n_blocks = partial_blocks(n)
+    scratch = torch.empty((n_blocks, lanes * (d + 1)), dtype=torch.float32,
+                          device=x.device)
+    lib = cuda_build.load("fused_glm_multi", _MULTI_SIGNATURE)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = lib.photon_fused_glm_value_and_grad_multi(
+        loss.kernel_id, cuda_build.DTYPE_IDS[x.dtype], x.data_ptr(),
+        ws.data_ptr(), labels.data_ptr(), offsets.data_ptr(),
+        weights.data_ptr(), n, d, lanes, n_blocks, scratch.data_ptr(),
+        out.data_ptr(), stream)
+    cuda_build.check("fused_glm_multi", code)
+    fused_value_and_grad_multi.launches += 1
+    return out[lanes * d:], out[:lanes * d].view(lanes, d)
+
+
+#: kernel launches made by :func:`fused_value_and_grad_multi` in this process
+fused_value_and_grad_multi.launches = 0

@@ -3,8 +3,8 @@
 Counterpart of ``photon_ml_tpu/ops/normalization.py``: the transformed-space
 margin of a raw sample is ``(w * factor) . x - w . (factor * shift)``, so a
 coefficient-space reparameterization reproduces normalization without
-scaling the design. (Mapping trained coefficients back to the original
-space comes with the model writer, not yet ported.)
+scaling the design. :meth:`NormalizationContext.model_to_original` maps
+trained coefficients back to raw feature space for model output.
 """
 
 from __future__ import annotations
@@ -41,6 +41,21 @@ class NormalizationContext:
         else:
             margin_shift = -(w_eff * self.shifts).sum(-1)
         return w_eff, margin_shift
+
+    def model_to_original(self, w: torch.Tensor) -> torch.Tensor:
+        """Map coefficients learned in transformed space back to original
+        feature space (so a model scores raw features directly): scale by
+        the factors, and move the shifts' margin into the intercept."""
+        w_orig = w if self.factors is None else w * self.factors
+        if self.shifts is not None:
+            if self.intercept_index is None:
+                raise ValueError("shifts require an intercept column")
+            others = torch.ones_like(self.shifts)
+            others[self.intercept_index] = 0.0
+            correction = (w_orig * self.shifts * others).sum(-1)
+            w_orig = w_orig.clone()
+            w_orig[..., self.intercept_index] -= correction
+        return w_orig
 
 
 NoNormalization = NormalizationContext()

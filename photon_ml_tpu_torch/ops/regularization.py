@@ -33,9 +33,11 @@ class RegularizationContext:
         else:
             object.__setattr__(self, "alpha", 0.0)
 
-    def l2_weight(self, regularization_weight: float) -> float:
+    def l2_weight(self, regularization_weight):
         """The smooth L2 coefficient folded into the objective
-        (``(1 - alpha) * lambda``; 0 for ``NONE`` regardless of lambda)."""
+        (``(1 - alpha) * lambda``; 0 for ``NONE`` regardless of lambda).
+        ``regularization_weight`` is a number or a tensor of lambdas, one
+        per lane of a batched solve."""
         if self.reg_type == RegularizationType.NONE:
             return 0.0
         return (1.0 - self.alpha) * regularization_weight

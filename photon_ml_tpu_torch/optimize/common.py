@@ -29,6 +29,7 @@ class OptimizerConfig:
     tolerance: float = 1e-6
     history: int = 10
     max_line_search: int = 25
+    cg_max_iterations: int = 30  # TRON inner CG cap
     track_states: bool = True
 
     def __post_init__(self) -> None:

@@ -3,6 +3,7 @@ JAX package's, on the same music-shaped data (a fixed effect and per-user,
 per-song random effects), plus carrying a JAX-trained model across with
 photon_ml_tpu_torch.convert.game_model_from_arrays."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -15,6 +16,7 @@ from photon_ml_tpu.game.estimator import FixedEffectCoordinateConfig as JFixed
 from photon_ml_tpu.game.estimator import RandomEffectCoordinateConfig as JRandom
 from photon_ml_tpu.ops.regularization import L2Regularization as JL2
 from photon_ml_tpu.optimize import OptimizerConfig as JOptimizer
+from photon_ml_tpu.types import OptimizerType as JOptType
 from photon_ml_tpu.types import TaskType as JTask
 from photon_ml_tpu_torch.convert import game_model_from_arrays
 from photon_ml_tpu_torch.evaluation import parse_evaluators as t_evaluators
@@ -26,6 +28,7 @@ from photon_ml_tpu_torch.ops.regularization import L2Regularization as TL2
 from photon_ml_tpu_torch.optimize import OptimizerConfig as TOptimizer
 from photon_ml_tpu_torch.types import OptimizerType as TOptType
 from photon_ml_tpu_torch.types import TaskType as TTask
+from photon_ml_tpu_torch.types import VarianceComputationType as TVar
 
 LAM = {"global": 0.01, "perUser": 1.0, "perSong": 1.0}
 SEQ = ["global", "perUser", "perSong"]
@@ -154,6 +157,62 @@ def test_validation_auc_matches_jax(fits, dtype):
     assert abs(ta - ja) < 1e-4, (ta, ja)
 
 
+def test_tron_fit_matches_jax():
+    """TRON on the fixed effect (kernel 3's plain version per CG product on
+    the CPU) and on the per-user random effect (the closed-form Hvp over
+    each (E, S, D) bucket), L-BFGS on the per-song one, against the JAX
+    estimator (run in f32): the f32 tolerances of the L-BFGS fits above."""
+    tron = dict(optimizer=JOptType.TRON, regularization=JL2,
+                optimizer_config=JOptimizer(max_iterations=40))
+    jcfg, jtron = JOpt(regularization=JL2, optimizer_config=JOptimizer(
+        max_iterations=40)), JOpt(**tron)
+    tcfg = TOpt(regularization=TL2,
+                optimizer_config=TOptimizer(max_iterations=40))
+    ttron = TOpt(optimizer=TOptType.TRON, regularization=TL2,
+                 optimizer_config=TOptimizer(max_iterations=40))
+    user = dict(bucket_strategy="histogram", max_sample_buckets=4)
+    jest = jg.GameEstimator(
+        task=JTask.LOGISTIC_REGRESSION, update_sequence=SEQ,
+        n_cd_iterations=2, coordinate_configs={
+            "global": JFixed("global", jtron),
+            "perUser": JRandom(jg.RandomEffectDatasetConfig(
+                "userId", "item", **user), jtron),
+            "perSong": JRandom(jg.RandomEffectDatasetConfig(
+                "songId", "item"), jcfg)})
+    test = _torch_estimator("float32", **{
+        "global": TFixed("global", ttron),
+        "perUser": TRandom(tg.RandomEffectDatasetConfig(
+            "userId", "item", **user), ttron)})
+    assert test.coordinate_configs["perSong"].optimization == tcfg
+    # the JAX package's TRON keeps its trust radius in the gradient's dtype,
+    # which x64 mode (on in this test process) makes f64 under f32 designs
+    # — a while_loop carry-type error; run it in f32, as on its TPU (set
+    # process-wide: the estimator also compiles in worker threads)
+    x64 = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", False)
+    try:
+        jres = jest.fit(_game_data(jg, 1200, 0),
+                        [jg.GameOptimizationConfiguration(LAM)],
+                        validation=(_game_data(jg, 600, 5),
+                                    j_evaluators(["AUC"])))[0]
+    finally:
+        jax.config.update("jax_enable_x64", x64)
+    tres = test.fit(_game_data(tg, 1200, 0),
+                    [tg.GameOptimizationConfiguration(LAM)],
+                    validation=(_game_data(tg, 600, 5),
+                                t_evaluators(["AUC"])))[0]
+    np.testing.assert_allclose(
+        tres.model.coordinates["global"].model.coefficients.means.numpy(),
+        np.asarray(jres.model.coordinates["global"].model.coefficients.means),
+        **TOL["float32"])
+    for cid in ("perUser", "perSong"):
+        jm, tm = jres.model.coordinates[cid], tres.model.coordinates[cid]
+        np.testing.assert_array_equal(tm.keys, jm.keys)
+        np.testing.assert_allclose(tm.coeffs, np.asarray(jm.coeffs),
+                                   **RE_TOL["float32"])
+    assert abs(tres.evaluation.primary[1] - jres.evaluation.primary[1]) < 1e-4
+
+
 def test_score_accounting_invariant(fits):
     _, tres = fits["float32"]
     data = _game_data(tg, 1200, 0)
@@ -198,8 +257,9 @@ def test_select_best_prefers_higher_auc():
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"global": TFixed("global", TOpt(optimizer=TOptType.TRON))},
-     "only LBFGS"),
+    ({"global": TFixed("global", TOpt(
+        optimizer=TOptType.TRON, variance_type=TVar.SIMPLE))},
+     "GAME coordinate variances"),
     ({"global": TFixed("global", TOpt(regularization=TL1))}, "OWLQN"),
     ({"perUser": TRandom(tg.RandomEffectDatasetConfig(
         "userId", "item", projector_type=tg.ProjectorType.RANDOM,
