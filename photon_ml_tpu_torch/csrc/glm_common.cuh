@@ -1,9 +1,12 @@
-// Device code shared by the fused GLM kernels: value+gradient (fused_glm.cu
-// for the fixed effect, fused_re.cu for random-effect buckets,
-// fused_glm_multi.cu for M coefficient rows at once) and the Hessian-vector
-// product (fused_hvp.cu).
+// Device code shared by the port's GLM kernels: the loss table, the bf16
+// helpers and the dtype/loss dispatch (all four kernels); the row-group
+// value+gradient body (fused_glm.cu for the fixed effect, and fused_re.cu
+// for random-effect rows wider than its one-thread-per-row body); the
+// row-group Hessian-vector body (fused_hvp.cu); the fixed-order
+// cross-block fold of kernels 1 and 3, and the batched one of kernels 2
+// and 4. Kernel 4 (fused_glm_multi.cu) has its own staged-tile body.
 //
-// The value+gradient kernels compute, over the rows of a dense design block,
+// The row-group bodies compute, over the rows of a dense design block,
 //
 //     value = sum_r wt_r * loss(x_r . w + off_r, y_r)
 //     grad  = sum_r wt_r * loss'(x_r . w + off_r, y_r) * x_r
@@ -14,7 +17,10 @@
 // and its derivative in registers, and adds d1 * x_r to the group's own
 // gradient partial in shared memory while the row is still in L1. Each lane
 // owns fixed columns of its group's partial, so there are no atomics and the
-// summation order is fixed: results are bit-identical run to run.
+// summation order is fixed: results are bit-identical run to run. What
+// bounds them on an H100 is bytes; what holds them back is one gradient
+// partial per row group in shared memory (few blocks an SM) and a shuffle
+// tree per row.
 //
 // Rows with weight <= 0 (padding) are skipped whole: they contribute exactly
 // zero and their margin is never formed, so Poisson's exp(m) at a padded
@@ -77,25 +83,25 @@ inline int group_size(int d) {
   return g;
 }
 
-// Dynamic shared memory of one block for `lanes` coefficient rows: w
-// (lanes * d) + per-group gradient partials (n_groups * lanes * d) +
-// per-group value partials (n_groups * lanes), all f32. The Hvp kernel uses
-// the same plan with one lane (its value partials go unused).
+// Dynamic shared memory of one block of the row-group plan: w (d) +
+// per-group gradient partials (n_groups * d) + per-group value partials
+// (n_groups), all f32. The Hvp kernel uses the same plan (its value
+// partials go unused).
 // photon_ml_tpu_torch/ops/cuda_build.py::block_smem_bytes mirrors it.
-inline size_t block_smem_bytes(int d, int threads, int g, int lanes = 1) {
+inline size_t block_smem_bytes(int d, int threads, int g) {
   const size_t n_groups = threads / g;
-  return sizeof(float) * (size_t)lanes * ((size_t)d + n_groups * d + n_groups);
+  return sizeof(float) * ((size_t)d + n_groups * d + n_groups);
 }
 
 // Shared memory one block may use on Hopper (227 KiB).
 constexpr size_t kMaxBlockSmemBytes = 232448;
 
 // The largest block of at most `threads` threads (a multiple of 32) whose
-// shared memory fits; 0 when not even one warp fits (for one lane,
-// d > 29055; cuda_build.max_row_width gives the limit for any lane count).
-inline int fit_threads(int d, int g, int threads, int lanes = 1) {
+// shared memory fits; 0 when not even one warp fits (d > 29055,
+// cuda_build.MAX_ROW_WIDTH).
+inline int fit_threads(int d, int g, int threads) {
   while (threads >= 32 &&
-         block_smem_bytes(d, threads, g, lanes) > kMaxBlockSmemBytes)
+         block_smem_bytes(d, threads, g) > kMaxBlockSmemBytes)
     threads -= 32;
   return threads >= 32 ? threads : 0;
 }
@@ -106,38 +112,26 @@ __device__ __forceinline__ unsigned group_mask(int g) {
   return (g == 32) ? 0xffffffffu : (((1u << g) - 1u) << (warp_lane / g * g));
 }
 
-// Coefficient rows one pass over a design row serves in kernel 4: their
-// margins and loss derivatives live in registers (arrays of this size).
-constexpr int kLanesPerPass = 8;
-
 // One block's share of the work: rows [row_begin, row_end) of the row-major
-// (rows, d) matrix x, for `lanes` coefficient rows w[m * d + j] sharing the
-// block's pass over x. Leaves value_out[0..lanes) and grad_out[0..lanes * d)
-// (written by this block only). Kernels 1 and 2 run it with one lane
-// (P = 1); kernel 4 with M lanes, P = kLanesPerPass at a time
-// (photon_ml_tpu/ops/pallas_glm.py::_kernel_multi). A group forms a row's
-// margins P lanes at a time from one read of the row (lanes <= P: exactly
-// one read from device memory; beyond that the row is read again from L1
-// for each further pass), applies the loss per lane, then folds the lanes'
-// wt * d1 * x_r into its per-lane gradient partials. Lane m's margin is
-// summed in the same order whatever P and lanes are, so kernel 4's lanes
-// equal kernel 1's where the two launches' thread plans match.
+// (rows, d) matrix x for the coefficient row w. Leaves value_out[0] and
+// grad_out[0..d) (written by this block only). Kernel 1 and kernel 2's wide
+// rows run it. A group forms a row's margin from one read of the row,
+// applies the loss, then folds wt * d1 * x_r into its gradient partial.
 //
 // ROUND_BF16 reproduces the bf16 path of the fixed-effect TPU kernel
 // (photon_ml_tpu/ops/pallas_glm.py::_kernel): w is rounded to bf16 before
 // the margin product and wt * d1 before the gradient product; both
 // products accumulate in f32. Without it all maths is f32 after the load
 // (photon_ml_tpu/ops/pallas_re.py::_kernel).
-template <typename T, int LOSS, bool ROUND_BF16, int P = 1>
+template <typename T, int LOSS, bool ROUND_BF16>
 __device__ __forceinline__ void block_value_and_grad(
     const T* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ y, const float* __restrict__ off,
     const float* __restrict__ wt, int64_t row_begin, int64_t row_end, int d,
-    int g, float* __restrict__ value_out, float* __restrict__ grad_out,
-    int lanes = 1) {
+    int g, float* __restrict__ value_out, float* __restrict__ grad_out) {
   extern __shared__ float smem[];
   const int n_groups = blockDim.x / g;
-  const int64_t ld = (int64_t)lanes * d;
+  const int64_t ld = d;
   float* w_s = smem;
   float* gpart = smem + ld;
   float* vpart = gpart + n_groups * ld;
@@ -146,15 +140,13 @@ __device__ __forceinline__ void block_value_and_grad(
     w_s[j] = ROUND_BF16 ? round_bf16(w[j]) : w[j];
   for (int64_t j = threadIdx.x; j < n_groups * ld; j += blockDim.x)
     gpart[j] = 0.f;
-  for (int j = threadIdx.x; j < n_groups * lanes; j += blockDim.x)
-    vpart[j] = 0.f;
+  for (int j = threadIdx.x; j < n_groups; j += blockDim.x) vpart[j] = 0.f;
   __syncthreads();
 
   const int lane = threadIdx.x % g;
   const int group = threadIdx.x / g;
   const unsigned mask = group_mask(g);
   float* gp = gpart + group * ld;
-  float* vp = vpart + group * lanes;
   // every lane of a group walks the same rows and takes the same branches,
   // so the group-masked shuffles below always see all of their lanes
   for (int64_t r = row_begin + group; r < row_end; r += n_groups) {
@@ -163,52 +155,29 @@ __device__ __forceinline__ void block_value_and_grad(
     const T* xr = x + r * (int64_t)d;
     const float off_r = off[r];
     const float y_r = y[r];
-    for (int m0 = 0; m0 < lanes; m0 += P) {
-      const int mc = min(P, lanes - m0);
-      const float* wm = w_s + (int64_t)m0 * d;
-      float part[P];
-#pragma unroll
-      for (int k = 0; k < P; ++k) part[k] = 0.f;
-      for (int j = lane; j < d; j += g) {
-        const float xv = to_f32(xr[j]);
-#pragma unroll
-        for (int k = 0; k < P; ++k)
-          if (k < mc) part[k] += xv * wm[(int64_t)k * d + j];
-      }
-      float dv[P];
-#pragma unroll
-      for (int k = 0; k < P; ++k) {
-        dv[k] = 0.f;
-        if (k < mc) {
-          // butterfly: every lane ends with the same, order-fixed sum
-          for (int o = g / 2; o > 0; o >>= 1)
-            part[k] += __shfl_xor_sync(mask, part[k], o);
-          float l, d1;
-          loss_and_d1<LOSS>(part[k] + off_r, y_r, &l, &d1);
-          dv[k] = ROUND_BF16 ? round_bf16(d1 * wt_r) : d1 * wt_r;
-          if (lane == 0) vp[m0 + k] += wt_r * l;
-        }
-      }
-      float* gm = gp + (int64_t)m0 * d;
-      for (int j = lane; j < d; j += g) {
-        const float xv = to_f32(xr[j]);
-#pragma unroll
-        for (int k = 0; k < P; ++k)
-          if (k < mc) gm[(int64_t)k * d + j] += dv[k] * xv;
-      }
-    }
+    float part = 0.f;
+    for (int j = lane; j < d; j += g) part += to_f32(xr[j]) * w_s[j];
+    // butterfly: every lane ends with the same, order-fixed sum
+    for (int o = g / 2; o > 0; o >>= 1)
+      part += __shfl_xor_sync(mask, part, o);
+    float l, d1;
+    loss_and_d1<LOSS>(part + off_r, y_r, &l, &d1);
+    const float dv = ROUND_BF16 ? round_bf16(d1 * wt_r) : d1 * wt_r;
+    if (lane == 0) vpart[group] += wt_r * l;
+    for (int j = lane; j < d; j += g) gp[j] += dv * to_f32(xr[j]);
   }
   __syncthreads();
 
-  // fold the groups' partials in a fixed order
+  // fold the groups' partials in a fixed order: the gradient's d columns,
+  // then the one value, the threads striding over both alike
   for (int64_t j = threadIdx.x; j < ld; j += blockDim.x) {
     float s = 0.f;
     for (int k = 0; k < n_groups; ++k) s += gpart[k * ld + j];
     grad_out[j] = s;
   }
-  for (int m = threadIdx.x; m < lanes; m += blockDim.x) {
+  for (int m = threadIdx.x; m < 1; m += blockDim.x) {
     float s = 0.f;
-    for (int k = 0; k < n_groups; ++k) s += vpart[k * lanes + m];
+    for (int k = 0; k < n_groups; ++k) s += vpart[k + m];
     value_out[m] = s;
   }
 }
@@ -262,7 +231,7 @@ __device__ void block_hvp(const T* __restrict__ x, const float* __restrict__ v,
 
 // out[j] = sum over blocks of scratch[block][j], j in [0, width), summed in
 // a fixed order: a strided serial sum per thread, then a fixed tree. The
-// second pass of every kernel that splits rows across blocks.
+// second pass of kernels 1 and 3.
 static __global__ void fold_kernel(const float* __restrict__ scratch,
                                    int n_rows, int width,
                                    float* __restrict__ out) {
@@ -282,6 +251,47 @@ static __global__ void fold_kernel(const float* __restrict__ scratch,
 
 // Threads of a fold_kernel block (its shared array's size).
 constexpr int kFoldThreads = 256;
+
+// The second pass of kernels 2 and 4: for each batch item b (blockIdx.x)
+// the sum of its n_rows partial rows of `width` floats (rows b * n_rows ..
+// b * n_rows + n_rows - 1 of `partials`), in a fixed order. A 32 x 8 block
+// takes 32 columns (blockIdx.y), coalesced over columns; each of its 8
+// thread rows walks every 8th partial row in order, then the 8 sums are
+// added in order. Column j < split of item b goes to out_a[b * split + j],
+// a later one to out_b[b * (width - split) + j - split].
+static __global__ void fold_rows_kernel(const float* __restrict__ partials,
+                                        int n_rows, int width, int split,
+                                        float* __restrict__ out_a,
+                                        float* __restrict__ out_b) {
+  __shared__ float s[8][33];
+  const int64_t b = blockIdx.x;
+  const int j = blockIdx.y * 32 + threadIdx.x;
+  const float* p = partials + b * n_rows * (int64_t)width;
+  float acc = 0.f;
+  if (j < width)
+    for (int i = threadIdx.y; i < n_rows; i += 8)
+      acc += p[(int64_t)i * width + j];
+  s[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && j < width) {
+    float t = 0.f;
+    for (int k = 0; k < 8; ++k) t += s[k][threadIdx.x];
+    if (j < split)
+      out_a[b * split + j] = t;
+    else
+      out_b[b * (width - split) + j - split] = t;
+  }
+}
+
+// Launch fold_rows_kernel over `batch` items.
+inline cudaError_t fold_rows(const float* partials, int64_t batch,
+                             int n_rows, int width, int split, float* out_a,
+                             float* out_b, cudaStream_t stream) {
+  fold_rows_kernel<<<dim3((unsigned)batch, (width + 31) / 32), dim3(32, 8),
+                     0, stream>>>(partials, n_rows, width, split, out_a,
+                                  out_b);
+  return cudaGetLastError();
+}
 
 // Opt a kernel into more than 48 KiB of dynamic shared memory when needed.
 template <typename K>

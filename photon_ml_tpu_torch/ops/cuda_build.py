@@ -42,25 +42,61 @@ def _group_size(d: int) -> int:
     return g
 
 
-def block_smem_bytes(d: int, threads: int, lanes: int = 1) -> int:
-    """Dynamic shared memory of one kernel block (``block_smem_bytes`` of
-    csrc/glm_common.cuh): ``lanes`` coefficient rows of width ``d``, and a
-    gradient and a value partial per lane for each row group."""
+def block_smem_bytes(d: int, threads: int) -> int:
+    """Dynamic shared memory of one block of the row-group body
+    (``block_smem_bytes`` of csrc/glm_common.cuh; kernels 1, 3 and kernel
+    2's wide rows): the coefficient row of width ``d``, and a gradient and
+    a value partial for each row group."""
     groups = threads // _group_size(d)
-    return 4 * lanes * (d + groups * d + groups)
+    return 4 * (d + groups * d + groups)
 
 
-def max_row_width(lanes: int = 1) -> int:
-    """Widest row a kernel takes for ``lanes`` coefficient rows: the rows
-    and one row group's partials must fit one block's shared memory."""
-    d = (MAX_BLOCK_SMEM_BYTES // (4 * lanes) - 1) // 2  # one 32-wide group
-    while d > 0 and block_smem_bytes(d, 32, lanes) > MAX_BLOCK_SMEM_BYTES:
-        d -= 1
-    return d
+#: widest row the row-group body takes (kernels 1, 2 and 3): the row and
+#: one 32-wide row group's partials fit one block's shared memory
+MAX_ROW_WIDTH = next(d for d in range(MAX_BLOCK_SMEM_BYTES // 8, 0, -1)
+                     if block_smem_bytes(d, 32) <= MAX_BLOCK_SMEM_BYTES)
+
+#: kernel 4's plan (csrc/fused_glm_multi.cu): 256 threads (8 warps); ring
+#: steps of 2 sub-tiles of 4 rows (4 rows x 8 lanes = 32 margins a
+#: sub-tile); rows too wide for whole-row stages streamed in 1024-column
+#: chunks through 2 stages at least; a row not 16-byte aligned is staged as
+#: the 16-byte granules covering it, 32 bytes more a slot row. Rows of at
+#: most 128 columns take a narrow body whose shared memory is far below
+#: these limits.
+MULTI_THREADS = 256
+MULTI_SUB_TILES = 2
+MULTI_STEP_ROWS = 4 * MULTI_SUB_TILES
+MULTI_CHUNK_COLS = 1024
+MULTI_UNALIGNED_PAD_BYTES = 32
 
 
-#: widest row the one-lane kernels take (1, 2 and 3)
-MAX_ROW_WIDTH = max_row_width(1)
+def multi_smem_bytes(d: int, lanes: int, cols: int, stages: int,
+                     itemsize: int, aligned: bool = False) -> int:
+    """Dynamic shared memory of one kernel-4 block (``multi_smem_bytes`` of
+    csrc/fused_glm_multi.cu): ``stages`` ring slots of 8 rows x ``cols``
+    design columns (and the granule pad of unaligned rows) with their
+    label, offset and weight; the ``lanes`` x d gradient accumulator (d
+    rounded up to 8); each sub-tile's cross-warp margin partials and dv;
+    8 x ``lanes`` value accumulators, all f32."""
+    dp = -(-d // 8) * 8
+    row = cols * itemsize + (0 if aligned else MULTI_UNALIGNED_PAD_BYTES)
+    stage = MULTI_STEP_ROWS * row + 3 * MULTI_STEP_ROWS * 4
+    return stages * stage + 4 * (
+        lanes * dp + MULTI_SUB_TILES * (MULTI_THREADS + 32)
+        + MULTI_STEP_ROWS * lanes)
+
+
+def max_row_width(lanes: int) -> int:
+    """Widest row kernel 4 takes for ``lanes`` coefficient rows, whatever
+    its alignment: the gradient accumulator and two stages of unaligned
+    1024-column f32 chunks fit one block's shared memory (a bf16 design's
+    stages are smaller). A multiple of 8, since the accumulator's rows are
+    padded to one."""
+    room = MAX_BLOCK_SMEM_BYTES - multi_smem_bytes(0, lanes, MULTI_CHUNK_COLS,
+                                                   2, 4)
+    return max(0, room // (4 * lanes) // 8 * 8)
+
+
 #: ctypes type of a device pointer or a stream
 PTR = ctypes.c_void_p
 
@@ -147,11 +183,12 @@ def check(name: str, code: int) -> None:
                            f"code {code}")
 
 
-def check_args(fn: str, x, layout: str, lanes: int = 1,
+def check_args(fn: str, x, layout: str, lanes: int | None = None,
                **others) -> tuple[int, ...]:
     """Check what a kernel takes and return ``x.shape``: ``x`` is float32 or
     bfloat16 with one dimension per letter of ``layout`` (``"nd"``,
-    ``"esd"``), the last at most :func:`max_row_width` of ``lanes``; each of
+    ``"esd"``), the last at most :data:`MAX_ROW_WIDTH` or, for kernel 4's
+    ``lanes`` coefficient rows, :func:`max_row_width` of ``lanes``; each of
     ``others`` is ``name=(tensor, dims)``, a float32 tensor whose shape is
     ``dims``, in letters of ``layout`` and ``m`` (= ``lanes``); all
     contiguous on ``x``'s device."""
@@ -160,18 +197,24 @@ def check_args(fn: str, x, layout: str, lanes: int = 1,
             f"{fn}: x must be ({', '.join(layout)}) float32 or bfloat16, got "
             f"{tuple(x.shape)} {x.dtype}")
     size = dict(zip(layout, x.shape), m=lanes)
-    width = max_row_width(lanes)
+    if lanes is None:
+        width, plan = MAX_ROW_WIDTH, ("row-group shared-memory plan: not "
+                                      "even one warp's partials fit a block")
+    else:
+        width, plan = max_row_width(lanes), (
+            f"shared-memory plan for {lanes} coefficient row(s): their "
+            "gradient accumulator and two staged chunks do not fit a block")
     if x.shape[-1] > width:
         raise ValueError(f"{fn}: rows of {x.shape[-1]} exceed the kernel's "
-                         f"{width}-column shared-memory plan for {lanes} "
-                         "coefficient row(s): not even one warp's partials "
-                         "fit a block")
+                         f"{width}-column {plan}")
+    if not x.is_contiguous():
+        raise ValueError(f"{fn}: x must be contiguous on {x.device}")
+    dev = x.device
     for name, (t, dims) in others.items():
-        shape = tuple(size[c] for c in dims)
+        shape = tuple([size[c] for c in dims])
         if tuple(t.shape) != shape or t.dtype != torch.float32:
             raise ValueError(f"{fn}: {name} must be float32 {shape}, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    for name, t in (("x", x), *((k, v[0]) for k, v in others.items())):
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be contiguous on {x.device}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous on {dev}")
     return tuple(x.shape)

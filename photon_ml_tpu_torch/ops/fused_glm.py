@@ -23,9 +23,11 @@ from photon_ml_tpu_torch.ops import cuda_build
 from photon_ml_tpu_torch.ops.design import accumulation_dtype
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 
-#: blocks of the partials pass, at most: the cross-block fold order — and so
+#: blocks of kernels 1 and 3, at most: the cross-block fold order — and so
 #: every bit of the result — depends on n only, never on the card
 MAX_BLOCKS = 1056
+#: kernel 4's blocks, at most
+MULTI_MAX_BLOCKS = 264
 #: rows per block below which fewer blocks are used
 MIN_ROWS_PER_BLOCK = 256
 _P = cuda_build.PTR
@@ -61,9 +63,16 @@ def fused_value_and_grad_plain(loss: PointwiseLoss, x, w, labels, offsets,
 
 
 def partial_blocks(n: int) -> int:
-    """Blocks of a kernel that splits n rows across blocks (kernels 1, 3
-    and 4): a function of n alone, so the fold order is too."""
+    """Blocks of kernels 1 and 3, which split n rows across blocks: a
+    function of n alone, so the fold order is too."""
     return min(MAX_BLOCKS, -(-n // MIN_ROWS_PER_BLOCK))
+
+
+def multi_blocks(n: int) -> int:
+    """Blocks of kernel 4: two 8-warp blocks for each of an H100's 132
+    SMs once n is large, fewer for small n. A function of n alone, so the
+    fold order, and every bit of the result, is too."""
+    return min(MULTI_MAX_BLOCKS, -(-n // MIN_ROWS_PER_BLOCK))
 
 
 def fused_value_and_grad(loss: PointwiseLoss, x, w, labels, offsets, weights):
@@ -125,7 +134,7 @@ def fused_value_and_grad_multi(loss: PointwiseLoss, x, ws, labels, offsets,
     if n == 0 or d == 0:
         out.zero_()
         return out[lanes * d:], out[:lanes * d].view(lanes, d)
-    n_blocks = partial_blocks(n)
+    n_blocks = multi_blocks(n)
     scratch = torch.empty((n_blocks, lanes * (d + 1)), dtype=torch.float32,
                           device=x.device)
     lib = cuda_build.load("fused_glm_multi", _MULTI_SIGNATURE)

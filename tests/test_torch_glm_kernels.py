@@ -169,23 +169,31 @@ def test_wrappers_run_plain_version_for_cpu_tensors():
 
 
 def test_row_width_limit_falls_with_the_lane_count():
-    """Kernel 4's shared memory holds M coefficient rows and M gradient
-    partials per row group, so the widest row it takes falls as M grows;
-    one lane keeps the one-lane kernels' limit."""
+    """Kernel 4's shared memory holds one M x d gradient accumulator and at
+    least two staged chunks (of unaligned rows, the widest staging), so the
+    widest row it takes falls as M grows; no limit is below the earlier
+    plan's (one gradient partial per row group), and the one-lane kernels
+    keep theirs."""
     widths = [cuda_build.max_row_width(m) for m in (1, 2, 5, 11)]
-    assert widths[0] == cuda_build.MAX_ROW_WIDTH == 29_055
-    assert widths == sorted(widths, reverse=True) and widths[2] == 5_810
+    assert cuda_build.MAX_ROW_WIDTH == 29_055
+    assert widths == [40_968, 20_480, 8_184, 3_712]
+    assert widths == sorted(widths, reverse=True)
+    for m, earlier in ((1, 29_055), (5, 5_810), (11, 2_640)):
+        assert cuda_build.max_row_width(m) >= earlier
     for m, d in zip((1, 2, 5, 11), widths):
-        # one warp (one 32-wide row group) fits at the limit, not beyond
-        assert cuda_build.block_smem_bytes(d, 32, m) \
+        # two f32 stages of unaligned 1024-column chunks fit at the limit,
+        # not beyond; aligned rows stage in less
+        assert cuda_build.multi_smem_bytes(d, m, 1024, 2, 4) \
             <= cuda_build.MAX_BLOCK_SMEM_BYTES
-        assert cuda_build.block_smem_bytes(d + 1, 32, m) \
+        assert cuda_build.multi_smem_bytes(d + 8, m, 1024, 2, 4) \
             > cuda_build.MAX_BLOCK_SMEM_BYTES
+        assert cuda_build.multi_smem_bytes(d, m, 1024, 2, 4, aligned=True) \
+            < cuda_build.multi_smem_bytes(d, m, 1024, 2, 4)
 
 
 @pytest.mark.parametrize("lanes,d,match", [
-    (5, 5_811, "5810-column shared-memory plan for 5"),
-    (1, 29_056, "29055-column"),
+    (5, 8_185, "8184-column shared-memory plan for 5"),
+    (1, 40_969, "40968-column"),
 ], ids=["five-lanes", "one-lane"])
 def test_kernel_argument_check_refuses_rows_too_wide_for_the_lanes(
         lanes, d, match):
