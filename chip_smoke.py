@@ -43,13 +43,14 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    then ``validate_and_select`` by AUC, with the kernels' launch counts
    read around each sweep; at every lambda the optimizer's reported |grad|
    must match the exact f64 gradient at its coefficients within that
-   gradient's f32 rounding scale;
+   gradient's f32 rounding scale; kernels 1, 3 and 4 timed at this shape
+   beside their plain versions and torch.mv / torch.mm two-pass forms;
 7. the two sweeps and TRON through ``train_glm_sweep_batched`` at 20k x 128
    (tolerance 1e-4) on the card (kernels) and on the CPU (plain versions):
    the same gradient check on both devices, the f64 objectives at the two
    devices' coefficients within OBJECTIVE_RTOL, AUCs within 1e-4 where
-   both converged; kernels 3 and 4 must launch in the batched TRON sweep;
-   SIMPLE variances on both.
+   both converged; kernels 3 and 4 must launch in the batched TRON sweep,
+   and kernel 3 is timed at its shape; SIMPLE variances on both.
 
 Any failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the ``kernels``
@@ -220,6 +221,24 @@ def time_turns(fns, reps=20):
     return out
 
 
+def captured(fn, calls=20):
+    """``calls`` calls of ``fn`` captured in one CUDA graph; returns its
+    replay. Replayed between CUDA events, it times the device work of a
+    call without the host work around its launches (a wrapper's checks,
+    allocations and ctypes call), which can exceed a short kernel."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return graph.replay
+
+
 def roofline_ms(nbytes, ops):
     """(least ms, what binds): bytes over the HBM rate or f32 operations
     over the f32 rate, whichever is larger."""
@@ -275,14 +294,26 @@ def _max_err(got, want):
             max(float(rel_v.max()), float(rel_g.max())))
 
 
-def check_glm(fused_glm, losses, gen):
-    """Kernel 1 vs its plain version; returns the largest relative error
-    (:func:`_max_err`)."""
+#: (n, d, dtypes) of kernel 1 vs its plain version: the paths' widths (33,
+#: 1024) with a ragged row count, and streamed rows (8192)
+GLM_CHECK_SHAPES = [(1_000_000, 33, (torch.bfloat16, torch.float32)),
+                    (1_000_003, 33, (torch.bfloat16,)),
+                    (100_003, 1024, (torch.float32, torch.bfloat16)),
+                    (20_011, 8192, (torch.float32,))]
+#: the rest of kernel 1's bodies: narrow rows of other odd and even widths
+#: (8, 64), and wide rows held in registers 8 columns a lane (phase 7's 20k
+#: x 128; 100 columns, not a multiple of 32)
+GLM_BODY_SHAPES = [(1_000_000, 8, (torch.bfloat16,)),
+                   (200_003, 64, (torch.bfloat16,)),
+                   (20_000, 128, (torch.float32, torch.bfloat16)),
+                   (50_001, 100, (torch.float32,))]
+
+
+def check_glm(fused_glm, losses, shapes, gen):
+    """Kernel 1 vs its plain version at ``shapes`` ``(n, d, dtypes)``;
+    returns the largest relative error (:func:`_max_err`)."""
     worst = 0.0
-    for n, d, dtypes in [(1_000_000, 33, (torch.bfloat16, torch.float32)),
-                         (1_000_003, 33, (torch.bfloat16,)),
-                         (100_003, 1024, (torch.float32, torch.bfloat16)),
-                         (20_011, 8192, (torch.float32,))]:
+    for n, d, dtypes in shapes:
         for dt in dtypes:
             x = torch.randn(n, d, device="cuda", generator=gen).to(dt)
             # margins of O(1) at every width
@@ -382,26 +413,32 @@ def re_closed_form_library(loss, x, w, y, off, wt):
     return values, torch.bmm(dvec.to(x.dtype)[:, None, :], x)[:, 0].float()
 
 
-def time_glm(fused_glm, loss, ds):
-    """Kernel 1 at the main path's fixed-effect shape: the e2e design."""
-    x = ds.design.x
+def time_glm(fused_glm, loss, x, w, labels, weights):
+    """Kernel 1 at one of the main path's shapes (the e2e design, or the GLM
+    design at a TRON solution): kernel, plain version and torch.mv two-pass
+    form timed in turns."""
     n, d = x.shape
-    w = 0.01 * torch.ones(d, device="cuda")
     off = torch.zeros(n, device="cuda")
-    args = (loss, x, w, ds.labels, off, ds.weights)
+    args = (loss, x, w, labels, off, weights)
     err, rel = _max_err(fused_glm.fused_value_and_grad(*args),
                         fused_glm.fused_value_and_grad_plain(*args))
-    assert rel <= KERNEL_RTOL, ("kernel1 on the e2e design", err, rel)
-    ms = time_ms(lambda: fused_glm.fused_value_and_grad(*args))
-    plain = time_ms(lambda: fused_glm.fused_value_and_grad_plain(*args))
-    lib = time_ms(lambda: glm_closed_form_library(*args))
-    n_live = int((ds.weights > 0).sum())
+    assert rel <= KERNEL_RTOL, ("kernel1 at a path's shape", n, d, err, rel)
+    calls = 20
+    t = time_turns({
+        "ms": lambda: fused_glm.fused_value_and_grad(*args),
+        "device_ms": captured(lambda: fused_glm.fused_value_and_grad(*args),
+                              calls),
+        "plain_ms": lambda: fused_glm.fused_value_and_grad_plain(*args),
+        "library_ms": lambda: glm_closed_form_library(*args)})
+    t["device_ms"] /= calls
+    n_live = int((weights > 0).sum())
     b, by = bound_ms(n_live, n, d, x.element_size(), 1)
-    log(f"  kernel1 {n}x{d} {str(x.dtype)[6:]}: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, torch.mv closed form {lib:.4f} ms, bound "
-        f"{b:.4f} ms ({by}); max_abs_err vs plain {err:.3e}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=b, bound_by=by, shape=f"{n}x{d} {str(x.dtype)[6:]}")
+    log(f"  kernel1 {n}x{d} {str(x.dtype)[6:]}: kernel {t['ms']:.4f} ms "
+        f"({t['device_ms']:.4f} ms of device time, in a CUDA graph), plain "
+        f"{t['plain_ms']:.4f} ms, torch.mv two-pass {t['library_ms']:.4f} "
+        f"ms, bound {b:.4f} ms ({by}); max_abs_err vs plain {err:.3e}")
+    return dict(max_abs_err=err, bound_ms=b, bound_by=by,
+                shape=f"{n}x{d} {str(x.dtype)[6:]}", **t)
 
 
 def time_re(fused_re, loss, buckets):
@@ -708,8 +745,10 @@ def time_one_lane(fused_glm, loss, gen):
 
 
 def time_hvp(fused_hvp, x, w, loss, labels, gen):
-    """Kernel 3 at the GLM path's shape: the design and its curvature at
-    ``w`` (as TRON's operator computes it), a random direction."""
+    """Kernel 3 at one of the GLM path's shapes: the design and its
+    curvature at ``w`` (as TRON's operator computes it), a random
+    direction; kernel, plain version and torch.mv two-pass form timed in
+    turns."""
     m = x @ w
     d2w = loss.d2(m, labels)
     v = torch.randn(x.shape[1], device="cuda", generator=gen) / math.sqrt(
@@ -717,16 +756,21 @@ def time_hvp(fused_hvp, x, w, loss, labels, gen):
     err, rel = _grad_err(fused_hvp.fused_hvp(x, v, d2w),
                          fused_hvp.fused_hvp_plain(x, v, d2w))
     assert rel <= KERNEL_RTOL, ("kernel3 on the GLM design", err, rel)
-    ms = time_ms(lambda: fused_hvp.fused_hvp(x, v, d2w))
-    plain = time_ms(lambda: fused_hvp.fused_hvp_plain(x, v, d2w))
-    lib = time_ms(lambda: torch.mv(x.t(), d2w * torch.mv(x, v)))
+    calls = 20
+    t = time_turns({
+        "ms": lambda: fused_hvp.fused_hvp(x, v, d2w),
+        "device_ms": captured(lambda: fused_hvp.fused_hvp(x, v, d2w), calls),
+        "plain_ms": lambda: fused_hvp.fused_hvp_plain(x, v, d2w),
+        "library_ms": lambda: torch.mv(x.t(), d2w * torch.mv(x, v))})
+    t["device_ms"] /= calls
     n, d = x.shape
     b, by = hvp_bound_ms(int((d2w != 0).sum()), n, d, x.element_size())
-    log(f"  kernel3 {n}x{d} {str(x.dtype)[6:]}: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, torch.mv two-pass {lib:.4f} ms, bound {b:.4f} ms "
-        f"({by}); max_abs_err vs plain {err:.3e}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=b, bound_by=by, shape=f"{n}x{d} {str(x.dtype)[6:]}")
+    log(f"  kernel3 {n}x{d} {str(x.dtype)[6:]}: kernel {t['ms']:.4f} ms "
+        f"({t['device_ms']:.4f} ms of device time, in a CUDA graph), plain "
+        f"{t['plain_ms']:.4f} ms, torch.mv two-pass {t['library_ms']:.4f} "
+        f"ms, bound {b:.4f} ms ({by}); max_abs_err vs plain {err:.3e}")
+    return dict(max_abs_err=err, bound_ms=b, bound_by=by,
+                shape=f"{n}x{d} {str(x.dtype)[6:]}", **t)
 
 
 def multi_library(loss, x, ws, y, off, wt):
@@ -988,7 +1032,12 @@ def main() -> int:
               tl.SmoothedHingeLoss]
     gen = torch.Generator(device="cuda").manual_seed(1234)
     t0 = time.perf_counter()
-    err1 = check_glm(fused_glm, losses, gen)
+    err1 = check_glm(fused_glm, losses, GLM_CHECK_SHAPES, gen)
+    # kernel 1's other bodies draw from their own generator, as the plan
+    # paths below do
+    err1 = max(err1, check_glm(
+        fused_glm, losses, GLM_BODY_SHAPES,
+        torch.Generator(device="cuda").manual_seed(8765)))
     e_ragged = shapes[-1][0] + 3 if shapes else 11
     # a ragged E, and rows too wide for 8 row groups' shared memory
     err2 = check_re(fused_re, losses, sorted(set(shapes))
@@ -1040,7 +1089,11 @@ def main() -> int:
         validation=(valid, evaluators), datasets=datasets), fit_s)
 
     # kernel times at the main path's shapes -------------------------------
-    t1 = time_glm(fused_glm, tl.LogisticLoss, datasets["global"])
+    ds = datasets["global"]
+    t1 = time_glm(fused_glm, tl.LogisticLoss, ds.design.x,
+                  0.01 * torch.ones(ds.design.x.shape[1], device="cuda"),
+                  ds.labels, ds.weights)
+    del ds
     buckets = [st for key, st in
                sorted(((k, v) for cid in ("perUser", "perSong")
                        for k, v in datasets[cid]._device_cache.items()),
@@ -1130,17 +1183,15 @@ def main() -> int:
     # kernel times at the GLM path's shape, and their share of each sweep
     x = train.design.x
     w_mid = glm_runs["tron"][0][2].model.coefficients.means
-    ones = torch.ones(x.shape[0], device="cuda")
-    k1_ms = time_ms(lambda: fused_glm.fused_value_and_grad(
-        tl.LogisticLoss, x, w_mid, train.labels, 0 * ones, ones))
+    t1_glm = time_glm(fused_glm, tl.LogisticLoss, x, w_mid, train.labels,
+                      torch.ones(x.shape[0], device="cuda"))
     t3 = time_hvp(fused_hvp, x, w_mid, tl.LogisticLoss, train.labels, gen)
     ws = torch.stack(
         [tm.model.coefficients.means for tm in glm_runs["batched"][0]])
     t4 = time_multi(fused_glm, x, ws, tl.LogisticLoss, train.labels)
     time_multi(fused_glm, x.to(torch.bfloat16), ws, tl.LogisticLoss,
                train.labels)
-    log(f"  kernel1 {tuple(x.shape)} f32 on the GLM design: {k1_ms:.4f} ms")
-    for name, parts in (("tron", (("fused_glm", k1_ms),
+    for name, parts in (("tron", (("fused_glm", t1_glm["ms"]),
                                   ("fused_hvp", t3["ms"]))),
                         ("batched", (("fused_glm_multi", t4["ms"]),))):
         kern_s = sum(glm_launches[name][k] * ms for k, ms in parts) / 1e3
@@ -1174,6 +1225,16 @@ def main() -> int:
                 f"{device} {name}", datas[device], trained)
     bt = runs["cuda"]["batched_tron"][3]
     assert bt["fused_glm_multi"] > 0 and bt["fused_hvp"] > 0, bt
+    assert runs["cuda"]["tron"][3]["fused_glm"] > 0, runs["cuda"]["tron"][3]
+    # kernel 1 at the TRON sweep's shape here, and kernel 3 at batched
+    # TRON's, where it launches most
+    t1_small = time_glm(fused_glm, tl.LogisticLoss, datas["cuda"].design.x,
+                        runs["cuda"]["tron"][0][2].model.coefficients.means,
+                        datas["cuda"].labels,
+                        torch.ones(GLM_SMALL["rows"], device="cuda"))
+    t3_small = time_hvp(fused_hvp, datas["cuda"].design.x,
+                        runs["cuda"]["batched_tron"][0][2].model.coefficients
+                        .means, tl.LogisticLoss, datas["cuda"].labels, gen)
     worst_f, n_auc, bad = 0.0, 0, []
     for name, _, _ in sweeps:
         hold_to_bound(f"{name} cuda vs cpu", runs["cuda"][name][0],
@@ -1222,7 +1283,11 @@ def main() -> int:
         dict(name="fused_value_and_grad", route="cuda", status="ported",
              source="photon_ml_tpu_torch/csrc/fused_glm.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:118",
-             launches=launches["fused_glm"], **t1),
+             launches=launches["fused_glm"], **t1,
+             glm_path=dict(launches=glm_launches["tron"]["fused_glm"],
+                           **t1_glm),
+             glm_small=dict(launches=runs["cuda"]["tron"][3]["fused_glm"],
+                            **t1_small)),
         dict(name="fused_entity_value_and_grad", route="cuda",
              status="ported",
              source="photon_ml_tpu_torch/csrc/fused_re.cu",
@@ -1231,7 +1296,8 @@ def main() -> int:
         dict(name="fused_hvp", route="cuda", status="ported",
              source="photon_ml_tpu_torch/csrc/fused_hvp.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:447",
-             launches=glm_launches["tron"]["fused_hvp"], **t3),
+             launches=glm_launches["tron"]["fused_hvp"], **t3,
+             batched_tron=dict(launches=bt["fused_hvp"], **t3_small)),
         dict(name="fused_value_and_grad_multi", route="cuda",
              status="ported",
              source="photon_ml_tpu_torch/csrc/fused_glm_multi.cu",

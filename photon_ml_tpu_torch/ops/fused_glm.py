@@ -16,6 +16,7 @@ there is no block-size gate.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -23,9 +24,24 @@ from photon_ml_tpu_torch.ops import cuda_build
 from photon_ml_tpu_torch.ops.design import accumulation_dtype
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 
-#: blocks of kernels 1 and 3, at most: the cross-block fold order — and so
-#: every bit of the result — depends on n only, never on the card
+#: blocks of kernel 3, at most: the cross-block fold order — and so every
+#: bit of the result — depends on n only, never on the card
 MAX_BLOCKS = 1056
+#: kernel 1's plan (csrc/fused_glm.cu): blocks of 256 threads (8 warps),
+#: two for each of an H100's 132 SMs once n is large. Rows of at most
+#: GLM_NARROW_MAX_D columns take the narrow body (a thread a row, tiles of
+#: 256 rows staged in a ring of 2-4 slots; a block gets one tile at least);
+#: wider ones the wide body (a warp a row, the row held in registers up to
+#: 1024 columns; a warp gets GLM_WIDE_WARP_ROWS rows at least)
+GLM_THREADS = 256
+GLM_MAX_BLOCKS = 264
+GLM_NARROW_MAX_D = 64
+GLM_TILE_ROWS = GLM_THREADS
+GLM_MAX_STAGES = 4
+GLM_WIDE_WARP_ROWS = 4
+#: shared memory of a block such that two fit an SM (228 KiB an SM, 1 KiB
+#: of it reserved per block)
+TWO_BLOCK_SMEM_BYTES = 233_472 // 2 - 1024
 #: kernel 4's blocks, at most
 MULTI_MAX_BLOCKS = 264
 #: rows per block below which fewer blocks are used
@@ -63,9 +79,63 @@ def fused_value_and_grad_plain(loss: PointwiseLoss, x, w, labels, offsets,
 
 
 def partial_blocks(n: int) -> int:
-    """Blocks of kernels 1 and 3, which split n rows across blocks: a
-    function of n alone, so the fold order is too."""
+    """Blocks of kernel 3, which splits n rows across blocks: a function of
+    n alone, so the fold order is too."""
     return min(MAX_BLOCKS, -(-n // MIN_ROWS_PER_BLOCK))
+
+
+def _round_up(v: int, to: int) -> int:
+    return -(-v // to) * to
+
+
+def narrow_smem_bytes(d: int, itemsize: int, stages: int) -> int:
+    """Dynamic shared memory of a narrow-body block of kernel 1
+    (``narrow_smem_bytes`` of csrc/fused_glm.cu): ``stages`` ring slots of
+    a 256-row tile (its span's 16-byte granules, 16 bytes of lead room)
+    with its y, off, wt; then w, the tile's dv, the value reduction and the
+    row groups' gradient sums, all f32."""
+    slot = _round_up(GLM_TILE_ROWS * d * itemsize, 16) + 16
+    return stages * (slot + 3 * GLM_TILE_ROWS * 4) + 4 * (
+        _round_up(d, 4) + GLM_TILE_ROWS + 2 * GLM_THREADS)
+
+
+def wide_smem_bytes(d: int, warps: int) -> int:
+    """Dynamic shared memory of a wide-body block of kernel 1
+    (``wide_smem_bytes`` of csrc/fused_glm.cu): w, a gradient partial and
+    a value per warp, all f32."""
+    return 4 * (d + warps * d + warps)
+
+
+class GlmPlan(NamedTuple):
+    """How kernel 1 covers an ``(n, d)`` design (:func:`glm_plan`)."""
+
+    body: str  # "narrow" (a thread a row) or "wide" (a warp a row)
+    blocks: int  # blocks, each owning a contiguous range of rows
+    warps: int  # warps a block
+    stages: int  # ring slots (narrow body; 0 for the wide one)
+    smem_bytes: int  # dynamic shared memory a block
+
+
+def glm_plan(n: int, d: int, itemsize: int) -> GlmPlan:
+    """Kernel 1's plan, as csrc/fused_glm.cu computes it. The block count
+    depends on the shape (n, d) alone, never on the dtype, so the fold
+    order, and every bit of the result, does too; the body depends on d
+    alone. ``warps`` 0 means the row is too wide for a block's shared
+    memory."""
+    if d <= GLM_NARROW_MAX_D:
+        stages = next((st for limit in (TWO_BLOCK_SMEM_BYTES,
+                                        cuda_build.MAX_BLOCK_SMEM_BYTES)
+                       for st in range(GLM_MAX_STAGES, 1, -1)
+                       if narrow_smem_bytes(d, itemsize, st) <= limit), 0)
+        return GlmPlan("narrow", min(GLM_MAX_BLOCKS, -(-n // GLM_TILE_ROWS)),
+                       GLM_THREADS // 32, stages,
+                       narrow_smem_bytes(d, itemsize, stages))
+    warps = next((k for k in range(GLM_THREADS // 32, 0, -1)
+                  if wide_smem_bytes(d, k) <= cuda_build.MAX_BLOCK_SMEM_BYTES),
+                 0)
+    blocks = min(GLM_MAX_BLOCKS,
+                 -(-n // (GLM_WIDE_WARP_ROWS * max(warps, 1))))
+    return GlmPlan("wide", blocks, warps, 0, wide_smem_bytes(d, warps))
 
 
 def multi_blocks(n: int) -> int:
@@ -91,7 +161,7 @@ def fused_value_and_grad(loss: PointwiseLoss, x, w, labels, offsets, weights):
     if n == 0 or d == 0:
         out.zero_()
         return out[d], out[:d]
-    n_blocks = partial_blocks(n)
+    n_blocks = glm_plan(n, d, x.element_size()).blocks
     scratch = torch.empty((n_blocks, d + 1), dtype=torch.float32,
                           device=x.device)
     lib = cuda_build.load("fused_glm", _SIGNATURE)

@@ -4,9 +4,12 @@ archive``) can be compared on one machine:
 
     python3 port_tree_report.py --tree DIR [--out FILE.json]
 
-- ``sass``: a hash of the SASS of every kernel in the libraries of kernels
-  1 and 3 (``cuobjdump -sass``), by mangled name, so a change that must
-  leave their compiled code alone can be checked;
+- ``sass``: a hash of the SASS of every kernel in the libraries of all
+  four kernels (``cuobjdump -sass``), by mangled name, so a change that
+  must leave a kernel's compiled code alone can be checked;
+- ``glm``: kernel 1 (``fused_value_and_grad``) at :data:`GLM_SHAPES`:
+  the wrapper's time, its device time in a CUDA graph, and its
+  ``torch.mv`` two-pass form, in turns (CUDA events), beside the bound;
 - ``multi``: kernel 4 (``fused_value_and_grad_multi``) timed at
   :data:`MULTI_SHAPES`, with its ``torch.mm`` two-pass form, in turns
   (CUDA events);
@@ -35,6 +38,7 @@ import hashlib
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -56,6 +60,12 @@ MULTI_SHAPES = [(200_000, 1024, torch.float32, 5),
                 (1_000_000, 33, torch.float32, 5),
                 (1_000_000, 33, torch.bfloat16, 5),
                 (1_000_000, 33, torch.bfloat16, 1)]
+#: (n, d, design dtype): kernel 1 at the GAME fixed effect's shape, a
+#: ragged n of it, the GLM path's shape and a row streamed twice
+GLM_SHAPES = [(1_000_000, 33, torch.bfloat16),
+              (1_000_003, 33, torch.bfloat16),
+              (200_000, 1024, torch.float32),
+              (20_011, 8192, torch.float32)]
 #: kernel 2's head buckets in the e2e fit (E, S, D)
 HEAD_BUCKETS = [(14, 89_281, 8), (10, 97_864, 8)]
 
@@ -69,7 +79,9 @@ def _chip_smoke():
 
 
 def sass_hashes(cuda_build, names) -> dict:
-    """{library: {kernel: sha256 of its SASS}}, or {library: error}."""
+    """{library: {kernel: sha256 of its SASS}}, or {library: error}; a
+    kernel named by its mangled name without the anonymous namespace's
+    id."""
     tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
         "cuobjdump"
     out = {}
@@ -83,7 +95,10 @@ def sass_hashes(cuda_build, names) -> dict:
         kernels = {}
         for part in run.stdout.split("Function : ")[1:]:
             fn, _, body = part.partition("\n")
-            kernels[fn.strip()] = hashlib.sha256(body.encode()).hexdigest()[:16]
+            # the anonymous namespace's id follows the source's path, so it
+            # differs between two checkouts of the same code
+            fn = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", fn.strip())
+            kernels[fn] = hashlib.sha256(body.encode()).hexdigest()[:16]
         out[name] = kernels
     return out
 
@@ -102,6 +117,29 @@ def multi_times(cs, fused_glm, tl) -> list:
             "ms": lambda: fused_glm.fused_value_and_grad_multi(*args),
             "library_ms": lambda: cs.multi_library(*args)})
         rows.append(dict(shape=f"{n}x{d} {str(dt)[6:]} M={lanes}", **t))
+        del x
+    return rows
+
+
+def glm_times(cs, fused_glm, tl) -> list:
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for n, d, dt in GLM_SHAPES:
+        x = torch.randn(n, d, device="cuda", generator=gen).to(dt)
+        w = torch.randn(d, device="cuda", generator=gen) / d ** 0.5
+        y = (torch.rand(n, device="cuda", generator=gen) < 0.5).float()
+        off = torch.zeros(n, device="cuda")
+        wt = torch.ones(n, device="cuda")
+        args = (tl.LogisticLoss, x, w, y, off, wt)
+        calls = 20
+        t = cs.time_turns({
+            "ms": lambda: fused_glm.fused_value_and_grad(*args),
+            "device_ms": cs.captured(
+                lambda: fused_glm.fused_value_and_grad(*args), calls),
+            "library_ms": lambda: cs.glm_closed_form_library(*args)})
+        t["device_ms"] /= calls
+        b, _ = cs.bound_ms(n, n, d, x.element_size(), 1)
+        rows.append(dict(shape=f"{n}x{d} {str(dt)[6:]}", bound_ms=b, **t))
         del x
     return rows
 
@@ -215,8 +253,13 @@ def main() -> int:
     cs = _chip_smoke()
     names = ["fused_glm", "fused_re", "fused_hvp", "fused_glm_multi"]
     cuda_build.build(names)
-    report = dict(tree=str(tree),
-                  sass=sass_hashes(cuda_build, ["fused_glm", "fused_hvp"]),
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    report = dict(tree=str(tree), card=card,
+                  sass=sass_hashes(cuda_build, names),
+                  glm=glm_times(cs, fused_glm, tl),
                   fit=fit_report(tg, cs, "cuda", cs.E2E),
                   re_precision=re_precision(fused_re, tl),
                   multi=multi_times(cs, fused_glm, tl))

@@ -1,6 +1,15 @@
-"""The block plans of kernels 2 and 4, which the CUDA kernels take from
+"""The block plans of kernels 1, 2 and 4, which the CUDA kernels take from
 Python: what they cover, that they depend on the shape alone, and that the
-partition kernel 2 sums in is the function its plain version computes.
+partitions kernels 1 and 2 sum in give the function their plain versions
+compute.
+
+- kernel 1 (photon_ml_tpu_torch.ops.fused_glm.glm_plan): every row lies in
+  exactly one block's range and, within it, in one tile (narrow body) or
+  one warp's rows (wide body); the block count depends on (n, d) alone,
+  the body on d alone (narrow up to GLM_NARROW_MAX_D columns); a block's
+  shared memory fits 227 KiB up to cuda_build.MAX_ROW_WIDTH. The plain
+  version summed per block, then over the blocks in order, equals the
+  plain version on the whole design (f64, 1e-6);
 
 - kernel 2 (photon_ml_tpu_torch.ops.fused_re.entity_plan): each entity's S
   rows are cut into chunks; every row lies in exactly one chunk; a head
@@ -19,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from photon_ml_tpu_torch.ops import fused_glm, fused_re
+from photon_ml_tpu_torch.ops import cuda_build, fused_glm, fused_re
 from photon_ml_tpu_torch.ops import losses as tl
 
 LOSSES = {"logistic": tl.LogisticLoss, "squared": tl.SquaredLoss,
@@ -133,3 +142,113 @@ def test_multi_block_count_depends_on_n_alone(n):
     # every block owns at least one row of the contiguous split
     per = -(-n // blocks)
     assert (blocks - 1) * per < n
+
+
+#: (n, d): kernel 1 at the two paths' shapes (GAME fixed effect, GLM sweep,
+#: batched TRON) and at the edges of its plan: one row, a ragged last
+#: tile, both sides of the narrow limit and of the held width, streamed
+#: rows, the widest row
+GLM_SHAPES = [(1_000_000, 33), (1_000_003, 33), (200_000, 1024),
+              (20_000, 128), (20_011, 8192), (1, 1), (255, 64), (257, 65),
+              (70_001, 64), (70_001, 65), (5_000, 1024), (5_000, 1025),
+              (999, 29_055), (100, 3)]
+
+
+def _glm_block_rows(plan, n):
+    per = -(-n // plan.blocks)
+    return [(b * per, min(n, (b + 1) * per)) for b in range(plan.blocks)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("n,d", GLM_SHAPES)
+def test_glm_plan_covers_every_row_once(n, d, itemsize):
+    plan = fused_glm.glm_plan(n, d, itemsize)
+    assert 1 <= plan.blocks <= fused_glm.GLM_MAX_BLOCKS
+    covered = np.zeros(n, np.int64)
+    for begin, end in _glm_block_rows(plan, n):
+        assert begin < end  # every block owns at least one row
+        if plan.body == "narrow":  # tiles of 256 consecutive rows
+            for r0 in range(begin, end, fused_glm.GLM_TILE_ROWS):
+                covered[r0:min(end, r0 + fused_glm.GLM_TILE_ROWS)] += 1
+        else:  # warp k takes rows begin + k, begin + k + warps, ...
+            for k in range(plan.warps):
+                covered[begin + k:end:plan.warps] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("n,d", GLM_SHAPES)
+def test_glm_plan_depends_on_the_shape_alone(n, d):
+    plan = fused_glm.glm_plan(n, d, 4)
+    assert plan == fused_glm.glm_plan(n, d, 4)
+    # the block count, and so the fold order, does not depend on the dtype
+    assert plan.blocks == fused_glm.glm_plan(n, d, 2).blocks
+    assert plan.body == fused_glm.glm_plan(1, d, 2).body
+
+
+@pytest.mark.parametrize("d", [1, 8, 32, 33, 63, 64, 65, 128, 1024, 1025,
+                               8192])
+def test_glm_plan_picks_its_body_by_width(d):
+    plan = fused_glm.glm_plan(10_000, d, 4)
+    if d <= fused_glm.GLM_NARROW_MAX_D:
+        assert plan.body == "narrow" and plan.stages >= 2
+        assert plan.warps * 32 == fused_glm.GLM_THREADS
+    else:
+        assert plan.body == "wide" and plan.warps >= 1 and plan.stages == 0
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_glm_plan_fits_shared_memory_up_to_the_widest_row(itemsize):
+    widths = sorted({*range(1, 200), *range(200, 2_100, 7),
+                     *range(2_100, cuda_build.MAX_ROW_WIDTH, 997),
+                     cuda_build.MAX_ROW_WIDTH})
+    for d in widths:
+        plan = fused_glm.glm_plan(1_000, d, itemsize)
+        assert plan.smem_bytes <= cuda_build.MAX_BLOCK_SMEM_BYTES, d
+        assert plan.warps >= 1 and (plan.body == "wide" or plan.stages >= 2)
+    # the narrow body's tiles leave room for two blocks an SM where they can
+    narrow = fused_glm.glm_plan(1_000, 33, itemsize)
+    assert narrow.smem_bytes <= fused_glm.TWO_BLOCK_SMEM_BYTES
+    # one column more than the widest row fits no warp: the wrapper refuses
+    assert fused_glm.glm_plan(1_000, cuda_build.MAX_ROW_WIDTH + 1,
+                              itemsize).warps == 0
+    x = torch.zeros((2, cuda_build.MAX_ROW_WIDTH + 1))
+    with pytest.raises(ValueError, match="exceed"):
+        cuda_build.check_args("fused_value_and_grad", x, "nd")
+
+
+@pytest.mark.parametrize("n,d", [(3_001, 33), (2_003, 70), (1_500, 1025)])
+@pytest.mark.parametrize("name", sorted(LOSSES))
+def test_glm_block_sums_equal_the_whole_design(name, n, d):
+    """Kernel 1's partition: the plain version per block's row range, the
+    blocks' partial rows folded in block order, equals the plain version on
+    the whole design."""
+    loss = LOSSES[name]
+    plan = fused_glm.glm_plan(n, d, 4)
+    assert plan.blocks > 1
+    rng = np.random.default_rng(n + d)
+    x = rng.normal(size=(n, d))
+    w = 0.3 * rng.normal(size=d) / np.sqrt(d)
+    off = 0.2 * rng.normal(size=n)
+    wt = rng.uniform(0.5, 2.0, size=n)
+    wt[::7] = 0.0
+    x[3] = 60.0  # a padded row whose raw margin would overflow exp()
+    if name == "poisson":
+        y = rng.poisson(1.5, size=n).astype(np.float64)
+    elif name == "squared":
+        y = rng.normal(size=n)
+    else:
+        y = (rng.uniform(size=n) < 0.5).astype(np.float64)
+    x, w, y, off, wt = (torch.as_tensor(a) for a in (x, w, y, off, wt))
+    want_v, want_g = fused_glm.fused_value_and_grad_plain(loss, x, w, y, off,
+                                                          wt)
+    got_v = torch.zeros((), dtype=torch.float64)
+    got_g = torch.zeros(d, dtype=torch.float64)
+    for lo, hi in _glm_block_rows(plan, n):
+        v, g = fused_glm.fused_value_and_grad_plain(
+            loss, x[lo:hi], w, y[lo:hi], off[lo:hi], wt[lo:hi])
+        got_v += v
+        got_g += g
+    assert torch.isfinite(got_v) and torch.isfinite(got_g).all()
+    assert float((got_v - want_v).abs() / want_v.abs().clamp_min(1.0)) <= 1e-6
+    assert float((got_g - want_g).abs().max()
+                 / want_g.abs().max().clamp_min(1.0)) <= 1e-6
