@@ -21,14 +21,18 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    8-wide ``item`` shard, Zipf-skewed entities, 1M rows, bf16 designs, L2
    with lambda 0.001/1/1, L-BFGS, histogram buckets, one sweep), with the
    kernels' launch counts read around it; the GAME model must beat a
-   fixed-effect-only model on a held-out draw;
+   fixed-effect-only model on a held-out draw; kernels 1 and 3 are timed
+   at the fixed effect's shape (1M x 33 bf16);
 4. the same fit at 20k rows on the card (kernels) and on the CPU (plain
    versions), which must agree;
 5. kernels 3 (TRON's Hessian-vector product) and 4 (value+gradient for M
-   coefficient rows) against their plain versions on the card — f32 and
-   bf16, all four losses, M in {1, 2, 5, 8, 9, 11, 16} at d = 1024,
-   {1, 5, 11} at d = 33, 16 at d = 128 and 64 at d = 128 (kernel 4's
-   narrow and wide bodies), unaligned rows (d = 33, 1025), ragged n, rows
+   coefficient rows) against their plain versions on the card — kernel 3
+   on each of its bodies (narrow: 1M x 33 bf16, 200,003 x 64; wide, held
+   in registers: 20k x 128, 50,001 x 100, 200,003 x 1024; streamed:
+   20,011 x 8192 and the widest row) with rows of no curvature and huge
+   x; kernel 4 in f32 and bf16, all four losses, M in {1, 2, 5, 8, 9, 11,
+   16} at d = 1024, {1, 5, 11} at d = 33, 16 at d = 128 and 64 at d = 128
+   (kernel 4's narrow and wide bodies), unaligned rows (d = 33, 1025), ragged n, rows
    at and one column below the shared-memory limit of 5 and 11 lanes,
    weight-0 rows with huge x, bit-identical reruns, kernel 4's lanes
    against kernel 1, and kernel 4 at one lane timed against kernel 1 —
@@ -627,12 +631,28 @@ def _grad_err(got, want):
     return err, err / max(1.0, float(want.abs().max()))
 
 
-def check_hvp(fused_hvp, gen):
-    """Kernel 3 vs its plain version; returns the largest relative error
-    per design dtype."""
+#: (n, d, dtypes) of kernel 3 vs its plain version: the GLM path's width
+#: with a ragged n, the GAME fixed effect's width, streamed rows
+HVP_CHECK_SHAPES = [(200_003, 1024, (torch.float32, torch.bfloat16)),
+                    (5_001, 33, (torch.float32, torch.bfloat16)),
+                    (20_011, 8192, (torch.float32, torch.bfloat16))]
+#: the rest of kernel 3's bodies: narrow rows at the GAME fixed effect's
+#: shape and at an even width (64), wide rows held in registers 8 columns a
+#: lane (batched TRON's 20k x 128; 100 columns, not a multiple of 32); the
+#: streamed rows at cuda_build.MAX_ROW_WIDTH are added in main()
+HVP_BODY_SHAPES = [(1_000_000, 33, (torch.bfloat16,)),
+                   (200_003, 64, (torch.float32, torch.bfloat16)),
+                   (20_000, 128, (torch.float32, torch.bfloat16)),
+                   (50_001, 100, (torch.float32,))]
+
+
+def check_hvp(fused_hvp, shapes, gen):
+    """Kernel 3 vs its plain version at ``shapes`` ``(n, d, dtypes)``;
+    returns the largest relative error per design dtype. Every ninth row
+    has no curvature and row 9 an x of 1e30, which must add exactly 0."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for n, d in [(200_003, 1024), (5_001, 33), (20_011, 8192)]:
-        for dt in (torch.float32, torch.bfloat16):
+    for n, d, dtypes in shapes:
+        for dt in dtypes:
             x = torch.randn(n, d, device="cuda", generator=gen).to(dt)
             v = torch.randn(d, device="cuda", generator=gen) / math.sqrt(d)
             d2w = torch.rand(n, device="cuda", generator=gen)
@@ -649,7 +669,9 @@ def check_hvp(fused_hvp, gen):
             tol = KERNEL_RTOL if dt == torch.float32 else BF16_RTOL
             assert rel <= tol, (n, d, dt, err, rel)
             worst[dt] = max(worst[dt], rel)
-            log(f"  kernel3 n={n} d={d} {str(dt)[6:]}: max_abs_err="
+            plan = fused_hvp.hvp_plan(n, d, x.element_size())
+            log(f"  kernel3 n={n} d={d} {str(dt)[6:]} ({plan.body} body, "
+                f"{plan.blocks} blocks of {plan.warps} warps): max_abs_err="
                 f"{err:.3e} rel={rel:.2e}, rerun identical")
             del x
     return worst
@@ -744,24 +766,30 @@ def time_one_lane(fused_glm, loss, gen):
     return out
 
 
+def hvp_closed_form_library(x, v, d2w):
+    """Two-pass PyTorch form of kernel 3 (torch.mv), the yardstick the port
+    never calls: X v, then the transposed product."""
+    return torch.mv(x.t(), (d2w * torch.mv(x, v.to(x.dtype))).to(x.dtype))
+
+
 def time_hvp(fused_hvp, x, w, loss, labels, gen):
-    """Kernel 3 at one of the GLM path's shapes: the design and its
-    curvature at ``w`` (as TRON's operator computes it), a random
-    direction; kernel, plain version and torch.mv two-pass form timed in
-    turns."""
-    m = x @ w
+    """Kernel 3 at one of the paths' shapes: the design and its curvature
+    at ``w`` (as TRON's operator computes it), a random direction; kernel,
+    plain version and torch.mv two-pass form timed in turns."""
+    m = x.float() @ w
     d2w = loss.d2(m, labels)
     v = torch.randn(x.shape[1], device="cuda", generator=gen) / math.sqrt(
         x.shape[1])
     err, rel = _grad_err(fused_hvp.fused_hvp(x, v, d2w),
                          fused_hvp.fused_hvp_plain(x, v, d2w))
-    assert rel <= KERNEL_RTOL, ("kernel3 on the GLM design", err, rel)
+    tol = KERNEL_RTOL if x.dtype == torch.float32 else BF16_RTOL
+    assert rel <= tol, ("kernel3 on a path's design", err, rel)
     calls = 20
     t = time_turns({
         "ms": lambda: fused_hvp.fused_hvp(x, v, d2w),
         "device_ms": captured(lambda: fused_hvp.fused_hvp(x, v, d2w), calls),
         "plain_ms": lambda: fused_hvp.fused_hvp_plain(x, v, d2w),
-        "library_ms": lambda: torch.mv(x.t(), d2w * torch.mv(x, v))})
+        "library_ms": lambda: hvp_closed_form_library(x, v, d2w)})
     t["device_ms"] /= calls
     n, d = x.shape
     b, by = hvp_bound_ms(int((d2w != 0).sum()), n, d, x.element_size())
@@ -1090,9 +1118,14 @@ def main() -> int:
 
     # kernel times at the main path's shapes -------------------------------
     ds = datasets["global"]
-    t1 = time_glm(fused_glm, tl.LogisticLoss, ds.design.x,
-                  0.01 * torch.ones(ds.design.x.shape[1], device="cuda"),
+    w_game = 0.01 * torch.ones(ds.design.x.shape[1], device="cuda")
+    t1 = time_glm(fused_glm, tl.LogisticLoss, ds.design.x, w_game,
                   ds.labels, ds.weights)
+    # kernel 3 at the fixed effect's shape, as TRON would run it there (its
+    # direction from a generator of its own: the shared one keeps its state)
+    t3_game = time_hvp(fused_hvp, ds.design.x, w_game, tl.LogisticLoss,
+                       ds.labels, torch.Generator(device="cuda").manual_seed(
+                           2468))
     del ds
     buckets = [st for key, st in
                sorted(((k, v) for cid in ("perUser", "perSong")
@@ -1141,7 +1174,13 @@ def main() -> int:
 
     # 5. kernels 3 and 4 vs plain versions ----------------------------------
     t0 = time.perf_counter()
-    err3 = check_hvp(fused_hvp, gen)
+    err3 = check_hvp(fused_hvp, HVP_CHECK_SHAPES, gen)
+    # kernel 3's other bodies draw from their own generator, so kernel 4's
+    # cases below keep their seeded draws
+    err3b = check_hvp(fused_hvp, HVP_BODY_SHAPES + [
+        (3_001, cuda_build.MAX_ROW_WIDTH, (torch.float32,))],
+        torch.Generator(device="cuda").manual_seed(5678))
+    err3 = {dt: max(err3[dt], err3b[dt]) for dt in err3}
     err4 = check_multi(fused_glm, cuda_build, losses, gen)
     time_one_lane(fused_glm, tl.LogisticLoss, gen)
     log(f"[5] kernels 3 and 4 agree with their plain versions: worst "
@@ -1293,11 +1332,12 @@ def main() -> int:
              source="photon_ml_tpu_torch/csrc/fused_re.cu",
              replaces="photon_ml_tpu/ops/pallas_re.py:130",
              launches=launches["fused_re"], **t2),
-        dict(name="fused_hvp", route="cuda", status="ported",
+        dict(name="fused_hvp", route="cuda", status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_hvp.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:447",
              launches=glm_launches["tron"]["fused_hvp"], **t3,
-             batched_tron=dict(launches=bt["fused_hvp"], **t3_small)),
+             batched_tron=dict(launches=bt["fused_hvp"], **t3_small),
+             game_shape=t3_game),
         dict(name="fused_value_and_grad_multi", route="cuda",
              status="ported",
              source="photon_ml_tpu_torch/csrc/fused_glm_multi.cu",

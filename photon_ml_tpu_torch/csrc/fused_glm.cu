@@ -52,10 +52,16 @@
 // margin cannot overflow into the sums.
 #include <initializer_list>
 
+#include "cp_async.cuh"
 #include "glm_common.cuh"
 
 namespace {
 
+using photon::cp_async16;
+using photon::cp_async4;
+using photon::cp_async_commit;
+using photon::cp_async_wait_ring;
+using photon::kTwoBlockSmemBytes;
 using photon::loss_and_d1;
 using photon::round_bf16;
 using photon::to_f32;
@@ -72,36 +78,6 @@ constexpr int kHeldCols = 1024;
 // columns a lane loads at once when a row is streamed (4 KB of f32 a warp
 // in flight)
 constexpr int kStreamCols = 32;
-// shared memory of a block such that two fit an SM (228 KiB an SM, 1 KiB
-// of it reserved per block)
-constexpr size_t kTwoBlockSmemBytes = 233472 / 2 - 1024;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most stages - 2 groups are pending (stages in 2..4)
-__device__ __forceinline__ void cp_async_wait_ring(int stages) {
-  if (stages >= 4)
-    asm volatile("cp.async.wait_group 2;\n" ::);
-  else if (stages == 3)
-    asm volatile("cp.async.wait_group 1;\n" ::);
-  else
-    asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
 __host__ __device__ inline size_t round_up(size_t v, size_t to) {
   return (v + to - 1) / to * to;
 }

@@ -64,9 +64,16 @@
 // gradient pass skips them.
 #include <initializer_list>
 
+#include "cp_async.cuh"
 #include "glm_common.cuh"
 
 namespace {
+
+using photon::cp_async16;
+using photon::cp_async4;
+using photon::cp_async_commit;
+using photon::cp_async_wait_ring;
+using photon::kTwoBlockSmemBytes;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -88,36 +95,6 @@ static_assert(kStepRows == kWarps, "a step's unaligned rows: one warp each");
 // to 15 after
 constexpr int kUnalignedPadBytes = 32;
 constexpr int kMaxStages = 4;
-// shared memory of a block such that two fit an SM (228 KiB an SM, 1 KiB
-// of it reserved per block)
-constexpr size_t kTwoBlockSmemBytes = 233472 / 2 - 1024;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most stages - 2 groups are pending (stages in 2..4)
-__device__ __forceinline__ void cp_async_wait_ring(int stages) {
-  if (stages >= 4)
-    asm volatile("cp.async.wait_group 2;\n" ::);
-  else if (stages == 3)
-    asm volatile("cp.async.wait_group 1;\n" ::);
-  else
-    asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
 // kCols adjacent staged elements as f32 (8- or 16-byte aligned)
 __device__ __forceinline__ void load_cols(const float* p, float* v) {
   const float4 q = *reinterpret_cast<const float4*>(p);

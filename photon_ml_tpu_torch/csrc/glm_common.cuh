@@ -1,12 +1,12 @@
 // Device code shared by the port's GLM kernels: the loss table, the bf16
 // helpers and the dtype/loss dispatch (all four kernels); the row-group
-// value+gradient body (fused_glm.cu for the fixed effect, and fused_re.cu
-// for random-effect rows wider than its one-thread-per-row body); the
-// row-group Hessian-vector body (fused_hvp.cu); the fixed-order
-// cross-block fold of kernels 1 and 3, and the batched one of kernels 2
-// and 4. Kernel 4 (fused_glm_multi.cu) has its own staged-tile body.
+// value+gradient body (kernel 2's random-effect rows wider than its
+// one-thread-per-row body, fused_re.cu); and the fixed-order, coalesced
+// cross-block fold of kernels 1-4 (fold_rows). Kernels 1 and 3
+// (fused_glm.cu, fused_hvp.cu) and kernel 4 (fused_glm_multi.cu) have
+// their own staged-tile bodies, with the cp.async helpers of cp_async.cuh.
 //
-// The row-group bodies compute, over the rows of a dense design block,
+// The row-group body computes, over the rows of a dense design block,
 //
 //     value = sum_r wt_r * loss(x_r . w + off_r, y_r)
 //     grad  = sum_r wt_r * loss'(x_r . w + off_r, y_r) * x_r
@@ -18,7 +18,7 @@
 // gradient partial in shared memory while the row is still in L1. Each lane
 // owns fixed columns of its group's partial, so there are no atomics and the
 // summation order is fixed: results are bit-identical run to run. What
-// bounds them on an H100 is bytes; what holds them back is one gradient
+// bounds it on an H100 is bytes; what holds it back is one gradient
 // partial per row group in shared memory (few blocks an SM) and a shuffle
 // tree per row.
 //
@@ -85,8 +85,7 @@ inline int group_size(int d) {
 
 // Dynamic shared memory of one block of the row-group plan: w (d) +
 // per-group gradient partials (n_groups * d) + per-group value partials
-// (n_groups), all f32. The Hvp kernel uses the same plan (its value
-// partials go unused).
+// (n_groups), all f32.
 // photon_ml_tpu_torch/ops/cuda_build.py::block_smem_bytes mirrors it.
 inline size_t block_smem_bytes(int d, int threads, int g) {
   const size_t n_groups = threads / g;
@@ -114,8 +113,8 @@ __device__ __forceinline__ unsigned group_mask(int g) {
 
 // One block's share of the work: rows [row_begin, row_end) of the row-major
 // (rows, d) matrix x for the coefficient row w. Leaves value_out[0] and
-// grad_out[0..d) (written by this block only). Kernel 1 and kernel 2's wide
-// rows run it. A group forms a row's margin from one read of the row,
+// grad_out[0..d) (written by this block only). Kernel 2's wide rows run
+// it. A group forms a row's margin from one read of the row,
 // applies the loss, then folds wt * d1 * x_r into its gradient partial.
 //
 // ROUND_BF16 reproduces the bf16 path of the fixed-effect TPU kernel
@@ -182,77 +181,7 @@ __device__ __forceinline__ void block_value_and_grad(
   }
 }
 
-// One block's share of the GLM Hessian-vector product over rows
-// [row_begin, row_end): out[0..d) = sum_r (d2w_r * (x_r . v)) * x_r
-// (photon_ml_tpu/ops/pallas_glm.py::_hvp_kernel). The row-group plan of
-// block_value_and_grad: a group forms t = x_r . v by a butterfly and folds
-// d2w_r * t * x_r into its gradient partial while the row is in L1. A row
-// whose d2w is 0 (every padded row) is skipped whole, so it contributes
-// exactly 0 whatever its x. ROUND_BF16 rounds v and d2w_r * t to bf16
-// before their products, as the TPU kernel's astype(x.dtype) does.
-template <typename T, bool ROUND_BF16>
-__device__ void block_hvp(const T* __restrict__ x, const float* __restrict__ v,
-                          const float* __restrict__ d2w, int64_t row_begin,
-                          int64_t row_end, int d, int g,
-                          float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int n_groups = blockDim.x / g;
-  float* v_s = smem;
-  float* gpart = smem + d;
-
-  for (int j = threadIdx.x; j < d; j += blockDim.x)
-    v_s[j] = ROUND_BF16 ? round_bf16(v[j]) : v[j];
-  for (int j = threadIdx.x; j < n_groups * d; j += blockDim.x) gpart[j] = 0.f;
-  __syncthreads();
-
-  const int lane = threadIdx.x % g;
-  const int group = threadIdx.x / g;
-  const unsigned mask = group_mask(g);
-  float* gp = gpart + (size_t)group * d;
-  for (int64_t r = row_begin + group; r < row_end; r += n_groups) {
-    const float c_r = d2w[r];
-    if (c_r == 0.f) continue;  // no curvature (or padding): exactly 0
-    const T* xr = x + r * (int64_t)d;
-    float t = 0.f;
-    for (int j = lane; j < d; j += g) t += to_f32(xr[j]) * v_s[j];
-    for (int o = g / 2; o > 0; o >>= 1) t += __shfl_xor_sync(mask, t, o);
-    float c = c_r * t;
-    if (ROUND_BF16) c = round_bf16(c);
-    for (int j = lane; j < d; j += g) gp[j] += c * to_f32(xr[j]);
-  }
-  __syncthreads();
-
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < n_groups; ++k) s += gpart[(size_t)k * d + j];
-    out[j] = s;
-  }
-}
-
-// out[j] = sum over blocks of scratch[block][j], j in [0, width), summed in
-// a fixed order: a strided serial sum per thread, then a fixed tree. The
-// second pass of kernels 1 and 3.
-static __global__ void fold_kernel(const float* __restrict__ scratch,
-                                   int n_rows, int width,
-                                   float* __restrict__ out) {
-  __shared__ float s[256];
-  const int j = blockIdx.x;
-  float acc = 0.f;
-  for (int i = threadIdx.x; i < n_rows; i += blockDim.x)
-    acc += scratch[(int64_t)i * width + j];
-  s[threadIdx.x] = acc;
-  __syncthreads();
-  for (int o = blockDim.x / 2; o > 0; o >>= 1) {
-    if (threadIdx.x < o) s[threadIdx.x] += s[threadIdx.x + o];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[j] = s[0];
-}
-
-// Threads of a fold_kernel block (its shared array's size).
-constexpr int kFoldThreads = 256;
-
-// The second pass of kernels 2 and 4: for each batch item b (blockIdx.x)
+// The second pass of kernels 1-4: for each batch item b (blockIdx.x)
 // the sum of its n_rows partial rows of `width` floats (rows b * n_rows ..
 // b * n_rows + n_rows - 1 of `partials`), in a fixed order. A 32 x 8 block
 // takes 32 columns (blockIdx.y), coalesced over columns; each of its 8

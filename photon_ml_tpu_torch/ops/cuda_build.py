@@ -44,16 +44,15 @@ def _group_size(d: int) -> int:
 
 def block_smem_bytes(d: int, threads: int) -> int:
     """Dynamic shared memory of one block of the row-group body
-    (``block_smem_bytes`` of csrc/glm_common.cuh; kernel 3 and kernel 2's
-    wide rows, and kernel 1's wide body with a warp for a group): the
-    coefficient row of width ``d``, and a gradient and a value partial for
-    each row group."""
+    (``block_smem_bytes`` of csrc/glm_common.cuh; kernel 2's wide rows, and
+    kernel 1's wide body with a warp for a group): the coefficient row of
+    width ``d``, and a gradient and a value partial for each row group."""
     groups = threads // _group_size(d)
     return 4 * (d + groups * d + groups)
 
 
-#: widest row the row-group body (kernels 2 and 3) and kernel 1's wide
-#: body take: the row and one 32-wide row group's partials fit one block's
+#: widest row the row-group body (kernel 2) and the wide body of kernels 1
+#: and 3 take: the row and one 32-wide row group's partials fit one block's
 #: shared memory
 MAX_ROW_WIDTH = next(d for d in range(MAX_BLOCK_SMEM_BYTES // 8, 0, -1)
                      if block_smem_bytes(d, 32) <= MAX_BLOCK_SMEM_BYTES)

@@ -24,10 +24,8 @@ from photon_ml_tpu_torch.ops import cuda_build
 from photon_ml_tpu_torch.ops.design import accumulation_dtype
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 
-#: blocks of kernel 3, at most: the cross-block fold order — and so every
-#: bit of the result — depends on n only, never on the card
-MAX_BLOCKS = 1056
-#: kernel 1's plan (csrc/fused_glm.cu): blocks of 256 threads (8 warps),
+#: the plan of kernels 1 and 3 (csrc/fused_glm.cu, csrc/fused_hvp.cu),
+#: which share two bodies: blocks of 256 threads (8 warps),
 #: two for each of an H100's 132 SMs once n is large. Rows of at most
 #: GLM_NARROW_MAX_D columns take the narrow body (a thread a row, tiles of
 #: 256 rows staged in a ring of 2-4 slots; a block gets one tile at least);
@@ -40,7 +38,7 @@ GLM_TILE_ROWS = GLM_THREADS
 GLM_MAX_STAGES = 4
 GLM_WIDE_WARP_ROWS = 4
 #: shared memory of a block such that two fit an SM (228 KiB an SM, 1 KiB
-#: of it reserved per block)
+#: of it reserved per block): ``kTwoBlockSmemBytes`` of csrc/cp_async.cuh
 TWO_BLOCK_SMEM_BYTES = 233_472 // 2 - 1024
 #: kernel 4's blocks, at most
 MULTI_MAX_BLOCKS = 264
@@ -78,25 +76,24 @@ def fused_value_and_grad_plain(loss: PointwiseLoss, x, w, labels, offsets,
     return value, grad
 
 
-def partial_blocks(n: int) -> int:
-    """Blocks of kernel 3, which splits n rows across blocks: a function of
-    n alone, so the fold order is too."""
-    return min(MAX_BLOCKS, -(-n // MIN_ROWS_PER_BLOCK))
-
-
 def _round_up(v: int, to: int) -> int:
     return -(-v // to) * to
+
+
+def tile_slot_bytes(d: int, itemsize: int) -> int:
+    """Bytes of a narrow-body ring slot's design tile (``slot_x_bytes`` of
+    csrc/fused_glm.cu and csrc/fused_hvp.cu): a 256-row tile's span as
+    16-byte granules, and 16 bytes of lead room."""
+    return _round_up(GLM_TILE_ROWS * d * itemsize, 16) + 16
 
 
 def narrow_smem_bytes(d: int, itemsize: int, stages: int) -> int:
     """Dynamic shared memory of a narrow-body block of kernel 1
     (``narrow_smem_bytes`` of csrc/fused_glm.cu): ``stages`` ring slots of
-    a 256-row tile (its span's 16-byte granules, 16 bytes of lead room)
-    with its y, off, wt; then w, the tile's dv, the value reduction and the
-    row groups' gradient sums, all f32."""
-    slot = _round_up(GLM_TILE_ROWS * d * itemsize, 16) + 16
-    return stages * (slot + 3 * GLM_TILE_ROWS * 4) + 4 * (
-        _round_up(d, 4) + GLM_TILE_ROWS + 2 * GLM_THREADS)
+    a 256-row tile with its y, off, wt; then w, the tile's dv, the value
+    reduction and the row groups' gradient sums, all f32."""
+    return stages * (tile_slot_bytes(d, itemsize) + 3 * GLM_TILE_ROWS * 4) \
+        + 4 * (_round_up(d, 4) + GLM_TILE_ROWS + 2 * GLM_THREADS)
 
 
 def wide_smem_bytes(d: int, warps: int) -> int:
@@ -107,7 +104,8 @@ def wide_smem_bytes(d: int, warps: int) -> int:
 
 
 class GlmPlan(NamedTuple):
-    """How kernel 1 covers an ``(n, d)`` design (:func:`glm_plan`)."""
+    """How kernel 1 (:func:`glm_plan`) or kernel 3
+    (``fused_hvp.hvp_plan``) covers an ``(n, d)`` design."""
 
     body: str  # "narrow" (a thread a row) or "wide" (a warp a row)
     blocks: int  # blocks, each owning a contiguous range of rows
@@ -116,26 +114,33 @@ class GlmPlan(NamedTuple):
     smem_bytes: int  # dynamic shared memory a block
 
 
-def glm_plan(n: int, d: int, itemsize: int) -> GlmPlan:
-    """Kernel 1's plan, as csrc/fused_glm.cu computes it. The block count
-    depends on the shape (n, d) alone, never on the dtype, so the fold
-    order, and every bit of the result, does too; the body depends on d
-    alone. ``warps`` 0 means the row is too wide for a block's shared
-    memory."""
+def body_plan(n: int, d: int, itemsize: int, narrow_smem,
+              wide_smem) -> GlmPlan:
+    """The plan of the two bodies kernels 1 and 3 share, given a body's
+    shared memory (``narrow_smem(d, itemsize, stages)``,
+    ``wide_smem(d, warps)``). The block count depends on the shape (n, d)
+    alone, never on the dtype, so the fold order, and every bit of the
+    result, does too; the body depends on d alone. ``warps`` 0 means the
+    row is too wide for a block's shared memory."""
     if d <= GLM_NARROW_MAX_D:
         stages = next((st for limit in (TWO_BLOCK_SMEM_BYTES,
                                         cuda_build.MAX_BLOCK_SMEM_BYTES)
                        for st in range(GLM_MAX_STAGES, 1, -1)
-                       if narrow_smem_bytes(d, itemsize, st) <= limit), 0)
+                       if narrow_smem(d, itemsize, st) <= limit), 0)
         return GlmPlan("narrow", min(GLM_MAX_BLOCKS, -(-n // GLM_TILE_ROWS)),
                        GLM_THREADS // 32, stages,
-                       narrow_smem_bytes(d, itemsize, stages))
+                       narrow_smem(d, itemsize, stages))
     warps = next((k for k in range(GLM_THREADS // 32, 0, -1)
-                  if wide_smem_bytes(d, k) <= cuda_build.MAX_BLOCK_SMEM_BYTES),
-                 0)
+                  if wide_smem(d, k) <= cuda_build.MAX_BLOCK_SMEM_BYTES), 0)
     blocks = min(GLM_MAX_BLOCKS,
                  -(-n // (GLM_WIDE_WARP_ROWS * max(warps, 1))))
-    return GlmPlan("wide", blocks, warps, 0, wide_smem_bytes(d, warps))
+    return GlmPlan("wide", blocks, warps, 0, wide_smem(d, warps))
+
+
+def glm_plan(n: int, d: int, itemsize: int) -> GlmPlan:
+    """Kernel 1's plan, as csrc/fused_glm.cu computes it
+    (:func:`body_plan`)."""
+    return body_plan(n, d, itemsize, narrow_smem_bytes, wide_smem_bytes)
 
 
 def multi_blocks(n: int) -> int:

@@ -7,7 +7,8 @@ conjugate-gradient solve asks for ``Xᵀ(d2w ∘ (X v))`` many times at one
 once per Newton step by ``GLMObjective.hvp_operator``, which also adds the
 L2 curvature). :func:`fused_hvp` launches the kernel for tensors on a CUDA
 device and runs :func:`fused_hvp_plain` for tensors on the CPU; there is no
-fallback from one to the other.
+fallback from one to the other. The kernel takes kernel 1's two bodies
+(``csrc/fused_glm.cu``) and their plan, :func:`hvp_plan`.
 """
 
 from __future__ import annotations
@@ -18,7 +19,13 @@ import torch
 
 from photon_ml_tpu_torch.ops import cuda_build
 from photon_ml_tpu_torch.ops.design import accumulation_dtype
-from photon_ml_tpu_torch.ops.fused_glm import partial_blocks
+from photon_ml_tpu_torch.ops.fused_glm import (
+    GLM_THREADS,
+    GLM_TILE_ROWS,
+    GlmPlan,
+    body_plan,
+    tile_slot_bytes,
+)
 
 _P = cuda_build.PTR
 _SIGNATURE = {"photon_fused_hvp": (
@@ -39,6 +46,30 @@ def fused_hvp_plain(x, v, d2w):
     return c.to(x.dtype).to(acc) @ xf
 
 
+def narrow_smem_bytes(d: int, itemsize: int, stages: int) -> int:
+    """Dynamic shared memory of a narrow-body block of kernel 3
+    (``narrow_smem_bytes`` of csrc/fused_hvp.cu): ``stages`` ring slots of
+    a 256-row tile with its d2w; then v, the tile's c and the row groups'
+    output sums, all f32."""
+    return stages * (tile_slot_bytes(d, itemsize) + GLM_TILE_ROWS * 4) \
+        + 4 * (-(-d // 4) * 4 + GLM_TILE_ROWS + GLM_THREADS)
+
+
+def wide_smem_bytes(d: int, warps: int) -> int:
+    """Dynamic shared memory of a wide-body block of kernel 3
+    (``wide_smem_bytes`` of csrc/fused_hvp.cu): v and an output partial per
+    warp, all f32."""
+    return 4 * (d + warps * d)
+
+
+def hvp_plan(n: int, d: int, itemsize: int) -> GlmPlan:
+    """Kernel 3's plan, as csrc/fused_hvp.cu computes it: kernel 1's
+    (``fused_glm.body_plan``) with kernel 3's shared memory. The block
+    count depends on (n, d) alone, so TRON's CG products are bit-identical
+    from run to run."""
+    return body_plan(n, d, itemsize, narrow_smem_bytes, wide_smem_bytes)
+
+
 def fused_hvp(x, v, d2w):
     """``(d,)`` ``Xᵀ(d2w ∘ (X v))`` — the kernel on a CUDA device, the plain
     version on the CPU. ``x`` is ``(n, d)`` f32 or bf16; ``v`` ``(d,)`` and
@@ -52,7 +83,7 @@ def fused_hvp(x, v, d2w):
     out = torch.empty(d, dtype=torch.float32, device=x.device)
     if n == 0 or d == 0:
         return out.zero_()
-    n_blocks = partial_blocks(n)
+    n_blocks = hvp_plan(n, d, x.element_size()).blocks
     scratch = torch.empty((n_blocks, d), dtype=torch.float32, device=x.device)
     lib = cuda_build.load("fused_hvp", _SIGNATURE)
     stream = torch.cuda.current_stream(x.device).cuda_stream

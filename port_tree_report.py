@@ -10,6 +10,8 @@ archive``) can be compared on one machine:
 - ``glm``: kernel 1 (``fused_value_and_grad``) at :data:`GLM_SHAPES`:
   the wrapper's time, its device time in a CUDA graph, and its
   ``torch.mv`` two-pass form, in turns (CUDA events), beside the bound;
+- ``hvp``: kernel 3 (``fused_hvp``) at :data:`HVP_SHAPES`, the same
+  readings;
 - ``multi``: kernel 4 (``fused_value_and_grad_multi``) timed at
   :data:`MULTI_SHAPES`, with its ``torch.mm`` two-pass form, in turns
   (CUDA events);
@@ -23,7 +25,12 @@ archive``) can be compared on one machine:
   cap, or earlier: a failed line search or two steps without decrease),
   the f64 sum of the lanes' objective values as the solver saw them (f32)
   and as the closed form computes them in f64 at the lanes' solutions;
-  the fit's validation AUC and wall.
+  the fit's validation AUC and wall;
+- ``k4_bf16_seeds`` (with ``--k4-bf16-seeds N``): bf16 kernel 4 against
+  its plain version at the 1024-wide cases of ``chip_smoke.py``'s phase 5
+  (100,003 rows, M in {1, 2, 5, 8, 9, 11, 16}, four losses) over N seeds:
+  each reading relative to the gradient's scale, and its distribution
+  against ``chip_smoke.BF16_RTOL``.
 
 It imports ``photon_ml_tpu_torch`` from DIR, and the data, settings and
 timing helpers from this checkout's ``chip_smoke.py``. Times of two trees
@@ -66,6 +73,15 @@ GLM_SHAPES = [(1_000_000, 33, torch.bfloat16),
               (1_000_003, 33, torch.bfloat16),
               (200_000, 1024, torch.float32),
               (20_011, 8192, torch.float32)]
+#: (n, d, design dtype): kernel 3 at the TRON sweep's shape, batched
+#: TRON's, the GAME fixed effect's and a row streamed twice
+HVP_SHAPES = [(200_000, 1024, torch.float32),
+              (20_000, 128, torch.float32),
+              (1_000_000, 33, torch.bfloat16),
+              (20_011, 8192, torch.float32)]
+#: bf16 kernel 4 vs its plain version: phase 5's 1024-wide cases
+K4_SEED_ROWS, K4_SEED_WIDTH = 100_003, 1024
+K4_SEED_LANES = (1, 2, 5, 8, 9, 11, 16)
 #: kernel 2's head buckets in the e2e fit (E, S, D)
 HEAD_BUCKETS = [(14, 89_281, 8), (10, 97_864, 8)]
 
@@ -98,7 +114,10 @@ def sass_hashes(cuda_build, names) -> dict:
             # the anonymous namespace's id follows the source's path, so it
             # differs between two checkouts of the same code
             fn = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", fn.strip())
-            kernels[fn] = hashlib.sha256(body.encode()).hexdigest()[:16]
+            # the blank lines after a function's last instruction depend on
+            # whether another function follows it in the listing
+            kernels[fn] = hashlib.sha256(
+                body.rstrip().encode()).hexdigest()[:16]
         out[name] = kernels
     return out
 
@@ -142,6 +161,69 @@ def glm_times(cs, fused_glm, tl) -> list:
         rows.append(dict(shape=f"{n}x{d} {str(dt)[6:]}", bound_ms=b, **t))
         del x
     return rows
+
+
+def hvp_times(cs, fused_hvp, tl) -> list:
+    """Kernel 3 at :data:`HVP_SHAPES`: the curvature of a logistic design
+    at random coefficients, a random direction; wrapper, device time in a
+    CUDA graph and the torch.mv two-pass form in turns."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for n, d, dt in HVP_SHAPES:
+        x = torch.randn(n, d, device="cuda", generator=gen).to(dt)
+        w = torch.randn(d, device="cuda", generator=gen) / d ** 0.5
+        y = (torch.rand(n, device="cuda", generator=gen) < 0.5).float()
+        d2w = tl.LogisticLoss.d2(x.float() @ w, y)
+        v = torch.randn(d, device="cuda", generator=gen) / d ** 0.5
+        calls = 20
+        t = cs.time_turns({
+            "ms": lambda: fused_hvp.fused_hvp(x, v, d2w),
+            "device_ms": cs.captured(lambda: fused_hvp.fused_hvp(x, v, d2w),
+                                     calls),
+            "library_ms": lambda: cs.hvp_closed_form_library(x, v, d2w)})
+        t["device_ms"] /= calls
+        b, _ = cs.hvp_bound_ms(int((d2w != 0).sum()), n, d, x.element_size())
+        rows.append(dict(shape=f"{n}x{d} {str(dt)[6:]}", bound_ms=b, **t))
+        del x
+    return rows
+
+
+def k4_bf16_seeds(cs, fused_glm, tl, seeds) -> dict:
+    """bf16 kernel 4 vs its plain version over ``seeds`` draws of phase 5's
+    1024-wide cases (drawn as ``chip_smoke.check_multi`` draws them):
+    every reading, the largest per seed, and how many exceed BF16_RTOL."""
+    losses = [tl.LogisticLoss, tl.SquaredLoss, tl.PoissonLoss,
+              tl.SmoothedHingeLoss]
+    n, d = K4_SEED_ROWS, K4_SEED_WIDTH
+    readings = []
+    for seed in range(seeds):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for lanes in K4_SEED_LANES:
+            x = torch.randn(n, d, device="cuda", generator=gen).to(
+                torch.bfloat16)
+            ws = torch.randn(lanes, d, device="cuda", generator=gen) / d ** 0.5
+            off = 0.1 * torch.randn(n, device="cuda", generator=gen)
+            wt = torch.rand(n, device="cuda", generator=gen)
+            wt[::9] = 0.0
+            x[9] = 300.0
+            for loss in losses:
+                y = cs._labels(loss, (n,), gen)
+                args = (loss, x, ws, y, off, wt)
+                _, rel = cs._max_err(
+                    fused_glm.fused_value_and_grad_multi(*args),
+                    fused_glm.fused_value_and_grad_plain(*args))
+                readings.append(dict(seed=seed, lanes=lanes, loss=loss.name,
+                                     rel=rel))
+            del x
+    rels = sorted(r["rel"] for r in readings)
+    per_seed = [max(r["rel"] for r in readings if r["seed"] == s)
+                for s in range(seeds)]
+    return dict(shape=f"{n}x{d} bfloat16", limit=cs.BF16_RTOL,
+                n=len(rels), median=rels[len(rels) // 2],
+                p99=rels[min(len(rels) - 1, int(0.99 * len(rels)))],
+                max=rels[-1], per_seed_max=per_seed,
+                over_limit=[r for r in readings if r["rel"] > cs.BF16_RTOL],
+                readings=readings)
 
 
 def re_precision(fused_re, tl) -> list:
@@ -237,6 +319,9 @@ def main() -> int:
     ap.add_argument("--tree", default=str(HERE),
                     help="checkout whose photon_ml_tpu_torch is measured")
     ap.add_argument("--out", help="also write the report here (JSON)")
+    ap.add_argument("--k4-bf16-seeds", type=int, default=0, metavar="N",
+                    help="also read bf16 kernel 4 against its plain version "
+                         "over N seeds")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_tree_report: no CUDA device is available",
@@ -245,7 +330,8 @@ def main() -> int:
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
     import photon_ml_tpu_torch.game as tg
-    from photon_ml_tpu_torch.ops import cuda_build, fused_glm, fused_re
+    from photon_ml_tpu_torch.ops import cuda_build, fused_glm, fused_hvp
+    from photon_ml_tpu_torch.ops import fused_re
     from photon_ml_tpu_torch.ops import losses as tl
 
     assert Path(tg.__file__).resolve().is_relative_to(tree), tg.__file__
@@ -260,9 +346,13 @@ def main() -> int:
     report = dict(tree=str(tree), card=card,
                   sass=sass_hashes(cuda_build, names),
                   glm=glm_times(cs, fused_glm, tl),
+                  hvp=hvp_times(cs, fused_hvp, tl),
                   fit=fit_report(tg, cs, "cuda", cs.E2E),
                   re_precision=re_precision(fused_re, tl),
                   multi=multi_times(cs, fused_glm, tl))
+    if args.k4_bf16_seeds:
+        report["k4_bf16_seeds"] = k4_bf16_seeds(cs, fused_glm, tl,
+                                                args.k4_bf16_seeds)
     line = json.dumps(report)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -17,6 +17,10 @@ compute.
   132 blocks (one per SM of an H100); many small entities share a block.
   The plain version summed per chunk, then folded over the chunks in
   order, equals the plain version on the whole bucket (f64, 1e-6);
+- kernel 3 (photon_ml_tpu_torch.ops.fused_hvp.hvp_plan): kernel 1's plan
+  with kernel 3's shared memory, held to the same rules; the plain version
+  summed per block equals the plain version on the whole design (f64,
+  1e-12), rows without curvature and with x = 1e30 among them;
 - kernel 4 (photon_ml_tpu_torch.ops.fused_glm.multi_blocks): the block
   count is a function of n alone.
 
@@ -28,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from photon_ml_tpu_torch.ops import cuda_build, fused_glm, fused_re
+from photon_ml_tpu_torch.ops import cuda_build, fused_glm, fused_hvp, fused_re
 from photon_ml_tpu_torch.ops import losses as tl
 
 LOSSES = {"logistic": tl.LogisticLoss, "squared": tl.SquaredLoss,
@@ -159,10 +163,7 @@ def _glm_block_rows(plan, n):
     return [(b * per, min(n, (b + 1) * per)) for b in range(plan.blocks)]
 
 
-@pytest.mark.parametrize("itemsize", [2, 4])
-@pytest.mark.parametrize("n,d", GLM_SHAPES)
-def test_glm_plan_covers_every_row_once(n, d, itemsize):
-    plan = fused_glm.glm_plan(n, d, itemsize)
+def _assert_covers_every_row_once(plan, n):
     assert 1 <= plan.blocks <= fused_glm.GLM_MAX_BLOCKS
     covered = np.zeros(n, np.int64)
     for begin, end in _glm_block_rows(plan, n):
@@ -174,6 +175,12 @@ def test_glm_plan_covers_every_row_once(n, d, itemsize):
             for k in range(plan.warps):
                 covered[begin + k:end:plan.warps] += 1
     assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("n,d", GLM_SHAPES)
+def test_glm_plan_covers_every_row_once(n, d, itemsize):
+    _assert_covers_every_row_once(fused_glm.glm_plan(n, d, itemsize), n)
 
 
 @pytest.mark.parametrize("n,d", GLM_SHAPES)
@@ -252,3 +259,77 @@ def test_glm_block_sums_equal_the_whole_design(name, n, d):
     assert float((got_v - want_v).abs() / want_v.abs().clamp_min(1.0)) <= 1e-6
     assert float((got_g - want_g).abs().max()
                  / want_g.abs().max().clamp_min(1.0)) <= 1e-6
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("n,d", GLM_SHAPES)
+def test_hvp_plan_covers_every_row_once(n, d, itemsize):
+    _assert_covers_every_row_once(fused_hvp.hvp_plan(n, d, itemsize), n)
+
+
+@pytest.mark.parametrize("n,d", GLM_SHAPES)
+def test_hvp_plan_depends_on_the_shape_alone(n, d):
+    plan = fused_hvp.hvp_plan(n, d, 4)
+    assert plan == fused_hvp.hvp_plan(n, d, 4)
+    # the block count, and so the fold order, does not depend on the dtype
+    assert plan.blocks == fused_hvp.hvp_plan(n, d, 2).blocks
+    assert plan.body == fused_hvp.hvp_plan(1, d, 2).body
+    # kernel 1's bodies, split the same way
+    assert (plan.body, plan.blocks) == fused_glm.glm_plan(n, d, 4)[:2]
+
+
+@pytest.mark.parametrize("d", [1, 8, 32, 33, 63, 64, 65, 128, 1024, 1025,
+                               8192])
+def test_hvp_plan_picks_its_body_by_width(d):
+    plan = fused_hvp.hvp_plan(10_000, d, 4)
+    if d <= fused_glm.GLM_NARROW_MAX_D:
+        assert plan.body == "narrow" and plan.stages >= 2
+        assert plan.warps * 32 == fused_glm.GLM_THREADS
+    else:
+        assert plan.body == "wide" and plan.warps >= 1 and plan.stages == 0
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_hvp_plan_fits_shared_memory_up_to_the_widest_row(itemsize):
+    widths = sorted({*range(1, 200), *range(200, 2_100, 7),
+                     *range(2_100, cuda_build.MAX_ROW_WIDTH, 997),
+                     cuda_build.MAX_ROW_WIDTH})
+    for d in widths:
+        plan = fused_hvp.hvp_plan(1_000, d, itemsize)
+        assert plan.smem_bytes <= cuda_build.MAX_BLOCK_SMEM_BYTES, d
+        assert plan.warps >= 1 and (plan.body == "wide" or plan.stages >= 2)
+    # the GAME fixed effect's narrow tiles leave room for two blocks an SM
+    narrow = fused_hvp.hvp_plan(1_000, 33, itemsize)
+    assert narrow.smem_bytes <= fused_glm.TWO_BLOCK_SMEM_BYTES
+    # one column more than the widest row: the wrapper refuses it
+    x = torch.zeros((2, cuda_build.MAX_ROW_WIDTH + 1))
+    with pytest.raises(ValueError, match="exceed"):
+        cuda_build.check_args("fused_hvp", x, "nd",
+                              v=(torch.zeros(x.shape[1]), "d"),
+                              d2w=(torch.zeros(2), "n"))
+
+
+@pytest.mark.parametrize("n,d", [(3_001, 33), (5_003, 64), (2_003, 70),
+                                 (1_500, 1025)])
+def test_hvp_block_sums_equal_the_whole_product(n, d):
+    """Kernel 3's partition: the plain version per block's row range, the
+    blocks' partial rows folded in block order, equals the plain version on
+    the whole design (f64: the two differ only in the order of the sums,
+    so 1e-12 of the product's scale). Every seventh row has no curvature,
+    and one of them an x of 1e30: it must add exactly 0."""
+    plan = fused_hvp.hvp_plan(n, d, 4)
+    assert plan.blocks > 1
+    rng = np.random.default_rng(n + d)
+    x = rng.normal(size=(n, d))
+    v = rng.normal(size=d) / np.sqrt(d)
+    d2w = rng.uniform(0.0, 0.25, size=n)
+    d2w[::7] = 0.0
+    x[7] = 1e30
+    x, v, d2w = (torch.as_tensor(a) for a in (x, v, d2w))
+    want = fused_hvp.fused_hvp_plain(x, v, d2w)
+    got = torch.zeros(d, dtype=torch.float64)
+    for lo, hi in _glm_block_rows(plan, n):
+        got += fused_hvp.fused_hvp_plain(x[lo:hi], v, d2w[lo:hi])
+    assert torch.isfinite(want).all() and torch.isfinite(got).all()
+    assert float((got - want).abs().max()
+                 / want.abs().max().clamp_min(1.0)) <= 1e-12
