@@ -54,7 +54,16 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    the same gradient check on both devices, the f64 objectives at the two
    devices' coefficients within OBJECTIVE_RTOL, AUCs within 1e-4 where
    both converged; kernels 3 and 4 must launch in the batched TRON sweep,
-   and kernel 3 is timed at its shape; SIMPLE variances on both.
+   and kernel 3 is timed at its shape; SIMPLE variances on both;
+8. the e2e CLI, from Avro to a model on disk: phase 3's data written to
+   two Avro files (``bench.py::_write_e2e_file``'s record layout, null
+   codec) and trained through ``photon_ml_tpu_torch.cli.train_game.run``
+   with the bench's end-to-end arguments (``bench.py::bench_end_to_end``)
+   and the AUC evaluator. The native decoder must have read both files,
+   kernels 1 and 2 must have launched, the AUC must be within 1e-4 of
+   phase 3's and beat the fixed effect alone, and ``best/``, loaded again
+   with the run's index maps and vocabularies, must score the validation
+   file to the run's AUC within 1e-6.
 
 Any failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the ``kernels``
@@ -67,8 +76,10 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -193,6 +204,12 @@ def e2e_estimator(tg, device, max_iter, sequence=("global", "perUser",
 
 
 E2E_LAMBDAS = {"global": 0.001, "perUser": 1.0, "perSong": 1.0}
+#: the CLI's AUC vs phase 3's in-memory fit of the same rows: only the
+#: column order (the sorted index map) and the entity order (first-seen
+#: vocabularies) differ, the limit of the GAME card-vs-CPU check
+CLI_AUC_TOL = 1e-4
+#: best/ reloaded and rescored vs the run's own validation AUC
+RELOAD_AUC_TOL = 1e-6
 
 
 # --------------------------------------------------------------------------
@@ -1007,6 +1024,174 @@ def log_sweep(name, trained, best, sec, launches):
 # main
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# phase 8: the e2e CLI, Avro in, model directory out
+# --------------------------------------------------------------------------
+
+def e2e_records(data):
+    """TrainingExampleAvro records of one make_e2e GameData, laid out as
+    ``bench.py::_write_e2e_file`` lays them out: the global shard's
+    features as ``g.x{k}`` (its intercept column left to the reader), the
+    item shard's as ``it.x{k}``, ``userId`` ``u{user}`` and ``songId``
+    ``s{song}`` in the metadata map, null offsets and weights."""
+    n = data.n_samples
+    g, it = data.shards["global"], data.shards["item"]
+    assert (np.diff(g.indptr) == 7).all() and (np.diff(it.indptr) == 4).all()
+    intercept = g.dim - 1
+    g_cols, g_vals = g.cols.reshape(n, 7).tolist(), g.vals.reshape(n, 7).tolist()
+    i_cols, i_vals = it.cols.reshape(n, 4).tolist(), it.vals.reshape(n, 4).tolist()
+    labels = data.labels.tolist()
+    users = data.id_columns["userId"].tolist()
+    songs = data.id_columns["songId"].tolist()
+    for j in range(n):
+        feats = [{"name": f"g.x{k}", "term": "", "value": v}
+                 for k, v in zip(g_cols[j], g_vals[j]) if k != intercept]
+        feats += [{"name": f"it.x{k}", "term": "", "value": v}
+                  for k, v in zip(i_cols[j], i_vals[j])]
+        yield {"uid": str(j), "response": labels[j], "offset": None,
+               "weight": None, "features": feats,
+               "metadataMap": {"userId": f"u{users[j]}",
+                               "songId": f"s{songs[j]}"}}
+
+
+def cli_args(train, valid, out):
+    """``bench.py::bench_end_to_end``'s arguments (bench.py:1191-1209),
+    with the validation file and the AUC evaluator."""
+    return [
+        "--training-data", train, "--validation-data", valid,
+        "--output-dir", out,
+        "--feature-shards", "global=g|intercept,item=it|noIntercept",
+        "--coordinates",
+        f"global=fixed,shard=global,reg=L2,maxIter={E2E_MAX_ITER}",
+        (f"perUser=random,entity=userId,shard=item,reg=L2,"
+         f"maxIter={E2E_MAX_ITER},buckets=histogram,maxSampleBuckets=4"),
+        (f"perSong=random,entity=songId,shard=item,reg=L2,"
+         f"maxIter={E2E_MAX_ITER},buckets=histogram,maxSampleBuckets=4"),
+        "--update-sequence", "global,perUser,perSong",
+        "--cd-iterations", "1",
+        "--grid", f"global={E2E_LAMBDAS['global']}",
+        f"perUser={E2E_LAMBDAS['perUser']}",
+        f"perSong={E2E_LAMBDAS['perSong']}",
+        "--data-validation", "VALIDATE_DISABLED",
+        "--design-dtype", "bfloat16",
+        "--evaluators", "AUC",
+    ]
+
+
+class Counted:
+    """Wraps a module function and counts its calls."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.calls = 0
+
+    def __enter__(self):
+        def wrapper(*args, **kwargs):
+            self.calls += 1
+            return self.fn(*args, **kwargs)
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def run_cli_phase(tg, fused_glm, fused_re, auc_phase3, auc_fe):
+    """Phase 8; returns the kernels' launch counts of the CLI run."""
+    from photon_ml_tpu_torch import native
+    from photon_ml_tpu_torch.cli import train_game
+    from photon_ml_tpu_torch.cli.config import parse_feature_shard_config
+    from photon_ml_tpu_torch.evaluation import parse_evaluators
+    from photon_ml_tpu_torch.io import data_reader, model_io
+    from photon_ml_tpu_torch.io.index import IndexMap
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_e2e_")
+    try:
+        train, valid = make_e2e(tg, **E2E)
+        paths = {}
+        t0 = time.perf_counter()
+        for name, data in (("train", train), ("valid", valid)):
+            paths[name] = os.path.join(tmp, f"{name}.avro")
+            data_reader.write_training_examples(
+                paths[name], e2e_records(data), codec="null")
+        write_s = time.perf_counter() - t0
+        size = {k: os.path.getsize(p) for k, p in paths.items()}
+        log(f"[8] wrote phase 3's rows to Avro ({E2E['rows']} + "
+            f"{E2E['valid_rows']} records, null codec, {size['train']} + "
+            f"{size['valid']} bytes) in {write_s:.2f} s (pure Python, not "
+            "in the wall below)")
+        del train, valid
+        # the native library's g++ build happens once a checkout, outside
+        # the wall
+        t0 = time.perf_counter()
+        assert native.available(), "the native decoder did not build"
+        log(f"[8] built the native ingest library (g++) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        out = os.path.join(tmp, "run")
+        fused_glm.fused_value_and_grad.launches = 0
+        fused_re.fused_entity_value_and_grad.launches = 0
+        with Counted(native, "decode_training_file") as nat, \
+                Counted(data_reader, "iter_avro_file") as py:
+            t0 = time.perf_counter()
+            result = train_game.run(cli_args(paths["train"], paths["valid"],
+                                             out))
+            wall = time.perf_counter() - t0
+        launches = {"fused_glm": fused_glm.fused_value_and_grad.launches,
+                    "fused_re": fused_re.fused_entity_value_and_grad.launches}
+        decoder = ("native" if nat.calls == 2 and py.calls == 0 else
+                   f"python ({py.calls} files; native {nat.calls})")
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            stages = [json.loads(line) for line in f]
+        auc = result["best_evaluation"]["AUC"]
+        best = os.path.join(out, "best")
+        model_bytes = sum(os.path.getsize(os.path.join(d, f))
+                          for d, _, files in os.walk(best) for f in files)
+        log(f"[8] train_game.run, Avro open to model on disk: {wall:.2f} s")
+        for st in stages:
+            if "seconds" in st:
+                log(f"  {st['stage']}: {st['seconds']:.3f} s")
+        log(f"  decoder: {decoder}")
+        log(f"  launches: {launches}")
+        log(f"  validation AUC {auc:.7f}; phase 3 {auc_phase3:.7f} "
+            f"(|diff| {abs(auc - auc_phase3):.2e}, limit {CLI_AUC_TOL:g}); "
+            f"fixed effect alone {auc_fe:.7f}")
+        log(f"  best/: {model_bytes} bytes in "
+            f"{sum(len(f) for _, _, f in os.walk(best))} files")
+        assert decoder == "native", decoder
+        assert launches["fused_glm"] > 0 and launches["fused_re"] > 0, \
+            launches
+        assert abs(auc - auc_phase3) <= CLI_AUC_TOL, (auc, auc_phase3)
+        assert auc > auc_fe + 0.01, (auc, auc_fe)
+
+        # best/ loaded again with the run's index maps and vocabularies
+        t0 = time.perf_counter()
+        shards = tuple(parse_feature_shard_config(s) for s in
+                       ("global=g|intercept", "item=it|noIntercept"))
+        maps = {c.shard_id: IndexMap.load(os.path.join(
+            out, "feature-indexes", f"{c.shard_id}.json")) for c in shards}
+        reader = data_reader.AvroDataReader(shard_configs=shards,
+                                            index_maps=maps)
+        ids = ("songId", "userId")
+        _, _, vocabs = reader.read(paths["train"], id_columns=ids)
+        vdata, _, _ = reader.read(paths["valid"], id_columns=ids,
+                                  entity_vocabs=vocabs)
+        model = model_io.load_game_model(
+            model_io.resolve_game_model_dir(out), maps, vocabs,
+            device="cuda")
+        reload_auc = parse_evaluators(["AUC"])[0].evaluate(
+            model.score(vdata), vdata.labels, vdata.weights)
+        log(f"  best/ reloaded and rescored in "
+            f"{time.perf_counter() - t0:.2f} s: AUC {reload_auc:.7f} "
+            f"(|diff| {abs(reload_auc - auc):.2e}, limit "
+            f"{RELOAD_AUC_TOL:g})")
+        assert abs(reload_auc - auc) <= RELOAD_AUC_TOL, (reload_auc, auc)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1316,6 +1501,11 @@ def main() -> int:
     log(f"  SIMPLE variances at lambda={GLM_LAMBDAS[2]:g}: max relative "
         f"|cuda - cpu| {rel_var:.2e}")
     assert rel_var <= 1e-4, rel_var
+    del datas, problem, var
+    torch.cuda.empty_cache()
+
+    # 8. the e2e CLI, Avro in and model directory out -----------------------
+    cli_launches = run_cli_phase(tg, fused_glm, fused_re, auc, auc_fe)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [
@@ -1323,6 +1513,7 @@ def main() -> int:
              source="photon_ml_tpu_torch/csrc/fused_glm.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:118",
              launches=launches["fused_glm"], **t1,
+             e2e_cli=dict(launches=cli_launches["fused_glm"]),
              glm_path=dict(launches=glm_launches["tron"]["fused_glm"],
                            **t1_glm),
              glm_small=dict(launches=runs["cuda"]["tron"][3]["fused_glm"],
@@ -1331,7 +1522,8 @@ def main() -> int:
              status="ported",
              source="photon_ml_tpu_torch/csrc/fused_re.cu",
              replaces="photon_ml_tpu/ops/pallas_re.py:130",
-             launches=launches["fused_re"], **t2),
+             launches=launches["fused_re"], **t2,
+             e2e_cli=dict(launches=cli_launches["fused_re"])),
         dict(name="fused_hvp", route="cuda", status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_hvp.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:447",

@@ -1,0 +1,84 @@
+"""Run logging and stage timing (counterpart of
+``photon_ml_tpu/logging_util.py``): a run logger that tees log lines to the
+console and ``photon.log`` in the run directory and appends structured
+metrics to ``metrics.jsonl``, and ``timed`` stage sections logged at start
+and end. The stage clock is ``time.perf_counter``; the reference's
+telemetry spans, event bus and profiler hook are not ported."""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import logging
+import os
+import threading
+import time
+from typing import Iterator, Optional
+
+logger = logging.getLogger("photon_ml_tpu_torch")
+
+
+class RunLogger:
+    """Tees log lines to the console and a run-directory log file, and
+    appends structured metrics to ``metrics.jsonl``."""
+
+    def __init__(self, run_dir: Optional[str] = None, level=logging.INFO):
+        self.run_dir = run_dir
+        self._handlers: list[logging.Handler] = []
+        root = logging.getLogger("photon_ml_tpu_torch")
+        root.setLevel(level)
+        fmt = logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s")
+        if not any(isinstance(h, logging.StreamHandler) for h in root.handlers):
+            sh = logging.StreamHandler()
+            sh.setFormatter(fmt)
+            root.addHandler(sh)
+            self._handlers.append(sh)
+        if run_dir:
+            os.makedirs(run_dir, exist_ok=True)
+            fh = logging.FileHandler(os.path.join(run_dir, "photon.log"))
+            fh.setFormatter(fmt)
+            root.addHandler(fh)
+            self._handlers.append(fh)
+        self._metrics_path = (os.path.join(run_dir, "metrics.jsonl")
+                              if run_dir else None)
+        # one append handle for the logger's lifetime; the lock keeps lines
+        # from several threads whole
+        self._metrics_lock = threading.Lock()
+        self._metrics_fh = (open(self._metrics_path, "a", encoding="utf-8")
+                            if self._metrics_path else None)
+
+    def metric(self, **kwargs) -> None:
+        kwargs.setdefault("ts", time.time())
+        line = json.dumps(kwargs) + "\n"
+        with self._metrics_lock:
+            if self._metrics_fh is not None:
+                self._metrics_fh.write(line)
+                self._metrics_fh.flush()
+        logger.info("metric %s", kwargs)
+
+    def close(self) -> None:
+        with self._metrics_lock:
+            if self._metrics_fh is not None:
+                self._metrics_fh.close()
+                self._metrics_fh = None
+        root = logging.getLogger("photon_ml_tpu_torch")
+        for h in self._handlers:
+            root.removeHandler(h)
+            h.close()
+        self._handlers.clear()
+
+
+@contextlib.contextmanager
+def timed(stage: str, run_logger: Optional[RunLogger] = None) -> Iterator[None]:
+    """``with timed("Read training data", run_logger): ...`` logs the stage's
+    start and its wall seconds, and records ``{"stage": ..., "seconds":
+    ...}`` in ``metrics.jsonl``."""
+    logger.info("%s: start", stage)
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        logger.info("%s: done in %.2fs", stage, dt)
+        if run_logger is not None:
+            run_logger.metric(stage=stage, seconds=round(dt, 3))
