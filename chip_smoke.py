@@ -63,7 +63,22 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    kernels 1 and 2 must have launched, the AUC must be within 1e-4 of
    phase 3's and beat the fixed effect alone, and ``best/``, loaded again
    with the run's index maps and vocabularies, must score the validation
-   file to the run's AUC within 1e-6.
+   file to the run's AUC within 1e-6;
+9. the GLM command, from Avro to a model directory: phase 6's rows (and
+   phase 7's) written to Avro, and a wide sparse file (200k rows, 64
+   nonzeros a row over 100,000 columns; 20k x 50,000 for the CPU
+   comparison), trained by ``photon_ml_tpu_torch.cli.train_glm.run`` with
+   lambda 100;10;1;0.1;0.01 and AUC: TRON (kernels 1 and 3 must launch)
+   and batched L-BFGS (kernel 4), which must select phase 6's lambda at
+   its AUC within 1e-4; elastic net (alpha 0.5) through OWL-QN,
+   sequential (kernel 1) and batched (kernel 4), with exact zeros at the
+   largest lambda; and sequential L-BFGS on the sparse file, which must
+   launch no kernel and whose contractions must rerun bit for bit. At
+   every lambda the reported |grad| (the pseudo-gradient's under elastic
+   net) must match the exact f64 one within its f32 rounding scale, and
+   ``best/`` must rescore the validation file to the run's AUC within
+   1e-6; elastic net at 20k x 128 and the sparse run at 20k x 50,000 on
+   the card and on the CPU must agree as phase 7's sweeps do.
 
 Any failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the ``kernels``
@@ -1192,6 +1207,421 @@ def run_cli_phase(tg, fused_glm, fused_re, auc_phase3, auc_fe):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 9: the GLM command, Avro in, model directory out
+# --------------------------------------------------------------------------
+
+#: phase 9's wide sparse file: 64 nonzeros a row over 100,000 columns (the
+#: shape of the JAX package's ChunkedSparseDesign measurement,
+#: photon_ml_tpu/ops/design.py:155-160), and its card-vs-CPU cut
+WIDE = dict(rows=200_000, valid_rows=20_000, dim=100_000, nnz=64)
+WIDE_SMALL = dict(rows=20_000, valid_rows=4_000, dim=50_000, nnz=64)
+#: train_glm's runs: (name, data, arguments). (a)-(c) on phase 6's rows
+#: without an intercept, as phase 6 solves them; (d) on the wide file with
+#: train_glm's default intercept
+GLM_CLI_RUNS = [
+    ("tron", "dense", ["--no-intercept", "--optimizer", "TRON",
+                       "--max-iterations", str(GLM_TRON_MAX_ITER)]),
+    ("batched", "dense", ["--no-intercept", "--sweep-mode", "batched",
+                          "--max-iterations", str(GLM_LBFGS_MAX_ITER)]),
+    ("owlqn", "dense", ["--no-intercept", "--optimizer", "OWLQN",
+                        "--regularization-type", "ELASTIC_NET",
+                        "--elastic-net-alpha", "0.5",
+                        "--max-iterations", str(GLM_LBFGS_MAX_ITER)]),
+    ("owlqn_batched", "dense", ["--no-intercept", "--optimizer", "OWLQN",
+                                "--regularization-type", "ELASTIC_NET",
+                                "--elastic-net-alpha", "0.5",
+                                "--sweep-mode", "batched",
+                                "--max-iterations", str(GLM_LBFGS_MAX_ITER)]),
+    ("sparse", "wide", ["--max-iterations", str(GLM_LBFGS_MAX_ITER)]),
+]
+#: the kernels each run must launch (and the sparse run none)
+GLM_CLI_KERNELS = {"tron": ("fused_glm", "fused_hvp"),
+                   "batched": ("fused_glm_multi",),
+                   "owlqn": ("fused_glm",),
+                   "owlqn_batched": ("fused_glm_multi",),
+                   "sparse": ()}
+
+
+def make_wide(rows, valid_rows, dim, nnz, seed=2):
+    """Sparse logistic rows of ``nnz`` distinct columns out of ``dim``
+    (values N(0, 1/nnz), labels from planted N(0, 4) coefficients), as CSR
+    (indptr, cols, vals, labels) of the ``rows`` training and the
+    ``valid_rows`` held-out rows."""
+    rng = np.random.default_rng(seed)
+    n = rows + valid_rows
+    cols = (np.sort(rng.integers(0, dim - nnz + 1, size=(n, nnz)), axis=1)
+            + np.arange(nnz))
+    vals = (rng.normal(size=(n, nnz)) / np.sqrt(nnz)).astype(np.float32)
+    w_true = 2.0 * rng.normal(size=dim)
+    m = (w_true[cols] * vals).sum(1)
+    y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-m))).astype(np.float32)
+    indptr = np.arange(rows + 1, dtype=np.int64) * nnz
+    vptr = np.arange(valid_rows + 1, dtype=np.int64) * nnz
+    return ((indptr, cols[:rows].ravel(), vals[:rows].ravel(), y[:rows]),
+            (vptr, cols[rows:].ravel(), vals[rows:].ravel(), y[rows:]))
+
+
+def dense_csr(x, y):
+    """The nonzeros of a dense ``x`` as CSR (indptr, cols, vals, labels)."""
+    r, c = np.nonzero(x)
+    indptr = np.zeros(len(x) + 1, np.int64)
+    np.cumsum(np.bincount(r, minlength=len(x)), out=indptr[1:])
+    return indptr, c.astype(np.int32), x[r, c], y
+
+
+def write_glm_part(path, indptr, cols, vals, labels, first_uid):
+    """One TrainingExampleAvro file (null codec) of CSR rows: features
+    ``x{col}``, no offsets, weights or metadata. Runs in a worker
+    process."""
+    from photon_ml_tpu_torch.io import data_reader
+
+    cols, vals = cols.tolist(), vals.tolist()
+    labels = labels.tolist()
+
+    def records():
+        for j, y in enumerate(labels):
+            a, b = int(indptr[j]), int(indptr[j + 1])
+            yield {"uid": str(first_uid + j), "response": y, "offset": None,
+                   "weight": None,
+                   "features": [{"name": f"x{c}", "term": "", "value": v}
+                                for c, v in zip(cols[a:b], vals[a:b])],
+                   "metadataMap": {}}
+
+    data_reader.write_training_examples(path, records(), codec="null")
+    return os.path.getsize(path)
+
+
+def write_glm_files(root, sets, parts=4):
+    """Write each CSR set of ``sets`` ({name: csr}) under ``root``: a
+    directory of ``parts`` files, all sets at once over a pool of spawned
+    worker processes. Returns ({name: path}, total bytes, records)."""
+    import concurrent.futures
+    import multiprocessing
+
+    jobs, paths = [], {}
+    for name, (indptr, cols, vals, labels) in sets.items():
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        paths[name] = d
+        n = len(labels)
+        cuts = np.linspace(0, n, min(parts, n) + 1).astype(np.int64)
+        for k, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+            a, b = indptr[lo], indptr[hi]
+            jobs.append((os.path.join(d, f"part-{k:02d}.avro"),
+                         indptr[lo:hi + 1] - a, cols[a:b], vals[a:b],
+                         labels[lo:hi], int(lo)))
+    workers = min(len(jobs), os.cpu_count() or 1, 8)
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        sizes = list(pool.map(write_glm_part, *zip(*jobs)))
+    return paths, sum(sizes), sum(len(s[3]) for s in sets.values())
+
+
+def glm_cli_args(train, valid, out, extra, device=None):
+    args = ["--training-data", train, "--validation-data", valid,
+            "--output-dir", out, "--evaluators", "AUC",
+            "--regularization-weights",
+            ";".join(f"{lam:g}" for lam in GLM_LAMBDAS)] + extra
+    return args + (["--device", device] if device else [])
+
+
+def read_run(out):
+    """A train_glm run directory: its stage walls, per-lambda (reported
+    |grad|, iterations, converged, AUC) and coefficients (host f64 arrays
+    in the run's feature order), and its feature index."""
+    from photon_ml_tpu_torch.io import model_io
+    from photon_ml_tpu_torch.io.index import IndexMap
+
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    imap = IndexMap.load(os.path.join(out, "feature-index.json"))
+    lams = {}
+    for m in lines:
+        if m["stage"] == "train":
+            lam = m["regularization_weight"]
+            w = model_io.load_glm_model(
+                os.path.join(out, "all", f"lambda-{lam:g}", "model.avro"),
+                imap, device="cpu").coefficients.means
+            lams[lam] = dict(grad_norm=m["grad_norm"],
+                             iterations=m["iterations"],
+                             converged=m["converged"],
+                             w=w.double().numpy())
+        elif m["stage"] == "validate":
+            lams[m["regularization_weight"]]["auc"] = m["AUC"]
+    stages = [(m["stage"], m["seconds"]) for m in lines if "seconds" in m]
+    return stages, lams, imap
+
+
+def read_glm_data(path, imap, device):
+    """``path`` read with a run's feature index into train_glm's
+    GLMData on ``device``."""
+    from photon_ml_tpu_torch.cli import train_glm
+    from photon_ml_tpu_torch.io import data_reader
+
+    reader = data_reader.AvroDataReader(
+        shard_configs=(data_reader.FeatureShardConfig(
+            "global", feature_bags=None, has_intercept=imap.has_intercept),),
+        index_maps={"global": imap})
+    data, _, _ = reader.read(path)
+    return train_glm._to_glm_data(data, "global", "float32", device)
+
+
+class Contractions:
+    """``X v``, ``Xᵀ g`` and their |X| versions in f64 for a GLMData's
+    design, dense or chunked sparse (f32 values, f64 sums)."""
+
+    def __init__(self, glm):
+        from photon_ml_tpu_torch.ops.design import DenseDesign
+
+        d = glm.design
+        if isinstance(d, DenseDesign):
+            x = d.x.double()
+            ax = x.abs()
+            self.mv, self.rmv = (lambda v: x @ v), (lambda g: x.t() @ g)
+            self.amv, self.armv = (lambda v: ax @ v), (lambda g: ax.t() @ g)
+        else:
+            a = dataclasses.replace(d, rvals=d.rvals.abs(),
+                                    cvals=d.cvals.abs())
+            self.mv, self.rmv = d.matvec, d.rmatvec
+            self.amv, self.armv = a.matvec, a.rmatvec
+        self.y = glm.labels.double()
+        self.wt = glm.weights.double()
+        self.off = glm.offsets.double()
+
+
+def elastic_net_objective(c, w, lam, alpha, mask):
+    """f64 logistic objective + 0.5 (1-alpha) lam |mask w|^2 + alpha lam
+    |w|_1 at host ``w``, with its exact (pseudo-)gradient and that
+    gradient's f32 rounding scale (see :func:`check_gradients`).
+    Returns (f(w), |pg|, scale)."""
+    from photon_ml_tpu_torch.optimize.owlqn import pseudo_gradient
+
+    dev = c.y.device
+    w = torch.as_tensor(w, device=dev)
+    mk = torch.ones_like(w) if mask is None else torch.as_tensor(
+        mask, dtype=torch.float64, device=dev)
+    l1, l2 = alpha * lam, (1.0 - alpha) * lam
+    m = c.mv(w) + c.off
+    p = torch.sigmoid(m)
+    g = c.rmv(c.wt * (p - c.y)) + l2 * mk * w
+    pg = pseudo_gradient(w, g, torch.full_like(w, l1))
+    scale = (c.armv(c.wt * ((p - c.y).abs() + p * (1 - p) * c.amv(w.abs())))
+             + l2 * mk * w.abs() + l1)
+    f = float((c.wt * (torch.nn.functional.softplus(m) - c.y * m)).sum()
+              + 0.5 * l2 * ((mk * w) ** 2).sum() + l1 * w.abs().sum())
+    return (f, float(torch.linalg.vector_norm(pg)),
+            U32 * float(torch.linalg.vector_norm(scale)))
+
+
+def check_cli_gradients(label, c, lams, alpha, mask):
+    """Phase 6's gradient check on a train_glm run's coefficients: the
+    reported |grad| (the pseudo-gradient's under an L1 part) against the
+    exact f64 one within its f32 rounding scale. Returns {lam: f(w)}."""
+    out = {}
+    for lam, r in sorted(lams.items(), reverse=True):
+        f, gn, eps = elastic_net_objective(c, r["w"], lam, alpha, mask)
+        log(f"  {label} lambda={lam:g}: |grad f| f64 {gn:.6e} vs reported "
+            f"{r['grad_norm']:.6e}: |diff| {abs(gn - r['grad_norm']):.3e} "
+            f"<= f32 scale {eps:.3e}; f64 f(w) {f:.10e}; iterations "
+            f"{r['iterations']}, converged {r['converged']}; zeros "
+            f"{int((r['w'] == 0).sum())}/{r['w'].size}; AUC "
+            f"{r['auc']:.7f}")
+        assert abs(gn - r["grad_norm"]) <= eps, (label, lam, gn, r, eps)
+        out[lam] = f
+    return out
+
+
+def rescore(out, valid_glm, imap, auc):
+    """``best/model.avro`` loaded with the run's feature index scores the
+    validation rows to the run's AUC within RELOAD_AUC_TOL."""
+    from photon_ml_tpu_torch.evaluation import parse_evaluators
+    from photon_ml_tpu_torch.io import model_io
+
+    model = model_io.load_glm_model(os.path.join(out, "best", "model.avro"),
+                                    imap, device=valid_glm.labels.device)
+    scores = model.score(valid_glm.design).cpu().numpy()
+    got = parse_evaluators(["AUC"])[0].evaluate(
+        scores, valid_glm.labels.cpu().numpy())
+    assert abs(got - auc) <= RELOAD_AUC_TOL, (out, got, auc)
+    return got
+
+
+def run_glm_cli_phase(fused_glm, fused_hvp, fused_re, phase6,
+                      device="cuda"):
+    """Phase 9; ``phase6`` is {sweep: (best lambda, AUC)} of phase 6's
+    in-memory sweeps. Returns each run's kernel launch counts. The
+    full-width runs' checks run on ``device``."""
+    from photon_ml_tpu_torch.cli import train_glm
+    from photon_ml_tpu_torch.ops.design import ChunkedSparseDesign
+
+    counted = {"fused_glm": fused_glm.fused_value_and_grad,
+               "fused_hvp": fused_hvp.fused_hvp,
+               "fused_glm_multi": fused_glm.fused_value_and_grad_multi,
+               "fused_re": fused_re.fused_entity_value_and_grad}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_glm_")
+    try:
+        t0 = time.perf_counter()
+        (x_tr, y_tr), (x_va, y_va) = make_glm(**GLM)
+        (xs_tr, ys_tr), (xs_va, ys_va) = make_glm(**GLM_SMALL, seed=1)
+        wide, wide_va = make_wide(**WIDE)
+        wide_s, wide_s_va = make_wide(**WIDE_SMALL, seed=3)
+        sets = {"dense": dense_csr(x_tr, y_tr),
+                "dense_valid": dense_csr(x_va, y_va),
+                "small": dense_csr(xs_tr, ys_tr),
+                "small_valid": dense_csr(xs_va, ys_va),
+                "wide": wide, "wide_valid": wide_va,
+                "wide_small": wide_s, "wide_small_valid": wide_s_va}
+        del x_tr, x_va
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        paths, nbytes, nrec = write_glm_files(tmp, sets)
+        log(f"[9] generated the GLM rows in {gen_s:.1f} s and wrote them to "
+            f"Avro ({nrec} records in {len(sets)} sets, null codec, {nbytes} "
+            f"bytes) in {time.perf_counter() - t0:.2f} s (spawned writer "
+            "processes, not in the walls below)")
+        del sets
+
+        launches, runs = {}, {}
+        for name, data, extra in GLM_CLI_RUNS:
+            out = os.path.join(tmp, name)
+            for fn in counted.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            result = train_glm.run(glm_cli_args(
+                paths[data], paths[data + "_valid"], out, extra))
+            wall = time.perf_counter() - t0
+            launches[name] = {k: fn.launches for k, fn in counted.items()}
+            stages, lams, imap = read_run(out)
+            runs[name] = (result, lams, imap, out)
+            log(f"[9] train_glm {name} ({' '.join(extra)}): {wall:.2f} s "
+                f"from Avro open to models on disk; best lambda "
+                f"{result['best_lambda']:g}, AUC "
+                f"{result['best_evaluation']['AUC']:.7f}")
+            for stage, sec in stages:
+                log(f"  {stage}: {sec:.3f} s")
+            log(f"  launches: {launches[name]}")
+            for k in GLM_CLI_KERNELS[name]:
+                assert launches[name][k] > 0, (name, launches[name])
+            if name == "sparse":
+                assert not any(launches[name].values()), launches[name]
+
+        # (a) and (b) against phase 6's in-memory sweeps of the same rows
+        for name in ("tron", "batched"):
+            result = runs[name][0]
+            lam6, auc6 = phase6[name]
+            auc = result["best_evaluation"]["AUC"]
+            log(f"  {name}: best lambda {result['best_lambda']:g} (phase 6 "
+                f"{lam6:g}); AUC {auc:.7f} (phase 6 {auc6:.7f}, |diff| "
+                f"{abs(auc - auc6):.2e}, limit {CLI_AUC_TOL:g})")
+            assert result["best_lambda"] == lam6, (name, result, lam6)
+            assert abs(auc - auc6) <= CLI_AUC_TOL, (name, auc, auc6)
+
+        # every lambda's reported |grad| and the reloaded best models
+        checks = {"dense": ("tron", "batched", "owlqn", "owlqn_batched"),
+                  "wide": ("sparse",)}
+        for data, names in checks.items():
+            imap = runs[names[0]][2]
+            train = read_glm_data(paths[data], imap, device)
+            valid = read_glm_data(paths[data + "_valid"], imap, device)
+            c = Contractions(train)
+            for name in names:
+                result, lams, imap_n, out = runs[name]
+                assert imap_n.names() == imap.names(), name
+                alpha = 0.5 if name.startswith("owlqn") else 0.0
+                mask = cli_mask(imap)
+                check_cli_gradients(name, c, lams, alpha, mask)
+                auc = result["best_evaluation"]["AUC"]
+                got = rescore(out, valid, imap, auc)
+                log(f"  {name}: best/ reloaded and rescored: AUC "
+                    f"{got:.7f} (|diff| {abs(got - auc):.2e}, limit "
+                    f"{RELOAD_AUC_TOL:g})")
+            if data == "dense":
+                top = runs["owlqn"][1][max(GLM_LAMBDAS)]["w"]
+                topb = runs["owlqn_batched"][1][max(GLM_LAMBDAS)]["w"]
+                log(f"  elastic net at lambda={max(GLM_LAMBDAS):g}: "
+                    f"{int((top == 0).sum())} (sequential), "
+                    f"{int((topb == 0).sum())} (batched) of {top.size} "
+                    "coefficients exactly 0")
+                assert (top == 0).any() and (topb == 0).any()
+            else:
+                # the sparse contractions rerun bit for bit on the card
+                d = train.design
+                assert isinstance(d, ChunkedSparseDesign)
+                gen = torch.Generator(device=device).manual_seed(97)
+                w = torch.randn(d.dim, device=device, generator=gen)
+                g = torch.randn(d.n_samples, device=device, generator=gen)
+                reruns = [(d.matvec(w), d.rmatvec(g)) for _ in range(3)]
+                same = all(torch.equal(a[0], reruns[0][0])
+                           and torch.equal(a[1], reruns[0][1])
+                           for a in reruns[1:])
+                log(f"  sparse design {d.n_samples} x {d.dim}, "
+                    f"{int((d.rvals != 0).sum())} stored values, chunks "
+                    f"{tuple(d.rvals.shape)} rows / {tuple(d.cvals.shape)} "
+                    f"columns: matvec and rmatvec bit-identical over 3 "
+                    f"runs: {same}")
+                assert same
+            del train, valid, c
+            if device == "cuda":
+                torch.cuda.empty_cache()
+
+        # (c) and (d) cut to size, on the card and on the CPU
+        small_runs = [("owlqn", "small", GLM_CLI_RUNS[2][2]),
+                      ("owlqn_batched", "small", GLM_CLI_RUNS[3][2]),
+                      ("sparse", "wide_small", GLM_CLI_RUNS[4][2])]
+        worst, worst_auc, held = 0.0, 0.0, 0
+        for name, data, extra in small_runs:
+            extra = extra + ["--tolerance", f"{GLM_SMALL_TOLERANCE:g}"]
+            lams, objective = {}, {}
+            for device in ("cuda", "cpu"):
+                out = os.path.join(tmp, f"{name}_{data}_{device}")
+                t0 = time.perf_counter()
+                train_glm.run(glm_cli_args(paths[data],
+                                           paths[data + "_valid"], out,
+                                           extra, device=device))
+                log(f"[9] train_glm {name} on {data} ({device}): "
+                    f"{time.perf_counter() - t0:.2f} s")
+                _, lams[device], imap = read_run(out)
+                c = Contractions(read_glm_data(paths[data], imap, device))
+                objective[device] = check_cli_gradients(
+                    f"{device} {name}", c,
+                    lams[device], 0.5 if name.startswith("owlqn") else 0.0,
+                    cli_mask(imap))
+            for lam in GLM_LAMBDAS:
+                a, b = lams["cuda"][lam], lams["cpu"][lam]
+                fa, fb = objective["cuda"][lam], objective["cpu"][lam]
+                both = a["converged"] and b["converged"]
+                rel = abs(fa - fb) / abs(fb)
+                d_auc = abs(a["auc"] - b["auc"])
+                worst = max(worst, rel)
+                held += both
+                worst_auc = max(worst_auc, d_auc)
+                log(f"    {name} lambda={lam:g}: converged {a['converged']}"
+                    f"/{b['converged']}; f64 f(w) relative |cuda - cpu| "
+                    f"{rel:.3e} (limit {OBJECTIVE_RTOL[both]:g}); |AUC cuda "
+                    f"- AUC cpu| {d_auc:.2e} (limit 1e-4)")
+                assert rel <= OBJECTIVE_RTOL[both], (name, lam, rel)
+                assert d_auc <= 1e-4, (name, lam, d_auc)
+        log(f"[9] card vs CPU: f64 objectives within {worst:.3e} relative "
+            f"({held} lambdas converged on both devices), AUCs within "
+            f"{worst_auc:.2e}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cli_mask(imap):
+    """train_glm's L2 mask: 0 on the intercept, if the run has one."""
+    from photon_ml_tpu_torch.types import INTERCEPT_KEY
+
+    if not imap.has_intercept:
+        return None
+    mask = np.ones(len(imap))
+    mask[imap.key_to_index[INTERCEPT_KEY]] = 0.0
+    return mask
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1423,6 +1853,9 @@ def main() -> int:
         log(f"  {name} sweep: {sec:.3f} s wall, ~{kern_s:.3f} s of it in "
             f"its kernels (launches x time per launch, "
             f"{100 * kern_s / sec:.1f} %)")
+    phase6 = {name: (trained[best].regularization_weight,
+                     trained[best].evaluation.primary[1])
+              for name, (trained, best, _, _) in glm_runs.items()}
     del train, valid, glm_runs, x
     torch.cuda.empty_cache()
 
@@ -1507,6 +1940,14 @@ def main() -> int:
     # 8. the e2e CLI, Avro in and model directory out -----------------------
     cli_launches = run_cli_phase(tg, fused_glm, fused_re, auc, auc_fe)
 
+    # 9. the GLM command, Avro in and model directory out -------------------
+    t0 = time.perf_counter()
+    glm_cli = run_glm_cli_phase(fused_glm, fused_hvp, fused_re, phase6)
+    log(f"[9] done in {time.perf_counter() - t0:.1f} s")
+
+    def train_glm_launches(kernel):
+        return {name: n[kernel] for name, n in glm_cli.items()}
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [
         dict(name="fused_value_and_grad", route="cuda", status="ported",
@@ -1514,6 +1955,7 @@ def main() -> int:
              replaces="photon_ml_tpu/ops/pallas_glm.py:118",
              launches=launches["fused_glm"], **t1,
              e2e_cli=dict(launches=cli_launches["fused_glm"]),
+             train_glm=dict(launches=train_glm_launches("fused_glm")),
              glm_path=dict(launches=glm_launches["tron"]["fused_glm"],
                            **t1_glm),
              glm_small=dict(launches=runs["cuda"]["tron"][3]["fused_glm"],
@@ -1523,18 +1965,21 @@ def main() -> int:
              source="photon_ml_tpu_torch/csrc/fused_re.cu",
              replaces="photon_ml_tpu/ops/pallas_re.py:130",
              launches=launches["fused_re"], **t2,
-             e2e_cli=dict(launches=cli_launches["fused_re"])),
+             e2e_cli=dict(launches=cli_launches["fused_re"]),
+             train_glm=dict(launches=train_glm_launches("fused_re"))),
         dict(name="fused_hvp", route="cuda", status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_hvp.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:447",
              launches=glm_launches["tron"]["fused_hvp"], **t3,
              batched_tron=dict(launches=bt["fused_hvp"], **t3_small),
-             game_shape=t3_game),
+             game_shape=t3_game,
+             train_glm=dict(launches=train_glm_launches("fused_hvp"))),
         dict(name="fused_value_and_grad_multi", route="cuda",
              status="ported",
              source="photon_ml_tpu_torch/csrc/fused_glm_multi.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:301",
-             launches=glm_launches["batched"]["fused_glm_multi"], **t4),
+             launches=glm_launches["batched"]["fused_glm_multi"], **t4,
+             train_glm=dict(launches=train_glm_launches("fused_glm_multi"))),
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"):

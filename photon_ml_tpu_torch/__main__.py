@@ -1,6 +1,6 @@
 """Subcommand dispatch: ``python -m photon_ml_tpu_torch <command> [args...]``
-(counterpart of ``photon_ml_tpu/__main__.py``). ``train_game`` is the only
-command ported so far."""
+(counterpart of ``photon_ml_tpu/__main__.py``). ``train_game`` and
+``train_glm`` are the commands ported so far."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import sys
 
 _COMMANDS = {
     "train_game": "photon_ml_tpu_torch.cli.train_game",
+    "train_glm": "photon_ml_tpu_torch.cli.train_glm",
 }
 
 

@@ -20,11 +20,13 @@
 Options the port does not run yet raise :class:`NotImplementedError` naming
 the option: factored random effects, ``downsample`` and
 ``projector=RANDOM``. The resilience, telemetry, supervision and serving
-flag groups are not ported.
+flag groups are not ported: :func:`add_unported_flags` lets a command
+accept such flags and :func:`refuse_unported` raise naming them.
 """
 
 from __future__ import annotations
 
+import argparse
 import itertools
 from typing import Mapping, Sequence
 
@@ -163,3 +165,23 @@ def parse_grid(specs: Sequence[str]) -> list[Mapping[str, float]]:
     for combo in itertools.product(*(vals for _, vals in axes)):
         out.append({cid: v for (cid, _), v in zip(axes, combo)})
     return out or [{}]
+
+
+def add_unported_flags(parser: argparse.ArgumentParser,
+                       flags: Mapping[str, dict]) -> None:
+    """Accept each of the reference's ``flags`` (name → argparse settings)
+    that a command does not run yet; :func:`refuse_unported` raises for the
+    ones given."""
+    for flag, kwargs in flags.items():
+        parser.add_argument(flag, default=argparse.SUPPRESS,
+                            help="not ported: raises NotImplementedError",
+                            **kwargs)
+
+
+def refuse_unported(args: argparse.Namespace,
+                    flags: Mapping[str, dict]) -> None:
+    """Raise :class:`NotImplementedError` naming the first of ``flags``
+    given on the command line."""
+    for flag in flags:
+        if hasattr(args, flag[2:].replace("-", "_")):
+            raise NotImplementedError(f"{flag} is not ported")

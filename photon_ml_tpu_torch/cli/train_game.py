@@ -36,9 +36,11 @@ from typing import Optional, Sequence
 import torch
 
 from photon_ml_tpu_torch.cli.config import (
+    add_unported_flags,
     parse_coordinate_config,
     parse_feature_shard_config,
     parse_grid,
+    refuse_unported,
 )
 from photon_ml_tpu_torch.data_validation import validate_game_data
 from photon_ml_tpu_torch.device import resolve_device
@@ -123,19 +125,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the solves run (default: the GPU; there is "
                         "no fall-back to the CPU)")
-    for flag, kwargs in _UNPORTED_FLAGS.items():
-        p.add_argument(flag, default=argparse.SUPPRESS,
-                       help="not ported: raises NotImplementedError",
-                       **kwargs)
+    add_unported_flags(p, _UNPORTED_FLAGS)
     return p
 
 
 def _refuse_unported(args) -> None:
     if args.tuning != "NONE":
         raise NotImplementedError(f"--tuning {args.tuning} is not ported")
-    for flag in _UNPORTED_FLAGS:
-        if hasattr(args, flag[2:].replace("-", "_")):
-            raise NotImplementedError(f"{flag} is not ported")
+    refuse_unported(args, _UNPORTED_FLAGS)
 
 
 def _publish_copy(src_dir: str, dst_dir: str) -> None:

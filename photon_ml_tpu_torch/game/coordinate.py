@@ -37,10 +37,12 @@ CoordinateModel = Union[FixedEffectModel, RandomEffectModel]
 @dataclasses.dataclass(frozen=True)
 class FixedEffectCoordinate:
     """The global GLM solve (reference ``FixedEffectCoordinate.scala``):
-    one-lane L-BFGS or TRON solve whose every evaluation is one launch of
-    the fused fixed-effect kernel (:mod:`~photon_ml_tpu_torch.ops.fused_glm`)
-    and, under TRON, every CG product one launch of the Hvp kernel
-    (:mod:`~photon_ml_tpu_torch.ops.fused_hvp`)."""
+    one-lane L-BFGS or TRON solve whose every evaluation on a dense design
+    is one launch of the fused fixed-effect kernel
+    (:mod:`~photon_ml_tpu_torch.ops.fused_glm`) and, under TRON, every CG
+    product one launch of the Hvp kernel
+    (:mod:`~photon_ml_tpu_torch.ops.fused_hvp`); a chunked sparse design
+    takes the closed forms."""
 
     coordinate_id: str
     dataset: FixedEffectDataset

@@ -3,16 +3,19 @@
 Counterpart of ``photon_ml_tpu/game/data.py``. The global dataset is
 host-resident columnar numpy (labels, offsets, weights, per-shard CSR
 features, per-entity-type id columns). A fixed-effect dataset is the shard's
-dense design, densified on the device from the CSR arrays. A random-effect
+dense design, densified on the device from the CSR arrays, or for a shard
+too wide to densify (:func:`choose_dense_design`) a
+:class:`~photon_ml_tpu_torch.ops.design.ChunkedSparseDesign` built from its
+COO triplets, in f32. A random-effect
 dataset groups entities into fixed-shape size buckets — dense
 ``(entities, samples, features)`` blocks in each entity's compact local
 feature space (the INDEX_MAP projector) — that the batched L-BFGS solves
 one lane per entity. Bucket shapes come from the geometric or the histogram
 strategy; the host packing is the JAX package's numpy path.
 
-Not ported yet (they raise :class:`NotImplementedError`): sparse designs
-for wide shards, the RANDOM projector, and upload-and-drop streaming
-buckets (``cache_device_buckets=False``).
+Not ported yet (they raise :class:`NotImplementedError`): the RANDOM
+projector, and upload-and-drop streaming buckets
+(``cache_device_buckets=False``).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from photon_ml_tpu_torch.util import group_starts as _group_starts
 from photon_ml_tpu_torch.util import hash_uniform as _hash_uniform
 
 #: fixed-effect designs at or below this width densify when they fit the
-#: byte caps; wider ones would need the sparse designs (not ported)
+#: byte caps; wider ones take the chunked sparse design
 DENSE_DESIGN_MAX_DIM = 4096
 #: largest dim/(nnz per row) ratio at which a wider shard still densifies
 DENSE_CROSSOVER_NNZ_MULT = 512
@@ -206,7 +209,7 @@ class FixedEffectDataset:
 
     coordinate_id: str
     feature_shard_id: str
-    design: object  # DenseDesign on the device
+    design: object  # DenseDesign or ChunkedSparseDesign on the device
     labels: torch.Tensor
     weights: torch.Tensor
     dim: int
@@ -216,24 +219,31 @@ class FixedEffectDataset:
     def build(coordinate_id: str, data: GameData, feature_shard_id: str, *,
               dtype=torch.float32, device=None) -> "FixedEffectDataset":
         """The design is densified on ``device`` (``cuda`` unless the caller
-        passes ``device="cpu"``)."""
+        passes ``device="cpu"``) in ``dtype``; a shard that
+        :func:`choose_dense_design` rejects becomes a chunked sparse design
+        there, its values in f32 whatever ``dtype`` says (the JAX
+        package's single-chip wide-sparse branch)."""
         from photon_ml_tpu_torch.device import resolve_device
-        from photon_ml_tpu_torch.ops.design import DenseDesign
+        from photon_ml_tpu_torch.ops.design import (
+            ChunkedSparseDesign,
+            DenseDesign,
+        )
 
         device = resolve_device(device)
 
         shard = data.shards[feature_shard_id]
         dtype = design_dtype_of(dtype)
         itemsize = torch.empty((), dtype=dtype).element_size()
-        if not choose_dense_design(shard, itemsize=itemsize):
-            raise NotImplementedError(
-                f"fixed effect {coordinate_id!r}: shard {feature_shard_id!r} "
-                f"({shard.n_samples} x {shard.dim}) needs a sparse design, "
-                "which is not ported")
-        x = data.device_dense_shard(feature_shard_id, dtype, device)
+        if choose_dense_design(shard, itemsize=itemsize):
+            design = DenseDesign(
+                x=data.device_dense_shard(feature_shard_id, dtype, device))
+        else:
+            design = ChunkedSparseDesign.from_coo(
+                shard.rows(), shard.cols, shard.vals,
+                n_rows=shard.n_samples, n_cols=shard.dim, device=device)
         return FixedEffectDataset(
             coordinate_id=coordinate_id, feature_shard_id=feature_shard_id,
-            design=DenseDesign(x=x), labels=data.device_labels(device),
+            design=design, labels=data.device_labels(device),
             weights=data.device_weights(device), dim=shard.dim,
             n_samples=shard.n_samples)
 

@@ -9,9 +9,9 @@ The first validation evaluator is the model-selection criterion.
 ``device`` takes the place of the JAX version's ``mesh``: the fit runs on
 one device, ``cuda`` unless the caller passes ``device="cpu"``. Not ported
 yet (each raises :class:`NotImplementedError` naming the option): meshes,
-factored random effects, down-sampling, coefficient variances, partial
-retraining (``locked``), checkpoints, the divergence guard and
-``on_result``.
+L1 / elastic-net coordinates (OWL-QN), factored random effects,
+down-sampling, coefficient variances, partial retraining (``locked``),
+checkpoints, the divergence guard and ``on_result``.
 """
 
 from __future__ import annotations
@@ -36,13 +36,21 @@ from photon_ml_tpu_torch.game.data import (
 )
 from photon_ml_tpu_torch.game.model import GameModel
 from photon_ml_tpu_torch.glm.problem import GLMOptimizationConfiguration
-from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
+from photon_ml_tpu_torch.types import (
+    OptimizerType,
+    TaskType,
+    VarianceComputationType,
+)
 
 logger = logging.getLogger(__name__)
 
 
 def _check_ported(optimization: GLMOptimizationConfiguration) -> None:
-    optimization.check_ported()
+    if (optimization.optimizer == OptimizerType.OWLQN
+            or optimization.regularization.has_l1):
+        raise NotImplementedError(
+            "L1 / elastic-net regularization (the OWLQN optimizer) of a GAME "
+            "coordinate is not ported")
     if optimization.variance_type != VarianceComputationType.NONE:
         raise NotImplementedError(
             f"variance_type {optimization.variance_type.value}: GAME "

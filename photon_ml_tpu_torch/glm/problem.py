@@ -1,8 +1,10 @@
 """GLM optimization problems: objective + optimizer + regularization in one box.
 
-Counterpart of ``photon_ml_tpu/glm/problem.py``: L-BFGS and TRON solves,
-per-coefficient variances (SIMPLE and FULL). OWL-QN (L1 / elastic net)
-raises :class:`NotImplementedError`.
+Counterpart of ``photon_ml_tpu/glm/problem.py``: the reference's
+optimizer dispatch (TRON where asked for; OWL-QN where the regularization
+has an L1 part, which the optimizer handles apart from the smooth
+objective; L-BFGS otherwise) and per-coefficient variances (SIMPLE and
+FULL).
 
 Where the JAX package runs one solve per lane under ``jax.vmap`` (the
 batched lambda sweep, the random-effect buckets), :meth:`
@@ -28,6 +30,7 @@ from photon_ml_tpu_torch.optimize import (
     OptimizerConfig,
     OptimizerResult,
     minimize_lbfgs,
+    minimize_owlqn,
     minimize_tron,
 )
 from photon_ml_tpu_torch.types import OptimizerType, VarianceComputationType
@@ -49,33 +52,34 @@ class GLMOptimizationConfiguration:
                 "TRON needs a twice-differentiable objective; L1/elastic-net "
                 "requires OWLQN (as in the reference)")
 
-    def check_ported(self) -> None:
-        """Raise for the options this port does not run yet."""
-        if self.optimizer == OptimizerType.OWLQN or self.regularization.has_l1:
-            raise NotImplementedError(
-                "L1 / elastic-net regularization (the OWLQN optimizer) is "
-                "not ported")
-
 
 @dataclasses.dataclass(frozen=True)
 class OptimizationProblem:
     """A ready-to-run GLM solve of
-    ``Σ_i w_i·l(margin_i, y_i) + 0.5·l2·||w||²``."""
+    ``Σ_i w_i·l(margin_i, y_i) + 0.5·l2·||w||² (+ l1·||w||₁)``, the
+    lambda split into l1 and l2 by the regularization context."""
 
     objective: GLMObjective
     config: GLMOptimizationConfiguration = GLMOptimizationConfiguration()
 
-    def __post_init__(self) -> None:
-        self.config.check_ported()
+    @staticmethod
+    def _lam(lam, like: torch.Tensor):
+        """``lam`` as a number, or for a tensor of lambdas (one per lane) in
+        ``like``'s dtype and device."""
+        if isinstance(lam, torch.Tensor):
+            return lam.to(dtype=like.dtype, device=like.device)
+        return float(lam)
 
     def _l2(self, lam, like: torch.Tensor):
-        """The L2 weight of ``lam``: a number, or for a tensor of lambdas
-        one per lane, in ``like``'s dtype and device."""
-        if isinstance(lam, torch.Tensor):
-            lam = lam.to(dtype=like.dtype, device=like.device)
-        else:
-            lam = float(lam)
-        return self.config.regularization.l2_weight(lam)
+        """The L2 weight of ``lam``, per lane for a tensor of lambdas."""
+        return self.config.regularization.l2_weight(self._lam(lam, like))
+
+    def _l1(self, lam, like: torch.Tensor):
+        """The L1 weight of ``lam`` shaped to broadcast against the lanes
+        ``(L, d)``: a number, or ``(L, 1)`` for a tensor of lambdas."""
+        l1 = self.config.regularization.l1_weight(self._lam(lam, like))
+        return l1[:, None] if isinstance(l1, torch.Tensor) and l1.dim() \
+            else l1
 
     def run(self, data: GLMData, w0: torch.Tensor, lam=0.0) -> OptimizerResult:
         """Solve from ``w0`` at regularization ``lam``. ``w0`` ``(d,)`` solves
@@ -87,7 +91,8 @@ class OptimizationProblem:
         TRON builds its Hessian-vector operator once per Newton step
         (:meth:`GLMObjective.hvp_operator`): the curvature pass over the
         design runs once per step and every CG product is one further pass
-        (kernel 3 on the card for a dense design)."""
+        (kernel 3 on the card for a dense design). With an L1 part the
+        solve is OWL-QN's, the L1 weight per lane."""
         obj, cfg = self.objective, self.config.optimizer_config
         lanes = w0 if w0.dim() > 1 else w0[None, :]
         l2 = self._l2(lam, lanes)
@@ -108,6 +113,8 @@ class OptimizationProblem:
 
         if self.config.optimizer == OptimizerType.TRON:
             return minimize_tron(fun, hvp_at, lanes, cfg)
+        if self.config.regularization.has_l1:
+            return minimize_owlqn(fun, lanes, self._l1(lam, lanes), cfg)
         return minimize_lbfgs(fun, lanes, cfg)
 
     # --- variance (reference VarianceComputationType SIMPLE / FULL) -------

@@ -12,7 +12,10 @@ returned.
 
 On a dense design the sequential sweep runs kernel 1 for every objective
 evaluation (and kernel 3 for every CG product under TRON); the batched
-sweep runs kernel 4, one pass over the design for all lambdas. Meshes and
+sweep runs kernel 4, one pass over the design for all lambdas. L1 and
+elastic net solve with OWL-QN in both sweeps. A sparse design
+(:class:`~photon_ml_tpu_torch.ops.design.ChunkedSparseDesign`) takes the
+closed forms, its lanes sharing each gather in the batched sweep. Meshes and
 the JAX package's telemetry, fault-injection and heartbeat hooks are not
 ported; grouped evaluators (``id_tags``) raise
 :class:`NotImplementedError`. Host arrays become a :class:`GLMData` on the
@@ -92,19 +95,23 @@ def train_glm_sweep(
     config: GLMOptimizationConfiguration = GLMOptimizationConfiguration(),
     normalization: NormalizationContext = NoNormalization,
     reg_mask: Optional[torch.Tensor] = None,
+    initial: Optional[torch.Tensor] = None,
 ) -> list[TrainedModel]:
     """Train one GLM per regularization weight with warm starts.
 
     Weights are processed in descending order (strongest regularization
     first, the reference's warm-start direction); the returned list follows
     that order. ``reg_mask`` excludes coefficients (e.g. the intercept) from
-    regularization. The solve runs where ``data`` lies."""
+    regularization. ``initial`` (transformed space) starts the first solve
+    in place of zeros. The solve runs where ``data`` lies."""
     for lam in regularization_weights:
         config.regularization.check_weight(lam)
     problem = build_problem(task, config, normalization, reg_mask)
-    x = data.design.x
-    dt = accumulation_dtype(x.dtype)
-    w = torch.zeros(x.shape[-1], dtype=dt, device=x.device)
+    design = data.design
+    dt = accumulation_dtype(design.dtype)
+    w = (torch.zeros(design.dim, dtype=dt, device=design.device)
+         if initial is None
+         else initial.to(dtype=dt, device=design.device))
     out: list[TrainedModel] = []
     for lam in sorted(regularization_weights, reverse=True):
         result = _lane(problem.run(data, w, lam), 0)
@@ -131,11 +138,11 @@ def train_glm_sweep_batched(
         config.regularization.check_weight(lam)
     problem = build_problem(task, config, normalization, reg_mask)
     lams = sorted((float(l) for l in regularization_weights), reverse=True)
-    x = data.design.x
-    dt = accumulation_dtype(x.dtype)
-    w0 = torch.zeros((len(lams), x.shape[-1]), dtype=dt, device=x.device)
+    design = data.design
+    dt = accumulation_dtype(design.dtype)
+    w0 = torch.zeros((len(lams), design.dim), dtype=dt, device=design.device)
     batched = problem.run(
-        data, w0, torch.tensor(lams, dtype=torch.float32).to(x.device))
+        data, w0, torch.tensor(lams, dtype=torch.float32).to(design.device))
     return [_trained(problem, task, normalization, data, lam,
                      _lane(batched, i))
             for i, lam in enumerate(lams)]

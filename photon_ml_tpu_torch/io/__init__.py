@@ -18,4 +18,5 @@ from photon_ml_tpu_torch.io.model_io import (  # noqa: F401
     resolve_game_model_dir,
     save_game_model,
     save_glm_model,
+    save_glm_model_text,
 )

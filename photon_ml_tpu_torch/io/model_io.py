@@ -92,6 +92,26 @@ def save_glm_model(path: str, model: GeneralizedLinearModel,
     write_avro_file(path, [record], BAYESIAN_LINEAR_MODEL_AVRO)
 
 
+def save_glm_model_text(path: str, model: GeneralizedLinearModel,
+                        index_map: IndexMap, *,
+                        sparsity_threshold: float = 0.0) -> None:
+    """The text model beside the Avro one (the reference's legacy pipeline
+    writes both): one tab-separated ``name<TAB>term<TAB>value`` line per
+    coefficient above ``sparsity_threshold`` in magnitude, by |value|
+    descending, ties in index order."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    means = _host(model.coefficients.means)
+    names = index_map.names()
+    order = np.argsort(-np.abs(means), kind="stable")
+    with open(path, "w") as f:
+        for i in order:
+            v = float(means[i])
+            if abs(v) <= sparsity_threshold:
+                continue
+            name, term = _split_key(names[int(i)])
+            f.write(f"{name}\t{term}\t{v!r}\n")
+
+
 def load_glm_model(path: str, index_map: IndexMap,
                    device=None) -> GeneralizedLinearModel:
     """The GLM at ``path``, its coefficients on ``device`` (``cuda`` unless

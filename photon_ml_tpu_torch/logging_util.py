@@ -1,9 +1,10 @@
 """Run logging and stage timing (counterpart of
 ``photon_ml_tpu/logging_util.py``): a run logger that tees log lines to the
 console and ``photon.log`` in the run directory and appends structured
-metrics to ``metrics.jsonl``, and ``timed`` stage sections logged at start
-and end. The stage clock is ``time.perf_counter``; the reference's
-telemetry spans, event bus and profiler hook are not ported."""
+metrics to ``metrics.jsonl``, ``timed`` stage sections logged at start
+and end, and optimizer traces. The stage clock is ``time.perf_counter``;
+the reference's telemetry spans, event bus and profiler hook are not
+ported."""
 
 from __future__ import annotations
 
@@ -66,6 +67,47 @@ class RunLogger:
             root.removeHandler(h)
             h.close()
         self._handlers.clear()
+
+
+def log_optimizer_trace(result, label: str,
+                        run_logger: Optional[RunLogger] = None) -> None:
+    """The per-iteration (value, gradient-norm) table in the run log — the
+    reference's ``OptimizationStatesTracker`` dump. ``result`` is one lane's
+    :class:`~photon_ml_tpu_torch.optimize.OptimizerResult` with traces
+    recorded (``track_states=True``); runs of identical consecutive lines
+    collapse into one."""
+    import numpy as np
+
+    values = result.values.detach().cpu().numpy()
+    gnorms = result.grad_norms.detach().cpu().numpy()
+    if values.size == 0:
+        return  # traces off
+    n = min(int(result.iterations) + 1, len(values))
+    logger.info("%s: optimization states (%d iterations, converged=%s)",
+                label, max(n - 1, 0), bool(result.converged))
+    run_start = None
+    run_end = None
+    for i in range(n):
+        same = (run_start is not None and np.isfinite(values[i])
+                and i == run_end + 1
+                and values[i] == values[run_start]
+                and gnorms[i] == gnorms[run_start])
+        if same:
+            run_end = i
+            continue
+        if run_start is not None and run_end > run_start:
+            logger.info("%s:   ... unchanged through iter %d", label, run_end)
+        logger.info("%s: iter %4d  f=%.8e  |g|=%.4e",
+                    label, i, values[i], gnorms[i])
+        run_start = run_end = i
+    if run_start is not None and run_end > run_start:
+        logger.info("%s:   ... unchanged through iter %d", label, run_end)
+    if run_logger is not None:
+        run_logger.metric(stage="optimizer_states", label=label,
+                          iterations=int(result.iterations),
+                          converged=bool(result.converged),
+                          final_value=float(values[min(n - 1,
+                                                       len(values) - 1)]))
 
 
 @contextlib.contextmanager

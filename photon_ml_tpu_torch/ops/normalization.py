@@ -57,6 +57,19 @@ class NormalizationContext:
             w_orig[..., self.intercept_index] -= correction
         return w_orig
 
+    def original_to_model(self, w_orig: torch.Tensor) -> torch.Tensor:
+        """Inverse of :meth:`model_to_original` (a warm start from a saved
+        model when training with normalization)."""
+        if self.shifts is not None:
+            if self.intercept_index is None:
+                raise ValueError("shifts require an intercept column")
+            others = torch.ones_like(self.shifts)
+            others[self.intercept_index] = 0.0
+            correction = (w_orig * self.shifts * others).sum(-1)
+            w_orig = w_orig.clone()
+            w_orig[..., self.intercept_index] += correction
+        return w_orig if self.factors is None else w_orig / self.factors
+
 
 NoNormalization = NormalizationContext()
 

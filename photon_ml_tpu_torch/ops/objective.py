@@ -22,7 +22,10 @@ this explicit dispatch):
 and the Hessian-vector products of an ``(n, d)`` design through
 :mod:`~photon_ml_tpu_torch.ops.fused_hvp`. Each wrapper launches its CUDA
 kernel for a tensor on the card and runs its plain version for a tensor on
-the CPU. Anything else takes the closed forms below.
+the CPU. Anything else takes the closed forms below, among them every
+sparse design (:class:`~photon_ml_tpu_torch.ops.design.ChunkedSparseDesign`),
+whose margins and transposes are its ``matvec`` and ``rmatvec``: the
+JAX package's fused kernels take dense designs only, too.
 
 ``l2`` is a number or, for M lanes, an ``(M,)`` tensor (one lambda per
 lane). Weight-0 rows are padding: they are evaluated at margin 0 and
@@ -38,7 +41,13 @@ from typing import Optional
 
 import torch
 
-from photon_ml_tpu_torch.ops.design import DenseDesign, accumulation_dtype
+from photon_ml_tpu_torch.ops.design import (
+    ChunkedSparseDesign,
+    CsrDesign,
+    DenseDesign,
+    Design,
+    accumulation_dtype,
+)
 from photon_ml_tpu_torch.ops.fused_glm import (
     fused_value_and_grad,
     fused_value_and_grad_multi,
@@ -66,10 +75,18 @@ class GLMData:
     ``offsets`` (the residual scores of coordinate descent) and non-negative
     ``weights``, ``(..., n)`` each. A weight-0 row is padding."""
 
-    design: DenseDesign
+    design: Design
     labels: Tensor
     offsets: Tensor
     weights: Tensor
+
+    @property
+    def n_samples(self) -> int:
+        return self.design.n_samples
+
+    @property
+    def dim(self) -> int:
+        return self.design.dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,8 +245,28 @@ class GLMObjective:
 
     def hessian_diagonal(self, w: Tensor, data: GLMData, l2=0.0) -> Tensor:
         """Diagonal of the Hessian in transformed feature space,
-        ``Σ_i d2w_i·x'_ij² + l2·mask`` (variance type SIMPLE; dense designs
-        only, as the port has no sparse design yet)."""
+        ``Σ_i d2w_i·x'_ij² + l2·mask`` (variance type SIMPLE). On a sparse
+        design ``Σ_i d2w_i (x_ij − s_j)²`` expands over the stored entries
+        as ``Σ d2w x² − 2 s_j Σ d2w x + s_j² Σ d2w``: the last term covers
+        the implicit zeros."""
+        design = data.design
+        if isinstance(design, (ChunkedSparseDesign, CsrDesign)):
+            d2 = self._d2_weights(w, data)
+            if isinstance(design, ChunkedSparseDesign):
+                sq = design.rmatvec_squared(d2)
+            else:
+                contrib = design.values ** 2 * d2[design.rows]
+                sq = torch.zeros(design.dim, dtype=contrib.dtype,
+                                 device=contrib.device).index_add_(
+                    0, design.cols, contrib)
+            norm = self.normalization
+            diag = sq
+            if norm.shifts is not None:
+                diag = (sq - 2.0 * norm.shifts * design.rmatvec(d2)
+                        + norm.shifts ** 2 * d2.sum(-1, keepdim=True))
+            if norm.factors is not None:
+                diag = diag * norm.factors ** 2
+            return diag + self.reg_curvature(l2)
         x = self._normalized_x(data)
         d2 = self._d2_weights(w, data).to(x.dtype)
         return (torch.einsum("...nd,...n->...d", x * x, d2)
@@ -237,7 +274,17 @@ class GLMObjective:
 
     def hessian_matrix(self, w: Tensor, data: GLMData, l2=0.0) -> Tensor:
         """The full ``(d, d)`` Hessian ``X'ᵀ diag(d2w) X' + diag(l2·mask)``
-        (variance type FULL; small d only, as in the reference)."""
+        (variance type FULL; small d only, as in the reference). A sparse
+        design's is built from Hvp columns, the curvature weights computed
+        once."""
+        if not isinstance(data.design, DenseDesign):
+            if w.dim() > 1:
+                lanes = (l2 if isinstance(l2, Tensor) and l2.dim()
+                         else [l2] * w.shape[0])
+                return torch.stack([self.hessian_matrix(wl, data, ll)
+                                    for wl, ll in zip(w, lanes)])
+            eye = torch.eye(data.dim, dtype=w.dtype, device=w.device)
+            return self.hvp_operator(w, data, l2)(eye).t()
         x = self._normalized_x(data)
         d2 = self._d2_weights(w, data).to(x.dtype)
         h = torch.einsum("...nd,...n,...ne->...de", x, d2, x)

@@ -2,7 +2,8 @@
 
 Counterpart of ``photon_ml_tpu/ops/regularization.py``: one scalar lambda
 split into a smooth L2 part folded into the objective and an L1 part that
-an orthant-wise optimizer would handle (OWL-QN is not ported yet).
+the orthant-wise optimizer (:mod:`~photon_ml_tpu_torch.optimize.owlqn`)
+handles and never differentiates.
 """
 
 from __future__ import annotations
@@ -32,6 +33,13 @@ class RegularizationContext:
             object.__setattr__(self, "alpha", 1.0)
         else:
             object.__setattr__(self, "alpha", 0.0)
+
+    def l1_weight(self, regularization_weight):
+        """The L1 coefficient handed to OWL-QN (``alpha * lambda``; 0 for
+        ``NONE``); a number or a tensor of lambdas, as :meth:`l2_weight`."""
+        if self.reg_type == RegularizationType.NONE:
+            return 0.0
+        return self.alpha * regularization_weight
 
     def l2_weight(self, regularization_weight):
         """The smooth L2 coefficient folded into the objective

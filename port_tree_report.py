@@ -2,7 +2,7 @@
 by which two checkouts (a commit and its parent, unpacked with ``git
 archive``) can be compared on one machine:
 
-    python3 port_tree_report.py --tree DIR [--out FILE.json]
+    python3 port_tree_report.py --tree DIR [--out FILE.json] [--sass-only]
 
 - ``sass``: a hash of the SASS of every kernel in the libraries of all
   four kernels (``cuobjdump -sass``), by mangled name, so a change that
@@ -319,6 +319,9 @@ def main() -> int:
     ap.add_argument("--tree", default=str(HERE),
                     help="checkout whose photon_ml_tpu_torch is measured")
     ap.add_argument("--out", help="also write the report here (JSON)")
+    ap.add_argument("--sass-only", action="store_true",
+                    help="report the SASS hashes alone (a change that must "
+                         "leave the kernels' compiled code as it was)")
     ap.add_argument("--k4-bf16-seeds", type=int, default=0, metavar="N",
                     help="also read bf16 kernel 4 against its plain version "
                          "over N seeds")
@@ -344,12 +347,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     report = dict(tree=str(tree), card=card,
-                  sass=sass_hashes(cuda_build, names),
-                  glm=glm_times(cs, fused_glm, tl),
-                  hvp=hvp_times(cs, fused_hvp, tl),
-                  fit=fit_report(tg, cs, "cuda", cs.E2E),
-                  re_precision=re_precision(fused_re, tl),
-                  multi=multi_times(cs, fused_glm, tl))
+                  sass=sass_hashes(cuda_build, names))
+    if not args.sass_only:
+        report.update(glm=glm_times(cs, fused_glm, tl),
+                      hvp=hvp_times(cs, fused_hvp, tl),
+                      fit=fit_report(tg, cs, "cuda", cs.E2E),
+                      re_precision=re_precision(fused_re, tl),
+                      multi=multi_times(cs, fused_glm, tl))
     if args.k4_bf16_seeds:
         report["k4_bf16_seeds"] = k4_bf16_seeds(cs, fused_glm, tl,
                                                 args.k4_bf16_seeds)

@@ -308,8 +308,10 @@ def test_glm_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_owlqn_still_raises():
+    """L1 needs OWL-QN: TRON with an L1 part still raises, as in the JAX
+    package (OWL-QN itself is held to the JAX package in
+    tests/test_torch_owlqn.py)."""
     from photon_ml_tpu_torch.ops.regularization import L1Regularization
 
-    with pytest.raises(NotImplementedError, match="OWLQN"):
-        tglm.OptimizationProblem(TObjective(loss=tl.LogisticLoss),
-                                 TOpt(regularization=L1Regularization))
+    with pytest.raises(ValueError, match="OWLQN"):
+        TOpt(optimizer=TOptType.TRON, regularization=L1Regularization)
