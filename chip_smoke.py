@@ -78,7 +78,22 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    net) must match the exact f64 one within its f32 rounding scale, and
    ``best/`` must rescore the validation file to the run's AUC within
    1e-6; elastic net at 20k x 128 and the sparse run at 20k x 50,000 on
-   the card and on the CPU must agree as phase 7's sweeps do.
+   the card and on the CPU must agree as phase 7's sweeps do;
+10. scoring phase 8's model (``best/`` and the 100k-row validation file):
+   (a) ``photon_ml_tpu_torch.cli.score_game.run`` with AUC and the score
+   breakdown: the native writer must write ``scores.avro``, the AUC must
+   be phase 8's rescored AUC within 1e-6 and the breakdown's totals
+   bit-identical to the scores; (b) the online engine
+   (``serving.ModelRegistry.load`` on the card, max batch 1024) in f32,
+   bf16 and int8 tables: warmup captures 11 CUDA graphs and none follow,
+   20,000 records in batches of seeded random sizes from 1 to 1,500 score
+   bit-identical to (a) in f32 and within each format's bound in bf16 and
+   int8, records naming ids no model saw score as records without ids,
+   the table bytes are each format's; (c) ``serve_game``'s HTTP server on
+   port 0 with microbatch 64: 8 client threads of at least 250
+   single-record POSTs to ``/score`` over loopback, one ``/reload`` of the
+   same directory in the middle; no request fails and every reply equals
+   (b)'s f32 score. Phase 10 launches none of the four kernels.
 
 Any failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the ``kernels``
@@ -1113,8 +1128,10 @@ class Counted:
         setattr(self.module, self.name, self.fn)
 
 
-def run_cli_phase(tg, fused_glm, fused_re, auc_phase3, auc_fe):
-    """Phase 8; returns the kernels' launch counts of the CLI run."""
+def run_cli_phase(tg, fused_glm, fused_re, auc_phase3, auc_fe, tmp):
+    """Phase 8, in the directory ``tmp``; returns the kernels' launch
+    counts of the CLI run and what phase 10 scores: the run directory, the
+    validation file and ``best/``'s rescored AUC."""
     from photon_ml_tpu_torch import native
     from photon_ml_tpu_torch.cli import train_game
     from photon_ml_tpu_torch.cli.config import parse_feature_shard_config
@@ -1122,89 +1139,85 @@ def run_cli_phase(tg, fused_glm, fused_re, auc_phase3, auc_fe):
     from photon_ml_tpu_torch.io import data_reader, model_io
     from photon_ml_tpu_torch.io.index import IndexMap
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_e2e_")
-    try:
-        train, valid = make_e2e(tg, **E2E)
-        paths = {}
+    train, valid = make_e2e(tg, **E2E)
+    paths = {}
+    t0 = time.perf_counter()
+    for name, data in (("train", train), ("valid", valid)):
+        paths[name] = os.path.join(tmp, f"{name}.avro")
+        data_reader.write_training_examples(
+            paths[name], e2e_records(data), codec="null")
+    write_s = time.perf_counter() - t0
+    size = {k: os.path.getsize(p) for k, p in paths.items()}
+    log(f"[8] wrote phase 3's rows to Avro ({E2E['rows']} + "
+        f"{E2E['valid_rows']} records, null codec, {size['train']} + "
+        f"{size['valid']} bytes) in {write_s:.2f} s (pure Python, not "
+        "in the wall below)")
+    del train, valid
+    # the native library's g++ build happens once a checkout, outside
+    # the wall
+    t0 = time.perf_counter()
+    assert native.available(), "the native decoder did not build"
+    log(f"[8] built the native ingest library (g++) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = os.path.join(tmp, "run")
+    fused_glm.fused_value_and_grad.launches = 0
+    fused_re.fused_entity_value_and_grad.launches = 0
+    with Counted(native, "decode_training_file") as nat, \
+            Counted(data_reader, "iter_avro_file") as py:
         t0 = time.perf_counter()
-        for name, data in (("train", train), ("valid", valid)):
-            paths[name] = os.path.join(tmp, f"{name}.avro")
-            data_reader.write_training_examples(
-                paths[name], e2e_records(data), codec="null")
-        write_s = time.perf_counter() - t0
-        size = {k: os.path.getsize(p) for k, p in paths.items()}
-        log(f"[8] wrote phase 3's rows to Avro ({E2E['rows']} + "
-            f"{E2E['valid_rows']} records, null codec, {size['train']} + "
-            f"{size['valid']} bytes) in {write_s:.2f} s (pure Python, not "
-            "in the wall below)")
-        del train, valid
-        # the native library's g++ build happens once a checkout, outside
-        # the wall
-        t0 = time.perf_counter()
-        assert native.available(), "the native decoder did not build"
-        log(f"[8] built the native ingest library (g++) in "
-            f"{time.perf_counter() - t0:.2f} s")
-        out = os.path.join(tmp, "run")
-        fused_glm.fused_value_and_grad.launches = 0
-        fused_re.fused_entity_value_and_grad.launches = 0
-        with Counted(native, "decode_training_file") as nat, \
-                Counted(data_reader, "iter_avro_file") as py:
-            t0 = time.perf_counter()
-            result = train_game.run(cli_args(paths["train"], paths["valid"],
-                                             out))
-            wall = time.perf_counter() - t0
-        launches = {"fused_glm": fused_glm.fused_value_and_grad.launches,
-                    "fused_re": fused_re.fused_entity_value_and_grad.launches}
-        decoder = ("native" if nat.calls == 2 and py.calls == 0 else
-                   f"python ({py.calls} files; native {nat.calls})")
-        with open(os.path.join(out, "metrics.jsonl")) as f:
-            stages = [json.loads(line) for line in f]
-        auc = result["best_evaluation"]["AUC"]
-        best = os.path.join(out, "best")
-        model_bytes = sum(os.path.getsize(os.path.join(d, f))
-                          for d, _, files in os.walk(best) for f in files)
-        log(f"[8] train_game.run, Avro open to model on disk: {wall:.2f} s")
-        for st in stages:
-            if "seconds" in st:
-                log(f"  {st['stage']}: {st['seconds']:.3f} s")
-        log(f"  decoder: {decoder}")
-        log(f"  launches: {launches}")
-        log(f"  validation AUC {auc:.7f}; phase 3 {auc_phase3:.7f} "
-            f"(|diff| {abs(auc - auc_phase3):.2e}, limit {CLI_AUC_TOL:g}); "
-            f"fixed effect alone {auc_fe:.7f}")
-        log(f"  best/: {model_bytes} bytes in "
-            f"{sum(len(f) for _, _, f in os.walk(best))} files")
-        assert decoder == "native", decoder
-        assert launches["fused_glm"] > 0 and launches["fused_re"] > 0, \
-            launches
-        assert abs(auc - auc_phase3) <= CLI_AUC_TOL, (auc, auc_phase3)
-        assert auc > auc_fe + 0.01, (auc, auc_fe)
+        result = train_game.run(cli_args(paths["train"], paths["valid"],
+                                         out))
+        wall = time.perf_counter() - t0
+    launches = {"fused_glm": fused_glm.fused_value_and_grad.launches,
+                "fused_re": fused_re.fused_entity_value_and_grad.launches}
+    decoder = ("native" if nat.calls == 2 and py.calls == 0 else
+               f"python ({py.calls} files; native {nat.calls})")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        stages = [json.loads(line) for line in f]
+    auc = result["best_evaluation"]["AUC"]
+    best = os.path.join(out, "best")
+    model_bytes = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, files in os.walk(best) for f in files)
+    log(f"[8] train_game.run, Avro open to model on disk: {wall:.2f} s")
+    for st in stages:
+        if "seconds" in st:
+            log(f"  {st['stage']}: {st['seconds']:.3f} s")
+    log(f"  decoder: {decoder}")
+    log(f"  launches: {launches}")
+    log(f"  validation AUC {auc:.7f}; phase 3 {auc_phase3:.7f} "
+        f"(|diff| {abs(auc - auc_phase3):.2e}, limit {CLI_AUC_TOL:g}); "
+        f"fixed effect alone {auc_fe:.7f}")
+    log(f"  best/: {model_bytes} bytes in "
+        f"{sum(len(f) for _, _, f in os.walk(best))} files")
+    assert decoder == "native", decoder
+    assert launches["fused_glm"] > 0 and launches["fused_re"] > 0, \
+        launches
+    assert abs(auc - auc_phase3) <= CLI_AUC_TOL, (auc, auc_phase3)
+    assert auc > auc_fe + 0.01, (auc, auc_fe)
 
-        # best/ loaded again with the run's index maps and vocabularies
-        t0 = time.perf_counter()
-        shards = tuple(parse_feature_shard_config(s) for s in
-                       ("global=g|intercept", "item=it|noIntercept"))
-        maps = {c.shard_id: IndexMap.load(os.path.join(
-            out, "feature-indexes", f"{c.shard_id}.json")) for c in shards}
-        reader = data_reader.AvroDataReader(shard_configs=shards,
-                                            index_maps=maps)
-        ids = ("songId", "userId")
-        _, _, vocabs = reader.read(paths["train"], id_columns=ids)
-        vdata, _, _ = reader.read(paths["valid"], id_columns=ids,
-                                  entity_vocabs=vocabs)
-        model = model_io.load_game_model(
-            model_io.resolve_game_model_dir(out), maps, vocabs,
-            device="cuda")
-        reload_auc = parse_evaluators(["AUC"])[0].evaluate(
-            model.score(vdata), vdata.labels, vdata.weights)
-        log(f"  best/ reloaded and rescored in "
-            f"{time.perf_counter() - t0:.2f} s: AUC {reload_auc:.7f} "
-            f"(|diff| {abs(reload_auc - auc):.2e}, limit "
-            f"{RELOAD_AUC_TOL:g})")
-        assert abs(reload_auc - auc) <= RELOAD_AUC_TOL, (reload_auc, auc)
-        return launches
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # best/ loaded again with the run's index maps and vocabularies
+    t0 = time.perf_counter()
+    shards = tuple(parse_feature_shard_config(s) for s in
+                   ("global=g|intercept", "item=it|noIntercept"))
+    maps = {c.shard_id: IndexMap.load(os.path.join(
+        out, "feature-indexes", f"{c.shard_id}.json")) for c in shards}
+    reader = data_reader.AvroDataReader(shard_configs=shards,
+                                        index_maps=maps)
+    ids = ("songId", "userId")
+    _, _, vocabs = reader.read(paths["train"], id_columns=ids)
+    vdata, _, _ = reader.read(paths["valid"], id_columns=ids,
+                              entity_vocabs=vocabs)
+    model = model_io.load_game_model(
+        model_io.resolve_game_model_dir(out), maps, vocabs,
+        device="cuda")
+    reload_auc = parse_evaluators(["AUC"])[0].evaluate(
+        model.score(vdata), vdata.labels, vdata.weights)
+    log(f"  best/ reloaded and rescored in "
+        f"{time.perf_counter() - t0:.2f} s: AUC {reload_auc:.7f} "
+        f"(|diff| {abs(reload_auc - auc):.2e}, limit "
+        f"{RELOAD_AUC_TOL:g})")
+    assert abs(reload_auc - auc) <= RELOAD_AUC_TOL, (reload_auc, auc)
+    return launches, dict(run=out, valid=paths["valid"], auc=reload_auc)
 
 
 # --------------------------------------------------------------------------
@@ -1622,6 +1635,346 @@ def cli_mask(imap):
     return mask
 
 
+# --------------------------------------------------------------------------
+# phase 10: scoring, batch (score_game) and online (engine, HTTP)
+# --------------------------------------------------------------------------
+
+#: score_game's AUC vs phase 8's rescored best/ (the same model and rows)
+SCORE_AUC_TOL = 1e-6
+#: the engine at serve_game's default max batch: buckets 1 .. 1024 are 11
+#: CUDA graphs; ENGINE_RECORDS validation records in batches of seeded
+#: random sizes from 1 to ENGINE_MAX_REQUEST (some chunked past 1024)
+ENGINE_MAX_BATCH = 1024
+ENGINE_CAPTURES = 11
+ENGINE_RECORDS = 20_000
+ENGINE_MAX_REQUEST = 1_500
+#: quantized tables vs f32: each row held to the error its storage format
+#: allows (:func:`quant_bounds`); the JAX package's gates relative to
+#: max(|f32|, 1) (tests/test_serving.py: bf16 1e-2, int8 5e-2, set on a
+#: 3-wide random effect) are printed beside them.
+QUANT_RTOL = {"bfloat16": 1e-2, "int8": 5e-2}
+#: table bytes a row of d coefficients: f32 4d, bf16 2d, int8 d plus its
+#: f32 scale (so int8 is 4d / (d + 4) below f32: 2.67x at the 8-wide item
+#: shard, 3.69x at the JAX package's 48-wide test table)
+ROW_BYTES = {"float32": lambda d: 4 * d, "bfloat16": lambda d: 2 * d,
+             "int8": lambda d: d + 4}
+#: HTTP: client threads x single-record POSTs to /score, microbatch 64
+HTTP_THREADS = 8
+HTTP_REQUESTS = 250
+HTTP_MICROBATCH = 64
+E2E_SHARDS = "global=g|intercept,item=it|noIntercept"
+
+
+def score_batch_phase(run, valid, auc_phase8, device="cuda"):
+    """(a) ``score_game.run`` over phase 8's validation file with AUC and
+    the breakdown; returns its scores (f32, file order)."""
+    from photon_ml_tpu_torch import native
+    from photon_ml_tpu_torch.cli import score_game
+    from photon_ml_tpu_torch.game.model import sum_coordinate_margins
+    from photon_ml_tpu_torch.io.avro import iter_avro_file
+
+    out = os.path.join(os.path.dirname(run), "scores")
+    with Counted(native, "write_scoring_results") as nat, \
+            Counted(score_game, "write_avro_file") as py:
+        t0 = time.perf_counter()
+        result = score_game.run([
+            "--data", valid, "--model-dir", run, "--output-dir", out,
+            "--feature-shards", E2E_SHARDS, "--evaluators", "AUC",
+            "--score-breakdown", "--device", device])
+        wall = time.perf_counter() - t0
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        stages = [json.loads(line) for line in f]
+    auc = result["evaluation"]["AUC"]
+    log(f"[10a] score_game.run, {result['n_scored']} records: {wall:.2f} s")
+    for st in stages:
+        if "seconds" in st:
+            log(f"  {st['stage']}: {st['seconds']:.3f} s")
+    log(f"  writer: native {nat.calls}, python {py.calls}; AUC "
+        f"{auc:.7f}, phase 8 {auc_phase8:.7f} (|diff| "
+        f"{abs(auc - auc_phase8):.2e}, limit {SCORE_AUC_TOL:g})")
+    assert nat.calls == 1 and py.calls == 0, (nat.calls, py.calls)
+    assert abs(auc - auc_phase8) <= SCORE_AUC_TOL, (auc, auc_phase8)
+    t0 = time.perf_counter()
+    scores = np.array([r["predictionScore"] for r in iter_avro_file(
+        os.path.join(out, "scores.avro"))])
+    with open(os.path.join(out, "score-breakdown.json")) as f:
+        breakdown = json.load(f)
+    # the validation records carry no offsets
+    totals = sum_coordinate_margins(
+        np.zeros(len(scores), np.float32),
+        (np.asarray(breakdown[cid], np.float32)
+         for cid in ("global", "perUser", "perSong")))
+    assert list(breakdown) == ["global", "perUser", "perSong"], \
+        list(breakdown)
+    assert np.array_equal(totals.astype(np.float64), scores)
+    assert np.array_equal(scores.astype(np.float32).astype(np.float64),
+                          scores)
+    log(f"  breakdown totals bit-identical to scores.avro "
+        f"({time.perf_counter() - t0:.2f} s to read both)")
+    return scores.astype(np.float32)
+
+
+def _unseen(records):
+    """The records with ids no model saw, and the same without ids."""
+    named = [{**r, "metadataMap": {"userId": f"uNEVER{i}",
+                                   "songId": f"sNEVER{i}"}}
+             for i, r in enumerate(records)]
+    return named, [{**r, "metadataMap": {}} for r in records]
+
+
+def quant_bounds(sm, records):
+    """Per record, the most its f32 score can move when its random-effect
+    rows are stored in bf16 or int8: a bf16 row rounds each coefficient
+    to 8 significant bits (|dw| <= 2^-8 |w|), an int8 row to a multiple
+    of its scale max|w|/127 (|dw| <= scale/2); the f32 roundings of the
+    margins and the total add 2^-22 (|total| + sum |margin|). ``sm`` is
+    the f32 version."""
+    batch = sm.engine.pack(records)
+    total, margins = sm.engine.score_batch(batch, with_margins=True)
+    slack = 2.0 ** -22 * (np.abs(total) + sum(np.abs(m) for m in margins))
+    x_of = dict(zip(sm.engine._shard_order, batch.xs))
+    bounds = {"bfloat16": slack.astype(np.float64),
+              "int8": slack.astype(np.float64)}
+    for cid, rows in zip(sm.engine._re_order, batch.rows):
+        store = sm.stores[cid]
+        w = np.abs(store.table.cpu().numpy().astype(np.float64))[rows]
+        x = np.abs(x_of[store.feature_shard_id].astype(np.float64))
+        bounds["bfloat16"] += 2.0 ** -8 * (x * w).sum(1)
+        bounds["int8"] += 0.5 * w.max(1) / 127.0 * x.sum(1)
+    return bounds
+
+
+def serve_engine_phase(run, records, want, device="cuda"):
+    """(b) the engine in each table format over ``records`` in batches of
+    seeded random sizes; returns the f32 scores."""
+    from photon_ml_tpu_torch.cli.config import parse_feature_shard_config
+    from photon_ml_tpu_torch.serving import ModelRegistry, next_bucket
+    from photon_ml_tpu_torch.serving import engine as serving_engine
+
+    shards = tuple(parse_feature_shard_config(s)
+                   for s in E2E_SHARDS.split(","))
+    sizes = []
+    rng = np.random.default_rng(10)
+    while sum(sizes) < len(records):
+        sizes.append(int(rng.integers(1, ENGINE_MAX_REQUEST + 1)))
+    sizes[-1] -= sum(sizes) - len(records)
+    assert max(sizes) > ENGINE_MAX_BATCH, sizes
+    latency = serving_engine._SCORE_LATENCY
+    scores, table_bytes = {}, {}
+    for dtype in ("float32", "bfloat16", "int8"):
+        registry = ModelRegistry(shards, max_batch=ENGINE_MAX_BATCH,
+                                 table_dtype=dtype, device=device)
+        t0 = time.perf_counter()
+        sm = registry.load(run)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        captures = sm.engine.warmup()
+        warm_s = time.perf_counter() - t0
+        frozen = sm.engine.compile_count
+        before = {b: latency.labels(bucket=str(b)).snapshot()[1:]
+                  for b in (1 << k for k in range(ENGINE_CAPTURES))}
+        per_bucket = {}
+        out, lo = [], 0
+        t0 = time.perf_counter()
+        for n in sizes:
+            t1 = time.perf_counter()
+            batch = sm.engine.pack(records[lo:lo + n])
+            t2 = time.perf_counter()
+            out.append(sm.engine.score_batch(batch))
+            t3 = time.perf_counter()
+            b = next_bucket(min(n, ENGINE_MAX_BATCH))
+            acc = per_bucket.setdefault(b, [0, 0.0, 0.0])
+            acc[0] += 1
+            acc[1] += t2 - t1
+            acc[2] += t3 - t2
+            lo += n
+        wall = time.perf_counter() - t0
+        got = np.concatenate(out)
+        scores[dtype] = got
+        table_bytes[dtype] = sum(s.table_bytes for s in sm.stores.values())
+        assert table_bytes[dtype] == sum(
+            s.table.shape[0] * ROW_BYTES[dtype](s.dim)
+            for s in sm.stores.values()), (dtype, table_bytes[dtype])
+        log(f"[10b] engine {dtype} on {device}: load {load_s:.2f} s, "
+            f"warmup {captures} captures {warm_s:.2f} s; {len(records)} "
+            f"records in {len(sizes)} batches (sizes 1-{max(sizes)}) "
+            f"{wall:.2f} s; captures after warmup "
+            f"{sm.engine.compile_count - frozen}; tables {table_bytes[dtype]}"
+            f" bytes")
+        log("  bucket: batches, batch_assemble ms, execute ms (mean a "
+            "batch; host clock), device leg ms (copy-in, replay, copy-out; "
+            "mean a chunk)")
+        for b in sorted(per_bucket):
+            k, pack_s, exec_s = per_bucket[b]
+            s0, c0 = before[b]
+            _, s1, c1 = latency.labels(bucket=str(b)).snapshot()
+            leg = 1e3 * (s1 - s0) / max(c1 - c0, 1)
+            log(f"  {b:5d}: {k:3d}, {1e3 * pack_s / k:8.3f}, "
+                f"{1e3 * exec_s / k:7.3f}, {leg:7.3f}")
+        assert captures == ENGINE_CAPTURES, captures
+        assert sm.engine.compile_count == frozen, sm.engine.compile_count
+        named, anonymous = _unseen(records[:256])
+        assert np.array_equal(sm.score(named), sm.score(anonymous)), dtype
+        assert np.isfinite(got).all() and got.shape == (len(records),)
+        if dtype == "float32":
+            bounds = quant_bounds(sm, records)
+        del registry, sm
+    f32 = scores["float32"]
+    mismatch = int(np.count_nonzero(f32 != want))
+    log(f"  f32 vs score_game: {mismatch} of {len(f32)} scores differ "
+        f"(bit parity)")
+    assert mismatch == 0, mismatch
+    for dtype, rtol in QUANT_RTOL.items():
+        err = np.abs(scores[dtype].astype(np.float64) - f32)
+        rel = err / np.maximum(np.abs(f32), 1.0)
+        worst = float((err / bounds[dtype]).max())
+        log(f"  {dtype} vs f32: |diff| at most {worst:.3f} of the format's "
+            f"bound; relative to max(|f32|, 1): max {rel.max():.3e}, p99 "
+            f"{np.percentile(rel, 99):.3e}, {int((rel > rtol).sum())} rows "
+            f"above the JAX package's {rtol:g}; tables "
+            f"{table_bytes['float32'] / table_bytes[dtype]:.2f}x below f32")
+        assert worst <= 1.0, (dtype, worst)
+    return f32
+
+
+def serve_http_phase(run, records, want, device="cuda"):
+    """(c) ``serve_game``'s server on port 0: HTTP_THREADS clients of at
+    least HTTP_REQUESTS single-record POSTs each over loopback; a /reload
+    of the same directory once a quarter of them are answered, the
+    clients going on until it has answered."""
+    import http.client
+    import threading
+
+    from photon_ml_tpu_torch.cli import serve_game
+    from photon_ml_tpu_torch.telemetry import metrics
+
+    n = HTTP_THREADS * HTTP_REQUESTS
+    assert len(records) >= n
+    t0 = time.perf_counter()
+    server = serve_game.build_server([
+        "--model-dir", run, "--feature-shards", E2E_SHARDS, "--port", "0",
+        "--microbatch", str(HTTP_MICROBATCH), "--device", device]).start()
+    log(f"[10c] serve_game on {server.url}: up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    host, port = server.url.rsplit("/", 1)[1].split(":")
+    stage_hist = metrics.default_registry().get("photon_serving_stage_seconds")
+    stages = ("parse", "queue_wait", "batch_assemble", "execute", "respond")
+    before = {st: stage_hist.labels(stage=st).snapshot()[1:]
+              for st in stages}
+    replies = [[] for _ in range(HTTP_THREADS)]  # (record, score, seconds)
+    failures, versions, answered = [], set(), [0]
+    lock = threading.Lock()
+    reload_at, reloaded = threading.Event(), threading.Event()
+
+    def client(t):
+        conn = http.client.HTTPConnection(host, int(port), timeout=120)
+        try:
+            k = 0
+            while k < HTTP_REQUESTS or not reloaded.is_set():
+                i = t * HTTP_REQUESTS + k % HTTP_REQUESTS
+                k += 1
+                body = json.dumps({"record": records[i]})
+                t1 = time.perf_counter()
+                conn.request("POST", "/score", body,
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                data = json.loads(resp.read())
+                seconds = time.perf_counter() - t1
+                if resp.status != 200:
+                    failures.append((i, resp.status, data))
+                    break
+                replies[t].append((i, data["scores"][0], seconds))
+                with lock:
+                    versions.add(data["version"])
+                    answered[0] += 1
+                    if answered[0] == n // 4:
+                        reload_at.set()
+        except Exception as e:  # a failed request fails the phase
+            failures.append((t, repr(e)))
+        finally:
+            conn.close()
+
+    reload_out = {}
+
+    def reloader():
+        try:
+            if not reload_at.wait(300):
+                return
+            conn = http.client.HTTPConnection(host, int(port), timeout=300)
+            try:
+                t1 = time.perf_counter()
+                conn.request("POST", "/reload", "{}",
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                reload_out.update(status=resp.status,
+                                  body=json.loads(resp.read()),
+                                  seconds=time.perf_counter() - t1)
+            finally:
+                conn.close()
+        finally:
+            reloaded.set()
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(HTTP_THREADS)]
+    threads.append(threading.Thread(target=reloader))
+    try:
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        n_batches = server.service.batcher.n_batches
+        health = server.service.healthz()
+    finally:
+        server.stop()
+    assert not any(th.is_alive() for th in threads)
+    done = [r for rs in replies for r in rs]
+    latency = np.array([sec for _, _, sec in done])
+    p50, p99 = (1e3 * float(np.percentile(latency, q)) for q in (50, 99))
+    log(f"  {len(done)} requests ({HTTP_THREADS} threads, at least "
+        f"{HTTP_REQUESTS} each) in {wall:.2f} s ({len(done) / wall:.0f}/s); "
+        f"latency p50 {p50:.3f} ms, p99 {p99:.3f} ms; microbatcher "
+        f"{n_batches} batches, mean {len(done) / max(n_batches, 1):.2f} "
+        f"requests a batch; reload {reload_out.get('status')} in "
+        f"{reload_out.get('seconds', 0):.2f} s (versions served "
+        f"{sorted(versions)}); captures {health['compiles']}")
+    parts = []
+    for st in stages:
+        s0, c0 = before[st]
+        _, s1, c1 = stage_hist.labels(stage=st).snapshot()
+        parts.append(f"{st} {1e3 * (s1 - s0) / max(c1 - c0, 1):.3f} ms "
+                     f"x {c1 - c0}")
+    log(f"  stages (mean ms x count; batch_assemble and execute a batch, "
+        f"the rest a request): {', '.join(parts)}")
+    assert not failures, failures[:5]
+    assert reload_out.get("status") == 200, reload_out
+    assert versions == {1, 2}, versions
+    mismatch = sum(np.float32(score) != want[i] for i, score, _ in done)
+    log(f"  replies vs the engine's f32 scores: {mismatch} of {len(done)} "
+        f"differ")
+    assert mismatch == 0, mismatch
+    assert len(done) >= n and health["compiles"] == ENGINE_CAPTURES, health
+
+
+def run_scoring_phase(e2e_run, device="cuda"):
+    """Phase 10 on phase 8's best/ and validation file."""
+    from photon_ml_tpu_torch.io.avro import iter_avro_file
+
+    t_start = time.perf_counter()
+    batch = score_batch_phase(e2e_run["run"], e2e_run["valid"],
+                              e2e_run["auc"], device)
+    records = []
+    for rec in iter_avro_file(e2e_run["valid"]):
+        records.append(rec)
+        if len(records) == ENGINE_RECORDS:
+            break
+    f32 = serve_engine_phase(e2e_run["run"], records,
+                             batch[:ENGINE_RECORDS], device)
+    serve_http_phase(e2e_run["run"], records, f32, device)
+    log(f"[10] done in {time.perf_counter() - t_start:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1937,13 +2290,21 @@ def main() -> int:
     del datas, problem, var
     torch.cuda.empty_cache()
 
-    # 8. the e2e CLI, Avro in and model directory out -----------------------
-    cli_launches = run_cli_phase(tg, fused_glm, fused_re, auc, auc_fe)
+    e2e_tmp = tempfile.mkdtemp(prefix="chip_smoke_e2e_")
+    try:
+        # 8. the e2e CLI, Avro in and model directory out -------------------
+        cli_launches, e2e_run = run_cli_phase(tg, fused_glm, fused_re, auc,
+                                              auc_fe, e2e_tmp)
 
-    # 9. the GLM command, Avro in and model directory out -------------------
-    t0 = time.perf_counter()
-    glm_cli = run_glm_cli_phase(fused_glm, fused_hvp, fused_re, phase6)
-    log(f"[9] done in {time.perf_counter() - t0:.1f} s")
+        # 9. the GLM command, Avro in and model directory out ---------------
+        t0 = time.perf_counter()
+        glm_cli = run_glm_cli_phase(fused_glm, fused_hvp, fused_re, phase6)
+        log(f"[9] done in {time.perf_counter() - t0:.1f} s")
+
+        # 10. scoring phase 8's model: batch, engine, HTTP ------------------
+        run_scoring_phase(e2e_run)
+    finally:
+        shutil.rmtree(e2e_tmp, ignore_errors=True)
 
     def train_glm_launches(kernel):
         return {name: n[kernel] for name, n in glm_cli.items()}

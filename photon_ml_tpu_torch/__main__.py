@@ -1,6 +1,7 @@
 """Subcommand dispatch: ``python -m photon_ml_tpu_torch <command> [args...]``
-(counterpart of ``photon_ml_tpu/__main__.py``). ``train_game`` and
-``train_glm`` are the commands ported so far."""
+(counterpart of ``photon_ml_tpu/__main__.py``). ``train_game``,
+``train_glm``, ``score_game`` and ``serve_game`` are the commands ported so
+far."""
 
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ import sys
 _COMMANDS = {
     "train_game": "photon_ml_tpu_torch.cli.train_game",
     "train_glm": "photon_ml_tpu_torch.cli.train_glm",
+    "score_game": "photon_ml_tpu_torch.cli.score_game",
+    "serve_game": "photon_ml_tpu_torch.cli.serve_game",
 }
 
 

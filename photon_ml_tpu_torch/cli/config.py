@@ -171,8 +171,10 @@ def add_unported_flags(parser: argparse.ArgumentParser,
                        flags: Mapping[str, dict]) -> None:
     """Accept each of the reference's ``flags`` (name → argparse settings)
     that a command does not run yet; :func:`refuse_unported` raises for the
-    ones given."""
+    ones given. A ``default`` among the settings is the reference's
+    default: giving the flag that value is accepted."""
     for flag, kwargs in flags.items():
+        kwargs = {k: v for k, v in kwargs.items() if k != "default"}
         parser.add_argument(flag, default=argparse.SUPPRESS,
                             help="not ported: raises NotImplementedError",
                             **kwargs)
@@ -181,7 +183,10 @@ def add_unported_flags(parser: argparse.ArgumentParser,
 def refuse_unported(args: argparse.Namespace,
                     flags: Mapping[str, dict]) -> None:
     """Raise :class:`NotImplementedError` naming the first of ``flags``
-    given on the command line."""
-    for flag in flags:
-        if hasattr(args, flag[2:].replace("-", "_")):
+    given on the command line away from its reference default."""
+    for flag, kwargs in flags.items():
+        dest = flag[2:].replace("-", "_")
+        if not hasattr(args, dest):
+            continue
+        if "default" not in kwargs or getattr(args, dest) != kwargs["default"]:
             raise NotImplementedError(f"{flag} is not ported")

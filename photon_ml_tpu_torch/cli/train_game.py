@@ -170,12 +170,15 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                 cid: dataclasses.replace(c, design_dtype=args.design_dtype)
                 for cid, c in coordinate_configs.items()}
         update_sequence = [c for c in args.update_sequence.split(",") if c]
-        id_columns = tuple(sorted({
+        re_types = sorted({
             c.dataset.random_effect_type
             for c in coordinate_configs.values()
-            if isinstance(c, RandomEffectCoordinateConfig)}))
+            if isinstance(c, RandomEffectCoordinateConfig)})
         evaluators = parse_evaluators(
             [e for e in args.evaluators.split(",") if e])
+        # entity columns, then the grouped evaluators' id tags
+        id_columns = tuple(dict.fromkeys(
+            re_types + [e.id_tag for e in evaluators if e.id_tag]))
         # the estimator checks its configuration before the reads
         est = GameEstimator(task=task, coordinate_configs=coordinate_configs,
                             update_sequence=update_sequence,

@@ -210,13 +210,17 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     try:
         evaluators = parse_evaluators(
             [e for e in args.evaluators.split(",") if e])
+        # grouped evaluators' id tags, read as id columns of both files
+        id_columns = tuple(dict.fromkeys(
+            e.id_tag for e in evaluators if e.id_tag))
         reader = AvroDataReader(
             shard_configs=(
                 FeatureShardConfig("global", feature_bags=None,
                                    has_intercept=not args.no_intercept),),
             input_columns=parse_input_columns(args.input_columns))
         with timed("Read training data", run_logger):
-            data, index_maps, _ = reader.read(args.training_data)
+            data, index_maps, _ = reader.read(args.training_data,
+                                              id_columns=id_columns)
         imap = index_maps["global"]
 
         with timed("Validate data", run_logger):
@@ -313,12 +317,14 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                                       index_maps=index_maps,
                                       input_columns=reader.input_columns)
             with timed("Read validation data", run_logger):
-                vdata, _, _ = reader_v.read(args.validation_data)
+                vdata, _, _ = reader_v.read(args.validation_data,
+                                            id_columns=id_columns)
             glm_val = _to_glm_data(vdata, "global", args.design_dtype,
                                    device)
             with timed("Validate models", run_logger):
                 best_idx, trained = validate_and_select(
-                    trained, evaluators, glm_val)
+                    trained, evaluators, glm_val,
+                    id_tags=vdata.id_columns)
             for tm in trained:
                 run_logger.metric(
                     stage="validate",

@@ -1,19 +1,30 @@
 """Evaluators, evaluator-string parsing and evaluation results.
 
-Counterpart of ``photon_ml_tpu/evaluation/evaluator.py`` for whole-dataset
-metrics: ``AUC``, ``RMSE``, ``LOGISTIC_LOSS``, ``SQUARED_LOSS``,
-``POISSON_LOSS``, ``SMOOTHED_HINGE_LOSS``. The per-group evaluators
-(``AUC:<idTag>``, ``PRECISION@k:<idTag>``) are not ported yet and raise
-:class:`NotImplementedError`. The first validation evaluator is the
-model-selection criterion; ``better_than`` encodes its direction.
+Counterpart of ``photon_ml_tpu/evaluation/evaluator.py``, the same
+vocabulary:
+
+- ``AUC``, ``RMSE``, ``LOGISTIC_LOSS``, ``SQUARED_LOSS``, ``POISSON_LOSS``,
+  ``SMOOTHED_HINGE_LOSS``: whole-dataset metrics;
+- ``AUC:<idTag>``: per-group AUC averaged over groups (sharded AUC);
+- ``PRECISION@<k>:<idTag>``: per-group precision at k.
+
+The first validation evaluator is the model-selection criterion;
+``better_than`` encodes its direction.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence
+import re
+from typing import Mapping, Optional, Sequence
 
+import numpy as np
+
+from photon_ml_tpu_torch.evaluation.grouped import (
+    grouped_auc,
+    grouped_precision_at_k,
+)
 from photon_ml_tpu_torch.evaluation.metrics import (
     area_under_roc_curve,
     mean_pointwise_loss,
@@ -28,22 +39,51 @@ _LOSS_BY_NAME = {
     "SMOOTHED_HINGE_LOSS": losses_mod.SmoothedHingeLoss,
 }
 
+_PRECISION_RE = re.compile(r"^PRECISION@(\d+):(.+)$", re.IGNORECASE)
+
 
 @dataclasses.dataclass(frozen=True)
 class Evaluator:
-    """A named metric over scored data; ``maximize`` gives the
-    model-selection direction."""
+    """A named metric over scored data.
+
+    ``id_tag`` is the grouping column of a per-group metric (None for a
+    whole-dataset one); ``maximize`` gives the model-selection direction.
+    """
 
     name: str
     maximize: bool
+    id_tag: Optional[str] = None
+    k: Optional[int] = None  # PRECISION@k only
 
-    def evaluate(self, scores, labels, weights=None) -> float:
-        if self.name == "AUC":
+    def evaluate(self, scores, labels, weights=None,
+                 id_tags: Optional[Mapping[str, np.ndarray]] = None) -> float:
+        """Compute the metric. ``id_tags`` maps a tag name to each
+        sample's group id (-1 where the sample has none)."""
+        if self.id_tag is not None:
+            if id_tags is None or self.id_tag not in id_tags:
+                raise KeyError(
+                    f"evaluator {self.name} needs id tag '{self.id_tag}' "
+                    f"but scored data has {sorted(id_tags or {})}")
+            groups = np.asarray(id_tags[self.id_tag])
+            # rows without the tag (-1) take no part, as the reference
+            # joins scores with present tags only
+            present = groups >= 0 if np.issubdtype(groups.dtype, np.integer) \
+                else np.ones(groups.shape, bool)
+            scores = _host(scores)[present]
+            labels = _host(labels)[present]
+            groups = groups[present]
+            if weights is not None:
+                weights = _host(weights)[present]
+            if self.k is not None:
+                return grouped_precision_at_k(scores, labels, groups, self.k)
+            return grouped_auc(scores, labels, groups, weights)
+        base = self.name.split(":", 1)[0].upper()
+        if base == "AUC":
             return area_under_roc_curve(scores, labels, weights)
-        if self.name == "RMSE":
+        if base == "RMSE":
             return root_mean_squared_error(scores, labels, weights)
-        if self.name in _LOSS_BY_NAME:
-            return mean_pointwise_loss(_LOSS_BY_NAME[self.name], scores,
+        if base in _LOSS_BY_NAME:
+            return mean_pointwise_loss(_LOSS_BY_NAME[base], scores,
                                        labels, weights)
         raise ValueError(f"unknown evaluator {self.name!r}")
 
@@ -55,11 +95,22 @@ class Evaluator:
 
 
 def parse_evaluator(spec: str) -> Evaluator:
-    """Parse a reference-vocabulary evaluator string."""
-    upper = spec.strip().upper()
-    if ":" in upper or upper.startswith("PRECISION@"):
-        raise NotImplementedError(
-            f"evaluator {spec!r}: per-group evaluators are not ported")
+    """Parse a reference-vocabulary evaluator string (see the module
+    docstring)."""
+    spec = spec.strip()
+    m = _PRECISION_RE.match(spec)
+    if m:
+        k = int(m.group(1))
+        if k < 1:
+            raise ValueError(f"PRECISION@k needs k >= 1, got {spec!r}")
+        return Evaluator(name=spec, maximize=True, id_tag=m.group(2), k=k)
+    upper = spec.upper()
+    if ":" in spec:
+        base, tag = spec.split(":", 1)
+        if base.upper() != "AUC":
+            raise ValueError(
+                f"only AUC and PRECISION@k support an id tag, got {spec!r}")
+        return Evaluator(name=spec, maximize=True, id_tag=tag)
     if upper == "AUC":
         return Evaluator(name="AUC", maximize=True)
     if upper == "RMSE" or upper in _LOSS_BY_NAME:
@@ -90,6 +141,17 @@ class EvaluationResults:
 
 
 def evaluate_all(evaluators: Sequence[Evaluator], scores, labels,
-                 weights=None) -> EvaluationResults:
+                 weights=None,
+                 id_tags: Optional[Mapping[str, np.ndarray]] = None,
+                 ) -> EvaluationResults:
     return EvaluationResults(tuple(
-        (ev, ev.evaluate(scores, labels, weights)) for ev in evaluators))
+        (ev, ev.evaluate(scores, labels, weights, id_tags))
+        for ev in evaluators))
+
+
+def _host(a) -> np.ndarray:
+    """A host numpy view of scores, labels or weights (tensors on any
+    device, or arrays)."""
+    if hasattr(a, "detach"):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)

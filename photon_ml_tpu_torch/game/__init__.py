@@ -26,6 +26,10 @@ from photon_ml_tpu_torch.game.coordinate_descent import (  # noqa: F401
     CoordinateDescent,
     CoordinateDescentResult,
 )
+from photon_ml_tpu_torch.game.transformer import (  # noqa: F401
+    GameTransformer,
+    ModelDataScores,
+)
 from photon_ml_tpu_torch.game.estimator import (  # noqa: F401
     FixedEffectCoordinateConfig,
     GameEstimator,

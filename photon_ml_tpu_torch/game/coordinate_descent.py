@@ -82,7 +82,8 @@ class CoordinateDescent:
                 vdata, evaluators = validation
                 gm = GameModel(coordinates=dict(models), task=task)
                 results = evaluate_all(evaluators, gm.score(vdata),
-                                       vdata.labels, weights=vdata.weights)
+                                       vdata.labels, weights=vdata.weights,
+                                       id_tags=vdata.id_columns)
                 history.append(results.as_dict())
                 final_evaluation = results
                 logger.info("sweep %d validation: %s", sweep, results)

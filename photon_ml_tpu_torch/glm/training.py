@@ -17,10 +17,10 @@ elastic net solve with OWL-QN in both sweeps. A sparse design
 (:class:`~photon_ml_tpu_torch.ops.design.ChunkedSparseDesign`) takes the
 closed forms, its lanes sharing each gather in the batched sweep. Meshes and
 the JAX package's telemetry, fault-injection and heartbeat hooks are not
-ported; grouped evaluators (``id_tags``) raise
-:class:`NotImplementedError`. Host arrays become a :class:`GLMData` on the
-device through :func:`photon_ml_tpu_torch.convert.glm_data_from_arrays`
-(the dense branch of the JAX package's ``cli/train_glm.py::_to_glm_data``).
+ported. Grouped evaluators read their groups from ``id_tags``. Host arrays
+become a :class:`GLMData` on the device through
+:func:`photon_ml_tpu_torch.convert.glm_data_from_arrays` (the dense branch
+of the JAX package's ``cli/train_glm.py::_to_glm_data``).
 """
 
 from __future__ import annotations
@@ -169,10 +169,8 @@ def validate_and_select(
 ) -> tuple[int, list[TrainedModel]]:
     """Score every swept model on validation data and pick the best by the
     FIRST evaluator (reference ``ModelSelection.selectBestModel``). Returns
-    ``(best_index, trained_with_evaluations)``."""
-    if id_tags is not None:
-        raise NotImplementedError(
-            "id_tags: grouped evaluators are not ported")
+    ``(best_index, trained_with_evaluations)``; ``id_tags`` maps each id
+    tag of a grouped evaluator to the validation rows' group ids."""
     labels = validation.labels.cpu().numpy()
     weights = validation.weights.cpu().numpy()
     best_idx, best_val = 0, None
@@ -181,7 +179,7 @@ def validate_and_select(
     for i, tm in enumerate(trained):
         scores = tm.model.score(validation.design,
                                 validation.offsets).cpu().numpy()
-        ev = evaluate_all(evaluators, scores, labels, weights)
+        ev = evaluate_all(evaluators, scores, labels, weights, id_tags)
         evaluated.append(dataclasses.replace(tm, evaluation=ev))
         val = ev.primary[1]
         if primary.better_than(val, best_val):

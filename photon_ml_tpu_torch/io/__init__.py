@@ -13,6 +13,7 @@ from photon_ml_tpu_torch.io.data_reader import (  # noqa: F401
 )
 from photon_ml_tpu_torch.io.model_io import (  # noqa: F401
     find_feature_index_dir,
+    game_model_entity_vocabs,
     load_game_model,
     load_glm_model,
     resolve_game_model_dir,

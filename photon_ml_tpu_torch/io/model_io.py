@@ -14,8 +14,11 @@ saved by either loads in the other.
 
 The port's random-effect models carry no variances, so their records are
 written with ``variances: null`` and variances found on load are dropped.
-Not ported yet: coefficient patches (``save_game_model_patch``), lineage
-ids and model-derived entity vocabularies.
+Serving reads a model's content identity (:func:`model_lineage_id`), its
+kind (:func:`model_kind`) and its model-derived entity vocabularies
+(:func:`game_model_entity_vocabs`); :func:`load_serving_model` gives all of
+it with the model from one decode of each part file. Not ported yet: writing coefficient
+patches (``save_game_model_patch``).
 """
 
 from __future__ import annotations
@@ -116,8 +119,12 @@ def load_glm_model(path: str, index_map: IndexMap,
                    device=None) -> GeneralizedLinearModel:
     """The GLM at ``path``, its coefficients on ``device`` (``cuda`` unless
     the caller passes ``device="cpu"``)."""
-    device = resolve_device(device)
-    record = next(iter(iter_avro_file(path)))
+    return _glm_from_record(next(iter(iter_avro_file(path))), index_map,
+                            resolve_device(device))
+
+
+def _glm_from_record(record: dict, index_map: IndexMap,
+                     device: torch.device) -> GeneralizedLinearModel:
     means = _from_ntv_list(record["means"], index_map)
     variances = (None if record.get("variances") is None
                  else _from_ntv_list(record["variances"], index_map))
@@ -273,6 +280,95 @@ def _re_records(model: RandomEffectModel, index_map: IndexMap,
         }
 
 
+#: metadata ``kind`` of a coefficient patch (a model dir without one is a
+#: full model)
+PATCH_KIND = "coefficient-patch"
+
+
+def model_kind(model_dir: str) -> str:
+    """``"model"`` or ``"coefficient-patch"`` for a resolved model dir."""
+    return _read_metadata(model_dir).get("kind") or "model"
+
+
+def _read_metadata(model_dir: str) -> dict:
+    with open(os.path.join(model_dir, "model-metadata.json")) as f:
+        return json.load(f)
+
+
+def _part_records(model_dir: str, metadata: dict):
+    """``cid → iterable`` of a coordinate's decoded coefficient records,
+    streamed from its part file."""
+    def records_of(cid: str):
+        info = metadata["coordinates"][cid]
+        return iter_avro_file(os.path.join(
+            model_dir, info["type"], cid, "coefficients", "part-00000.avro"))
+    return records_of
+
+
+def _lineage_id(metadata: dict, records_of) -> str:
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    structural = {
+        "task": metadata["task"],
+        "kind": metadata.get("kind"),
+        "coordinates": {
+            cid: {k: info.get(k) for k in ("type", "featureShardId",
+                                           "randomEffectType")}
+            for cid, info in metadata["coordinates"].items()},
+    }
+    h.update(json.dumps(structural, sort_keys=True).encode())
+    for cid in sorted(metadata["coordinates"]):
+        h.update(cid.encode())
+        for rec in records_of(cid):
+            h.update(json.dumps(rec, sort_keys=True).encode())
+    return h.hexdigest()
+
+
+def model_lineage_id(model_dir: str) -> str:
+    """Content identity of a saved model: blake2b over the metadata's
+    structural fields and every coordinate's decoded records.
+
+    Writer-agnostic: Avro container bytes differ between any two writes
+    (random sync markers) and alias dirs rewrite metadata with ``aliasOf``,
+    but the records, and so this id, are the same for the same model
+    content, whichever package wrote it.
+    """
+    model_dir = resolve_game_model_dir(model_dir)
+    metadata = _read_metadata(model_dir)
+    return _lineage_id(metadata, _part_records(model_dir, metadata))
+
+
+def _entity_vocabs(metadata: dict, records_of) -> dict[str, dict[str, int]]:
+    vocabs: dict[str, dict[str, int]] = {}
+    for cid, info in metadata["coordinates"].items():
+        if info["type"] != "random-effect":
+            continue
+        vocab = vocabs.setdefault(info["randomEffectType"], {})
+        for rec in records_of(cid):
+            raw = rec["modelId"]
+            if raw not in vocab:
+                vocab[raw] = len(vocab)
+    return vocabs
+
+
+def game_model_entity_vocabs(model_dir: str,
+                             metadata: Optional[dict] = None,
+                             ) -> dict[str, dict[str, int]]:
+    """Entity vocabularies derived from the model's own coefficient files
+    (raw ``modelId`` strings → dense ids, in record order per part file).
+
+    The batch scorer keys entity lookups off the dataset's vocabulary;
+    online serving has no dataset, so the model's saved per-entity records
+    are its id universe. Coordinates sharing a random-effect type merge
+    into one vocabulary (ids from the first coordinate's record order,
+    extended by later ones).
+    """
+    if metadata is None:
+        metadata = _read_metadata(model_dir)
+    return _entity_vocabs(metadata, _part_records(model_dir, metadata))
+
+
 def resolve_game_model_dir(path: str) -> str:
     """Accept a ``train_game`` run dir (containing ``best/``) or a model dir
     holding ``model-metadata.json`` directly."""
@@ -299,6 +395,45 @@ def find_feature_index_dir(model_dir: str, *, max_up: int = 3) -> str:
         f"no feature-indexes directory at or above {model_dir!r}")
 
 
+def _game_model(metadata: dict, records_of,
+                index_maps: dict[str, IndexMap],
+                entity_vocabs: dict[str, dict[str, int]],
+                device: torch.device) -> GameModel:
+    task = TaskType(metadata["task"])
+    coordinates = {}
+    for cid, info in metadata["coordinates"].items():
+        shard_id = info["featureShardId"]
+        imap = index_maps[shard_id]
+        if info["type"] == "fixed-effect":
+            glm = _glm_from_record(next(iter(records_of(cid))), imap, device)
+            coordinates[cid] = FixedEffectModel(
+                model=GeneralizedLinearModel(
+                    coefficients=glm.coefficients, task=task),
+                feature_shard_id=shard_id)
+            continue
+        re_type = info["randomEffectType"]
+        vocab = entity_vocabs[re_type]
+        dim = len(imap)
+        keys, coeffs = [], []
+        for rec in records_of(cid):
+            entity = vocab.get(rec["modelId"])
+            if entity is None:
+                continue  # entity absent from this dataset's vocab
+            for e in rec["means"] or ():
+                j = imap.key_to_index.get(
+                    feature_key(e["name"], e.get("term") or ""))
+                if j is not None:
+                    keys.append(entity * dim + j)
+                    coeffs.append(e["value"])
+        keys = np.asarray(keys, np.int64)
+        order = np.argsort(keys, kind="stable")
+        coordinates[cid] = RandomEffectModel(
+            random_effect_type=re_type, feature_shard_id=shard_id,
+            task=task, dim=dim, keys=keys[order],
+            coeffs=np.asarray(coeffs, np.float32)[order])
+    return GameModel(coordinates=coordinates, task=task)
+
+
 def load_game_model(
     output_dir: str,
     index_maps: dict[str, IndexMap],
@@ -311,40 +446,23 @@ def load_game_model(
     coefficients land on ``device`` (``cuda`` unless the caller passes
     ``device="cpu"``); random-effect tables stay host numpy."""
     device = resolve_device(device)
-    with open(os.path.join(output_dir, "model-metadata.json")) as f:
-        metadata = json.load(f)
-    task = TaskType(metadata["task"])
-    coordinates = {}
-    for cid, info in metadata["coordinates"].items():
-        shard_id = info["featureShardId"]
-        imap = index_maps[shard_id]
-        part = os.path.join(output_dir, info["type"], cid, "coefficients",
-                            "part-00000.avro")
-        if info["type"] == "fixed-effect":
-            glm = load_glm_model(part, imap, device=device)
-            coordinates[cid] = FixedEffectModel(
-                model=GeneralizedLinearModel(
-                    coefficients=glm.coefficients, task=task),
-                feature_shard_id=shard_id)
-        else:
-            re_type = info["randomEffectType"]
-            vocab = entity_vocabs[re_type]
-            dim = len(imap)
-            keys, coeffs = [], []
-            for rec in iter_avro_file(part):
-                entity = vocab.get(rec["modelId"])
-                if entity is None:
-                    continue  # entity absent from this dataset's vocab
-                for e in rec["means"] or ():
-                    j = imap.key_to_index.get(
-                        feature_key(e["name"], e.get("term") or ""))
-                    if j is not None:
-                        keys.append(entity * dim + j)
-                        coeffs.append(e["value"])
-            keys = np.asarray(keys, np.int64)
-            order = np.argsort(keys, kind="stable")
-            coordinates[cid] = RandomEffectModel(
-                random_effect_type=re_type, feature_shard_id=shard_id,
-                task=task, dim=dim, keys=keys[order],
-                coeffs=np.asarray(coeffs, np.float32)[order])
-    return GameModel(coordinates=coordinates, task=task)
+    metadata = _read_metadata(output_dir)
+    return _game_model(metadata, _part_records(output_dir, metadata),
+                       index_maps, entity_vocabs, device)
+
+
+def load_serving_model(model_dir: str, index_maps: dict[str, IndexMap],
+                       device=None):
+    """What online serving loads from a resolved model dir, decoding each
+    part file once: ``(metadata, model, entity vocabularies, lineage
+    id)``, the same as :func:`load_game_model` under
+    :func:`game_model_entity_vocabs` and :func:`model_lineage_id`."""
+    device = resolve_device(device)
+    metadata = _read_metadata(model_dir)
+    stream = _part_records(model_dir, metadata)
+    decoded = {cid: list(stream(cid)) for cid in metadata["coordinates"]}
+    vocabs = _entity_vocabs(metadata, decoded.__getitem__)
+    model = _game_model(metadata, decoded.__getitem__, index_maps, vocabs,
+                        device)
+    return (metadata, model, vocabs,
+            _lineage_id(metadata, decoded.__getitem__))

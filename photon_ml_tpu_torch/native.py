@@ -1,4 +1,5 @@
-"""Build/load the native ingest library and decode Avro training files.
+"""Build/load the native Avro library: decode training files, write
+random-effect models and scoring results.
 
 Counterpart of ``photon_ml_tpu/native.py``. It compiles the same unchanged
 sources, ``native/avro_reader.cc``, ``avro_writer.cc`` and
@@ -111,6 +112,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p,  # variances (f64*) or NULL
         ctypes.c_char_p, i64p, ctypes.c_char_p, i64p,
         ctypes.c_int64]
+    lib.photon_write_scoring_results.restype = ctypes.c_int64
+    lib.photon_write_scoring_results.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int64, f64p,
+        ctypes.c_void_p,  # labels (f64*) or NULL
+        ctypes.c_char_p,  # uid bytes or NULL
+        ctypes.c_void_p,  # uid offsets (i64*) or NULL
+        ctypes.c_int64, ctypes.c_int64]
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -372,6 +380,45 @@ def write_re_models(path: str, model_ids, model_class: str,
         mc, len(mc), rec_indptr, name_ids, values, var_ptr,
         name_bytes, name_offs, term_bytes, term_offs, block_records)
     return wrote == n_models
+
+
+def write_scoring_results(path: str, scores: np.ndarray,
+                          labels: Optional[np.ndarray] = None,
+                          uids: Optional[Sequence[str]] = None,
+                          block_records: int = 65536) -> bool:
+    """Write a ``ScoringResultAvro`` container with the native writer
+    (``native/avro_writer.cc::photon_write_scoring_results``): columns in,
+    container out, null codec. ``uids=None`` writes decimal record indices
+    (what ``score_game`` emits). Returns False when the native library is
+    unavailable; the caller falls back to
+    :func:`photon_ml_tpu_torch.io.avro.write_avro_file`."""
+    lib = _load()
+    if lib is None:
+        return False
+    from photon_ml_tpu_torch.io.schemas import SCORING_RESULT_AVRO
+
+    schema = json.dumps(SCORING_RESULT_AVRO).encode()
+    scores = np.ascontiguousarray(scores, np.float64)
+    if scores.ndim != 1:
+        raise ValueError(f"scores must be 1-D, got shape {scores.shape}")
+    n = scores.shape[0]
+    labels_ptr = labels_arr = None
+    if labels is not None:
+        labels_arr = np.ascontiguousarray(labels, np.float64)
+        if labels_arr.shape != (n,):
+            raise ValueError(
+                f"labels must be shape ({n},), got {labels_arr.shape}")
+        labels_ptr = labels_arr.ctypes.data_as(ctypes.c_void_p)
+    uid_bytes = uid_off_ptr = uid_off = None
+    if uids is not None:
+        if len(uids) != n:
+            raise ValueError("uids length mismatch")
+        uid_bytes, uid_off = _concat_strings(uids)
+        uid_off_ptr = uid_off.ctypes.data_as(ctypes.c_void_p)
+    wrote = lib.photon_write_scoring_results(
+        path.encode(), schema, len(schema), scores, labels_ptr,
+        uid_bytes, uid_off_ptr, n, block_records)
+    return wrote == n
 
 
 def shard_split(feat_indptr, feat_key_id, feat_val, key_to_col,

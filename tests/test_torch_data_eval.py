@@ -115,8 +115,13 @@ def test_loss_evaluators_match_jax(name):
 
 
 def test_per_group_evaluators_are_not_ported():
-    with pytest.raises(NotImplementedError, match="per-group"):
-        parse_evaluator("AUC:userId")
-    with pytest.raises(NotImplementedError, match="per-group"):
-        parse_evaluator("PRECISION@5:userId")
+    """Per-group evaluators are ported now: the specs that were refused
+    parse to a grouped evaluator (tests/test_torch_scoring.py holds their
+    values against the JAX package's)."""
+    auc = parse_evaluator("AUC:userId")
+    assert (auc.name, auc.id_tag, auc.k, auc.maximize) == \
+        ("AUC:userId", "userId", None, True)
+    prec = parse_evaluator("PRECISION@5:userId")
+    assert (prec.name, prec.id_tag, prec.k, prec.maximize) == \
+        ("PRECISION@5:userId", "userId", 5, True)
     assert tl.LogisticLoss.name == "logistic"

@@ -262,9 +262,18 @@ def test_validate_and_select_picks_the_same_model():
         for (_, jval), (_, tval) in zip(jm.evaluation.results,
                                         tm.evaluation.results):
             np.testing.assert_allclose(tval, jval, rtol=1e-9)
-    with pytest.raises(NotImplementedError, match="id_tags"):
-        tglm.validate_and_select(t_eval, t_evaluators(["AUC"]), tv,
-                                 id_tags={"userId": np.zeros(90)})
+    # grouped evaluators read their groups from id_tags (-1: no tag)
+    groups = {"q": np.random.default_rng(8).integers(-1, 6, size=90)}
+    specs = ["AUC:q", "PRECISION@3:q", "AUC"]
+    j_best, j_eval = jt.validate_and_select(j_eval, j_evaluators(specs), jv,
+                                            id_tags=groups)
+    t_best, t_eval = tglm.validate_and_select(t_eval, t_evaluators(specs),
+                                              tv, id_tags=groups)
+    assert t_best == j_best
+    for jm, tm in zip(j_eval, t_eval):
+        for (_, jval), (_, tval) in zip(jm.evaluation.results,
+                                        tm.evaluation.results):
+            np.testing.assert_allclose(tval, jval, rtol=1e-9)
 
 
 def test_jax_glm_carried_across_scores_the_same():
