@@ -93,7 +93,28 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    port 0 with microbatch 64: 8 client threads of at least 250
    single-record POSTs to ``/score`` over loopback, one ``/reload`` of the
    same directory in the middle; no request fails and every reply equals
-   (b)'s f32 score. Phase 10 launches none of the four kernels.
+   (b)'s f32 score. Phase 10 launches none of the four kernels;
+11. incremental training on phase 8's run directory and Avro: (a)
+   ``refresh_game`` on phase 8's own file solves no entity and retrains
+   the fixed effect (kernel 1, no kernel 2) against the random effects'
+   scores: every entity's coefficients carry bit for bit, and the fixed
+   effect equals, bit for bit, ``train_game --model-input-dir`` phase 8
+   ``--locked-coordinates perUser,perSong`` (the same warm-started solve;
+   AUC within 1e-4); (b) ``refresh_game`` on day 2 (phase 8's file plus a new
+   part of 50,000 rows from other seeds, with users and songs day 1 never
+   saw) touches and solves exactly the new part's entities, carries every
+   other entity's coefficients bit for bit, and publishes a patch holding
+   exactly the solved rows, each equal to its merged-model row (kernels 1
+   and 2), new users among them, beside a cold ``train_game`` on day 2 for
+   reference; (c)
+   ``train_game --model-input-dir`` phase 8 ``--locked-coordinates
+   global`` on day 2 keeps ``global`` bit for bit (no kernel 1); (d)
+   ``train_game --checkpoint --cd-iterations 2``, then all checkpoints but
+   the earliest deleted and ``--resume``: coefficients within rtol 5e-3 /
+   atol 1e-3 of the uninterrupted run, AUC within 1e-4; (e) one NaN at
+   perUser's step from ``PHOTON_FAULT_PLAN`` under ``--on-divergence
+   rollback`` finishes with events detection, rollback, and perUser's
+   lambda x10; under ``fail``, in a process of its own, it exits non-zero.
 
 Any failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the ``kernels``
@@ -158,11 +179,12 @@ def log(*args):
 # data: the end-to-end GLMix distribution, generated in memory
 # --------------------------------------------------------------------------
 
-def make_e2e(tg, rows, users, songs, valid_rows, seed=99):
+def make_e2e(tg, rows, users, songs, valid_rows, seed=99, draw_seeds=None):
     """Music-shaped data: a global bag (6 of 32 features, plus an
     intercept column), an item bag (4 of 8 features), Zipf user and song
     ids, labels from a logistic model of planted fixed, per-user and
-    per-song effects. Returns (train, validation) GameData."""
+    per-song effects. Returns (train, validation) GameData, drawn from
+    generators seeded ``draw_seeds`` (default ``seed + 1``, ``seed + 2``)."""
     prm = np.random.default_rng(seed)
     d_fixed, d_item = 32, 8
     w_fixed = prm.normal(size=d_fixed)
@@ -198,8 +220,9 @@ def make_e2e(tg, rows, users, songs, valid_rows, seed=99):
         return tg.GameData.build(labels=y.astype(np.float32), shards=shards,
                                  id_columns={"userId": user, "songId": song})
 
-    return draw(rows, np.random.default_rng(seed + 1)), \
-        draw(valid_rows, np.random.default_rng(seed + 2))
+    s_train, s_valid = draw_seeds or (seed + 1, seed + 2)
+    return draw(rows, np.random.default_rng(s_train)), \
+        draw(valid_rows, np.random.default_rng(s_valid))
 
 
 def e2e_estimator(tg, device, max_iter, sequence=("global", "perUser",
@@ -1217,7 +1240,8 @@ def run_cli_phase(tg, fused_glm, fused_re, auc_phase3, auc_fe, tmp):
         f"(|diff| {abs(reload_auc - auc):.2e}, limit "
         f"{RELOAD_AUC_TOL:g})")
     assert abs(reload_auc - auc) <= RELOAD_AUC_TOL, (reload_auc, auc)
-    return launches, dict(run=out, valid=paths["valid"], auc=reload_auc)
+    return launches, dict(run=out, train=paths["train"], valid=paths["valid"],
+                          auc=reload_auc)
 
 
 # --------------------------------------------------------------------------
@@ -1975,6 +1999,315 @@ def run_scoring_phase(e2e_run, device="cuda"):
     log(f"[10] done in {time.perf_counter() - t_start:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# phase 11: incremental training — refresh_game, a locked warm start,
+# checkpoint and resume, the divergence guard
+# --------------------------------------------------------------------------
+
+#: day 2's new part file: rows of make_e2e's generator drawn from other seeds
+DAY2_ROWS = 50_000
+DAY2_SEEDS = (2026, 2027)
+#: a refresh on unchanged data vs the same solve through train_game, and a
+#: resumed run vs the uninterrupted one: the CLI's AUC limit
+REFRESH_AUC_TOL = 1e-4
+#: (d): tests/test_game.py::TestMidRunResume's limits for a resumed run
+RESUME_TOL = dict(rtol=5e-3, atol=1e-3)
+#: one NaN at the second coordinate step (perUser, sweep 0)
+NAN_ON_PER_USER = {"seed": 0, "specs": [
+    {"site": "optimizer.step", "at": [1], "mode": "nan"}]}
+
+
+def kernel_counters():
+    from photon_ml_tpu_torch.ops import fused_glm, fused_hvp, fused_re
+
+    return {"fused_glm": fused_glm.fused_value_and_grad,
+            "fused_re": fused_re.fused_entity_value_and_grad,
+            "fused_hvp": fused_hvp.fused_hvp,
+            "fused_glm_multi": fused_glm.fused_value_and_grad_multi}
+
+
+def counted_call(fn, *args):
+    """``fn(*args)`` with every kernel's launch count set to 0 just before
+    and read just after: (result, wall seconds, launches)."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    result = fn(*args)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return result, wall, {k: c.launches for k, c in counters.items()}
+
+
+def flag_args(args, **flags):
+    """``args`` with each ``--flag value`` of ``flags`` (underscores for
+    dashes) replaced, appended when absent, dropped when None."""
+    args = list(args)
+    for name, value in flags.items():
+        flag = "--" + name.replace("_", "-")
+        if flag in args:
+            i = args.index(flag)
+            del args[i:i + 2]
+        if value is not None:
+            args += [flag, str(value)]
+    return args
+
+
+def refresh_args(prior, train, valid, out):
+    """refresh_game with phase 8's shards, coordinates, grid and design
+    dtype."""
+    return flag_args(cli_args(train, valid, out), cd_iterations=None,
+                     prior_dir=prior)
+
+
+def coefficient_records(model_dir, cid, kind="random-effect"):
+    """raw model id -> the ``means`` of its coefficient record, of one
+    coordinate of a model directory."""
+    from photon_ml_tpu_torch.io.avro import iter_avro_file
+
+    return {r["modelId"]: r["means"] for r in iter_avro_file(os.path.join(
+        model_dir, kind, cid, "coefficients", "part-00000.avro"))}
+
+
+def stages_of(out):
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def log_run(label, wall, launches, out, auc=None):
+    lines = stages_of(out)
+    # metrics.jsonl appends: the stages of the run from its last read on
+    first = max(i for i, m in enumerate(lines)
+                if m.get("stage") == "Read training data")
+    stages = ", ".join(f"{m['stage']} {m['seconds']:.3f}"
+                       for m in lines[first:] if "seconds" in m)
+    log(f"[11] {label}: {wall:.2f} s; launches {launches}; "
+        + (f"AUC {auc:.7f}; " if auc is not None else "") + stages)
+
+
+def write_day2(tg, train_path, root):
+    """Day 2: phase 8's training file and one new part file of DAY2_ROWS
+    rows, in a directory. Returns (directory, the new part's raw user and
+    song ids)."""
+    from photon_ml_tpu_torch.io import data_reader
+
+    day2 = os.path.join(root, "day2")
+    os.makedirs(day2)
+    os.link(train_path, os.path.join(day2, "part-00000.avro"))
+    new, _ = make_e2e(tg, DAY2_ROWS, E2E["users"], E2E["songs"], 1,
+                      draw_seeds=DAY2_SEEDS)
+    t0 = time.perf_counter()
+    data_reader.write_training_examples(
+        os.path.join(day2, "part-00001.avro"), e2e_records(new),
+        codec="null")
+    log(f"[11] wrote day 2's new part ({DAY2_ROWS} records) in "
+        f"{time.perf_counter() - t0:.2f} s (pure Python, not in the walls)")
+    ids = {"perUser": {f"u{u}" for u in new.id_columns["userId"].tolist()},
+           "perSong": {f"s{s}" for s in new.id_columns["songId"].tolist()}}
+    return day2, ids
+
+
+def run_refresh_phase(tg, e2e_run, phase8_launches, tmp):
+    """Phase 11 on phase 8's run directory and Avro; returns the kernels'
+    launches of (b) the day-2 refresh and (c) the locked warm start."""
+    from photon_ml_tpu_torch.cli import refresh_game, train_game
+    from photon_ml_tpu_torch.events import GLOBAL_BUS
+    from photon_ml_tpu_torch.resilience import faults
+
+    t_start = time.perf_counter()
+    prior = e2e_run["run"]
+    prior_best = os.path.join(prior, "best")
+    day2, new_ids = write_day2(tg, e2e_run["train"], tmp)
+    prior_re = {cid: coefficient_records(prior_best, cid)
+                for cid in ("perUser", "perSong")}
+
+    # (a) refresh on unchanged data: nothing solves and the fixed effect
+    # retrains — against the random effects' scores, which phase 8's one
+    # sweep trained it without, so its AUC is held to the same warm-started
+    # solve through train_game with both random effects locked
+    out_a = os.path.join(tmp, "refresh_same")
+    res_a, wall, launches = counted_call(refresh_game.run, refresh_args(
+        prior, e2e_run["train"], e2e_run["valid"], out_a))
+    auc_a = res_a["evaluation"]["AUC"]
+    log_run("(a) refresh_game on phase 8's data", wall, launches, out_a,
+            auc_a)
+    out_fe = os.path.join(tmp, "fixed_effect_only")
+    res_fe, wall_fe, launches_fe = counted_call(train_game.run, cli_args(
+        e2e_run["train"], e2e_run["valid"], out_fe) + [
+        "--model-input-dir", prior,
+        "--locked-coordinates", "perUser,perSong"])
+    auc_fe = res_fe["best_evaluation"]["AUC"]
+    log_run("(a) train_game --locked-coordinates perUser,perSong", wall_fe,
+            launches_fe, out_fe, auc_fe)
+    log(f"  touched {res_a['touched']} solved {res_a['solved']} carried "
+        f"{res_a['carried']}; AUC |diff| from the locked run "
+        f"{abs(auc_a - auc_fe):.2e} (limit {REFRESH_AUC_TOL:g}), from "
+        f"phase 8 {auc_a - e2e_run['auc']:+.2e} (not gated)")
+    assert res_a["solved"] == res_a["touched"] == {
+        "global": 0, "perUser": 0, "perSong": 0}, res_a
+    assert launches["fused_glm"] > 0 and launches["fused_re"] == 0, launches
+    assert launches_fe["fused_re"] == 0, launches_fe
+    assert (coefficient_records(os.path.join(out_a, "best"), "global",
+                                "fixed-effect")
+            == coefficient_records(os.path.join(out_fe, "best"), "global",
+                                   "fixed-effect"))
+    for cid in ("perUser", "perSong"):
+        assert coefficient_records(os.path.join(out_a, "best"),
+                                   cid) == prior_re[cid], cid
+    assert abs(auc_a - auc_fe) <= REFRESH_AUC_TOL, (auc_a, auc_fe)
+
+    # (b) refresh on day 2: exactly the new part's entities solve, every
+    # other entity carries bit for bit, the patch holds the solved rows
+    out_b = os.path.join(tmp, "refresh_day2")
+    res_b, wall_b, launches_b = counted_call(refresh_game.run, refresh_args(
+        prior, day2, e2e_run["valid"], out_b))
+    auc_b = res_b["evaluation"]["AUC"]
+    log_run("(b) refresh_game on day 2", wall_b, launches_b, out_b, auc_b)
+    log(f"  touched {res_b['touched']} solved {res_b['solved']} carried "
+        f"{res_b['carried']}")
+    assert launches_b["fused_glm"] > 0 and launches_b["fused_re"] > 0
+    merged_best = os.path.join(out_b, "best")
+    patch = os.path.join(out_b, "patch")
+    new_counts = {}
+    for cid, touched in new_ids.items():
+        merged = coefficient_records(merged_best, cid)
+        patched = coefficient_records(patch, cid)
+        new = touched - set(prior_re[cid])
+        carried = set(prior_re[cid]) - touched
+        changed = sum(merged[raw] != prior_re[cid][raw]
+                      for raw in carried)
+        log(f"  {cid}: {len(touched)} touched on the host, {len(patched)} "
+            f"in the patch, {len(new)} new, {len(carried)} carried "
+            f"({changed} not bit-identical)")
+        assert res_b["touched"][cid] == res_b["solved"][cid] == len(touched)
+        assert set(patched) == touched, cid
+        assert new <= set(merged), cid
+        assert changed == 0, cid
+        assert set(merged) == set(prior_re[cid]) | touched, cid
+        assert all(patched[raw] == merged[raw] for raw in patched), cid
+        new_counts[cid] = len(new)
+    # users day 1 never saw (songs: the draw may add none)
+    assert new_counts["perUser"] > 0, new_counts
+    assert (coefficient_records(patch, "global", "fixed-effect")
+            == coefficient_records(merged_best, "global", "fixed-effect"))
+    out_cold = os.path.join(tmp, "cold_day2")
+    res_c, wall_c, launches_c = counted_call(train_game.run, cli_args(
+        day2, e2e_run["valid"], out_cold))
+    log_run("cold train_game on day 2 (for reference)", wall_c, launches_c,
+            out_cold, res_c["best_evaluation"]["AUC"])
+
+    # (c) a warm start from phase 8 with the fixed effect locked
+    out_l = os.path.join(tmp, "locked_day2")
+    res_l, wall_l, launches_l = counted_call(train_game.run, cli_args(
+        day2, e2e_run["valid"], out_l) + [
+        "--model-input-dir", prior, "--locked-coordinates", "global"])
+    log_run("(c) train_game --model-input-dir --locked-coordinates global "
+            "on day 2", wall_l, launches_l, out_l,
+            res_l["best_evaluation"]["AUC"])
+    log(f"  kernel-2 launches {launches_l['fused_re']} (phase 8: "
+        f"{phase8_launches['fused_re']})")
+    assert (coefficient_records(os.path.join(out_l, "best"), "global",
+                                "fixed-effect")
+            == coefficient_records(prior_best, "global", "fixed-effect"))
+    assert launches_l["fused_glm"] == 0 and launches_l["fused_re"] > 0
+
+    # (d) checkpoints over two sweeps; all but the earliest dropped; resume
+    out_d = os.path.join(tmp, "checkpointed")
+    args_d = flag_args(cli_args(e2e_run["train"], e2e_run["valid"], out_d),
+                       cd_iterations=2) + ["--checkpoint"]
+    res_d, wall_d, launches_d = counted_call(train_game.run, args_d)
+    log_run("(d) train_game --checkpoint --cd-iterations 2", wall_d,
+            launches_d, out_d, res_d["best_evaluation"]["AUC"])
+    def records(cid):
+        return coefficient_records(
+            os.path.join(out_d, "best"), cid,
+            "fixed-effect" if cid == "global" else "random-effect")
+
+    full = {cid: records(cid) for cid in ("global", "perUser", "perSong")}
+    ckpts = os.path.join(out_d, "checkpoints")
+    steps = sorted(os.listdir(ckpts), key=lambda s: int(s.split("-")[1]))
+    assert steps == ["step-4", "step-5", "step-6"], steps
+    for s in steps[1:]:
+        shutil.rmtree(os.path.join(ckpts, s))
+    res_r, wall_r, launches_r = counted_call(train_game.run,
+                                             args_d + ["--resume"])
+    auc_d, auc_r = (res_d["best_evaluation"]["AUC"],
+                    res_r["best_evaluation"]["AUC"])
+    log_run("(d) the same, resumed from step 4", wall_r, launches_r, out_d,
+            auc_r)
+    # worst: the largest |diff|; ratio: the largest |diff| over its own
+    # limit atol + rtol * |value| (the limit is met while it is <= 1)
+    worst, ratio, at = 0.0, 0.0, None
+    for cid, want in full.items():
+        got = records(cid)
+        assert set(got) == set(want), cid
+        for raw, means in want.items():
+            a = np.array([m["value"] for m in means])
+            b = np.array([m["value"] for m in got[raw]])
+            assert [m["name"] for m in means] == [m["name"]
+                                                   for m in got[raw]]
+            np.testing.assert_allclose(b, a, **RESUME_TOL)
+            diff = np.abs(b - a)
+            worst = max(worst, float(diff.max(initial=0.0)))
+            r = diff / (RESUME_TOL["atol"] + RESUME_TOL["rtol"] * np.abs(a))
+            if r.size and float(r.max()) > ratio:
+                ratio, at = float(r.max()), (cid, raw)
+    log(f"  resumed vs uninterrupted: max |coefficient diff| {worst:.2e}; "
+        f"worst |diff| / (atol + rtol*|value|) {ratio:.3f} at {at}; "
+        f"AUC |diff| {abs(auc_r - auc_d):.2e} (limit {REFRESH_AUC_TOL:g})")
+    assert abs(auc_r - auc_d) <= REFRESH_AUC_TOL, (auc_r, auc_d)
+    assert 0 < launches_r["fused_re"] < launches_d["fused_re"]
+
+    # (e) one NaN at perUser's step under --on-divergence rollback, the
+    # plan read from PHOTON_FAULT_PLAN; then under fail, in a process of
+    # its own, which must exit non-zero
+    plan_json = json.dumps(NAN_ON_PER_USER)
+    events = []
+    unsubscribe = GLOBAL_BUS.subscribe(lambda e: events.append(e))
+    os.environ["PHOTON_FAULT_PLAN"] = plan_json
+    try:
+        faults._activate_from_env()
+        out_e = os.path.join(tmp, "rollback")
+        res_e, wall_e, launches_e = counted_call(train_game.run, cli_args(
+            e2e_run["train"], e2e_run["valid"], out_e) + [
+            "--on-divergence", "rollback"])
+    finally:
+        faults.deactivate()
+        del os.environ["PHOTON_FAULT_PLAN"]
+        unsubscribe()
+    log_run("(e) train_game --on-divergence rollback, NaN at perUser",
+            wall_e, launches_e, out_e, res_e["best_evaluation"]["AUC"])
+    seen = [(e.name, e.payload.get("coordinate"), e.payload.get("reg_backoff"))
+            for e in events if e.name in ("fault_injected",
+                                          "divergence_detected",
+                                          "coordinate_rollback",
+                                          "coordinate_frozen")]
+    (div,) = [m for m in stages_of(out_e) if m.get("stage") == "divergence"]
+    log(f"  events {seen}; regularization after: {div['regularization']}")
+    assert seen == [("fault_injected", "perUser", None),
+                    ("divergence_detected", "perUser", None),
+                    ("coordinate_rollback", "perUser", 10.0)], seen
+    assert div["regularization"] == [{
+        "global": E2E_LAMBDAS["global"],
+        "perUser": 10 * E2E_LAMBDAS["perUser"],
+        "perSong": E2E_LAMBDAS["perSong"]}], div
+    t0 = time.perf_counter()
+    failed = subprocess.run(
+        [sys.executable, "-m", "photon_ml_tpu_torch", "train_game"]
+        + cli_args(e2e_run["train"], e2e_run["valid"],
+                   os.path.join(tmp, "fail")) + ["--on-divergence", "fail"],
+        env={**os.environ, "PHOTON_FAULT_PLAN": plan_json},
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    tail = failed.stderr.strip().splitlines()[-1:]
+    log(f"[11] (e) --on-divergence fail in a process of its own: exit "
+        f"{failed.returncode} in {time.perf_counter() - t0:.1f} s: {tail}")
+    assert failed.returncode != 0 and "DivergenceError" in failed.stderr
+    log(f"[11] done in {time.perf_counter() - t_start:.1f} s")
+    return launches_b, launches_l
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2303,6 +2636,10 @@ def main() -> int:
 
         # 10. scoring phase 8's model: batch, engine, HTTP ------------------
         run_scoring_phase(e2e_run)
+
+        # 11. incremental training on phase 8's run -------------------------
+        refresh_launches, locked_launches = run_refresh_phase(
+            tg, e2e_run, cli_launches, e2e_tmp)
     finally:
         shutil.rmtree(e2e_tmp, ignore_errors=True)
 
@@ -2311,22 +2648,26 @@ def main() -> int:
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [
-        dict(name="fused_value_and_grad", route="cuda", status="ported",
+        dict(name="fused_value_and_grad", route="cuda", status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_glm.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:118",
              launches=launches["fused_glm"], **t1,
              e2e_cli=dict(launches=cli_launches["fused_glm"]),
+             refresh=dict(launches=refresh_launches["fused_glm"]),
+             locked=dict(launches=locked_launches["fused_glm"]),
              train_glm=dict(launches=train_glm_launches("fused_glm")),
              glm_path=dict(launches=glm_launches["tron"]["fused_glm"],
                            **t1_glm),
              glm_small=dict(launches=runs["cuda"]["tron"][3]["fused_glm"],
                             **t1_small)),
         dict(name="fused_entity_value_and_grad", route="cuda",
-             status="ported",
+             status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_re.cu",
              replaces="photon_ml_tpu/ops/pallas_re.py:130",
              launches=launches["fused_re"], **t2,
              e2e_cli=dict(launches=cli_launches["fused_re"]),
+             refresh=dict(launches=refresh_launches["fused_re"]),
+             locked=dict(launches=locked_launches["fused_re"]),
              train_glm=dict(launches=train_glm_launches("fused_re"))),
         dict(name="fused_hvp", route="cuda", status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_hvp.cu",
@@ -2334,13 +2675,17 @@ def main() -> int:
              launches=glm_launches["tron"]["fused_hvp"], **t3,
              batched_tron=dict(launches=bt["fused_hvp"], **t3_small),
              game_shape=t3_game,
-             train_glm=dict(launches=train_glm_launches("fused_hvp"))),
+             train_glm=dict(launches=train_glm_launches("fused_hvp")),
+             refresh=dict(launches=refresh_launches["fused_hvp"]),
+             locked=dict(launches=locked_launches["fused_hvp"])),
         dict(name="fused_value_and_grad_multi", route="cuda",
-             status="ported",
+             status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_glm_multi.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:301",
              launches=glm_launches["batched"]["fused_glm_multi"], **t4,
-             train_glm=dict(launches=train_glm_launches("fused_glm_multi"))),
+             train_glm=dict(launches=train_glm_launches("fused_glm_multi")),
+             refresh=dict(launches=refresh_launches["fused_glm_multi"]),
+             locked=dict(launches=locked_launches["fused_glm_multi"])),
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"):

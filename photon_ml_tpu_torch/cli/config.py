@@ -19,16 +19,19 @@
 
 Options the port does not run yet raise :class:`NotImplementedError` naming
 the option: factored random effects, ``downsample`` and
-``projector=RANDOM``. The resilience, telemetry, supervision and serving
-flag groups are not ported: :func:`add_unported_flags` lets a command
-accept such flags and :func:`refuse_unported` raise naming them.
+``projector=RANDOM``. The resilience flags (:func:`add_resilience_flags`:
+retries, retry deadline, divergence policy) are ported; the telemetry,
+supervision and serving flag groups are not: :func:`add_unported_flags`
+lets a command accept such flags and :func:`refuse_unported` raise naming
+them.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
-from typing import Mapping, Sequence
+from typing import Mapping, Optional, Sequence
 
 from photon_ml_tpu_torch.game.data import RandomEffectDatasetConfig
 from photon_ml_tpu_torch.game.estimator import (
@@ -165,6 +168,91 @@ def parse_grid(specs: Sequence[str]) -> list[Mapping[str, float]]:
     for combo in itertools.product(*(vals for _, vals in axes)):
         out.append({cid: v for (cid, _), v in zip(axes, combo)})
     return out or [{}]
+
+
+# ---------------------------------------------------------------------------
+# Resilience configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ResilienceConfig:
+    """The drivers' retry/divergence knobs.
+
+    ``max_retries`` is retries, not attempts (0 = try once); it budgets
+    both the retry policy and the divergence guard's rollback-retries.
+    ``on_divergence``: ``fail`` (raise with an actionable message — the
+    default), ``rollback`` (roll back + regularization backoff, freeze
+    after the budget), ``freeze`` (freeze immediately).
+    """
+
+    max_retries: int = 2
+    retry_deadline_s: Optional[float] = None
+    on_divergence: str = "fail"
+    reg_backoff: float = 10.0
+
+    def __post_init__(self):
+        if self.max_retries < 0:
+            raise ValueError(
+                f"max_retries must be >= 0, got {self.max_retries}")
+        if self.on_divergence not in ("fail", "rollback", "freeze"):
+            raise ValueError(
+                f"on_divergence must be fail|rollback|freeze, "
+                f"got {self.on_divergence!r}")
+
+    def retry_policy(self):
+        from photon_ml_tpu_torch.resilience import RetryPolicy
+
+        return RetryPolicy(max_attempts=self.max_retries + 1,
+                           deadline_s=self.retry_deadline_s)
+
+    def guard(self, bus=None):
+        from photon_ml_tpu_torch.resilience import (
+            DivergenceGuard,
+            DivergencePolicy,
+        )
+
+        return DivergenceGuard(
+            DivergencePolicy(mode=self.on_divergence,
+                             max_retries=self.max_retries,
+                             reg_backoff=self.reg_backoff),
+            bus=bus)
+
+
+def add_resilience_flags(parser) -> None:
+    """The drivers' shared resilience flags."""
+    parser.add_argument(
+        "--max-retries", type=int, default=2,
+        help="retries (not attempts) for transient faults: checkpoint "
+             "save/load and the patch publish — and the divergence "
+             "guard's per-coordinate rollback budget")
+    parser.add_argument(
+        "--retry-deadline-s", type=float, default=None,
+        help="hard wall-clock deadline across one operation's retries "
+             "(the retry never sleeps into a deadline it would blow)")
+    parser.add_argument(
+        "--on-divergence", choices=["fail", "rollback", "freeze"],
+        default="fail",
+        help="when a coordinate step produces NaN/Inf: fail = raise with "
+             "an actionable error (default); rollback = roll back to the "
+             "last good state, bump the coordinate's regularization and "
+             "retry (freeze after --max-retries failures); freeze = lock "
+             "the coordinate at its last good model immediately and "
+             "continue degraded")
+
+
+def resilience_from_args(args) -> ResilienceConfig:
+    return ResilienceConfig(max_retries=args.max_retries,
+                            retry_deadline_s=args.retry_deadline_s,
+                            on_divergence=args.on_divergence)
+
+
+def install_resilience(config: ResilienceConfig):
+    """Install the process-wide retry policy and build the run's guard."""
+    from photon_ml_tpu_torch.resilience import set_default_policy
+
+    set_default_policy(config.retry_policy())
+    return config.guard()
 
 
 def add_unported_flags(parser: argparse.ArgumentParser,

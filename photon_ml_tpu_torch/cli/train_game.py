@@ -16,10 +16,18 @@ It runs on the card unless ``--device cpu`` asks for the CPU. Saves run in
 the calling thread (the reference's background saver only overlaps them:
 the bytes are the same), and under ``--output-all-models`` ``best/`` is a
 copy of the winner's directory whose metadata names it in ``aliasOf``, as
-the reference's hardlinked alias does. Not written yet: the run root's
-``data-manifest.json`` and quality baseline, and telemetry. Flags of the
-reference that the port does not run yet are accepted by the parser and
-raise :class:`NotImplementedError` naming the flag.
+the reference's hardlinked alias does. The run root holds the
+``data-manifest.json`` of the training data (``continuous/delta.py``), and
+the models' metadata its lineage (``parentModel``, ``trainedAt``,
+``dataManifest``), so ``refresh_game`` can warm-start from the run.
+``--model-input-dir`` warm-starts from a saved run (its feature indexes
+are reused) and ``--locked-coordinates`` keeps some of its coordinates
+untrained; ``--checkpoint``/``--resume`` save and restore coordinate-
+boundary state under ``<output-dir>/checkpoints``; ``--on-divergence``
+sets the divergence guard's policy. Not written yet: the quality baseline
+and telemetry. Flags of the reference that the port does not run yet are
+accepted by the parser and raise :class:`NotImplementedError` naming the
+flag.
 """
 
 from __future__ import annotations
@@ -36,11 +44,14 @@ from typing import Optional, Sequence
 import torch
 
 from photon_ml_tpu_torch.cli.config import (
+    add_resilience_flags,
     add_unported_flags,
+    install_resilience,
     parse_coordinate_config,
     parse_feature_shard_config,
     parse_grid,
     refuse_unported,
+    resilience_from_args,
 )
 from photon_ml_tpu_torch.data_validation import validate_game_data
 from photon_ml_tpu_torch.device import resolve_device
@@ -51,7 +62,13 @@ from photon_ml_tpu_torch.game.estimator import (
     RandomEffectCoordinateConfig,
 )
 from photon_ml_tpu_torch.io.data_reader import AvroDataReader, parse_input_columns
-from photon_ml_tpu_torch.io.model_io import save_game_model
+from photon_ml_tpu_torch.io.index import IndexMap
+from photon_ml_tpu_torch.io.model_io import (
+    find_feature_index_dir,
+    load_warm_start_model,
+    resolve_game_model_dir,
+    save_game_model,
+)
 from photon_ml_tpu_torch.logging_util import RunLogger, timed
 from photon_ml_tpu_torch.types import DataValidationType, TaskType
 
@@ -60,17 +77,10 @@ from photon_ml_tpu_torch.types import DataValidationType, TaskType
 _UNPORTED_FLAGS = {
     "--tuning-iterations": {"type": int},
     "--tuning-range": {},
-    "--model-input-dir": {},
-    "--locked-coordinates": {},
-    "--checkpoint": {"action": "store_true"},
-    "--resume": {"action": "store_true"},
     "--debug-nans": {"action": "store_true"},
     "--profile": {"action": "store_true"},
     "--multihost": {"action": "store_true"},
     "--mesh": {},
-    "--max-retries": {"type": int},
-    "--retry-deadline-s": {"type": float},
-    "--on-divergence": {"choices": ["fail", "rollback", "freeze"]},
     "--supervise": {"type": int},
     "--max-restarts": {"type": int},
     "--heartbeat-timeout-s": {"type": float},
@@ -122,9 +132,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input-columns", default="",
                    help="remap record fields, e.g. 'response=label,"
                         "weight=w'")
+    p.add_argument("--model-input-dir",
+                   help="warm-start from a previous train_game or "
+                        "refresh_game output dir (the partial-retrain "
+                        "path); its feature indexes are reused so "
+                        "coefficients line up")
+    p.add_argument("--locked-coordinates", default="",
+                   help="comma-separated coordinate ids to freeze (kept "
+                        "from --model-input-dir, never retrained)")
+    p.add_argument("--checkpoint", action="store_true",
+                   help="write coordinate-boundary checkpoints under "
+                        "<output-dir>/checkpoints (single-config grids)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in "
+                        "<output-dir>/checkpoints")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the solves run (default: the GPU; there is "
                         "no fall-back to the CPU)")
+    add_resilience_flags(p)
     add_unported_flags(p, _UNPORTED_FLAGS)
     return p
 
@@ -152,11 +177,25 @@ def _publish_copy(src_dir: str, dst_dir: str) -> None:
         json.dump(metadata, f, indent=2)
 
 
+def preset_index_maps(model_dir: str, shard_configs) -> dict[str, IndexMap]:
+    """The feature index maps of the run that wrote ``model_dir``, one per
+    configured shard: a warm start lives in its parent's feature space."""
+    index_dir = find_feature_index_dir(model_dir)
+    return {cfg.shard_id: IndexMap.load(
+        os.path.join(index_dir, f"{cfg.shard_id}.json"))
+        for cfg in shard_configs}
+
+
 def run(argv: Optional[Sequence[str]] = None) -> dict:
+    from photon_ml_tpu_torch.continuous import delta as delta_mod
+    from photon_ml_tpu_torch.io.checkpoint import CheckpointManager
+
     args = build_parser().parse_args(
         list(sys.argv[1:] if argv is None else argv))
     _refuse_unported(args)
     task = TaskType(args.task)
+    # the retry policy goes in before anything that may retry
+    guard = install_resilience(resilience_from_args(args))
     # fail before the reads when no card is present
     device = resolve_device(args.device)
     run_logger = RunLogger(args.output_dir)
@@ -170,10 +209,24 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                 cid: dataclasses.replace(c, design_dtype=args.design_dtype)
                 for cid, c in coordinate_configs.items()}
         update_sequence = [c for c in args.update_sequence.split(",") if c]
-        re_types = sorted({
+        locked = [c for c in args.locked_coordinates.split(",") if c]
+        if locked and not args.model_input_dir:
+            raise SystemExit("--locked-coordinates needs --model-input-dir")
+        re_types = {
             c.dataset.random_effect_type
             for c in coordinate_configs.values()
-            if isinstance(c, RandomEffectCoordinateConfig)})
+            if isinstance(c, RandomEffectCoordinateConfig)}
+        model_dir = None
+        if args.model_input_dir:
+            model_dir = resolve_game_model_dir(args.model_input_dir)
+            # a locked coordinate may have no config entry, but its
+            # entity-id column must still be read so the loaded model's
+            # entity keys resolve
+            with open(os.path.join(model_dir, "model-metadata.json")) as f:
+                for info in json.load(f)["coordinates"].values():
+                    if info["type"] == "random-effect":
+                        re_types.add(info["randomEffectType"])
+        re_types = sorted(re_types)
         evaluators = parse_evaluators(
             [e for e in args.evaluators.split(",") if e])
         # entity columns, then the grouped evaluators' id tags
@@ -190,21 +243,56 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                 f"--grid names unknown coordinates {sorted(unknown)}; "
                 f"update sequence is {update_sequence}")
         configurations = [GameOptimizationConfiguration(g) for g in grid]
+        checkpoint = None
+        if args.checkpoint or args.resume:
+            if len(configurations) != 1:
+                raise SystemExit(
+                    "--checkpoint/--resume need a single-config grid (got "
+                    f"{len(configurations)} configs)")
+            checkpoint = CheckpointManager(
+                os.path.join(args.output_dir, "checkpoints"))
 
-        reader = AvroDataReader(shard_configs=shard_configs,
-                                input_columns=parse_input_columns(
-                                    args.input_columns))
+        reader = AvroDataReader(
+            shard_configs=shard_configs,
+            index_maps=(preset_index_maps(model_dir, shard_configs)
+                        if model_dir else None),
+            input_columns=parse_input_columns(args.input_columns))
         with timed("Read training data", run_logger):
             data, index_maps, vocabs = reader.read(
                 args.training_data, id_columns=id_columns)
         for shard_id, imap in index_maps.items():
             imap.save(os.path.join(args.output_dir, "feature-indexes",
                                    f"{shard_id}.json"))
+
+        initial_models = None
+        parent_lineage = None
+        if model_dir:
+            with timed("Load initial model", run_logger):
+                initial, parent_lineage = load_warm_start_model(
+                    model_dir, index_maps, vocabs, device=device)
+                initial_models = dict(initial.coordinates)
+            missing = set(locked) - set(initial_models)
+            if missing:
+                raise SystemExit(
+                    f"locked coordinates {sorted(missing)} not present in "
+                    f"the input model")
+
+        # the data manifest (fingerprints of each entity's training rows,
+        # from the host columns) and the lineage every saved model records
+        re_coords = {
+            cid: (c.dataset.random_effect_type, c.dataset.feature_shard_id)
+            for cid, c in coordinate_configs.items()
+            if isinstance(c, RandomEffectCoordinateConfig)}
+        with timed("Build data manifest", run_logger):
+            manifest = delta_mod.build_manifest(data, re_coords, vocabs)
+            delta_mod.save_manifest(
+                os.path.join(args.output_dir, delta_mod.MANIFEST_NAME),
+                manifest)
         lineage = {
-            "parentModel": None,
+            "parentModel": parent_lineage,
             "trainedAt": datetime.datetime.now(
                 datetime.timezone.utc).isoformat(),
-            "dataManifest": None,
+            "dataManifest": delta_mod.manifest_digest(manifest),
         }
         with timed("Validate data", run_logger):
             validate_game_data(data, task,
@@ -222,10 +310,18 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             validation = (vdata, evaluators)
 
         with timed("Train (grid)", run_logger):
-            results = est.fit(data, configurations, validation=validation)
+            results = est.fit(data, configurations, validation=validation,
+                              initial_models=initial_models, locked=locked,
+                              checkpoint=checkpoint, resume=args.resume,
+                              guard=guard)
             # the last solves finish inside this stage, not in "Save models"
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
+        if guard.failures:
+            run_logger.metric(
+                stage="divergence", failures=dict(guard.failures),
+                frozen=sorted(guard.frozen),
+                regularization=[r.regularization_weights for r in results])
 
         best = GameEstimator.select_best(results)
         if best.evaluation is not None:

@@ -1,0 +1,35 @@
+"""Continuous training: warm-start refresh, incremental refit, delta publish
+(counterpart of ``photon_ml_tpu/continuous``).
+
+- :mod:`~photon_ml_tpu_torch.continuous.delta` — per-entity data
+  fingerprints and the ``data-manifest.json`` recorded with every
+  published model, so a refresh can tell which entities' training data
+  changed since the model it warm-starts from.
+- :mod:`~photon_ml_tpu_torch.continuous.refresh` — the refresh loop: every
+  optimizer seeded from the prior model, random-effect coordinates
+  re-solving only the touched entities, every other entity's coefficients
+  carried forward bit for bit.
+
+The refresh writes a full model directory (the next refresh's parent) and
+an entity-level coefficient patch
+(``io/model_io.py::save_game_model_patch``) in the JAX package's format,
+which the JAX package's serving registry activates (``load_patch``); the
+port's serving does not activate patches yet.
+"""
+
+from photon_ml_tpu_torch.continuous.delta import (  # noqa: F401
+    MANIFEST_NAME,
+    EntityDelta,
+    build_manifest,
+    coordinate_deltas,
+    entity_delta,
+    entity_fingerprints,
+    load_manifest,
+    manifest_digest,
+    manifest_path_for,
+    save_manifest,
+)
+from photon_ml_tpu_torch.continuous.refresh import (  # noqa: F401
+    RefreshResult,
+    refresh_game_model,
+)

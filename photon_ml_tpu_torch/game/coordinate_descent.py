@@ -4,8 +4,9 @@ Counterpart of ``photon_ml_tpu/game/coordinate_descent.py``: each sweep,
 for each coordinate in the update sequence, subtract the coordinate's
 previous scores from the running total, train on the residual offsets, add
 the new scores back, and evaluate the validation data after the sweep.
-Warm starts flow from each coordinate's previous-sweep model. The score
-decomposition stays on the device for the whole run; the invariant is
+Warm starts flow from each coordinate's previous-sweep model (and, with
+``initial_models``, from a saved model). The score decomposition stays on
+the device for the whole run; the invariant is
 ``total = data.offsets + Σ_c scores[c]``.
 """
 
@@ -14,14 +15,16 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Mapping, Sequence
+from typing import Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch.evaluation import evaluate_all
 from photon_ml_tpu_torch.game.coordinate import Coordinate, CoordinateModel
 from photon_ml_tpu_torch.game.data import GameData
 from photon_ml_tpu_torch.game.model import GameModel
+from photon_ml_tpu_torch.resilience import fault_value
 from photon_ml_tpu_torch.types import TaskType
 
 logger = logging.getLogger(__name__)
@@ -37,6 +40,9 @@ class CoordinateDescentResult:
     #: wall seconds per coordinate step, ``[(sweep, coordinate, seconds)]``,
     #: each step ending in a device synchronization
     step_seconds: list = dataclasses.field(default_factory=list)
+    #: the regularization weight each trained coordinate ended the run with
+    #: (the divergence guard's rollbacks raise it)
+    regularization_weights: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,29 +53,131 @@ class CoordinateDescent:
     n_iterations: int = 1
 
     def run(self, coordinates: Mapping[str, Coordinate], data: GameData,
-            task: TaskType, device: torch.device, validation=None
+            task: TaskType, device: torch.device, validation=None,
+            initial_models: Optional[Mapping[str, CoordinateModel]] = None,
+            checkpoint=None, resume: bool = False, locked: Sequence[str] = (),
+            config_fingerprint: Optional[str] = None, guard=None
             ) -> CoordinateDescentResult:
-        """``validation`` is ``(GameData, evaluators)`` or None."""
+        """``validation`` is ``(GameData, evaluators)`` or None.
+
+        ``locked`` coordinates keep their ``initial_models`` entry: their
+        scores take part in the residual accounting, but they never train,
+        so they need no entry in ``coordinates``. ``checkpoint`` (an
+        :class:`~photon_ml_tpu_torch.io.checkpoint.CheckpointManager`)
+        saves the state after every coordinate step; ``resume`` restarts
+        from its latest step. ``guard`` (a
+        :class:`~photon_ml_tpu_torch.resilience.DivergenceGuard`) checks
+        each step's outputs for NaN/Inf: on divergence the step is rolled
+        back (re-read from ``checkpoint`` when one is present), the
+        coordinate's regularization is raised, and the step retries; past
+        the retry budget the coordinate freezes at its last good model.
+        ``guard=None`` is the unguarded path, and a healthy guarded run is
+        bit-identical to it (the checks only read)."""
+        locked = set(locked)
+        coordinates = dict(coordinates)  # guard retries may raise a lam
+        for cid in locked:
+            if not initial_models or cid not in initial_models:
+                raise KeyError(
+                    f"locked coordinate {cid!r} needs an initial model")
         for cid in self.update_sequence:
-            if cid not in coordinates:
+            if cid not in coordinates and cid not in locked:
                 raise KeyError(
                     f"update sequence names unknown coordinate {cid!r}")
-        models: dict[str, CoordinateModel] = {}
+        models: dict[str, CoordinateModel] = dict(initial_models or {})
         n = data.n_samples
         scores = {cid: torch.zeros(n, dtype=torch.float32, device=device)
                   for cid in self.update_sequence}
-        total = torch.as_tensor(data.offsets, device=device)
+        # host mirror for checkpoints, synced one coordinate a step (the
+        # one just trained); a run without a checkpoint copies nothing back
+        host_scores: dict[str, np.ndarray] = {}
+        if checkpoint is not None:
+            host_scores = {cid: np.zeros(n, np.float32)
+                           for cid in self.update_sequence}
+        # seed scores from the initial models (the warm-start path)
+        for cid, model in models.items():
+            if cid in scores:
+                seeded = model.score(data).astype(np.float32)
+                if checkpoint is not None:
+                    host_scores[cid] = seeded
+                scores[cid] = torch.as_tensor(seeded, device=device)
+
+        def restore():
+            state = checkpoint.restore(
+                expected_fingerprint=config_fingerprint, device=device)
+            for k, v in state.scores.items():
+                if k in scores:
+                    host_scores[k] = np.asarray(v, np.float32)
+                    scores[k] = torch.as_tensor(host_scores[k],
+                                                device=device)
+            return state
+
+        start_sweep, start_coord = 0, 0
+        if (resume and checkpoint is not None
+                and checkpoint.latest_step() is not None):
+            state = restore()
+            models = dict(state.model.coordinates)
+            start_sweep, start_coord = state.sweep, state.coordinate_index
+            logger.info("resumed from checkpoint: sweep %d coordinate %d",
+                        start_sweep, start_coord)
+        offsets = torch.as_tensor(data.offsets, device=device)
+        total = offsets + sum(scores.values())
 
         history: list[dict[str, float]] = []
         final_evaluation = None
         step_seconds = []
-        for sweep in range(self.n_iterations):
-            for cid in self.update_sequence:
+        for sweep in range(start_sweep, self.n_iterations):
+            for ci, cid in enumerate(self.update_sequence):
+                if sweep == start_sweep and ci < start_coord:
+                    continue
+                if cid in locked:
+                    continue  # frozen: scores stay as seeded
+                if (guard is not None and cid in guard.frozen
+                        and cid in models):
+                    # diverged earlier in this fit: kept at its last good
+                    # model (a fresh configuration with no model retrains)
+                    continue
                 t0 = time.perf_counter()
-                residual = total - scores[cid]
-                with torch.profiler.record_function(f"cd.step[{cid}]"):
-                    model, new_scores = coordinates[cid].train(
-                        residual, models.get(cid))
+                while True:
+                    residual = total - scores[cid]
+                    try:
+                        with torch.profiler.record_function(
+                                f"cd.step[{cid}]"):
+                            model, new_scores = coordinates[cid].train(
+                                residual, models.get(cid))
+                        new_scores = fault_value(
+                            "optimizer.step", new_scores, coordinate=cid,
+                            sweep=sweep)
+                        step_error = None
+                    except Exception as e:
+                        if guard is None:
+                            raise
+                        model, new_scores, step_error = None, None, e
+                    if guard is None or (step_error is None and guard.healthy(
+                            model, new_scores)):
+                        break  # healthy: commit below
+                    action = guard.on_divergence(
+                        cid, sweep=sweep, has_good_model=cid in models,
+                        error=step_error)
+                    if action == "freeze":
+                        new_scores = None  # keep the last good state
+                        break
+                    # roll back to the last durable state: nothing was
+                    # committed in-process, and with a checkpoint the state
+                    # is re-read from disk, as a restart would
+                    if (checkpoint is not None
+                            and checkpoint.latest_step() is not None):
+                        models = dict(restore().model.coordinates)
+                        total = offsets + sum(scores.values())
+                    # regularization backoff: stronger curvature is the
+                    # standard fix for a diverged GLM solve
+                    coord = coordinates[cid]
+                    coordinates[cid] = dataclasses.replace(
+                        coord, lam=guard.next_lam(coord.lam))
+                    logger.warning(
+                        "coordinate %s: retrying with regularization %g "
+                        "(was %g)", cid, coordinates[cid].lam, coord.lam)
+                if new_scores is None:
+                    continue  # frozen mid-sweep: nothing to commit
                 models[cid] = model
                 total = residual + new_scores
                 scores[cid] = new_scores
@@ -78,6 +186,22 @@ class CoordinateDescent:
                 step_seconds.append((sweep, cid, time.perf_counter() - t0))
                 logger.info("sweep %d coordinate %s trained in %.2fs", sweep,
                             cid, step_seconds[-1][2])
+                if checkpoint is not None:
+                    from photon_ml_tpu_torch.io.checkpoint import (
+                        CoordinateDescentState,
+                    )
+
+                    host_scores[cid] = new_scores.cpu().numpy()
+                    next_ci = (ci + 1) % len(self.update_sequence)
+                    checkpoint.save(
+                        sweep * len(self.update_sequence) + ci + 1,
+                        CoordinateDescentState(
+                            sweep=sweep + (next_ci == 0),
+                            coordinate_index=next_ci,
+                            model=GameModel(coordinates=dict(models),
+                                            task=task),
+                            scores=dict(host_scores)),
+                        fingerprint=config_fingerprint)
             if validation is not None:
                 vdata, evaluators = validation
                 gm = GameModel(coordinates=dict(models), task=task)
@@ -91,6 +215,16 @@ class CoordinateDescent:
         model = GameModel(
             coordinates={cid: models[cid] for cid in self.update_sequence},
             task=task)
+        if validation is not None and final_evaluation is None:
+            # no sweep ran (resumed from a finished checkpoint): evaluate
+            # the final model so the caller still gets its metrics
+            vdata, evaluators = validation
+            final_evaluation = evaluate_all(
+                evaluators, model.score(vdata), vdata.labels,
+                weights=vdata.weights, id_tags=vdata.id_columns)
+            history.append(final_evaluation.as_dict())
         return CoordinateDescentResult(
             model=model, validation_history=history,
-            final_evaluation=final_evaluation, step_seconds=step_seconds)
+            final_evaluation=final_evaluation, step_seconds=step_seconds,
+            regularization_weights={cid: c.lam
+                                    for cid, c in coordinates.items()})

@@ -7,16 +7,18 @@ of per-coordinate regularization weights) and evaluates validation data.
 The first validation evaluator is the model-selection criterion.
 
 ``device`` takes the place of the JAX version's ``mesh``: the fit runs on
-one device, ``cuda`` unless the caller passes ``device="cpu"``. Not ported
-yet (each raises :class:`NotImplementedError` naming the option): meshes,
+one device, ``cuda`` unless the caller passes ``device="cpu"``. Warm starts
+(``initial_models``), partial retraining (``locked``), checkpoints and
+resume, the divergence guard and ``on_result`` are ported. Not ported yet
+(each raises :class:`NotImplementedError` naming the option): meshes,
 L1 / elastic-net coordinates (OWL-QN), factored random effects,
-down-sampling, coefficient variances, partial retraining (``locked``),
-checkpoints, the divergence guard and ``on_result``.
+down-sampling and coefficient variances.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 from typing import Mapping, Optional, Sequence
 
@@ -107,13 +109,16 @@ class GameOptimizationConfiguration:
 @dataclasses.dataclass
 class GameResult:
     """(model, validation evaluation, configuration) triple, plus the wall
-    seconds of each coordinate step."""
+    seconds of each coordinate step and the regularization weight each
+    trained coordinate ended with (raised by the divergence guard's
+    rollbacks)."""
 
     model: GameModel
     configuration: GameOptimizationConfiguration
     evaluation: Optional[EvaluationResults]
     validation_history: list[dict[str, float]]
     step_seconds: list = dataclasses.field(default_factory=list)
+    regularization_weights: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -129,21 +134,39 @@ class GameEstimator:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        for cid in self.update_sequence:
-            if cid not in self.coordinate_configs:
-                raise KeyError(
-                    f"update sequence names unknown coordinate {cid!r}")
-            cfg = self.coordinate_configs[cid]
+        # a coordinate may lack a config only if it is locked at fit time
+        # (partial retraining); prepare() and fit() check against locked
+        for cid, cfg in self.coordinate_configs.items():
             if not isinstance(cfg, (FixedEffectCoordinateConfig,
                                     RandomEffectCoordinateConfig)):
                 raise NotImplementedError(
                     f"coordinate {cid!r}: {type(cfg).__name__} is not ported")
             cfg.check_ported()
 
-    def prepare(self, data: GameData) -> dict[str, object]:
-        """Build every coordinate's dataset (once per training set)."""
+    def _check_sequence(self, locked: Sequence[str]) -> None:
+        locked = set(locked)
+        for cid in self.update_sequence:
+            if cid not in self.coordinate_configs and cid not in locked:
+                raise KeyError(
+                    f"update sequence names unknown coordinate {cid!r} "
+                    f"(not configured, not locked)")
+        # a locked coordinate outside the update sequence would vanish from
+        # the model and the residual accounting
+        missing = locked - set(self.update_sequence)
+        if missing:
+            raise ValueError(
+                f"locked coordinates {sorted(missing)} must appear in the "
+                f"update sequence to stay part of the model")
+
+    def prepare(self, data: GameData,
+                locked: Sequence[str] = ()) -> dict[str, object]:
+        """Build every trained coordinate's dataset (once per training
+        set); a locked coordinate gets none."""
+        self._check_sequence(locked)
         datasets: dict[str, object] = {}
         for cid in self.update_sequence:
+            if cid in locked:
+                continue
             cfg = self.coordinate_configs[cid]
             if isinstance(cfg, FixedEffectCoordinateConfig):
                 datasets[cid] = FixedEffectDataset.build(
@@ -158,9 +181,12 @@ class GameEstimator:
         return datasets
 
     def _coordinates(self, data: GameData, datasets: Mapping[str, object],
-                     config: GameOptimizationConfiguration):
+                     config: GameOptimizationConfiguration,
+                     locked: Sequence[str] = ()):
         out = {}
         for cid in self.update_sequence:
+            if cid in locked:
+                continue
             ccfg = self.coordinate_configs[cid]
             if isinstance(ccfg, FixedEffectCoordinateConfig):
                 out[cid] = FixedEffectCoordinate(
@@ -173,6 +199,23 @@ class GameEstimator:
                     lam=config.lam(cid), design_dtype=ccfg.design_dtype)
         return out
 
+    def fingerprint(self, data: GameData,
+                    config: GameOptimizationConfiguration,
+                    locked: Sequence[str] = ()) -> str:
+        """The run-shape identity a checkpoint is saved and resumed under:
+        the weights, the update sequence, the sweep count, the locked set,
+        the sample count and every coordinate's full configuration (a
+        deterministic dataclass ``repr``)."""
+        return json.dumps({
+            "weights": sorted(config.regularization_weights.items()),
+            "update_sequence": list(self.update_sequence),
+            "n_cd_iterations": self.n_cd_iterations,
+            "locked": sorted(locked),
+            "n_samples": data.n_samples,
+            "configs": {c: repr(self.coordinate_configs.get(c))
+                        for c in self.update_sequence},
+        }, sort_keys=True)
+
     def fit(self, data: GameData,
             configurations: Sequence[GameOptimizationConfiguration],
             validation: Optional[tuple[GameData, Sequence[Evaluator]]] = None,
@@ -182,37 +225,44 @@ class GameEstimator:
             guard=None, on_result=None) -> list[GameResult]:
         """One :class:`GameResult` per configuration. ``datasets`` (from
         :meth:`prepare`) lets repeated fits share the dataset builds;
-        ``validation`` is ``(GameData, evaluators)``."""
-        for name, value in (("initial_models", initial_models),
-                            ("checkpoint", checkpoint), ("guard", guard),
-                            ("on_result", on_result)):
-            if value is not None:
-                raise NotImplementedError(f"{name} is not ported")
-        if locked:
-            raise NotImplementedError("locked (partial retraining) is not "
-                                      "ported")
-        if resume:
-            raise NotImplementedError("resume is not ported")
+        ``validation`` is ``(GameData, evaluators)``.
+        ``initial_models``/``locked`` are the partial-retrain path (warm
+        start from a saved model; locked coordinates keep their model and
+        never train). ``checkpoint``/``resume`` persist and restore
+        coordinate-boundary state (one configuration only). ``guard`` is
+        the divergence guard, shared by the configurations.
+        ``on_result(index, result)`` fires as each configuration ends."""
         if callable(validation):
             raise NotImplementedError("a deferred (callable) validation set "
                                       "is not ported")
+        self._check_sequence(locked)
+        if checkpoint is not None and len(configurations) != 1:
+            raise ValueError(
+                "checkpointing supports exactly one configuration")
         if datasets is None:
-            datasets = self.prepare(data)
+            datasets = self.prepare(data, locked=locked)
         cd = CoordinateDescent(update_sequence=self.update_sequence,
                                n_iterations=self.n_cd_iterations)
         results: list[GameResult] = []
         for config in configurations:
-            coordinates = self._coordinates(data, datasets, config)
-            cd_result = cd.run(coordinates, data, self.task, self.device,
-                               validation=validation)
+            coordinates = self._coordinates(data, datasets, config, locked)
+            cd_result = cd.run(
+                coordinates, data, self.task, self.device,
+                validation=validation, initial_models=initial_models,
+                checkpoint=checkpoint, resume=resume, locked=locked,
+                config_fingerprint=self.fingerprint(data, config, locked),
+                guard=guard)
             results.append(GameResult(
                 model=cd_result.model, configuration=config,
                 evaluation=cd_result.final_evaluation,
                 validation_history=cd_result.validation_history,
-                step_seconds=cd_result.step_seconds))
+                step_seconds=cd_result.step_seconds,
+                regularization_weights=cd_result.regularization_weights))
             logger.info("configuration %s -> %s",
                         dict(config.regularization_weights),
                         cd_result.final_evaluation)
+            if on_result is not None:
+                on_result(len(results) - 1, results[-1])
         return results
 
     @staticmethod

@@ -11,7 +11,7 @@ dataset is one searchsorted join.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -75,6 +75,11 @@ class RandomEffectModel:
     keys: np.ndarray
     coeffs: np.ndarray
 
+    @property
+    def n_entities(self) -> int:
+        return (int(np.unique(self.keys // self.dim).shape[0])
+                if len(self.keys) else 0)
+
     def lookup(self, entity_ids: np.ndarray,
                feature_ids: np.ndarray) -> np.ndarray:
         """Coefficient for each (entity, feature) pair; 0 where absent."""
@@ -82,6 +87,35 @@ class RandomEffectModel:
         out = np.zeros(found.shape, np.float32)
         out[found] = self.coeffs[pos[found]]
         return out
+
+    def merge(self, update: "RandomEffectModel",
+              drop_entities: Sequence[int] = ()) -> "RandomEffectModel":
+        """Entity-level patch merge: entities present in ``update`` (or
+        listed in ``drop_entities``) have their rows replaced by (resp.
+        dropped in favour of) the update's; every other entity's rows carry
+        forward bit-identically. Both models live in one key space (same
+        ``dim``, same dense entity ids)."""
+        if update.random_effect_type != self.random_effect_type:
+            raise ValueError(
+                f"merge across random-effect types "
+                f"{self.random_effect_type!r} != {update.random_effect_type!r}")
+        if update.dim != self.dim:
+            raise ValueError(f"merge across dims {self.dim} != {update.dim}")
+        upd_entities = (np.unique(update.keys // self.dim)
+                        if len(update.keys) else np.zeros(0, np.int64))
+        drop = np.union1d(np.asarray(list(drop_entities), np.int64),
+                          upd_entities)
+        keep = (~np.isin(self.keys // self.dim, drop) if len(self.keys)
+                else np.zeros(0, bool))
+        keys = np.concatenate([self.keys[keep], update.keys])
+        coeffs = np.concatenate([
+            np.asarray(self.coeffs, np.float32)[keep],
+            np.asarray(update.coeffs, np.float32)])
+        order = np.argsort(keys, kind="stable")
+        return RandomEffectModel(
+            random_effect_type=self.random_effect_type,
+            feature_shard_id=self.feature_shard_id, task=self.task,
+            dim=self.dim, keys=keys[order], coeffs=coeffs[order])
 
     def score(self, data: GameData,
               sample_idx: Optional[np.ndarray] = None) -> np.ndarray:

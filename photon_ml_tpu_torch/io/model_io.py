@@ -17,8 +17,9 @@ written with ``variances: null`` and variances found on load are dropped.
 Serving reads a model's content identity (:func:`model_lineage_id`), its
 kind (:func:`model_kind`) and its model-derived entity vocabularies
 (:func:`game_model_entity_vocabs`); :func:`load_serving_model` gives all of
-it with the model from one decode of each part file. Not ported yet: writing coefficient
-patches (``save_game_model_patch``).
+it with the model from one decode of each part file.
+:func:`save_game_model_patch` writes the refresh's entity-level coefficient
+patch in the JAX package's layout and metadata.
 """
 
 from __future__ import annotations
@@ -285,6 +286,47 @@ def _re_records(model: RandomEffectModel, index_map: IndexMap,
 PATCH_KIND = "coefficient-patch"
 
 
+def save_game_model_patch(
+    output_dir: str,
+    patch_models: dict[str, "FixedEffectModel | RandomEffectModel"],
+    index_maps: dict[str, IndexMap],
+    entity_vocabs: dict[str, dict[str, int]],
+    *,
+    task: TaskType,
+    parent_model: str,
+    model_id: str,
+    removed: Optional[dict[str, list[str]]] = None,
+    lineage: Optional[dict] = None,
+    sparsity_threshold: float = 0.0,
+) -> None:
+    """Write an entity-level coefficient patch (the refresh's delta
+    publish): the full model's directory layout and records, but only
+    every fixed-effect coordinate (one record each) and, per random-effect
+    coordinate, the re-solved entities' records. The metadata marks it
+    ``kind=coefficient-patch``, names ``parentModel`` (the lineage id of
+    the model whose tables it patches) and ``modelId`` (the lineage id of
+    the equivalent merged full model), and lists per coordinate the raw
+    entity ids in ``removed`` as ``removedEntities``."""
+    os.makedirs(output_dir, exist_ok=True)
+    metadata: dict = {"task": task.value, "kind": PATCH_KIND,
+                      "modelId": model_id, "parentModel": parent_model,
+                      "coordinates": {}}
+    _apply_lineage(metadata, {**(lineage or {}),
+                              "parentModel": parent_model})
+    for cid, cm in patch_models.items():
+        kind, extra = _coordinate_kind(cm)
+        entry = {"type": kind, **extra}
+        rm = (removed or {}).get(cid)
+        if rm:
+            entry["removedEntities"] = sorted(rm)
+        metadata["coordinates"][cid] = entry
+        _write_coordinate_part(output_dir, cid, cm,
+                               index_maps[cm.feature_shard_id],
+                               entity_vocabs, sparsity_threshold)
+    with open(os.path.join(output_dir, "model-metadata.json"), "w") as f:
+        json.dump(metadata, f, indent=2)
+
+
 def model_kind(model_dir: str) -> str:
     """``"model"`` or ``"coefficient-patch"`` for a resolved model dir."""
     return _read_metadata(model_dir).get("kind") or "model"
@@ -449,6 +491,31 @@ def load_game_model(
     metadata = _read_metadata(output_dir)
     return _game_model(metadata, _part_records(output_dir, metadata),
                        index_maps, entity_vocabs, device)
+
+
+def load_warm_start_model(model_dir: str, index_maps: dict[str, IndexMap],
+                          entity_vocabs: dict[str, dict[str, int]], *,
+                          extend_vocabs: bool = False, device=None):
+    """What a warm start loads from a resolved model dir, decoding each
+    part file once: ``(model, lineage id)``, the model keyed by
+    ``entity_vocabs`` as :func:`load_game_model` keys it. With
+    ``extend_vocabs`` the model's own entities (in
+    :func:`game_model_entity_vocabs` order) are first appended, in place,
+    to ``entity_vocabs`` where absent: the union id universe of a refresh,
+    in which entities with no rows this run keep their models."""
+    device = resolve_device(device)
+    metadata = _read_metadata(model_dir)
+    stream = _part_records(model_dir, metadata)
+    decoded = {cid: list(stream(cid)) for cid in metadata["coordinates"]}
+    if extend_vocabs:
+        for re_type, own in _entity_vocabs(metadata,
+                                           decoded.__getitem__).items():
+            vocab = entity_vocabs.setdefault(re_type, {})
+            for raw in own:
+                vocab.setdefault(raw, len(vocab))
+    model = _game_model(metadata, decoded.__getitem__, index_maps,
+                        entity_vocabs, device)
+    return model, _lineage_id(metadata, decoded.__getitem__)
 
 
 def load_serving_model(model_dir: str, index_maps: dict[str, IndexMap],

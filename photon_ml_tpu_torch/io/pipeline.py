@@ -1,15 +1,92 @@
-"""Overlapped ingest: decode files on worker threads, consume them in order.
+"""Overlapped ingest and atomic publication.
 
-Counterpart of ``photon_ml_tpu/io/pipeline.py::DecodePrefetcher`` (the
-background saver and the validation read in the background are not ported:
-the port's ``train_game`` saves and reads synchronously).
+Counterpart of ``photon_ml_tpu/io/pipeline.py``'s ``DecodePrefetcher``,
+``publish_dir`` and ``save_model_patch_atomic``. The background saver and
+the validation read in the background are not ported: the port's drivers
+save and read in the calling thread (the bytes are the same).
 """
 
 from __future__ import annotations
 
+import os
+import shutil
+import tempfile
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Iterator, Optional, Sequence
+
+
+def publish_dir(staging: str, final: str) -> None:
+    """Atomically publish a fully written ``staging`` directory at
+    ``final`` (retire-then-rename): an existing ``final`` is renamed aside
+    first (a ``.tmp`` suffix keeps it out of directory probes), the
+    staging dir takes its place, then the retired copy is deleted — at no
+    instant is ``final`` absent or partially written."""
+    final = os.path.normpath(final)
+    parent = os.path.dirname(os.path.abspath(final))
+    if os.path.exists(final):
+        retired = tempfile.mkdtemp(
+            prefix=f".{os.path.basename(final)}-retired-", suffix=".tmp",
+            dir=parent)
+        os.rmdir(retired)
+        os.rename(final, retired)
+        os.rename(staging, final)
+        shutil.rmtree(retired, ignore_errors=True)
+    else:
+        os.rename(staging, final)
+
+
+def _gc_stale_staging(parent: str, base: str) -> None:
+    """Drop the staging and retired leftovers of a crashed or
+    fault-injected earlier attempt at publishing ``base``."""
+    for name in os.listdir(parent):
+        if name.endswith(".tmp") and (
+                name.startswith(f".{base}-stage-")
+                or name.startswith(f".{base}-retired-")):
+            shutil.rmtree(os.path.join(parent, name), ignore_errors=True)
+
+
+def save_model_patch_atomic(output_dir: str, patch_models, index_maps,
+                            entity_vocabs, *, task, parent_model: str,
+                            model_id: str, removed=None,
+                            lineage: Optional[dict] = None,
+                            sparsity_threshold: float = 0.0) -> int:
+    """:func:`~photon_ml_tpu_torch.io.model_io.save_game_model_patch`
+    written into a hidden staging sibling and published with
+    :func:`publish_dir`, under the retry policy, with the
+    ``io.delta_publish`` fault site in the crash window (staging fully
+    written, rename not yet done): a fault there leaves the previous patch,
+    or nothing, visible. Returns the published patch's bytes."""
+    from photon_ml_tpu_torch.io.model_io import save_game_model_patch
+    from photon_ml_tpu_torch.resilience import fault_point, retry
+
+    output_dir = os.path.normpath(output_dir)
+    parent = os.path.dirname(os.path.abspath(output_dir))
+    os.makedirs(parent, exist_ok=True)
+    base = os.path.basename(output_dir)
+
+    def attempt() -> None:
+        _gc_stale_staging(parent, base)
+        staging = tempfile.mkdtemp(prefix=f".{base}-stage-", suffix=".tmp",
+                                   dir=parent)
+        try:
+            save_game_model_patch(
+                staging, patch_models, index_maps, entity_vocabs,
+                task=task, parent_model=parent_model, model_id=model_id,
+                removed=removed, lineage=lineage,
+                sparsity_threshold=sparsity_threshold)
+            fault_point("io.delta_publish", path=output_dir)
+            publish_dir(staging, output_dir)
+        except BaseException:
+            shutil.rmtree(staging, ignore_errors=True)
+            raise
+
+    retry(attempt, name=f"io.delta_publish:{base}")
+    total = 0
+    for dirpath, _dirs, files in os.walk(output_dir):
+        for name in files:
+            total += os.path.getsize(os.path.join(dirpath, name))
+    return total
 
 
 class DecodePrefetcher:

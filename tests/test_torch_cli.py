@@ -158,8 +158,8 @@ def test_best_model_cross_loads(runs, data_files, trained_by):
 
 
 #: run-root artefacts of the JAX package's train_game that the port does not write yet
-#: (continuous/delta.py's data manifest, quality/'s baseline)
-NOT_WRITTEN = {"data-manifest.json", "quality-baseline.json"}
+#: (quality/'s baseline)
+NOT_WRITTEN = {"quality-baseline.json"}
 
 
 def _tree(root):
@@ -170,8 +170,8 @@ def _tree(root):
 def test_output_tree_matches(runs):
     _, _, t_dir, _, j_dir = runs
     assert _tree(t_dir) == [p for p in _tree(j_dir) if p not in NOT_WRITTEN]
-    for shard in ("global", "item"):
-        p = os.path.join("feature-indexes", f"{shard}.json")
+    for p in [os.path.join("feature-indexes", f"{shard}.json")
+              for shard in ("global", "item")] + ["data-manifest.json"]:
         with open(os.path.join(t_dir, p), "rb") as a, \
                 open(os.path.join(j_dir, p), "rb") as b:
             assert a.read() == b.read()
@@ -180,11 +180,13 @@ def test_output_tree_matches(runs):
         with open(os.path.join(root, "best", "model-metadata.json")) as f:
             meta[name] = json.load(f)
         assert meta[name].pop("trainedAt")
-        assert meta[name].pop("dataManifest") is None or name == "jax"
+    # the same Avro gives the same manifest and digest in both packages
+    assert meta["port"]["dataManifest"] is not None
     assert meta["port"] == meta["jax"]
     with open(os.path.join(t_dir, "metrics.jsonl")) as f:
         stages = [json.loads(line)["stage"] for line in f]
-    assert stages == ["Read training data", "Validate data",
+    assert stages == ["Read training data", "Build data manifest",
+                      "Validate data",
                       "Read validation data", "Train (grid)", "best",
                       "Save models"]
 
@@ -222,14 +224,11 @@ _REQUIRED = ["--training-data", "x.avro", "--output-dir", "out",
 @pytest.mark.parametrize("extra", [
     ["--tuning", "RANDOM"], ["--tuning", "BAYESIAN"],
     ["--tuning-iterations", "5"], ["--tuning-range", "1:10"],
-    ["--model-input-dir", "m"], ["--locked-coordinates", "global"],
-    ["--checkpoint"], ["--resume"], ["--multihost"], ["--mesh", "data=2"],
+    ["--multihost"], ["--mesh", "data=2"],
     ["--supervise", "2"], ["--max-restarts", "1"],
     ["--heartbeat-timeout-s", "5"], ["--restart-deadline-s", "5"],
     ["--profile"], ["--debug-nans"], ["--telemetry-dir", "t"],
     ["--telemetry-poll-s", "1"], ["--metrics-port", "9"],
-    ["--max-retries", "0"], ["--retry-deadline-s", "1"],
-    ["--on-divergence", "rollback"],
 ], ids=lambda e: e[0][2:] + ("-" + e[1] if e[0] == "--tuning" else ""))
 def test_unported_flag_names_itself(tmp_path, extra):
     with pytest.raises(NotImplementedError, match=extra[0]):

@@ -339,9 +339,9 @@ def test_unsupported_options_raise(override, match):
 
 def test_unsupported_fit_arguments_raise():
     est = _torch_estimator("float32")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    with pytest.raises(NotImplementedError, match="deferred"):
         est.fit(_game_data(tg, 50, 0), [tg.GameOptimizationConfiguration(LAM)],
-                checkpoint=object())
+                validation=lambda: None)
 
 
 def _no_device_entry_points():

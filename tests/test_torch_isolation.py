@@ -60,3 +60,16 @@ def _forbidden_imports(path: pathlib.Path) -> list[str]:
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_neither_jax_nor_the_jax_package(path):
     assert _forbidden_imports(path) == []
+
+
+def test_pyproject_lists_every_subpackage_of_the_port():
+    # ``[tool.setuptools] packages`` is an explicit list: a subpackage left
+    # out of it is missing from a non-editable install
+    import tomllib
+
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        listed = set(tomllib.load(f)["tool"]["setuptools"]["packages"])
+    packages = {".".join(p.parent.relative_to(ROOT).parts)
+                for p in PORT.rglob("__init__.py")}
+    assert "photon_ml_tpu_torch.resilience" in packages
+    assert sorted(packages - listed) == []
