@@ -114,7 +114,29 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    atol 1e-3 of the uninterrupted run, AUC within 1e-4; (e) one NaN at
    perUser's step from ``PHOTON_FAULT_PLAN`` under ``--on-divergence
    rollback`` finishes with events detection, rollback, and perUser's
-   lambda x10; under ``fail``, in a process of its own, it exits non-zero.
+   lambda x10; under ``fail``, in a process of its own, it exits non-zero;
+12. the refresh -> serve loop on phase 8's ``best/`` and phase 11 (b)'s
+   outputs (its patch, whose ``parentModel`` is phase 8's lineage, and its
+   merged model): (a) in f32, bf16 and int8, ``ModelRegistry.load`` of
+   phase 8 and ``load_patch`` of the patch: every coordinate's patched
+   table and scales equal a build of the merged model row for row by raw
+   id, bit for bit (new users appended, carried rows unchanged); phase
+   10's 20,000 records score bit-identically through the patched engine
+   and the merged model's (in f32 a full ``/reload`` of it); each version
+   captures 11 graphs at its warmup and none after; the activation's split
+   (reading the patch, ``apply_patch``, the captures) is logged beside the
+   full reload's; (b) ``serve_game --watch-dir --reqlog-dir`` on phase 8
+   with microbatch 64 and 8 client threads, while a garbage entry, the
+   patch and the merged model are published into the watched directory:
+   version 3 at the end, 2 applied and 1 rejected, no request failed, each
+   reply equal bit for bit to the f32 score of the version it names, and
+   after the server stops one logged record per answered request with its
+   reply's score, version and lineage; (c) two-phase ``/reload`` on that
+   server: the patch refused for its lineage, ``prepare`` that leaves the
+   incumbent serving, ``activate``, and ``prepare`` of the patch then
+   ``abort``; (d) a second server with ``--max-connections 4``: the fifth
+   connection gets the typed 503, counted. Phase 12 launches none of the
+   four kernels.
 
 Any failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the ``kernels``
@@ -1997,6 +2019,7 @@ def run_scoring_phase(e2e_run, device="cuda"):
                              batch[:ENGINE_RECORDS], device)
     serve_http_phase(e2e_run["run"], records, f32, device)
     log(f"[10] done in {time.perf_counter() - t_start:.1f} s")
+    return records
 
 
 # --------------------------------------------------------------------------
@@ -2110,7 +2133,8 @@ def write_day2(tg, train_path, root):
 
 def run_refresh_phase(tg, e2e_run, phase8_launches, tmp):
     """Phase 11 on phase 8's run directory and Avro; returns the kernels'
-    launches of (b) the day-2 refresh and (c) the locked warm start."""
+    launches of (b) the day-2 refresh and (c) the locked warm start, and
+    (b)'s run directory (its merged model, ``best/``, and its patch)."""
     from photon_ml_tpu_torch.cli import refresh_game, train_game
     from photon_ml_tpu_torch.events import GLOBAL_BUS
     from photon_ml_tpu_torch.resilience import faults
@@ -2305,7 +2329,388 @@ def run_refresh_phase(tg, e2e_run, phase8_launches, tmp):
         f"{failed.returncode} in {time.perf_counter() - t0:.1f} s: {tail}")
     assert failed.returncode != 0 and "DivergenceError" in failed.stderr
     log(f"[11] done in {time.perf_counter() - t_start:.1f} s")
-    return launches_b, launches_l
+    return launches_b, launches_l, out_b
+
+
+# --------------------------------------------------------------------------
+# phase 12: the refresh -> serve loop — phase 11 (b)'s patch in serve_game
+# --------------------------------------------------------------------------
+
+#: the publish directory's poll interval (tests/test_continuous.py's
+#: TestWatchDir polls at 0.2 s)
+WATCH_POLL_S = 0.2
+#: (b): replies naming the merged full model that the clients must read
+#: after its activation before they stop, so version 3 is served under
+#: load: a quarter of the clients' floor, the share phase 10 (c) serves
+#: before its /reload
+AFTER_FULL_REPLIES = HTTP_THREADS * HTTP_REQUESTS // 4
+#: (d): the connection budget, and the connections held open to spend
+#: it; any small budget shows the refusal, 4 keeps (d) to a few sockets
+MAX_CONNECTIONS = 4
+
+
+def table_rows(store, ids):
+    """Each raw id's stored row, as the integers of its storage width
+    (bit equality), and its int8 scale's bits (None for other formats);
+    an id the store does not hold reads the fallback row."""
+    rows = store.rows_for(ids)
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.int8: torch.int8}[store.table.dtype]
+    bits = store.table.view(view).cpu().numpy()[rows]
+    scales = (None if store.scales is None
+              else store.scales.view(torch.int32).cpu().numpy()[rows])
+    return bits, scales
+
+
+def split_line(sm):
+    parts = ", ".join(f"{k} {v:.3f} s" for k, v in sm.load_seconds.items())
+    return f"{parts} (total {sum(sm.load_seconds.values()):.3f} s)"
+
+
+def patch_tables_phase(run, patch, merged, records, device="cuda"):
+    """(a) phase 8's best/ patched with phase 11 (b)'s patch, in each table
+    format, against the merged model: tables equal row for row by raw id,
+    bit for bit, scores equal, 11 captures a version at its warmup and
+    none after. Returns the f32 scores of phase 8's model and of the
+    merged one."""
+    from photon_ml_tpu_torch.cli.config import parse_feature_shard_config
+    from photon_ml_tpu_torch.serving import ModelRegistry, ScoringEngine
+    from photon_ml_tpu_torch.serving.store import EntityCoefficientStore
+
+    shards = tuple(parse_feature_shard_config(s)
+                   for s in E2E_SHARDS.split(","))
+    full = None
+    for dtype in ("float32", "bfloat16", "int8"):
+        registry = ModelRegistry(shards, max_batch=ENGINE_MAX_BATCH,
+                                 warmup=True, table_dtype=dtype,
+                                 device=device)
+        parent = registry.load(run)
+        if dtype == "float32":
+            parent_f32 = parent.score(records)
+        sm = registry.load_patch(patch)
+        touched = {cid: len(s.row_of_id) - len(parent.stores[cid].row_of_id)
+                   for cid, s in sm.stores.items()}
+        log(f"[12a] {dtype}: phase 8's load: {split_line(parent)}; patch "
+            f"activation (version {sm.version}): {split_line(sm)}; "
+            f"captures {parent.engine.compile_count} + "
+            f"{sm.engine.compile_count}; new entities {touched}")
+        if dtype == "float32":
+            full = registry.reload(merged)
+            log(f"[12a] full /reload of the merged model (version "
+                f"{full.version}): {split_line(full)}; captures "
+                f"{full.engine.compile_count}")
+            want = {cid: s for cid, s in full.stores.items()}
+            engine = full.engine
+        else:
+            # the merged model's tables in this format: what a load does
+            # after the decode, from the f32 load's model and vocabularies
+            want = {cid: EntityCoefficientStore.build(
+                cm, full.entity_vocabs[cm.random_effect_type],
+                table_dtype=dtype, device=device)
+                for cid, cm in full.model.coordinates.items()
+                if cid in full.stores}
+            engine = ScoringEngine(full.model, shards, full.index_maps,
+                                   want, max_batch=ENGINE_MAX_BATCH,
+                                   device=device)
+            engine.warmup()
+        for cid, store in sm.stores.items():
+            ids = sorted(set(store.row_of_id) | set(want[cid].row_of_id))
+            (a, sa), (b, sb) = table_rows(store, ids), \
+                table_rows(want[cid], ids)
+            mismatch = int((a != b).any(axis=1).sum())
+            if sa is not None:
+                mismatch += int((sa != sb).sum())
+            log(f"  {cid}: {len(ids)} raw ids, {mismatch} rows differ from "
+                f"the merged model's build")
+            assert mismatch == 0, (dtype, cid, mismatch)
+            assert store.n_entities == len(ids), (cid, store.n_entities)
+        got = sm.score(records)
+        ref = engine.score(records)
+        differ = int(np.count_nonzero(got != ref))
+        log(f"  {len(records)} records: {differ} patched scores differ from "
+            f"the merged model's")
+        assert differ == 0, (dtype, differ)
+        assert np.isfinite(got).all() and got.shape == (len(records),)
+        for version in (parent, sm):
+            assert version.engine.compile_count == ENGINE_CAPTURES, \
+                (dtype, version.version, version.engine.compile_count)
+        if dtype == "float32":
+            merged_f32 = got
+            moved = int(np.count_nonzero(got != parent_f32))
+            log(f"  the patch moved {moved} of {len(records)} scores")
+            assert moved > 0
+        del registry, parent, sm, want, engine
+    return parent_f32, merged_f32
+
+
+def publish(src, watch, name):
+    """Hard-link ``src`` into ``watch/name`` as a publisher does: under a
+    hidden name first, renamed into place."""
+    staging = os.path.join(watch, f".{name}.tmp")
+    shutil.copytree(src, staging, copy_function=os.link)
+    os.rename(staging, os.path.join(watch, name))
+
+
+def http_exchange(sock, method="GET", path="/healthz", body=None,
+                  headers=None):
+    """One keep-alive request on ``sock``: (status, headers, JSON body)."""
+    data = b"" if body is None else json.dumps(body).encode()
+    head = [f"{method} {path} HTTP/1.1", "Host: smoke",
+            f"Content-Length: {len(data)}",
+            "Content-Type: application/json"]
+    head += [f"{k}: {v}" for k, v in (headers or {}).items()]
+    sock.sendall(("\r\n".join(head) + "\r\n\r\n").encode() + data)
+    buf = b""
+    while b"\r\n\r\n" not in buf:
+        chunk = sock.recv(65536)
+        if not chunk:
+            raise ConnectionError("closed before a reply")
+        buf += chunk
+    raw, rest = buf.split(b"\r\n\r\n", 1)
+    lines = raw.decode().split("\r\n")
+    hdrs = dict(line.split(": ", 1) for line in lines[1:])
+    while len(rest) < int(hdrs["Content-Length"]):
+        rest += sock.recv(65536)
+    return int(lines[0].split()[1]), hdrs, json.loads(rest)
+
+
+def serve_loop_phase(run, patch, merged, records, want, tmp,
+                     device="cuda"):
+    """(b) serve_game with --watch-dir and --reqlog-dir under 8 client
+    threads while a garbage entry, the patch and the merged model land in
+    the watched directory; (c) two-phase /reload on the same server; the
+    request log read back after it stops. ``want``: version -> the f32
+    scores of ``records`` it must reply."""
+    import socket
+    import threading
+
+    from photon_ml_tpu_torch.cli import serve_game
+    from photon_ml_tpu_torch.serving import iter_reqlog
+
+    watch = os.path.join(tmp, "publish")
+    log_dir = os.path.join(tmp, "reqlog")
+    os.makedirs(watch)
+    t0 = time.perf_counter()
+    server = serve_game.build_server([
+        "--model-dir", run, "--feature-shards", E2E_SHARDS, "--port", "0",
+        "--microbatch", str(HTTP_MICROBATCH), "--device", device,
+        "--watch-dir", watch, "--watch-poll-s", str(WATCH_POLL_S),
+        "--reqlog-dir", log_dir, "--reqlog-sample", "1.0"]).start()
+    log(f"[12b] serve_game --watch-dir --reqlog-dir on {server.url}: up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    host, port = server.url.rsplit("/", 1)[1].split(":")
+    registry = server.service.registry
+    n = HTTP_THREADS * HTTP_REQUESTS
+    replies = {}  # request id -> (record index, reply)
+    failures, lock = [], threading.Lock()
+    answered = {"all": 0, "after_full": 0}
+    quarter, stop = threading.Event(), threading.Event()
+
+    def client(t):
+        sock = socket.create_connection((host, int(port)), timeout=120)
+        try:
+            k = 0
+            while k < HTTP_REQUESTS or not stop.is_set():
+                i = (t * HTTP_REQUESTS + k) % len(records)
+                rid = f"c{t}-{k}"
+                k += 1
+                status, _, body = http_exchange(
+                    sock, "POST", "/score", {"record": records[i]},
+                    {"X-Photon-Request-Id": rid})
+                if status != 200:
+                    failures.append((rid, status, body))
+                    return
+                with lock:
+                    replies[rid] = (i, body)
+                    answered["all"] += 1
+                    answered["after_full"] += body["version"] == 3
+                    if answered["all"] == n // 4:
+                        quarter.set()
+        except Exception as e:  # a failed request fails the phase
+            failures.append((t, repr(e)))
+        finally:
+            sock.close()
+
+    def wait_for(pred, timeout_s=300.0):
+        deadline = time.perf_counter() + timeout_s
+        while not pred():
+            if time.perf_counter() > deadline or failures:
+                return False
+            time.sleep(0.01)
+        return True
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(HTTP_THREADS)]
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        assert quarter.wait(300), failures[:3]
+        os.mkdir(os.path.join(watch, "a-garbage"))
+        with open(os.path.join(watch, "a-garbage", "model-metadata.json"),
+                  "w") as f:
+            f.write("{ not json")
+        t1 = time.perf_counter()
+        publish(patch, watch, "b-patch")
+        assert wait_for(lambda: registry.active_version == 2), \
+            (registry.active_version, failures[:3])
+        walls["patch"] = time.perf_counter() - t1
+        mark = answered["all"]
+        assert wait_for(lambda: answered["all"] >= mark + n // 4)
+        t1 = time.perf_counter()
+        publish(merged, watch, "c-full")
+        assert wait_for(lambda: registry.active_version == 3), \
+            (registry.active_version, failures[:3])
+        walls["full"] = time.perf_counter() - t1
+        assert wait_for(lambda: answered["after_full"] >= AFTER_FULL_REPLIES)
+        stop.set()
+        for th in threads:
+            th.join(timeout=600)
+        walls["traffic"] = time.perf_counter() - t0
+        assert not any(th.is_alive() for th in threads)
+        health = server.service.healthz()
+        applied, rejected = server.watcher.n_applied, server.watcher.n_rejected
+        captures = {v: registry.get(v).engine.compile_count
+                    for v in registry.versions()}
+        splits = {v: split_line(registry.get(v))
+                  for v in registry.versions()}
+
+        # (c) two-phase /reload on the same server
+        two_phase = []
+        sock = socket.create_connection((host, int(port)), timeout=300)
+        try:
+            def score_probe(tag):
+                rid = f"probe-{tag}"
+                status, _, body = http_exchange(
+                    sock, "POST", "/score", {"record": records[0]},
+                    {"X-Photon-Request-Id": rid})
+                assert status == 200, body
+                replies[rid] = (0, body)
+                return body["version"]
+
+            def reload(body):
+                t1 = time.perf_counter()
+                status, _, out = http_exchange(sock, "POST", "/reload", body)
+                two_phase.append((body, status, out,
+                                  time.perf_counter() - t1))
+                return status, out
+
+            status, out = reload({"model_dir": patch})
+            assert status == 409 and "lineage" in out["error"], out
+            assert out["version"] == 3 and score_probe("refused") == 3
+            status, out = reload({"phase": "prepare", "model_dir": run})
+            assert status == 200 and out["phase"] == "prepared", out
+            assert out["version"] == 4 and out["previous"] == 3, out
+            assert score_probe("prepared") == 3
+            status, out = reload({"phase": "activate", "version": 4})
+            assert status == 200 and out == {
+                "version": 4, "previous": 3, "phase": "activated",
+                "lineage": registry.get(4).lineage}, out
+            assert score_probe("activated") == 4
+            status, out = reload({"phase": "prepare", "model_dir": patch})
+            assert status == 200 and out["version"] == 5, out
+            assert score_probe("patch-prepared") == 4
+            status, out = reload({"phase": "abort", "version": 5})
+            assert status == 200 and out == {
+                "version": 4, "retired": 5, "phase": "aborted"}, out
+            assert registry.versions() == [1, 2, 3, 4]
+            assert score_probe("aborted") == 4
+        finally:
+            sock.close()
+        for v in registry.versions():
+            captures.setdefault(v, registry.get(v).engine.compile_count)
+    finally:
+        server.stop()
+    log(f"  {len(replies)} requests in {walls['traffic']:.2f} s; the "
+        f"patch activated {walls['patch']:.2f} s after its publish, the "
+        f"merged model {walls['full']:.2f} s after its; watcher applied "
+        f"{applied}, rejected {rejected}; versions served "
+        f"{sorted({b['version'] for _, b in replies.values()})}")
+    for v, line in splits.items():
+        log(f"  version {v}: {line}")
+    for body, status, out, sec in two_phase:
+        log(f"[12c] /reload {body} -> {status} in {sec:.2f} s: "
+            f"{ {k: out[k] for k in out if k != 'error'} }")
+    assert not failures, failures[:5]
+    assert health["version"] == 3 and (applied, rejected) == (2, 1), \
+        (health["version"], applied, rejected)
+    assert all(c == ENGINE_CAPTURES for c in captures.values()), captures
+    mismatch = [rid for rid, (i, body) in replies.items()
+                if np.float32(body["scores"][0]) != want[body["version"]][i]]
+    log(f"  replies vs their version's f32 scores: {len(mismatch)} of "
+        f"{len(replies)} differ")
+    assert not mismatch, mismatch[:5]
+
+    t0 = time.perf_counter()
+    logged = {e["requestId"]: e for e in iter_reqlog(log_dir)}
+    bad = [rid for rid, (_, body) in replies.items()
+           if rid not in logged
+           or logged[rid]["records"][0]["score"] != body["scores"][0]
+           or logged[rid]["modelVersion"] != body["version"]
+           or logged[rid]["modelLineage"] != body["lineage"]]
+    log(f"[12b] request log: {len(logged)} records for {len(replies)} "
+        f"answered requests ({time.perf_counter() - t0:.2f} s to read); "
+        f"{len(bad)} disagree with their reply; health {health['reqlog']}")
+    assert len(logged) == len(replies) and not bad, bad[:5]
+
+
+def connection_budget_phase(run, device="cuda"):
+    """(d) a second server with --max-connections 4: with 4 connections
+    held open the next gets the typed 503, counted."""
+    import socket
+
+    from photon_ml_tpu_torch.cli import serve_game
+    from photon_ml_tpu_torch.telemetry import metrics
+
+    server = serve_game.build_server([
+        "--model-dir", run, "--feature-shards", E2E_SHARDS, "--port", "0",
+        "--no-warmup", "--device", device,
+        "--max-connections", str(MAX_CONNECTIONS)]).start()
+    refused = metrics.default_registry().get(
+        "photon_connections_refused_total")
+    before = refused.value
+    host, port = server.url.rsplit("/", 1)[1].split(":")
+    held = []
+    try:
+        for _ in range(MAX_CONNECTIONS):
+            sock = socket.create_connection((host, int(port)), timeout=60)
+            held.append(sock)
+            assert http_exchange(sock)[0] == 200
+        extra = socket.create_connection((host, int(port)), timeout=60)
+        try:
+            status, headers, body = http_exchange(extra)
+        finally:
+            extra.close()
+        _, _, ready = http_exchange(held[0], path="/readyz")
+    finally:
+        for sock in held:
+            sock.close()
+        server.stop()
+    log(f"[12d] --max-connections {MAX_CONNECTIONS}: connection "
+        f"{MAX_CONNECTIONS + 1} -> {status} {body}, Connection "
+        f"{headers.get('Connection')}, Retry-After "
+        f"{headers.get('Retry-After')}; refused counter +"
+        f"{refused.value - before:g}; /readyz reasons {ready['reasons']}")
+    assert status == 503 and body["reason"] == "connections", body
+    assert headers.get("Connection") == "close" and "Retry-After" in headers
+    assert refused.value - before == 1
+    assert "connections_exhausted" in ready["reasons"]
+
+
+def run_patch_serving_phase(e2e_run, refresh_run, records, tmp,
+                            device="cuda"):
+    """Phase 12 on phase 8's best/ and phase 11 (b)'s outputs."""
+    t_start = time.perf_counter()
+    run = e2e_run["run"]
+    patch = os.path.join(refresh_run, "patch")
+    parent_f32, merged_f32 = patch_tables_phase(run, patch, refresh_run,
+                                                records, device)
+    want = {1: parent_f32, 2: merged_f32, 3: merged_f32, 4: parent_f32}
+    serve_loop_phase(run, patch, refresh_run, records, want,
+                     os.path.join(tmp, "phase12"), device)
+    connection_budget_phase(run, device)
+    log(f"[12] done in {time.perf_counter() - t_start:.1f} s")
 
 
 def main() -> int:
@@ -2635,11 +3040,17 @@ def main() -> int:
         log(f"[9] done in {time.perf_counter() - t0:.1f} s")
 
         # 10. scoring phase 8's model: batch, engine, HTTP ------------------
-        run_scoring_phase(e2e_run)
+        records = run_scoring_phase(e2e_run)
 
         # 11. incremental training on phase 8's run -------------------------
-        refresh_launches, locked_launches = run_refresh_phase(
+        refresh_launches, locked_launches, refresh_run = run_refresh_phase(
             tg, e2e_run, cli_launches, e2e_tmp)
+
+        # 12. the refresh -> serve loop: phase 11 (b)'s patch served --------
+        _, _, loop_launches = counted_call(
+            run_patch_serving_phase, e2e_run, refresh_run, records, e2e_tmp)
+        log(f"[12] kernel launches {loop_launches}")
+        assert not any(loop_launches.values()), loop_launches
     finally:
         shutil.rmtree(e2e_tmp, ignore_errors=True)
 

@@ -223,9 +223,9 @@ def add_resilience_flags(parser) -> None:
     """The drivers' shared resilience flags."""
     parser.add_argument(
         "--max-retries", type=int, default=2,
-        help="retries (not attempts) for transient faults: checkpoint "
-             "save/load and the patch publish — and the divergence "
-             "guard's per-coordinate rollback budget")
+        help="retries (not attempts) for transient faults: Avro file "
+             "reads, checkpoint save/load and the patch publish — and the "
+             "divergence guard's per-coordinate rollback budget")
     parser.add_argument(
         "--retry-deadline-s", type=float, default=None,
         help="hard wall-clock deadline across one operation's retries "

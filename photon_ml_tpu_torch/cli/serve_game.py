@@ -9,12 +9,15 @@ new versions through ``/reload`` without dropping traffic::
 
 The tables and the bucket graphs live on ``--device`` (the card unless
 ``--device cpu``; no card raises). Margins accumulate in float64 on either
-device, so f32 scores equal ``score_game``'s. Flags of the reference that
-the port does not run yet (fleet shards, the directory watcher, the request
-log, the autopilot, the connection budget, the canary and quality monitor,
-ranked retrieval, retained telemetry, telemetry) are accepted by the parser
-and raise :class:`NotImplementedError` naming the flag when given away from
-their default.
+device, so f32 scores equal ``score_game``'s. ``--watch-dir`` applies the
+full models and coefficient patches published into a directory,
+``--reqlog-dir`` logs every served request to Avro segments, and
+``--max-connections`` refuses connections past a budget with a typed 503.
+Flags of the reference that the port does not run yet (fleet shards, the
+autopilot, the canary and quality monitor, ranked retrieval, retained
+telemetry, telemetry) are accepted by the parser and raise
+:class:`NotImplementedError` naming the flag when given away from their
+default.
 """
 
 from __future__ import annotations
@@ -34,14 +37,7 @@ from photon_ml_tpu_torch.cli.config import (
 _UNPORTED_FLAGS = {
     "--fleet-shard": {"type": int, "default": None},
     "--fleet-shard-count": {"type": int, "default": None},
-    "--watch-dir": {"default": None},
-    "--watch-poll-s": {"type": float, "default": 10.0},
-    "--reqlog-dir": {"default": None},
-    "--reqlog-sample": {"type": float, "default": 1.0},
-    "--reqlog-segment-records": {"type": int, "default": 256},
-    "--reqlog-max-mb": {"type": float, "default": 64.0},
     "--autopilot-config": {"default": None},
-    "--max-connections": {"type": int, "default": 0},
     "--canary-gate": {"action": "store_true"},
     "--canary-bound": {"type": float, "default": None},
     "--quality-poll-s": {"type": float, "default": 0.0},
@@ -107,6 +103,36 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where the tables and bucket programs live "
                         "(default: the GPU; there is no fall-back to the "
                         "CPU)")
+    p.add_argument("--watch-dir", metavar="DIR",
+                   help="poll DIR for new model versions (full "
+                        "train_game / refresh_game output dirs or "
+                        "coefficient-patch dirs) and apply each through "
+                        "the validate-then-activate path, in sorted name "
+                        "order; a rejected candidate leaves the active "
+                        "version serving")
+    p.add_argument("--watch-poll-s", type=float, default=10.0,
+                   help="poll interval of --watch-dir (seconds)")
+    p.add_argument("--reqlog-dir", metavar="DIR",
+                   help="log sampled requests to rotated Avro segments "
+                        "under DIR (request id, records, scores, the "
+                        "version and lineage that served them, stage "
+                        "timings), written off the request path. Default: "
+                        "no request log")
+    p.add_argument("--reqlog-sample", type=float, default=1.0,
+                   help="request-log sampling rate in [0, 1], decided "
+                        "per request id (1.0 logs every request the "
+                        "budget allows)")
+    p.add_argument("--reqlog-segment-records", type=int, default=256,
+                   help="requests per request-log segment file")
+    p.add_argument("--reqlog-max-mb", type=float, default=64.0,
+                   help="on-disk request-log budget; the oldest segments "
+                        "rotate out past it")
+    p.add_argument("--max-connections", type=int, default=0, metavar="N",
+                   help="connection budget (0 = unlimited): a connection "
+                        "past it gets one typed 503 reason=connections "
+                        "with Connection: close, counted in "
+                        "photon_connections_refused_total and shown by "
+                        "/readyz as connections_exhausted")
     add_unported_flags(p, _UNPORTED_FLAGS)
     return p
 
@@ -122,10 +148,15 @@ def build_server(argv: Optional[Sequence[str]] = None):
         ServingService,
     )
     from photon_ml_tpu_torch.serving.http import ConnectionTracker
+    from photon_ml_tpu_torch.serving.reqlog import RequestLog
+    from photon_ml_tpu_torch.serving.watcher import ModelDirectoryWatcher
 
     args = build_parser().parse_args(
         list(sys.argv[1:] if argv is None else argv))
     refuse_unported(args, _UNPORTED_FLAGS)
+    if args.max_connections < 0:
+        raise ValueError(f"max_connections must be >= 0, got "
+                         f"{args.max_connections}")
     shard_configs = tuple(parse_feature_shard_config(s)
                           for s in args.feature_shards.split(","))
     registry = ModelRegistry(shard_configs, max_batch=args.max_batch,
@@ -139,17 +170,29 @@ def build_server(argv: Optional[Sequence[str]] = None):
             lambda records: registry.active().score(records),
             max_batch=args.microbatch, max_wait_ms=args.max_wait_ms,
             max_queue=args.max_queue if args.max_queue > 0 else None)
-    connections = ConnectionTracker()
+    connections = ConnectionTracker(max_connections=args.max_connections)
     overload = None
     if batcher is not None and args.brownout_poll_s > 0:
         overload = OverloadController(
             batcher, poll_s=args.brownout_poll_s,
             connections=connections).start()
+    reqlog = None
+    if args.reqlog_dir:
+        reqlog = RequestLog(
+            args.reqlog_dir, sample_rate=args.reqlog_sample,
+            segment_records=args.reqlog_segment_records,
+            max_bytes=int(args.reqlog_max_mb * (1 << 20)))
     service = ServingService(registry, default_model_dir=args.model_dir,
                              batcher=batcher,
                              default_timeout_ms=args.request_timeout_ms,
-                             overload=overload, connections=connections)
-    return GameServer(service, host=args.host, port=args.port)
+                             overload=overload, connections=connections,
+                             reqlog=reqlog)
+    watcher = None
+    if args.watch_dir:
+        watcher = ModelDirectoryWatcher(registry, args.watch_dir,
+                                        poll_s=args.watch_poll_s)
+    return GameServer(service, host=args.host, port=args.port,
+                      watcher=watcher)
 
 
 def run(argv: Optional[Sequence[str]] = None) -> dict:

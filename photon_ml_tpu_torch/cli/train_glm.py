@@ -17,11 +17,14 @@ evaluator → write ``best/`` and ``all/lambda-*/`` (``model.avro`` and
 A shard of at most :data:`DENSE_MAX_DIM` columns trains on a dense design
 (kernels 1, 3 and 4 on the card); a wider one on a
 :class:`~photon_ml_tpu_torch.ops.design.ChunkedSparseDesign` in f32. It runs
-on the card unless ``--device cpu`` asks for the CPU. Saves run in the
-calling thread (the reference's background saver only overlaps them: the
-bytes are the same). Flags of the reference that the port does not run
-yet are accepted by the parser and raise :class:`NotImplementedError`
-naming the flag.
+on the card unless ``--device cpu`` asks for the CPU. Reads run under the
+retry policy of ``--max-retries`` and ``--retry-deadline-s``; a lambda
+whose coefficients are not finite fails the run under ``--on-divergence
+fail`` and is dropped from selection under ``rollback`` or ``freeze``.
+Saves run in the calling thread (the reference's background saver only
+overlaps them: the bytes are the same). Flags of the reference that the
+port does not run yet are accepted by the parser and raise
+:class:`NotImplementedError` naming the flag.
 """
 
 from __future__ import annotations
@@ -35,12 +38,16 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.cli.config import (
+    add_resilience_flags,
     add_unported_flags,
+    install_resilience,
     refuse_unported,
+    resilience_from_args,
 )
 from photon_ml_tpu_torch.data_validation import validate_game_data
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.evaluation import parse_evaluators
+from photon_ml_tpu_torch.events import GLOBAL_BUS
 from photon_ml_tpu_torch.game.data import GameData, design_dtype_of
 from photon_ml_tpu_torch.glm.problem import GLMOptimizationConfiguration
 from photon_ml_tpu_torch.glm.training import (
@@ -73,6 +80,7 @@ from photon_ml_tpu_torch.ops.normalization import (
 from photon_ml_tpu_torch.ops.objective import GLMData
 from photon_ml_tpu_torch.ops.regularization import RegularizationContext
 from photon_ml_tpu_torch.optimize import OptimizerConfig
+from photon_ml_tpu_torch.resilience import DivergenceError
 from photon_ml_tpu_torch.stat import FeatureDataStatistics
 from photon_ml_tpu_torch.types import (
     INTERCEPT_KEY,
@@ -95,8 +103,6 @@ _UNPORTED_FLAGS = {
     "--profile": {"action": "store_true"},
     "--debug-nans": {"action": "store_true"},
     "--multihost": {"action": "store_true"},
-    "--max-retries": {"type": int},
-    "--retry-deadline-s": {"type": float},
     "--supervise": {"type": int},
     "--max-restarts": {"type": int},
     "--heartbeat-timeout-s": {"type": float},
@@ -105,10 +111,6 @@ _UNPORTED_FLAGS = {
     "--telemetry-poll-s": {"type": float},
     "--metrics-port": {"type": int},
 }
-
-
-class DivergenceError(RuntimeError):
-    """The sweep produced non-finite coefficients."""
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -157,22 +159,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sequential: warm-started descending lambda sweep "
                         "(the reference's semantics); batched: one solve "
                         "with a lane per lambda, each from zero")
-    p.add_argument("--on-divergence", default="fail",
-                   choices=["fail", "rollback", "freeze"],
-                   help="only fail (raise on non-finite coefficients, "
-                        "naming the lambdas) is ported")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the solves run (default: the GPU; there is "
                         "no fall-back to the CPU)")
+    add_resilience_flags(p)
     add_unported_flags(p, _UNPORTED_FLAGS)
     return p
-
-
-def _refuse_unported(args) -> None:
-    if args.on_divergence != "fail":
-        raise NotImplementedError(
-            f"--on-divergence {args.on_divergence} is not ported")
-    refuse_unported(args, _UNPORTED_FLAGS)
 
 
 def _to_glm_data(data: GameData, shard_id: str, dtype, device) -> GLMData:
@@ -198,7 +190,7 @@ def _to_glm_data(data: GameData, shard_id: str, dtype, device) -> GLMData:
 def run(argv: Optional[Sequence[str]] = None) -> dict:
     args = build_parser().parse_args(
         list(sys.argv[1:] if argv is None else argv))
-    _refuse_unported(args)
+    refuse_unported(args, _UNPORTED_FLAGS)
     task = TaskType(args.task)
     if args.warm_start and args.sweep_mode == "batched":
         raise SystemExit(
@@ -206,6 +198,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             "solve independently from zero by design)")
     # fail before the reads when no card is present
     device = resolve_device(args.device)
+    install_resilience(resilience_from_args(args))
     run_logger = RunLogger(args.output_dir)
     try:
         evaluators = parse_evaluators(
@@ -300,16 +293,31 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             log_optimizer_trace(
                 tm.result, f"lambda={tm.regularization_weight:g}", run_logger)
 
-        # divergence guard: every lambda is an independent solve, so there
-        # is nothing to roll back to; "fail" raises naming the lambdas
-        bad = [tm.regularization_weight for tm in trained
-               if not bool(torch.isfinite(
-                   tm.model.coefficients.means).all())]
-        if bad:
-            raise DivergenceError(
-                f"GLM sweep diverged at lambda(s) {bad} (non-finite "
-                f"coefficients); raise the regularization or lower the "
-                f"normalization scale")
+        # divergence guard: each lambda is an independent solve, so there
+        # is nothing to roll back to; rollback and freeze drop the
+        # diverged lambdas from selection and continue degraded
+        diverged = [tm for tm in trained
+                    if not bool(torch.isfinite(
+                        tm.model.coefficients.means).all())]
+        if diverged:
+            bad = [tm.regularization_weight for tm in diverged]
+            for w in bad:
+                GLOBAL_BUS.post("divergence_detected", driver="train_glm",
+                                regularization_weight=w)
+            if args.on_divergence == "fail":
+                raise DivergenceError(
+                    f"GLM sweep diverged at lambda(s) {bad} (non-finite "
+                    f"coefficients); re-run with --on-divergence=rollback "
+                    f"to drop them from selection, or raise the "
+                    f"regularization / lower the normalization scale")
+            if len(diverged) == len(trained):
+                raise DivergenceError(
+                    f"every lambda in the sweep diverged ({bad}); nothing "
+                    f"to select — fix the optimization configuration")
+            for w in bad:
+                GLOBAL_BUS.post("coordinate_frozen", driver="train_glm",
+                                regularization_weight=w)
+            trained = [tm for tm in trained if tm not in diverged]
 
         best_idx = 0
         if args.validation_data and evaluators:

@@ -117,6 +117,48 @@ class RandomEffectModel:
             feature_shard_id=self.feature_shard_id, task=self.task,
             dim=self.dim, keys=keys[order], coeffs=coeffs[order])
 
+    def remap_entities(self, new_of_old: Mapping[int, int]
+                       ) -> "RandomEffectModel":
+        """The same coefficients under another dense entity-id universe
+        (``old dense id → new dense id``): a patch loaded under its own
+        vocabulary is remapped into the serving version's before
+        :meth:`merge`. Every entity must be mapped."""
+        if not len(self.keys):
+            return self
+        ent = self.keys // self.dim
+        feat = self.keys % self.dim
+        lut = np.full(int(ent.max()) + 1, -1, np.int64)
+        for old, new in new_of_old.items():
+            if 0 <= int(old) < len(lut):
+                lut[int(old)] = int(new)
+        new_ent = lut[ent]
+        if (new_ent < 0).any():
+            missing = np.unique(ent[new_ent < 0])[:5]
+            raise KeyError(
+                f"remap_entities: no mapping for dense entities "
+                f"{missing.tolist()}")
+        keys = new_ent * np.int64(self.dim) + feat
+        order = np.argsort(keys, kind="stable")
+        return dataclasses.replace(
+            self, keys=keys[order],
+            coeffs=np.asarray(self.coeffs, np.float32)[order])
+
+    def entity_rows(self, dense_ids: Sequence[int]) -> np.ndarray:
+        """Dense ``(len(dense_ids), dim)`` coefficient rows of the given
+        entities (0 where absent): the rows a serving table patch writes."""
+        ids = np.asarray(list(dense_ids), np.int64)
+        out = np.zeros((len(ids), self.dim), np.float32)
+        if not len(self.keys) or not len(ids):
+            return out
+        ent = self.keys // self.dim
+        feat = self.keys % self.dim
+        pos_of = {int(e): i for i, e in enumerate(ids)}
+        mask = np.isin(ent, ids)
+        rows = np.fromiter((pos_of[int(e)] for e in ent[mask]), np.int64,
+                           count=int(mask.sum()))
+        out[rows, feat[mask]] = np.asarray(self.coeffs, np.float32)[mask]
+        return out
+
     def score(self, data: GameData,
               sample_idx: Optional[np.ndarray] = None) -> np.ndarray:
         """Margins ``Σ_j x_j·w[entity, j]`` per sample (only the rows of

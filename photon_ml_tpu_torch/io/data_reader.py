@@ -9,8 +9,10 @@ lands in the flat numpy arrays of the port's ``game/data.py``.
 Both decoders of the reference are here: the native C++ decoder
 (:mod:`photon_ml_tpu_torch.native`) when it builds and the file has
 TrainingExampleAvro's layout, else the pure-Python codec. They give the
-same arrays, index maps and vocabularies. Not ported: the resilience retry
-of a read and the ingest's telemetry spans and counters.
+same arrays, index maps and vocabularies. Each file is read under the
+resilience retry policy (``io.read:<basename>``), with the ``io.read``
+fault site and a supervisor heartbeat in every attempt. Not ported: the
+ingest's telemetry spans and counters.
 """
 
 from __future__ import annotations
@@ -88,6 +90,20 @@ def parse_input_columns(spec: str) -> InputColumnsNames:
     return InputColumnsNames(**overrides)
 
 
+def _read_records_with_retry(path: str) -> list:
+    """One file's records, under the resilience retry policy: a transient
+    read error (or an injected ``io.read`` fault) is retried with backoff,
+    a persistent one re-raises unchanged."""
+    from photon_ml_tpu_torch.resilience import fault_point, heartbeat, retry
+
+    def attempt() -> list:
+        heartbeat("io.read")
+        fault_point("io.read", path=path)
+        return list(iter_avro_file(path))
+
+    return retry(attempt, name=f"io.read:{os.path.basename(path)}")
+
+
 def _record_features(record: dict, bags: Optional[Sequence[str]],
                      features_field: str = "features"):
     """Yield (key, value) for the record's features, filtered by bag: the
@@ -160,7 +176,7 @@ class AvroDataReader:
             native_out = self._read_native(files, id_columns, entity_vocabs)
             if native_out is not None:
                 return native_out
-        records = [r for p in files for r in iter_avro_file(p)]
+        records = [r for p in files for r in _read_records_with_retry(p)]
 
         index_maps = self.index_maps or self.build_index_maps(records)
         vocabs: dict[str, dict[str, int]] = {
@@ -233,12 +249,23 @@ class AvroDataReader:
         """
         from photon_ml_tpu_torch import native
         from photon_ml_tpu_torch.io.pipeline import DecodePrefetcher
+        from photon_ml_tpu_torch.resilience import (
+            fault_point,
+            heartbeat,
+            retry,
+        )
 
         if not native.available():
             return None
 
         def decode(p):
-            return native.decode_training_file(p, id_keys=tuple(id_columns))
+            def attempt():
+                heartbeat("io.read")
+                fault_point("io.read", path=p)
+                return native.decode_training_file(p,
+                                                   id_keys=tuple(id_columns))
+
+            return retry(attempt, name=f"io.read:{os.path.basename(p)}")
 
         # each decode in flight holds its whole file
         workers = min(len(files), os.cpu_count() or 4, 8)

@@ -17,7 +17,9 @@ written with ``variances: null`` and variances found on load are dropped.
 Serving reads a model's content identity (:func:`model_lineage_id`), its
 kind (:func:`model_kind`) and its model-derived entity vocabularies
 (:func:`game_model_entity_vocabs`); :func:`load_serving_model` gives all of
-it with the model from one decode of each part file.
+it with the model from one decode of each part file, and
+:func:`decode_game_model` decodes a coefficient patch in its parent's
+feature space.
 :func:`save_game_model_patch` writes the refresh's entity-level coefficient
 patch in the JAX package's layout and metadata.
 """
@@ -518,18 +520,31 @@ def load_warm_start_model(model_dir: str, index_maps: dict[str, IndexMap],
     return model, _lineage_id(metadata, decoded.__getitem__)
 
 
-def load_serving_model(model_dir: str, index_maps: dict[str, IndexMap],
-                       device=None):
-    """What online serving loads from a resolved model dir, decoding each
-    part file once: ``(metadata, model, entity vocabularies, lineage
-    id)``, the same as :func:`load_game_model` under
-    :func:`game_model_entity_vocabs` and :func:`model_lineage_id`."""
+def decode_game_model(model_dir: str, index_maps: dict[str, IndexMap], *,
+                      metadata: Optional[dict] = None, device=None):
+    """A resolved model dir decoded once for serving: ``(metadata, model,
+    entity vocabularies, decoded records by coordinate)``, the model as
+    :func:`load_game_model` keys it under :func:`game_model_entity_vocabs`.
+    A coefficient patch decodes the same way, in its parent's feature
+    space: ``index_maps`` are then the parent version's. A caller that has
+    read ``metadata`` already passes it."""
     device = resolve_device(device)
-    metadata = _read_metadata(model_dir)
+    if metadata is None:
+        metadata = _read_metadata(model_dir)
     stream = _part_records(model_dir, metadata)
     decoded = {cid: list(stream(cid)) for cid in metadata["coordinates"]}
     vocabs = _entity_vocabs(metadata, decoded.__getitem__)
     model = _game_model(metadata, decoded.__getitem__, index_maps, vocabs,
                         device)
-    return (metadata, model, vocabs,
-            _lineage_id(metadata, decoded.__getitem__))
+    return metadata, model, vocabs, decoded
+
+
+def load_serving_model(model_dir: str, index_maps: dict[str, IndexMap], *,
+                       metadata: Optional[dict] = None, device=None):
+    """What online serving loads from a resolved model dir, decoding each
+    part file once: ``(model, entity vocabularies, lineage id)``, the same
+    as :func:`load_game_model` under :func:`game_model_entity_vocabs` and
+    :func:`model_lineage_id`."""
+    metadata, model, vocabs, decoded = decode_game_model(
+        model_dir, index_maps, metadata=metadata, device=device)
+    return model, vocabs, _lineage_id(metadata, decoded.__getitem__)

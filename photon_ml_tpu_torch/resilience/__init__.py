@@ -4,16 +4,20 @@ divergence guard of GAME training (counterpart of
 
 - :mod:`~photon_ml_tpu_torch.resilience.faults` — a seedable
   :class:`FaultPlan` with named injection sites threaded as no-op hooks
-  (``ckpt.save``, ``io.delta_publish``, ``optimizer.step`` in the port),
-  activated explicitly or by the ``PHOTON_FAULT_PLAN`` environment
+  (``io.read``, ``ckpt.save``, ``io.delta_publish``, ``optimizer.step``,
+  ``serving.reload``, ``serving.watch_tick`` and ``io.save.reqlog`` in the
+  port), activated explicitly or by the ``PHOTON_FAULT_PLAN`` environment
   variable.
 - :mod:`~photon_ml_tpu_torch.resilience.retry` — the one ``retry(fn,
-  policy)`` primitive around checkpoint save/restore and patch publish.
+  policy)`` primitive around Avro reads, checkpoint save/restore, the
+  patch publish and serving's model loads.
+- :mod:`~photon_ml_tpu_torch.resilience.heartbeat` — the supervisor's
+  liveness file, touched by each read.
 - :mod:`~photon_ml_tpu_torch.resilience.guard` — NaN/Inf detection at
   coordinate boundaries with rollback / regularization backoff / freeze.
 
-Not ported yet: the fleet supervisor and its heartbeat files
-(``resilience/supervisor.py``).
+Not ported yet: the fleet supervisor (``resilience/supervisor.py``), which
+watches the heartbeat files.
 """
 
 from photon_ml_tpu_torch.resilience.faults import (
@@ -25,6 +29,7 @@ from photon_ml_tpu_torch.resilience.faults import (
     fault_value,
     injected,
 )
+from photon_ml_tpu_torch.resilience.heartbeat import heartbeat
 from photon_ml_tpu_torch.resilience.guard import (
     DivergenceError,
     DivergenceGuard,
@@ -48,6 +53,7 @@ __all__ = [
     "DivergenceError",
     "DivergenceGuard",
     "DivergencePolicy",
+    "heartbeat",
     "RetryPolicy",
     "get_default_policy",
     "retry",

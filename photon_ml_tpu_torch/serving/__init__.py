@@ -2,10 +2,12 @@
 versions (counterpart of ``photon_ml_tpu/serving``).
 
 - :mod:`~photon_ml_tpu_torch.serving.registry`: validate-then-activate
-  loading of ``train_game`` output dirs, atomic hot swap, rollback;
+  loading of ``train_game`` output dirs and ``refresh_game`` coefficient
+  patches, two-phase prepare/activate, atomic hot swap, rollback;
 - :mod:`~photon_ml_tpu_torch.serving.store`: per-entity coefficients packed
   dense on the device (f32, bf16 or int8 with per-row scales) with O(1)
-  raw-id lookup and a zeros fallback row (the cold-start contract);
+  raw-id lookup and a zeros fallback row (the cold-start contract), and a
+  patch's O(touched) derivation of the next version's table;
 - :mod:`~photon_ml_tpu_torch.serving.engine`: power-of-two batch buckets,
   one CUDA graph each, f64 accumulation: no capture after warmup, and f32
   scores bit-identical to ``score_game``;
@@ -13,13 +15,17 @@ versions (counterpart of ``photon_ml_tpu/serving``).
   :mod:`~photon_ml_tpu_torch.serving.http`: the microbatching queue and the
   stdlib JSON endpoint (``/score``, ``/reload``, ``/healthz``,
   ``/readyz``, ``/metrics``) behind
-  ``python -m photon_ml_tpu_torch serve_game``;
+  ``python -m photon_ml_tpu_torch serve_game``, with the connection
+  budget;
+- :mod:`~photon_ml_tpu_torch.serving.watcher`: polls a publish directory
+  and applies each new full model or patch through the registry;
+- :mod:`~photon_ml_tpu_torch.serving.reqlog`: the sampled, rotated Avro
+  log of served requests;
 - :mod:`~photon_ml_tpu_torch.serving.overload`: typed load shedding,
   deadlines and the brownout controller.
 
-Not ported: the request log, the directory watcher, coefficient patches,
-fleet shards, the canary and quality monitor, ranked retrieval and span
-tracing.
+Not ported: fleet shards and fleet-shard patches, the live reshard, the
+canary and quality monitor, ranked retrieval and span tracing.
 """
 
 from photon_ml_tpu_torch.serving.overload import (  # noqa: F401
@@ -41,6 +47,14 @@ from photon_ml_tpu_torch.serving.registry import (  # noqa: F401
     ModelRegistry,
     ServingModel,
 )
+from photon_ml_tpu_torch.serving.reqlog import (  # noqa: F401
+    RequestLog,
+    iter_reqlog,
+)
 from photon_ml_tpu_torch.serving.store import (  # noqa: F401
     EntityCoefficientStore,
+)
+from photon_ml_tpu_torch.serving.watcher import (  # noqa: F401
+    ModelDirectoryWatcher,
+    candidate_content_key,
 )

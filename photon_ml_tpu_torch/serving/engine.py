@@ -30,9 +30,22 @@ and copy-out runs under that bucket's lock (the JAX jitted call is
 reentrant; a replay is not). Only the first ``n`` rows of a bucket's inputs
 are written per call: the padding rows keep earlier calls' rows, and since
 every output row depends only on its own input row, their outputs are
-never read. Not ported: sharing one version's programs with another
-(``share_from``; a graph holds its version's table pointers) and the
-quality monitor (``monitor`` stays None).
+never read.
+
+Versions and graphs (the port's design for coefficient patches): a graph
+holds the device pointers of the tables it was captured over, so it scores
+its own version's tables and no other's. A patch therefore does not share
+the parent's programs, as the JAX engine's ``share_from`` shares its jitted
+executables (there the tables ride as arguments). The patched version's
+tables are fresh tensors derived from the parent's
+(:meth:`~photon_ml_tpu_torch.serving.store.EntityCoefficientStore.
+apply_patch`), and the patched version gets an engine of its own whose
+warmup captures its own bucket graphs. Versions stay immutable: a request
+still replaying on the parent reads the parent's tables, and no buffer is
+shared between versions. Each engine captures its buckets once at warmup
+and none after, whichever way its version was made; what a patch saves
+over a full load is the decode and the rebuild of the untouched rows, not
+the captures. Not ported: the quality monitor (``monitor`` stays None).
 """
 
 from __future__ import annotations

@@ -21,8 +21,11 @@ Counterpart of ``photon_ml_tpu/serving/http.py``, JSON endpoints over
   budget is spent.
 - ``GET /metrics``: Prometheus text of the process-global metrics registry.
 - ``POST /reload``: ``{"model_dir": "..."}`` (defaults to the dir served
-  at start) → validate and hot-swap; a rejected candidate gets 409 and the
-  active version keeps serving.
+  at start) → validate and hot-swap a full model dir or a coefficient
+  patch; a rejected candidate gets 409 and the active version keeps
+  serving. Two-phase: ``"phase": "prepare"`` registers a warmed version
+  without activating it, ``"activate"`` or ``"abort"`` with its
+  ``"version"`` pins or retires it.
 - ``GET /rank`` and ``GET /history`` answer **501**: ranked retrieval and
   the retained-telemetry ring are not ported.
 
@@ -31,8 +34,13 @@ honoured, else one is minted), echoed as a header and in the ``/score``
 body, and every stage of the critical path lands in
 ``photon_serving_stage_seconds{stage=parse|queue_wait|batch_assemble|
 execute|respond}``. 200 ``/score`` replies carry the
-``X-Photon-Leg-Summary`` stage header. Not ported: spans, the request log,
-the canary reservoir, shard-map checks and two-phase ``/reload``.
+``X-Photon-Leg-Summary`` stage header. A reply's ``version`` and
+``lineage`` name the version that scored it (``stages.SERVED_BY``), also
+when a swap lands while the request waits in the microbatcher. With a
+:class:`~photon_ml_tpu_torch.serving.reqlog.RequestLog` every served
+``/score`` is logged with its stage timings, version and lineage, and
+``/healthz`` carries the log's counters. Not ported: spans, the canary
+reservoir, shard-map checks and the live-reshard ``prepare``.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from photon_ml_tpu_torch.serving import overload as _overload
 from photon_ml_tpu_torch.serving import stages as _stages
 from photon_ml_tpu_torch.serving.batcher import BatcherClosed, MicroBatcher
 from photon_ml_tpu_torch.serving.registry import ModelRegistry
+from photon_ml_tpu_torch.serving.reqlog import RequestLog
 from photon_ml_tpu_torch.telemetry import metrics as _metrics
 
 #: end-to-end /score handling time (pack + engine + marshaling)
@@ -244,7 +253,8 @@ class ServingService:
                  batcher: Optional[MicroBatcher] = None,
                  default_timeout_ms: float = 0.0,
                  overload=None,
-                 connections: Optional[ConnectionTracker] = None):
+                 connections: Optional[ConnectionTracker] = None,
+                 reqlog: Optional[RequestLog] = None):
         self.registry = registry
         self.default_model_dir = default_model_dir
         self.batcher = batcher
@@ -256,6 +266,8 @@ class ServingService:
         self.overload = overload
         self.connections = connections if connections is not None \
             else ConnectionTracker()
+        #: the request log (closed with the service), None when off
+        self.reqlog = reqlog
         self._lock = threading.Lock()
         self.n_requests = 0  # guarded-by: _lock
         self.n_scored = 0  # guarded-by: _lock
@@ -291,14 +303,17 @@ class ServingService:
     # --- endpoints --------------------------------------------------------
     def score(self, payload: dict,
               request_id: Optional[str] = None,
+              stage_ms: Optional[Mapping[str, float]] = None,
               deadline: Optional[float] = None,
               stage_sink: Optional[dict] = None) -> dict:
         """Score one request. Raises
         :class:`~photon_ml_tpu_torch.serving.overload.Shed` (→ 429) when
         admission control refuses it (an expired deadline, a full
         microbatcher queue, max brownout) without it reaching the engine's
-        execute stage or the latency histogram. ``stage_sink``, when given,
-        receives this request's stage seconds."""
+        execute stage or the latency histogram. ``stage_ms`` folds the HTTP
+        layer's own stages (parse) into the logged timings;
+        ``stage_sink``, when given, receives this request's stage
+        seconds."""
         if request_id is None:
             request_id = new_request_id()
         if "record" in payload:
@@ -321,18 +336,17 @@ class ServingService:
         margins = offsets = None
         sink = stage_sink if stage_sink is not None else {}
         with _REQUEST_LATENCY.time() as timer, _stages.collect(sink):
-            version = self.registry.active_version
             try:
                 if with_margins:
                     # margin responses bypass the batcher: per-request
                     # shaped, not coalescible
                     raw, offsets, margins = \
-                        self.registry.active().engine.score_margins(records)
+                        self.registry.active().score_margins(records)
                     scores = [float(s) for s in raw]
                 elif self.batcher is not None and len(records) == 1:
                     scores = [self.batcher.score(records[0],
                                                  deadline=deadline,
-                                                 stage_out=stage_sink)]
+                                                 stage_out=sink)]
                 else:
                     scores = [float(s)
                               for s in self.registry.active().score(records)]
@@ -341,15 +355,28 @@ class ServingService:
                 timer.discard()
                 raise
         latency_ms = timer.seconds * 1e3
+        # the version that scored this request: ServingModel.score notes
+        # it, through the batcher's worker too; a batcher score function
+        # that bypasses it leaves the active one
+        served = sink.get(_stages.SERVED_BY)
+        if served is None:
+            active = self.registry.active_or_none()
+            served = (self.registry.active_version,
+                      None if active is None else active.lineage)
+        version, lineage = served
         with self._lock:
             self.n_requests += 1
             self.n_scored += len(records)
+        if self.reqlog is not None:
+            timings = dict(stage_ms or {})
+            timings["score"] = latency_ms
+            self.reqlog.log(request_id=request_id, records=records,
+                            scores=scores, version=version,
+                            lineage=lineage, stage_ms=timings)
         self.registry.bus.post("serving_request", batch=len(records),
                                latency_ms=latency_ms, version=version,
                                request_id=request_id)
-        active = self.registry.active_or_none()
-        out = {"scores": scores, "version": version,
-               "lineage": None if active is None else active.lineage,
+        out = {"scores": scores, "version": version, "lineage": lineage,
                "latency_ms": round(latency_ms, 3),
                "request_id": request_id}
         if with_margins:
@@ -386,6 +413,8 @@ class ServingService:
             "shed": _overload.shed_counts(),
             "brownout_level": _overload.level(),
             "connections": self.connections.stats(),
+            **({} if self.reqlog is None
+               else {"reqlog": self.reqlog.stats()}),
         }
 
     def readyz(self) -> tuple[int, dict]:
@@ -414,17 +443,45 @@ class ServingService:
         return (200 if not reasons else 503), body
 
     def reload(self, payload: dict) -> dict:
-        """One-shot ``/reload``: validate, register and activate the
-        candidate dir (full model dirs only)."""
-        if payload.get("phase") is not None:
+        """One-shot (no ``phase``) or two-phase ``/reload``:
+
+        - ``phase=prepare``: validate, warm and register the candidate
+          (a full model dir or a patch) without activating it; returns its
+          ``version`` and ``lineage``. The incumbent keeps serving.
+        - ``phase=activate`` and ``version``: pin a prepared version.
+        - ``phase=abort`` and ``version``: retire a prepared version.
+        """
+        phase = payload.get("phase")
+        if phase in ("activate", "abort"):
+            version = payload.get("version")
+            if not isinstance(version, int):
+                raise ValueError(
+                    f"phase={phase} needs the prepared 'version' (int)")
+            if phase == "activate":
+                previous = self.registry.active_version
+                sm = self.registry.activate(version)
+                return {"version": sm.version, "previous": previous,
+                        "lineage": sm.lineage, "phase": "activated"}
+            self.registry.retire(version)
+            return {"version": self.registry.active_version,
+                    "retired": version, "phase": "aborted"}
+        if phase not in (None, "prepare"):
+            raise ValueError(f"unknown reload phase {phase!r} (want "
+                             f"prepare | activate | abort)")
+        if phase == "prepare" and payload.get("shard_map") is not None:
             raise NotImplementedError(
-                "two-phase /reload (prepare | activate | abort) is not "
-                "ported")
+                "/reload phase=prepare with a shard_map (a live reshard of "
+                "fleet shards) is not ported")
         model_dir = payload.get("model_dir") or self.default_model_dir
         if not model_dir:
             raise ValueError("payload needs 'model_dir' (no default "
                              "configured)")
         previous = self.registry.active_version
+        if phase == "prepare":
+            sm = self.registry.prepare(model_dir)
+            return {"version": sm.version, "previous": previous,
+                    "lineage": sm.lineage, "model_dir": sm.model_dir,
+                    "phase": "prepared"}
         sm = self.registry.reload(model_dir)
         return {"version": sm.version, "previous": previous,
                 "model_dir": sm.model_dir}
@@ -435,6 +492,8 @@ class ServingService:
             self.overload.stop()
         if self.batcher is not None:
             self.batcher.close()
+        if self.reqlog is not None:
+            self.reqlog.close()
 
 
 def _make_handler(service: ServingService):
@@ -603,9 +662,10 @@ def _make_handler(service: ServingService):
                 headers = None
                 leg_stages: dict = {}
                 try:
-                    out = service.score(payload, request_id=rid,
-                                        deadline=self.deadline,
-                                        stage_sink=leg_stages)
+                    out = service.score(
+                        payload, request_id=rid,
+                        stage_ms={"parse": parse_t.seconds * 1e3},
+                        deadline=self.deadline, stage_sink=leg_stages)
                     status = 200
                 except BatcherClosed as e:
                     self.close_connection = True
@@ -642,11 +702,14 @@ def _make_handler(service: ServingService):
 
 
 class GameServer:
-    """Threaded HTTP server wrapper with a test-friendly lifecycle."""
+    """Threaded HTTP server wrapper with a test-friendly lifecycle. A
+    ``watcher`` (:class:`~photon_ml_tpu_torch.serving.watcher.
+    ModelDirectoryWatcher`) starts and stops with the server."""
 
     def __init__(self, service: ServingService, *, host: str = "127.0.0.1",
-                 port: int = 0):
+                 port: int = 0, watcher=None):
         self.service = service
+        self.watcher = watcher
         self._httpd = ThreadingHTTPServer((host, port),
                                           _make_handler(service))
         self._thread: Optional[threading.Thread] = None  # guarded-by: caller
@@ -661,6 +724,8 @@ class GameServer:
         return f"http://{host}:{port}"
 
     def start(self) -> "GameServer":
+        if self.watcher is not None:
+            self.watcher.start()
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True,
                                         name="photon-serving-http")
@@ -668,12 +733,16 @@ class GameServer:
         return self
 
     def serve_forever(self) -> None:
+        if self.watcher is not None:
+            self.watcher.start()
         self._httpd.serve_forever()
 
     def stop(self) -> None:
         # flip the refuse flag before teardown: keep-alive handler threads
         # outlive shutdown() and must answer 503 reason=stopping from here
         self._httpd.photon_stopping = True
+        if self.watcher is not None:
+            self.watcher.stop()
         self._httpd.shutdown()
         self._httpd.server_close()
         if self._thread is not None:

@@ -17,11 +17,26 @@ Counterpart of ``photon_ml_tpu/serving/registry.py``:
   lock. In-flight requests hold their version's ``ServingModel`` and finish
   on it; old versions stay registered (instant rollback) until
   :meth:`retire` drops them.
+- **Coefficient patches** (:meth:`load_patch`): version N+1 derived from
+  the active version by overlaying a ``refresh_game`` patch. Only the
+  touched rows are written, into fresh tables
+  (``EntityCoefficientStore.apply_patch``); untouched coordinates share
+  the parent's store objects; the patched version gets an engine of its
+  own (the design note in ``serving/engine.py``). The patch is validated
+  before anything registers: its metadata, its ``parentModel`` against
+  the active version's lineage, every part file.
+- **Routing and two phases**: :meth:`reload` and :meth:`prepare` route a
+  candidate by its metadata ``kind`` (full model or patch); ``prepare``
+  registers a warmed version without activating it, for
+  ``activate`` or ``retire`` to follow.
 
-Not ported: coefficient patches (``load_patch``; a patch dir given to
-:meth:`reload` raises :class:`NotImplementedError`), two-phase
-``prepare`` and reshard, the canary and quality monitor, fleet shards and
-the ranking engine.
+Loads and patches run under the resilience retry policy, with the
+``serving.reload`` fault site at the verb and ``io.delta_publish`` between
+a patch's validation and its registration; a failure at any point leaves
+the active version serving and :meth:`versions` unchanged. Each version
+records its load's split (``load_seconds``). Not ported: reshard, the
+canary and quality monitor, fleet shards and fleet-shard patches, and the
+ranking engine.
 """
 
 from __future__ import annotations
@@ -30,6 +45,7 @@ import dataclasses
 import json
 import os
 import threading
+import time
 from typing import Mapping, Optional, Sequence
 
 from photon_ml_tpu_torch.device import resolve_device
@@ -39,11 +55,14 @@ from photon_ml_tpu_torch.io.data_reader import FeatureShardConfig
 from photon_ml_tpu_torch.io.index import IndexMap
 from photon_ml_tpu_torch.io.model_io import (
     PATCH_KIND,
+    decode_game_model,
     find_feature_index_dir,
     load_serving_model,
     model_kind,
     resolve_game_model_dir,
 )
+from photon_ml_tpu_torch.resilience import fault_point, retry
+from photon_ml_tpu_torch.serving import stages as _stages
 from photon_ml_tpu_torch.serving.engine import ScoringEngine
 from photon_ml_tpu_torch.serving.store import (
     TABLE_DTYPES,
@@ -78,9 +97,22 @@ class ServingModel:
     #: lineage of the model this one was trained from (metadata
     #: ``parentModel``)
     parent_lineage: Optional[str] = None
+    #: wall seconds of this version's load, by step: ``read`` (metadata
+    #: and part files), then ``build`` (a full load's stores and engine)
+    #: or ``apply`` (a patch's derived stores, merged model and engine),
+    #: then ``capture`` (the warmup's graphs, with ``warmup``)
+    load_seconds: Mapping[str, float] = dataclasses.field(
+        default_factory=dict)
 
     def score(self, records: Sequence[dict]):
+        # the request path learns which version answered, also across the
+        # microbatcher's worker thread (stages.py)
+        _stages.note_served_by(self.version, self.lineage)
         return self.engine.score(records)
+
+    def score_margins(self, records: Sequence[dict]):
+        _stages.note_served_by(self.version, self.lineage)
+        return self.engine.score_margins(records)
 
 
 class ModelRegistry:
@@ -137,10 +169,44 @@ class ModelRegistry:
         """Load and validate a candidate dir; register (and by default
         activate) it. Raises without touching the active version when the
         candidate is unreadable or structurally invalid."""
+        name = f"serving.load:{os.path.basename(os.path.normpath(model_dir))}"
+        return self._register(
+            lambda: retry(lambda: self._load_validated(model_dir),
+                          name=name),
+            model_dir, activate)
+
+    def load_patch(self, patch_dir: str, *,
+                   activate: bool = True) -> ServingModel:
+        """Derive version N+1 from the active version by overlaying an
+        entity-level coefficient patch: only the touched rows are written,
+        into fresh tables; untouched coordinates share the parent's stores.
+        Validated like any candidate (metadata, lineage against the active
+        version, every part file) before anything registers; a failure,
+        an ``io.delta_publish`` fault among them, leaves the active version
+        serving and the registry unchanged."""
+        name = f"serving.patch:{os.path.basename(os.path.normpath(patch_dir))}"
+        return self._register(
+            lambda: retry(lambda: self._load_patch_validated(patch_dir),
+                          name=name),
+            patch_dir, activate)
+
+    def _register(self, load, path: str, activate: bool) -> ServingModel:
+        """Run ``load`` (the validated candidate's fields), warm its engine
+        when configured, then register it under the next version id and
+        by default activate it. Nothing registers when either step
+        raises."""
         try:
-            loaded = self._load_validated(model_dir)
+            loaded = load()
+            if self.warmup:
+                # capture every bucket before the version is visible,
+                # outside the swap lock: traffic keeps flowing on the
+                # incumbent while the new engine warms
+                t0 = time.perf_counter()
+                loaded["engine"].warmup()
+                loaded["load_seconds"]["capture"] = \
+                    time.perf_counter() - t0
         except Exception as e:
-            self.bus.post("model_reload_rejected", path=model_dir,
+            self.bus.post("model_reload_rejected", path=path,
                           error=repr(e))
             raise
         with self._lock:
@@ -148,10 +214,6 @@ class ModelRegistry:
             self._next_version += 1
             sm = ServingModel(version=version, **loaded)
             self._versions[version] = sm
-        if self.warmup:
-            # capture every bucket OUTSIDE the swap lock: traffic keeps
-            # flowing on the old version while the new one warms
-            sm.engine.warmup()
         self.bus.post("model_loaded", version=version, path=sm.model_dir,
                       n_entities={cid: s.n_entities
                                   for cid, s in sm.stores.items()})
@@ -176,19 +238,37 @@ class ModelRegistry:
         return sm
 
     def reload(self, model_dir: str) -> ServingModel:
-        """The ``/reload`` verb: load, validate, activate. Full model dirs
-        only: a coefficient patch raises :class:`NotImplementedError`, and
-        the incumbent keeps serving."""
+        """The ``/reload`` verb: load, validate, activate. Routes by the
+        candidate's metadata ``kind``: a full model dir rebuilds the
+        tables, a coefficient patch overlays the active version's
+        (:meth:`load_patch`), so one publish directory can mix both."""
+        return self._route(model_dir, activate=True)
+
+    def prepare(self, model_dir: str) -> ServingModel:
+        """Phase one of a two-phase activation: validate the candidate,
+        warm it and register it without activating; :meth:`activate`
+        (phase two) or :meth:`retire` (the abort) follows. The incumbent
+        serves throughout. Routes full dirs and patches as :meth:`reload`
+        does."""
+        return self._route(model_dir, activate=False, phase="prepare")
+
+    def _route(self, model_dir: str, *, activate: bool,
+               phase: Optional[str] = None) -> ServingModel:
         try:
-            if model_kind(resolve_game_model_dir(model_dir)) == PATCH_KIND:
-                raise NotImplementedError(
-                    f"{model_dir}: coefficient patches are not ported "
-                    f"(publish a full model dir)")
+            # a faulted reload takes the path of a corrupt candidate: the
+            # incumbent keeps serving
+            if phase is None:
+                fault_point("serving.reload", path=model_dir)
+            else:
+                fault_point("serving.reload", path=model_dir, phase=phase)
+            kind = model_kind(resolve_game_model_dir(model_dir))
         except Exception as e:
             self.bus.post("model_reload_rejected", path=model_dir,
                           error=repr(e))
             raise
-        return self.load(model_dir, activate=True)
+        if kind == PATCH_KIND:
+            return self.load_patch(model_dir, activate=activate)
+        return self.load(model_dir, activate=activate)
 
     def retire(self, version: int) -> None:
         """Drop a non-active version (its device tables and graphs go once
@@ -201,6 +281,7 @@ class ModelRegistry:
 
     # --- internals --------------------------------------------------------
     def _load_validated(self, model_dir: str) -> dict:
+        t0 = time.perf_counter()
         model_dir = resolve_game_model_dir(model_dir)
         index_dir = find_feature_index_dir(model_dir)
         with open(os.path.join(model_dir, "model-metadata.json")) as f:
@@ -212,8 +293,9 @@ class ModelRegistry:
             for cfg in self.shard_configs}
         # the model's saved per-entity records are serving's id universe
         # (there is no dataset to build one from)
-        _, model, vocabs, lineage = load_serving_model(
-            model_dir, index_maps, device=self.device)
+        model, vocabs, lineage = load_serving_model(
+            model_dir, index_maps, metadata=metadata, device=self.device)
+        t1 = time.perf_counter()
         stores = {
             cid: EntityCoefficientStore.build(
                 cm, vocabs[cm.random_effect_type],
@@ -226,7 +308,103 @@ class ModelRegistry:
                 "index_maps": index_maps, "stores": stores,
                 "engine": engine, "lineage": lineage,
                 "parent_lineage": metadata.get("parentModel"),
-                "entity_vocabs": vocabs}
+                "entity_vocabs": vocabs,
+                "load_seconds": {"read": t1 - t0,
+                                 "build": time.perf_counter() - t1}}
+
+    def _load_patch_validated(self, patch_dir: str) -> dict:
+        t0 = time.perf_counter()
+        parent = self.active_or_none()
+        if parent is None:
+            raise RuntimeError(
+                "patch activation needs an active parent version (load a "
+                "full model first)")
+        model_dir = resolve_game_model_dir(patch_dir)
+        with open(os.path.join(model_dir, "model-metadata.json")) as f:
+            metadata = json.load(f)
+        if metadata.get("kind") != PATCH_KIND:
+            raise ValueError(
+                f"{model_dir}: not a coefficient patch "
+                f"(kind={metadata.get('kind')!r})")
+        want = metadata.get("parentModel")
+        if not want or want != parent.lineage:
+            raise ValueError(
+                f"{model_dir}: patch parentModel {want!r} does not match "
+                f"the active version's lineage {parent.lineage!r} — a "
+                f"patch only overlays the exact model it was computed "
+                f"against (refresh from the currently served model, or "
+                f"publish a full model instead)")
+        if metadata.get("fleetShardCount") is not None:
+            raise ValueError(
+                f"{model_dir}: patch is for fleet shard "
+                f"{metadata.get('fleetShard')}/"
+                f"{metadata['fleetShardCount']} but this host is "
+                f"unsharded — serve with --fleet-shard/"
+                f"--fleet-shard-count or publish a global patch")
+        self._check_metadata(model_dir, metadata)
+        # the patch rides its parent's feature space by contract (the
+        # refresh presets the parent's index maps): the parent's maps are
+        # the patch's, not read again
+        _, patch_model, patch_vocabs, _ = decode_game_model(
+            model_dir, parent.index_maps, metadata=metadata,
+            device=self.device)
+        # everything validated, nothing registered: a fault here must
+        # leave the active version serving and the registry unchanged
+        fault_point("io.delta_publish", path=model_dir)
+        t1 = time.perf_counter()
+        # the union id universe: the parent's vocabularies extended by the
+        # patch's new entities
+        vocabs = {t: dict(v) for t, v in parent.entity_vocabs.items()}
+        for t, pv in patch_vocabs.items():
+            tgt = vocabs.setdefault(t, {})
+            for raw in pv:
+                tgt.setdefault(raw, len(tgt))
+        removed_by_cid = {
+            cid: info.get("removedEntities") or []
+            for cid, info in metadata["coordinates"].items()}
+        coordinates = dict(parent.model.coordinates)
+        stores: dict[str, EntityCoefficientStore] = {}
+        for cid, cm in parent.model.coordinates.items():
+            if isinstance(cm, FixedEffectModel):
+                if cid in patch_model.coordinates:
+                    coordinates[cid] = patch_model.coordinates[cid]
+                continue
+            upd = patch_model.coordinates.get(cid)
+            removed = removed_by_cid.get(cid, [])
+            if upd is None and not removed:
+                # an untouched coordinate shares the parent's store
+                stores[cid] = parent.stores[cid]
+                continue
+            t = cm.random_effect_type
+            drop_dense = [vocabs[t][raw] for raw in removed
+                          if raw in vocabs[t]]
+            if upd is not None:
+                # the host model merge keeps ServingModel.model truthful
+                # (the engine scores from the stores)
+                lut = {int(patch_vocabs[t][raw]): int(vocabs[t][raw])
+                       for raw in patch_vocabs[t]}
+                upd_union = upd.remap_entities(lut)
+            else:
+                upd_union = dataclasses.replace(
+                    cm, keys=cm.keys[:0], coeffs=cm.coeffs[:0])
+            coordinates[cid] = cm.merge(upd_union, drop_entities=drop_dense)
+            stores[cid] = parent.stores[cid].apply_patch(
+                upd, patch_vocabs.get(t, {}), removed=removed)
+        model = GameModel(coordinates=coordinates, task=parent.model.task)
+        # an engine of its own: its graphs will hold the derived tables
+        engine = ScoringEngine(model, self.shard_configs, parent.index_maps,
+                               stores, max_batch=self.max_batch,
+                               device=self.device)
+        return {"model_dir": model_dir, "model": model,
+                "index_maps": parent.index_maps, "stores": stores,
+                "engine": engine,
+                # the patched version is the merged full model: the next
+                # patch chains onto it
+                "lineage": metadata.get("modelId"),
+                "parent_lineage": want,
+                "entity_vocabs": vocabs,
+                "load_seconds": {"read": t1 - t0,
+                                 "apply": time.perf_counter() - t1}}
 
     def _check_metadata(self, model_dir: str, metadata: dict) -> None:
         """Structural validation before any heavy load: coordinate types

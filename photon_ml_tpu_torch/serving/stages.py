@@ -21,7 +21,11 @@ Two hand-off patterns compose here:
   micro-batch honestly paid the whole batch's assemble+execute wall).
 
 Keys are stage names from the critical-path histogram; values are
-seconds (float). When no collector is active every call is a cheap
+seconds (float). One key is not a stage: :data:`SERVED_BY`, the
+``(version, lineage)`` of the model version that scored the request
+(:func:`note_served_by`), so a reply and its request-log record name the
+version that answered even when a hot swap lands between the request's
+arrival and its batch. When no collector is active every call is a cheap
 no-op, so steady-state single-host serving pays nothing.
 """
 
@@ -30,6 +34,9 @@ from __future__ import annotations
 import contextlib
 from contextvars import ContextVar
 from typing import Dict, Iterator, Optional
+
+#: sink key of the ``(version, lineage)`` that scored the request
+SERVED_BY = "served_by"
 
 _SINK: ContextVar[Optional[Dict[str, float]]] = ContextVar(
     "photon_stage_sink", default=None)
@@ -54,3 +61,10 @@ def record(stage: str, seconds: float) -> None:
     sink = _SINK.get()
     if sink is not None:
         sink[stage] = sink.get(stage, 0.0) + float(seconds)
+
+
+def note_served_by(version: int, lineage: Optional[str]) -> None:
+    """Set :data:`SERVED_BY` in the active sink (no-op if none)."""
+    sink = _SINK.get()
+    if sink is not None:
+        sink[SERVED_BY] = (version, lineage)

@@ -19,10 +19,12 @@ f32 scale per entity). The engine dequantizes in its scoring program
 (:func:`gather_rows`), so the full-precision table never exists on the
 device. ``float32`` stays bit-identical to the batch scorer; ``bfloat16``
 holds ~1e-2 relative score error and ``int8`` ~5e-2. This module is the
-one home of the table format: its constructor and its dequantization.
+one home of the table format: its constructor, its dequantization, and the
+two writers of serving tables, :meth:`EntityCoefficientStore.build` and
+:meth:`EntityCoefficientStore.apply_patch` (a coefficient patch's
+functional, O(touched) derivation of the next version's table).
 
-Not ported: fleet shard views (``shard=``, ``shard_map=``) and coefficient
-patches (:meth:`EntityCoefficientStore.apply_patch`); they raise
+Not ported: fleet shard views (``shard=``, ``shard_map=``); they raise
 :class:`NotImplementedError`.
 """
 
@@ -140,10 +142,92 @@ class EntityCoefficientStore:
             (fb if r is None else get(r, fb) for r in raw_ids),
             np.int32, count=n)
 
-    def apply_patch(self, update, update_vocab, removed=()):
-        raise NotImplementedError(
-            "EntityCoefficientStore.apply_patch: coefficient patches are "
-            "not ported")
+    def apply_patch(self, update: Optional[RandomEffectModel],
+                    update_vocab: Mapping[str, int],
+                    removed: Sequence[str] = (),
+                    ) -> "EntityCoefficientStore":
+        """The next version's store, derived by overwriting only the
+        touched rows: O(touched) where :meth:`build` is O(all entities).
+
+        ``update`` is the patch's partial model (the re-solved entities
+        only) in its own dense-id space, ``update_vocab`` its raw → dense
+        map; rows are matched by raw id. An entity of this store has its
+        row overwritten, a new entity appends a row, and each raw id in
+        ``removed`` has its row zeroed (it then scores as the cold-start
+        fallback does); the fallback row stays last. The update is
+        functional: this store's tensors are never written (in-flight
+        requests and the previous version hold them), a new table is
+        derived. Touched rows are packed alone through the format's one
+        constructor (per-row int8 scales, so no other row's scale moves;
+        bf16 a cast), untouched rows carry bit for bit."""
+        if update is not None:
+            if update.dim != self.dim:
+                raise ValueError(
+                    f"patch dim {update.dim} != store dim {self.dim}")
+            if update.random_effect_type != self.random_effect_type:
+                raise ValueError(
+                    f"patch random-effect type "
+                    f"{update.random_effect_type!r} != store "
+                    f"{self.random_effect_type!r}")
+        n_old = self.fallback_row
+        updates: dict[int, np.ndarray] = {}
+        new_raws: list[str] = []
+
+        def target_row(raw: str) -> int:
+            r = self.row_of_id.get(raw)
+            if r is None or r == n_old:
+                # an unseen raw id, or a vocabulary entry parked on the
+                # fallback row (never writable): append a row
+                new_raws.append(raw)
+                return n_old + len(new_raws) - 1
+            return r
+
+        # removals first, so an id both removed and re-solved takes the
+        # update's row
+        for raw in removed:
+            r = self.row_of_id.get(raw)
+            if r is not None and r != n_old:
+                updates[r] = np.zeros(self.dim, np.float32)
+        if update is not None and len(update.keys):
+            ent = np.unique(np.asarray(update.keys) // update.dim)
+            reverse = {int(d): raw for raw, d in update_vocab.items()}
+            block = update.entity_rows(ent)
+            for i, e in enumerate(ent):
+                raw = reverse.get(int(e))
+                if raw is None:
+                    raise ValueError(
+                        f"patch entity {int(e)} has no vocabulary entry")
+                updates[target_row(raw)] = block[i]
+        device = self.table.device
+        n_rows = n_old + len(new_raws) + 1
+        # torch.cat allocates: the parent's table is only read
+        table = torch.cat([
+            self.table[:n_old],
+            torch.zeros((n_rows - n_old, self.dim), dtype=self.table.dtype,
+                        device=device)])
+        scales = None if self.scales is None else torch.cat([
+            self.scales[:n_old],
+            torch.ones(n_rows - n_old, dtype=self.scales.dtype,
+                       device=device)])
+        if updates:
+            rows = torch.as_tensor(
+                np.fromiter(updates.keys(), np.int64, len(updates)),
+                device=device)
+            packed, packed_scales = _pack_table(
+                np.stack(list(updates.values())), self.table_dtype, device)
+            table[rows] = packed
+            if scales is not None:
+                scales[rows] = packed_scales
+        fallback = n_rows - 1
+        row_of_id = {raw: (fallback if r == n_old else r)
+                     for raw, r in self.row_of_id.items()}
+        for i, raw in enumerate(new_raws):
+            row_of_id[raw] = n_old + i
+        return EntityCoefficientStore(
+            random_effect_type=self.random_effect_type,
+            feature_shard_id=self.feature_shard_id, dim=self.dim,
+            table=table, row_of_id=row_of_id,
+            table_dtype=self.table_dtype, scales=scales)
 
     @staticmethod
     def build(model: RandomEffectModel,

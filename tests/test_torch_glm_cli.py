@@ -343,17 +343,69 @@ _REQUIRED = ["--training-data", "x.avro", "--output-dir", "out"]
 @pytest.mark.parametrize("extra", [
     ["--training-diagnostics"], ["--diagnostic-bootstrap-replicates", "4"],
     ["--profile"], ["--debug-nans"], ["--multihost"],
-    ["--max-retries", "0"], ["--retry-deadline-s", "1"],
     ["--supervise", "2"], ["--max-restarts", "1"],
     ["--heartbeat-timeout-s", "5"], ["--restart-deadline-s", "5"],
     ["--telemetry-dir", "t"], ["--telemetry-poll-s", "1"],
-    ["--metrics-port", "9"], ["--on-divergence", "rollback"],
-    ["--on-divergence", "freeze"],
-], ids=lambda e: e[0][2:] + ("-" + e[1] if e[0] == "--on-divergence"
-                             else ""))
+    ["--metrics-port", "9"],
+], ids=lambda e: e[0][2:])
 def test_unported_flag_names_itself(tmp_path, extra):
     with pytest.raises(NotImplementedError, match=extra[0]):
         t_cli.run(_REQUIRED + extra)
+
+
+def _poison_second_lambda(monkeypatch):
+    """Make the sweep's second lambda (1 of "10;1;0.1") diverge: its
+    coefficients turn NaN on their way to the original space."""
+    from photon_ml_tpu_torch.glm import training
+
+    real, calls = training.to_original_space, []
+
+    def poisoned(coeffs, normalization):
+        out = real(coeffs, normalization)
+        calls.append(1)
+        if len(calls) != 2:
+            return out
+        return type(out)(means=out.means * float("nan"),
+                         variances=out.variances)
+
+    monkeypatch.setattr(training, "to_original_space", poisoned)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--max-retries", "0"], ["--retry-deadline-s", "1"],
+    ["--on-divergence", "rollback"], ["--on-divergence", "freeze"],
+], ids=lambda e: e[0][2:] + ("-" + e[1] if e[0] == "--on-divergence"
+                             else ""))
+def test_resilience_flag_runs(files, tmp_path, monkeypatch, extra):
+    """The resilience flags that were refused now run: the retry flags
+    install the process's retry policy; rollback and freeze drop a
+    diverged lambda from selection and save the others."""
+    from photon_ml_tpu_torch.resilience import (
+        get_default_policy,
+        set_default_policy,
+    )
+
+    train, valid = files["lbfgs"]
+    if extra[0] == "--on-divergence":
+        _poison_second_lambda(monkeypatch)
+    out = str(tmp_path / "out")
+    previous = get_default_policy()
+    try:
+        res = t_cli.run(["--training-data", train, "--validation-data",
+                         valid, "--output-dir", out,
+                         "--regularization-weights", LAMBDAS,
+                         "--evaluators", "AUC", "--device", "cpu"] + extra)
+        policy = get_default_policy()
+    finally:
+        set_default_policy(previous)
+    if extra[0] == "--max-retries":
+        assert policy.max_attempts == 1
+    elif extra[0] == "--retry-deadline-s":
+        assert policy.deadline_s == 1.0 and policy.max_attempts == 3
+    else:
+        assert res["best_lambda"] != 1.0
+        assert sorted(os.listdir(os.path.join(out, "all"))) == [
+            "lambda-0.1", "lambda-10"]
 
 
 def test_defaults_to_cuda_without_falling_back(monkeypatch, tmp_path):

@@ -193,14 +193,19 @@ def test_rows_for_fallback_and_unknown_ids(trained):
 
 
 def test_store_refuses_what_is_not_ported(trained):
+    """Shard views stay refused; an empty patch is ported and derives a
+    new table equal to the parent's, which it leaves unwritten."""
     sm = _registry().load(trained["v1"])
     model = sm.model.coordinates["perUser"]
     vocab = sm.entity_vocabs["userId"]
     with pytest.raises(NotImplementedError, match="shard"):
         EntityCoefficientStore.build(model, vocab, shard=(0, 2),
                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="patches"):
-        sm.stores["perUser"].apply_patch(None, {})
+    parent = sm.stores["perUser"]
+    derived = parent.apply_patch(None, {})
+    assert derived.table is not parent.table
+    assert torch.equal(derived.table, parent.table)
+    assert derived.row_of_id == parent.row_of_id
     with pytest.raises(ValueError, match="table_dtype"):
         _registry(table_dtype="fp8")
 
@@ -424,7 +429,8 @@ def test_corrupt_candidate_rejected_active_keeps_serving(trained, tmp_path):
     meta["kind"] = "coefficient-patch"
     with open(meta_path, "w") as f:
         json.dump(meta, f)
-    with pytest.raises(NotImplementedError, match="patches"):
+    # a "patch" naming no parentModel is refused by its lineage check
+    with pytest.raises(ValueError, match="parentModel"):
         registry.reload(patch)
     assert events.count("model_reload_rejected") == 3
     assert registry.active_version == 1 and registry.versions() == [1]
@@ -550,10 +556,8 @@ def test_stopped_server_closes_its_socket(trained):
 
 @pytest.mark.parametrize("extra", [
     ["--fleet-shard", "0"], ["--fleet-shard-count", "2"],
-    ["--watch-dir", "w"], ["--watch-poll-s", "1"], ["--reqlog-dir", "r"],
-    ["--reqlog-sample", "0.5"], ["--reqlog-segment-records", "8"],
-    ["--reqlog-max-mb", "1"], ["--autopilot-config", "a.json"],
-    ["--max-connections", "4"], ["--canary-gate"], ["--canary-bound", "1"],
+    ["--autopilot-config", "a.json"],
+    ["--canary-gate"], ["--canary-bound", "1"],
     ["--quality-poll-s", "1"], ["--drift-threshold", "0.5"],
     ["--rank-item-coordinate", "perUser"], ["--rank-max-k", "8"],
     ["--history-capacity", "8"], ["--history-period-s", "1"],
@@ -565,6 +569,48 @@ def test_unported_serve_flag_names_itself(extra):
     with pytest.raises(NotImplementedError, match=extra[0]):
         t_serve.build_server(["--model-dir", "m", "--feature-shards", SHARDS,
                               "--device", "cpu"] + extra)
+
+
+#: each flag that now runs, with what it sets on the built server
+_PORTED_SERVE_FLAGS = {
+    "watch-dir": (["--watch-dir", "{tmp}/w"],
+                  lambda s, tmp: (s.watcher.watch_dir, s.watcher.poll_s)
+                  == (f"{tmp}/w", 10.0)),
+    "watch-poll-s": (["--watch-dir", "{tmp}/w", "--watch-poll-s", "1"],
+                     lambda s, tmp: s.watcher.poll_s == 1.0),
+    "reqlog-dir": (["--reqlog-dir", "{tmp}/r"],
+                   lambda s, tmp: s.service.reqlog.log_dir == f"{tmp}/r"),
+    "reqlog-sample": (["--reqlog-dir", "{tmp}/r", "--reqlog-sample", "0.5"],
+                      lambda s, tmp: s.service.reqlog.sample_rate == 0.5),
+    "reqlog-segment-records": (
+        ["--reqlog-dir", "{tmp}/r", "--reqlog-segment-records", "8"],
+        lambda s, tmp: s.service.reqlog.segment_records == 8),
+    "reqlog-max-mb": (["--reqlog-dir", "{tmp}/r", "--reqlog-max-mb", "1"],
+                      lambda s, tmp: s.service.reqlog.max_bytes == 1 << 20),
+    "max-connections": (
+        ["--max-connections", "4"],
+        lambda s, tmp: s.service.connections.max_connections == 4),
+}
+
+
+@pytest.mark.parametrize("flag", list(_PORTED_SERVE_FLAGS))
+def test_ported_serve_flag_runs(trained, tmp_path, flag):
+    """The flags that were refused before the serving control plane was
+    ported now build a server that does what they ask; the watcher starts
+    and stops with the server."""
+    extra, check = _PORTED_SERVE_FLAGS[flag]
+    tmp = str(tmp_path)
+    server = t_serve.build_server([
+        "--model-dir", trained["v1"], "--feature-shards", SHARDS,
+        "--port", "0", "--no-warmup", "--device", "cpu"]
+        + [a.format(tmp=tmp) for a in extra]).start()
+    try:
+        assert check(server, tmp)
+        if server.watcher is not None:
+            assert server.watcher._thread.is_alive()
+    finally:
+        server.stop()
+    assert server.watcher is None or server.watcher._thread is None
 
 
 def test_unported_serve_flags_at_their_default_are_accepted(trained):
