@@ -136,7 +136,31 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    incumbent serving, ``activate``, and ``prepare`` of the patch then
    ``abort``; (d) a second server with ``--max-connections 4``: the fifth
    connection gets the typed 503, counted. Phase 12 launches none of the
-   four kernels.
+   four kernels;
+13. the remaining GAME training options through
+   ``photon_ml_tpu_torch.cli.train_game.run`` on phase 8's two Avro files
+   (1M + 100k rows, 40k users, 15k songs), each run's launches counted:
+   (a) elastic net with variances in bf16 (``global`` ELASTIC_NET alpha
+   0.5 SIMPLE, its lambda 1000; ``perUser`` ELASTIC_NET alpha 0.7 FULL;
+   ``perSong`` L2 SIMPLE): every coordinate's records carry variances in
+   the reference layout, each variance of the fixed effect and of 200
+   sampled entities per random effect equals its f64 value at the saved
+   coefficients (1 / the Hessian diagonal, or the pseudo-inverse's
+   diagonal for FULL; the bf16 design rounded as the card used it), the
+   two L1 coordinates hold exact zeros, and the AUC beats phase 3's fixed
+   effect alone; (b) the RANDOM projector (``perSong``, projectedDim 4)
+   and a factored ``perUser`` (projectedDim 2, one factored iteration) in
+   f32: kernel 2 runs on the (E, S, 2) and (E, S, 4) buckets,
+   ``score_game`` on the back-projected ``best/`` equals the in-memory
+   projected model's scores within 1e-6, the AUC beats the fixed effect's;
+   (c) ``global`` ``downsample=0.5`` over two sweeps: the weights kernel 1
+   saw each sweep equal the host draw's exactly; (d) ``--tuning RANDOM``
+   and ``--tuning BAYESIAN --tuning-range 1e-3:1e3``, 4 fits each: the
+   best recorded fit is the selected one, ``best/`` rescores to its AUC
+   within 1e-6, BAYESIAN's lambdas lie in the range and RANDOM's equal a
+   CPU run's bit for bit; (e) ``perUser`` ``cacheBuckets=false``: the
+   model records and the AUC equal phase 8's cached run bit for bit; and
+   (a), (b) at 20k rows on the card and on the CPU, AUCs within 1e-4.
 
 Any failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the ``kernels``
@@ -2713,6 +2737,439 @@ def run_patch_serving_phase(e2e_run, refresh_run, records, tmp,
     log(f"[12] done in {time.perf_counter() - t_start:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# phase 13: the remaining GAME training options, through train_game
+# --------------------------------------------------------------------------
+
+#: phase 13 (a): elastic net with variances. The fixed effect's lambda
+#: grows with the rows (its L1 half is what zeroes weak global features:
+#: 3 of 33 at 20k rows and lambda 20, on the CPU)
+OPTIONS_EN_LAMBDA = {"rows": 20_000, "global": 20.0}
+#: a variance against 1 / its f64 Hessian diagonal (SIMPLE) at the saved
+#: coefficients, the bf16 design rounded as the card used it: the f32
+#: accumulation over up to 10^6 positive terms (blocked sums, ~log2(n)
+#: roundings of 2^-24 each), with a margin of 30
+OPTIONS_VAR_RTOL = 1e-4
+#: FULL: the diagonal of the f64 pseudo-inverse, per entity within
+#: 10 · D · 2^-23 · cond(H) relative (the f32 pseudo-inverse's rounding)
+OPTIONS_FULL_RTOL_FACTOR = 10.0
+#: entities whose variances are held to the f64 Hessian, per coordinate
+OPTIONS_VAR_ENTITIES = 200
+#: the saved back-projected model vs the in-memory projected one
+OPTIONS_SCORE_TOL = 1e-6
+#: phase 13 (d): fits per search
+OPTIONS_TUNING_ITERATIONS = 4
+
+
+def options_coords(kind, lam_global):
+    """Phase 13's coordinate specs and grid: ``en`` (a), ``projected``
+    (b)."""
+    it = f"maxIter={E2E_MAX_ITER}"
+    hist = "buckets=histogram,maxSampleBuckets=4"
+    if kind == "en":
+        coords = [
+            f"global=fixed,shard=global,reg=ELASTIC_NET,alpha=0.5,"
+            f"variance=SIMPLE,{it}",
+            f"perUser=random,entity=userId,shard=item,reg=ELASTIC_NET,"
+            f"alpha=0.7,variance=FULL,{it},{hist}",
+            f"perSong=random,entity=songId,shard=item,reg=L2,"
+            f"variance=SIMPLE,{it},{hist}"]
+        grid = dict(E2E_LAMBDAS, **{"global": lam_global})
+    else:
+        coords = [
+            f"global=fixed,shard=global,reg=L2,{it}",
+            f"perUser=factored,entity=userId,shard=item,reg=L2,"
+            f"projectedDim=2,factoredIterations=1,lamProjection=1,{it}",
+            f"perSong=random,entity=songId,shard=item,reg=L2,"
+            f"projector=RANDOM,projectedDim=4,{it},{hist}"]
+        grid = dict(E2E_LAMBDAS)
+    return coords, grid
+
+
+def options_args(train, valid, out, coords, grid, dtype, device):
+    return ["--training-data", train, "--validation-data", valid,
+            "--output-dir", out, "--feature-shards", E2E_SHARDS,
+            "--coordinates", *coords,
+            "--update-sequence", "global,perUser,perSong",
+            "--grid", *[f"{k}={v}" for k, v in grid.items()],
+            "--data-validation", "VALIDATE_DISABLED",
+            "--design-dtype", dtype, "--evaluators", "AUC",
+            "--device", device]
+
+
+class Patched:
+    """``setattr(owner, name, wrap(original))`` for the ``with`` block (which
+    gets the wrapper), the original restored after."""
+
+    def __init__(self, owner, name, wrap):
+        self.owner, self.name = owner, name
+        self.fn = getattr(owner, name)
+        self.wrap = wrap
+
+    def __enter__(self):
+        wrapper = self.wrap(self.fn)
+        setattr(self.owner, self.name, wrapper)
+        return wrapper
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+
+def options_run(train_game, label, args):
+    """``train_game.run(args)`` with the kernels' launches counted around
+    it; returns (result, launches, the saved in-memory model, AUC)."""
+    saved = []
+
+    def record(save):
+        def wrapper(path, model, *a, **kw):
+            saved.append(model)
+            return save(path, model, *a, **kw)
+        return wrapper
+
+    with Patched(train_game, "save_game_model", record):
+        res, wall, launches = counted_call(train_game.run, args)
+    auc = res["best_evaluation"]["AUC"]
+    out = args[args.index("--output-dir") + 1]
+    stages = ", ".join(f"{m['stage']} {m['seconds']:.3f}"
+                       for m in stages_of(out) if "seconds" in m)
+    log(f"[13] {label}: {wall:.2f} s; launches {launches}; AUC {auc:.7f}; "
+        + stages)
+    return res, launches, (saved[-1] if saved else None), auc
+
+
+def bf16_rounded(a):
+    return torch.as_tensor(np.asarray(a, np.float32)).to(
+        torch.bfloat16).to(torch.float64).numpy()
+
+
+def dense_f64(shard, bf16):
+    x = np.zeros((shard.n_samples, shard.dim), np.float64)
+    vals = bf16_rounded(shard.vals) if bf16 else shard.vals.astype(np.float64)
+    np.add.at(x, (shard.rows(), shard.cols), vals)
+    return x
+
+
+def curvature(m):
+    p = 1.0 / (1.0 + np.exp(-m))
+    return p * (1.0 - p)
+
+
+def check_variances(model, data, grid, tmp_best):
+    """Phase 13 (a)'s variance checks on the in-memory model the run saved
+    and the records it wrote: every coordinate's records carry variances
+    in the reference layout, and each variance (the fixed effect's, and
+    those of OPTIONS_VAR_ENTITIES sampled entities of each random effect)
+    equals its f64 value at the saved coefficients. Returns the worst
+    ratios |got - want| / limit."""
+    from photon_ml_tpu_torch.io.avro import iter_avro_file
+
+    for kind, cid in (("fixed-effect", "global"),
+                      ("random-effect", "perUser"),
+                      ("random-effect", "perSong")):
+        recs = list(iter_avro_file(os.path.join(
+            tmp_best, kind, cid, "coefficients", "part-00000.avro")))
+        assert recs, cid
+        for r in recs:
+            assert r["variances"] is not None, cid
+            assert all(e["value"] > 0 for e in r["variances"]), cid
+            means = [(e["name"], e["term"]) for e in r["means"]]
+            var = [(e["name"], e["term"]) for e in r["variances"]]
+            if kind == "fixed-effect":
+                # the reference writes a fixed effect's variances for
+                # every feature, its means above the sparsity threshold
+                assert len(var) == 33 and set(means) <= set(var), cid
+            else:
+                assert means == var, cid
+    worst = {}
+    coords = model.coordinates
+    xg = dense_f64(data.shards["global"], True)
+    xi = dense_f64(data.shards["item"], True)
+    fe = coords["global"].model.coefficients
+    wg = fe.means.cpu().double().numpy()
+    margins = xg @ wg
+    diag = (xg * xg).T @ curvature(margins) + 0.5 * grid["global"]
+    got = fe.variances.cpu().double().numpy()
+    err = np.abs(got - 1.0 / diag) / (OPTIONS_VAR_RTOL / diag)
+    worst["global"] = float(err.max())
+    rng = np.random.default_rng(13)
+    for cid, col, l2, full in (
+            ("perUser", "userId", 0.3 * grid["perUser"], True),
+            ("perSong", "songId", grid["perSong"], False)):
+        m = coords[cid]
+        ent_of = m.keys // m.dim
+        ents = rng.choice(np.unique(ent_of), OPTIONS_VAR_ENTITIES,
+                          replace=False)
+        ids = data.id_columns[col]
+        ratio = 0.0
+        for e in ents:
+            rows = np.flatnonzero(ids == e)
+            sel = ent_of == e
+            feats = m.keys[sel] % m.dim
+            w = np.zeros(m.dim)
+            w[feats] = m.coeffs[sel]
+            x = xi[rows][:, feats]
+            d2 = curvature(xi[rows] @ w + margins[rows])
+            h = (x * d2[:, None]).T @ x + l2 * np.eye(len(feats))
+            if full:
+                want = np.diag(np.linalg.pinv(h))
+                rtol = (OPTIONS_FULL_RTOL_FACTOR * len(feats) * 2.0 ** -23
+                        * np.linalg.cond(h))
+            else:
+                want = 1.0 / np.diag(h)
+                rtol = OPTIONS_VAR_RTOL
+            ratio = max(ratio, float((np.abs(m.variances[sel] - want)
+                                      / (rtol * np.abs(want))).max()))
+        worst[cid] = ratio
+        # the next coordinate's offsets: this one's margins on the bf16
+        # design, as its buckets scored them
+        item = data.shards["item"]
+        rows = item.rows()
+        w = m.lookup(ids[rows], item.cols).astype(np.float64)
+        np.add.at(margins, rows, bf16_rounded(item.vals) * w)
+    log(f"  variances vs f64 at the saved coefficients, worst |diff| / "
+        f"limit: {worst}")
+    assert all(v <= 1.0 for v in worst.values()), worst
+    return worst
+
+
+def read_run_data(run, train, valid):
+    """The run's training and validation data, keyed by its index maps
+    and the training file's entity vocabularies (as train_game keys
+    them)."""
+    from photon_ml_tpu_torch.cli.config import parse_feature_shard_config
+    from photon_ml_tpu_torch.io import data_reader
+    from photon_ml_tpu_torch.io.index import IndexMap
+
+    shards = tuple(parse_feature_shard_config(s)
+                   for s in E2E_SHARDS.split(","))
+    maps = {c.shard_id: IndexMap.load(os.path.join(
+        run, "feature-indexes", f"{c.shard_id}.json")) for c in shards}
+    reader = data_reader.AvroDataReader(shard_configs=shards,
+                                        index_maps=maps)
+    ids = ("songId", "userId")
+    data, _, vocabs = reader.read(train, id_columns=ids)
+    vdata, _, _ = reader.read(valid, id_columns=ids, entity_vocabs=vocabs)
+    return data, vdata, maps, vocabs
+
+
+def rescore_run(run, view, device):
+    from photon_ml_tpu_torch.evaluation import parse_evaluators
+    from photon_ml_tpu_torch.io import model_io
+
+    _, vdata, maps, vocabs = view
+    model = model_io.load_game_model(model_io.resolve_game_model_dir(run),
+                                     maps, vocabs, device=device)
+    return parse_evaluators(["AUC"])[0].evaluate(
+        model.score(vdata), vdata.labels, vdata.weights)
+
+
+def small_files(tg, tmp):
+    """SMALL's rows (phase 4's draw) written to Avro, for the card-vs-CPU
+    runs."""
+    from photon_ml_tpu_torch.io import data_reader
+
+    train, valid = make_e2e(tg, **SMALL)
+    paths = {}
+    for name, data in (("train", train), ("valid", valid)):
+        paths[name] = os.path.join(tmp, f"small_{name}.avro")
+        data_reader.write_training_examples(paths[name], e2e_records(data),
+                                            codec="null")
+    return paths["train"], paths["valid"]
+
+
+def run_options_phase(tg, e2e_run, auc_fe, tmp, device="cuda",
+                      small_devices=("cuda", "cpu")):
+    """Phase 13 on phase 8's Avro files; returns each run's kernel
+    launches."""
+    from photon_ml_tpu_torch import sampling
+    from photon_ml_tpu_torch.cli import score_game, train_game
+    from photon_ml_tpu_torch.io import model_io
+    from photon_ml_tpu_torch.io.avro import iter_avro_file
+    from photon_ml_tpu_torch.ops import objective
+
+    t_start = time.perf_counter()
+    train, valid = e2e_run["train"], e2e_run["valid"]
+    rows = E2E["rows"]
+    lam_global = OPTIONS_EN_LAMBDA["global"] * rows / OPTIONS_EN_LAMBDA["rows"]
+    launches = {}
+
+    # (a) elastic net with variances, bf16 designs
+    out_a = os.path.join(tmp, "options_en")
+    coords, grid = options_coords("en", lam_global)
+    _, launches["en"], model_a, auc_a = options_run(
+        train_game, "(a) elastic net + variances, bf16", options_args(
+            train, valid, out_a, coords, grid, "bfloat16", device))
+    view = read_run_data(out_a, train, valid)
+    data = view[0]
+    zeros = {"global": int((model_a.coordinates["global"].model.coefficients
+                            .means == 0).sum()),
+             "perUser": int((model_a.coordinates["perUser"].coeffs
+                             == 0).sum())}
+    log(f"  exact zeros {zeros} (of 33 and "
+        f"{len(model_a.coordinates['perUser'].coeffs)}); fixed-effect-only "
+        f"AUC {auc_fe:.7f}")
+    assert launches["en"]["fused_glm"] > 0 and launches["en"]["fused_re"] > 0
+    assert all(z > 0 for z in zeros.values()), zeros
+    assert auc_a > auc_fe, (auc_a, auc_fe)
+    t0 = time.perf_counter()
+    check_variances(model_a, data, grid, os.path.join(out_a, "best"))
+    log(f"  variance checks in {time.perf_counter() - t0:.2f} s")
+    del model_a, data
+
+    # (b) the RANDOM projector and a factored coordinate, f32 designs
+    out_b = os.path.join(tmp, "options_projected")
+    coords, grid = options_coords("projected", lam_global)
+    kernel2_d = set()
+
+    def widths(kernel):
+        def spy(loss, x, *args):
+            kernel2_d.add(int(x.shape[-1]))
+            return kernel(loss, x, *args)
+        return spy
+
+    with Patched(objective, "fused_entity_value_and_grad", widths):
+        _, launches["projected"], model_b, auc_b = options_run(
+            train_game, "(b) RANDOM projector + factored, f32", options_args(
+                train, valid, out_b, coords, grid, "float32", device))
+    for cid, d in (("perUser", 2), ("perSong", 4)):
+        m = model_b.coordinates[cid]
+        assert m.projector is not None and m.dim == d, cid
+    in_memory = model_b.score(view[1])
+    out_s = os.path.join(tmp, "options_projected_scores")
+    score_game.run(["--data", valid, "--model-dir", out_b,
+                    "--output-dir", out_s, "--feature-shards", E2E_SHARDS,
+                    "--device", device])
+    saved = np.array([r["predictionScore"] for r in iter_avro_file(
+        os.path.join(out_s, "scores.avro"))])
+    score_err = float((np.abs(saved - in_memory)
+                       / (1.0 + np.abs(in_memory))).max())
+    log(f"  kernel 2 ran on D = {sorted(kernel2_d)}; score_game on the "
+        f"back-projected best/ vs the in-memory projected model: max "
+        f"|diff| / (1 + |score|) {score_err:.2e} (limit "
+        f"{OPTIONS_SCORE_TOL:g})")
+    assert launches["projected"]["fused_re"] > 0, launches["projected"]
+    assert kernel2_d == {2, 4}, kernel2_d
+    assert score_err <= OPTIONS_SCORE_TOL, score_err
+    assert auc_b > auc_fe, (auc_b, auc_fe)
+    del model_b
+
+    # (c) down-sampling: the fixed effect's weights over two sweeps
+    out_c = os.path.join(tmp, "options_downsample")
+    args_c = cli_args(train, valid, out_c)
+    i = args_c.index("--coordinates") + 1
+    args_c[i] += ",downsample=0.5"
+    args_c = flag_args(args_c, cd_iterations=2, device=device)
+    seen = []
+
+    def weights_seen(kernel):
+        def spy(loss, x, w, labels, offsets, weights):
+            if not any(weights is s for _, s in seen):
+                seen.append((labels, weights))
+            return kernel(loss, x, w, labels, offsets, weights)
+        return spy
+
+    with Patched(objective, "fused_value_and_grad", weights_seen):
+        _, launches["downsample"], _, _ = options_run(
+            train_game, "(c) global downsample=0.5, 2 sweeps", args_c)
+    sampler = sampling.BinaryClassificationDownSampler(rate=0.5)
+    assert len(seen) == 2, len(seen)
+    for sweep, (labels, weights) in enumerate(seen):
+        y = labels.cpu().numpy()
+        want = sampler.downsample(y, np.ones_like(y), sweep=sweep,
+                                  uids=np.arange(y.size, dtype=np.int64))
+        got = weights.cpu().numpy()
+        log(f"  sweep {sweep}: {int((got > 0).sum())} of {y.size} rows "
+            f"kept on the card, the host draw's exactly: "
+            f"{bool(np.array_equal(got, want))}")
+        assert np.array_equal(got, want), sweep
+    assert launches["downsample"]["fused_glm"] > 0, launches["downsample"]
+    del seen
+
+    # (d) tuning, RANDOM and BAYESIAN: every fit's configuration and AUC
+    def recorded(fit):
+        fits = []
+
+        def wrapper(est, *args, **kwargs):
+            results = fit(est, *args, **kwargs)
+            fits.extend((dict(r.configuration.regularization_weights),
+                         r.evaluation.primary[1]) for r in results)
+            return results
+
+        wrapper.fits = fits
+        return wrapper
+
+    tuned = {}
+    for mode, extra in (("RANDOM", []),
+                        ("BAYESIAN", ["--tuning-range", "1e-3:1e3"])):
+        out_d = os.path.join(tmp, f"options_tuning_{mode}")
+        args_d = flag_args(cli_args(train, valid, out_d), device=device,
+                           tuning=mode,
+                           tuning_iterations=OPTIONS_TUNING_ITERATIONS) + extra
+        with Patched(tg.GameEstimator, "fit", recorded) as fits:
+            res, launches[f"tuning_{mode}"], _, auc = options_run(
+                train_game, f"(d) --tuning {mode}", args_d)
+        tuned[mode] = fits.fits
+        best = max(fits.fits, key=lambda f: f[1])
+        reload_auc = rescore_run(out_d, view, device)
+        log(f"  fits {fits.fits}; best {res['best_config']}; best/ "
+            f"rescored {reload_auc:.7f}")
+        assert res["n_configurations"] == len(fits.fits) == \
+            OPTIONS_TUNING_ITERATIONS
+        assert res["best_config"] == best[0] and auc == best[1]
+        assert abs(reload_auc - auc) <= RELOAD_AUC_TOL, (reload_auc, auc)
+        if mode == "BAYESIAN":
+            assert all(1e-3 <= v <= 1e3 for cfg, _ in fits.fits
+                       for v in cfg.values()), fits.fits
+
+    # (e) streaming buckets: bit for bit phase 8's cached run
+    out_e = os.path.join(tmp, "options_streaming")
+    args_e = cli_args(train, valid, out_e)
+    i = args_e.index("--coordinates") + 2
+    args_e[i] += ",cacheBuckets=false"
+    res_e, launches["streaming"], _, auc_e = options_run(
+        train_game, "(e) perUser cacheBuckets=false",
+        flag_args(args_e, device=device))
+    auc8 = next(m["AUC"] for m in stages_of(e2e_run["run"])
+                if m.get("stage") == "best")
+    same = (model_io.model_lineage_id(os.path.join(out_e, "best"))
+            == model_io.model_lineage_id(os.path.join(e2e_run["run"],
+                                                      "best")))
+    log(f"  model records equal phase 8's: {same}; AUC {auc_e!r} vs phase "
+        f"8's {auc8!r}")
+    assert same and auc_e == auc8, (same, auc_e, auc8)
+
+    # (a) and (b) at SMALL's size on the card and on the CPU
+    s_train, s_valid = small_files(tg, tmp)
+    lam_small = OPTIONS_EN_LAMBDA["global"] * SMALL["rows"] \
+        / OPTIONS_EN_LAMBDA["rows"]
+    small_auc = {}
+    for kind, dtype in (("en", "bfloat16"), ("projected", "float32")):
+        coords, grid = options_coords(kind, lam_small)
+        for dev in small_devices:
+            out = os.path.join(tmp, f"options_small_{kind}_{dev}")
+            res, n, _, small_auc[kind, dev] = options_run(
+                train_game, f"{SMALL['rows']}-row {kind} on {dev}",
+                options_args(s_train, s_valid, out, coords, grid, dtype,
+                             dev))
+        if len(small_devices) == 2:
+            d_auc = abs(small_auc[kind, "cuda"] - small_auc[kind, "cpu"])
+            log(f"  |AUC cuda - AUC cpu| = {d_auc:.2e} (limit 1e-4)")
+            assert d_auc < 1e-4, (kind, d_auc)
+    # RANDOM's points do not depend on the fits: the CPU's are the card's
+    out_r = os.path.join(tmp, "options_small_tuning_cpu")
+    with Patched(tg.GameEstimator, "fit", recorded) as fits:
+        options_run(train_game, "SMALL --tuning RANDOM on cpu", flag_args(
+            cli_args(s_train, s_valid, out_r), device="cpu", tuning="RANDOM",
+            tuning_iterations=OPTIONS_TUNING_ITERATIONS))
+    lams_cpu = [cfg for cfg, _ in fits.fits]
+    lams_card = [cfg for cfg, _ in tuned["RANDOM"]]
+    log(f"  RANDOM's lambdas on the card equal the CPU run's bit for bit: "
+        f"{lams_card == lams_cpu}")
+    assert lams_card == lams_cpu, (lams_card, lams_cpu)
+    log(f"[13] done in {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3051,11 +3508,17 @@ def main() -> int:
             run_patch_serving_phase, e2e_run, refresh_run, records, e2e_tmp)
         log(f"[12] kernel launches {loop_launches}")
         assert not any(loop_launches.values()), loop_launches
+
+        # 13. the remaining GAME training options, on phase 8's files -------
+        options_launches = run_options_phase(tg, e2e_run, auc_fe, e2e_tmp)
     finally:
         shutil.rmtree(e2e_tmp, ignore_errors=True)
 
     def train_glm_launches(kernel):
         return {name: n[kernel] for name, n in glm_cli.items()}
+
+    def options(kernel):
+        return {name: n[kernel] for name, n in options_launches.items()}
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [
@@ -3067,6 +3530,7 @@ def main() -> int:
              refresh=dict(launches=refresh_launches["fused_glm"]),
              locked=dict(launches=locked_launches["fused_glm"]),
              train_glm=dict(launches=train_glm_launches("fused_glm")),
+             options=dict(launches=options("fused_glm")),
              glm_path=dict(launches=glm_launches["tron"]["fused_glm"],
                            **t1_glm),
              glm_small=dict(launches=runs["cuda"]["tron"][3]["fused_glm"],
@@ -3079,7 +3543,8 @@ def main() -> int:
              e2e_cli=dict(launches=cli_launches["fused_re"]),
              refresh=dict(launches=refresh_launches["fused_re"]),
              locked=dict(launches=locked_launches["fused_re"]),
-             train_glm=dict(launches=train_glm_launches("fused_re"))),
+             train_glm=dict(launches=train_glm_launches("fused_re")),
+             options=dict(launches=options("fused_re"))),
         dict(name="fused_hvp", route="cuda", status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_hvp.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:447",
@@ -3088,7 +3553,8 @@ def main() -> int:
              game_shape=t3_game,
              train_glm=dict(launches=train_glm_launches("fused_hvp")),
              refresh=dict(launches=refresh_launches["fused_hvp"]),
-             locked=dict(launches=locked_launches["fused_hvp"])),
+             locked=dict(launches=locked_launches["fused_hvp"]),
+             options=dict(launches=options("fused_hvp"))),
         dict(name="fused_value_and_grad_multi", route="cuda",
              status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_glm_multi.cu",
@@ -3096,7 +3562,8 @@ def main() -> int:
              launches=glm_launches["batched"]["fused_glm_multi"], **t4,
              train_glm=dict(launches=train_glm_launches("fused_glm_multi")),
              refresh=dict(launches=refresh_launches["fused_glm_multi"]),
-             locked=dict(launches=locked_launches["fused_glm_multi"])),
+             locked=dict(launches=locked_launches["fused_glm_multi"]),
+             options=dict(launches=options("fused_glm_multi"))),
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"):

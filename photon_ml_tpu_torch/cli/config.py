@@ -12,14 +12,18 @@
     coordId=fixed,shard=global,optimizer=LBFGS,reg=L2,maxIter=80,tol=1e-6
     coordId=random,entity=userId,shard=user,reg=L2,activeUpper=1000,
            activeLower=1,maxFeatures=500,buckets=histogram
+    coordId=fixed,shard=global,reg=ELASTIC_NET,alpha=0.5,variance=SIMPLE,
+           downsample=0.5,downsampleMode=binary
+    coordId=random,entity=userId,shard=user,projector=RANDOM,projectedDim=64,
+           cacheBuckets=false
+    coordId=factored,entity=userId,shard=user,projectedDim=8,
+           factoredIterations=2,lamProjection=1
 
 **Regularization weights** (``--grid``)::
 
     coordId=0.1;1;10  [space-separated groups → cartesian product]
 
-Options the port does not run yet raise :class:`NotImplementedError` naming
-the option: factored random effects, ``downsample`` and
-``projector=RANDOM``. The resilience flags (:func:`add_resilience_flags`:
+The resilience flags (:func:`add_resilience_flags`:
 retries, retry deadline, divergence policy) are ported; the telemetry,
 supervision and serving flag groups are not: :func:`add_unported_flags`
 lets a command accept such flags and :func:`refuse_unported` raise naming
@@ -35,6 +39,7 @@ from typing import Mapping, Optional, Sequence
 
 from photon_ml_tpu_torch.game.data import RandomEffectDatasetConfig
 from photon_ml_tpu_torch.game.estimator import (
+    FactoredRandomEffectCoordinateConfig,
     FixedEffectCoordinateConfig,
     RandomEffectCoordinateConfig,
 )
@@ -43,6 +48,10 @@ from photon_ml_tpu_torch.glm.problem import GLMOptimizationConfiguration
 from photon_ml_tpu_torch.io.data_reader import FeatureShardConfig
 from photon_ml_tpu_torch.ops.regularization import RegularizationContext
 from photon_ml_tpu_torch.optimize import OptimizerConfig
+from photon_ml_tpu_torch.sampling import (
+    BinaryClassificationDownSampler,
+    DownSampler,
+)
 from photon_ml_tpu_torch.types import (
     OptimizerType,
     RegularizationType,
@@ -98,7 +107,8 @@ def _optimization(kv: dict) -> GLMOptimizationConfiguration:
 
 
 def parse_coordinate_config(spec: str):
-    """Returns (coordinateId, FixedEffect/RandomEffectCoordinateConfig)."""
+    """Returns (coordinateId, a Fixed/Random/FactoredRandomEffect
+    CoordinateConfig)."""
     spec = spec.strip()
     if "=" not in spec:
         raise ValueError(f"coordinate spec needs coordId=kind,..., got {spec!r}")
@@ -109,27 +119,36 @@ def parse_coordinate_config(spec: str):
     kv = _parse_kv(parts[1:])
     if kind == "fixed":
         shard = kv.pop("shard")
+        downsampler = None
         if "downsample" in kv:
-            raise NotImplementedError(
-                f"coordinate {cid!r}: downsample (down-sampling) is not "
-                "ported")
+            rate = float(kv.pop("downsample"))
+            mode = kv.pop("downsampleMode", "binary")
+            cls = (BinaryClassificationDownSampler if mode == "binary"
+                   else DownSampler)
+            downsampler = cls(rate=rate)
         cfg = FixedEffectCoordinateConfig(
-            feature_shard_id=shard, optimization=_optimization(kv))
-    elif kind == "factored":
-        raise NotImplementedError(
-            f"coordinate {cid!r}: factored random effects are not ported")
-    elif kind == "random":
+            feature_shard_id=shard, optimization=_optimization(kv),
+            downsampler=downsampler)
+    elif kind in ("random", "factored"):
         entity = kv.pop("entity")
         shard = kv.pop("shard")
         cache = kv.pop("cacheBuckets", "true").lower()
         if cache not in ("true", "false"):
             raise ValueError(
                 f"cacheBuckets must be true or false, got {cache!r}")
-        projector_type = ProjectorType(
-            kv.pop("projector", "INDEX_MAP").upper())
-        if projector_type is ProjectorType.RANDOM:
-            raise NotImplementedError(
-                f"coordinate {cid!r}: projector=RANDOM is not ported")
+        if kind == "factored":
+            # the learned projection is the RANDOM projector; a redundant
+            # projector=RANDOM is accepted, anything else refused
+            projector = kv.pop("projector", "RANDOM").upper()
+            if projector != "RANDOM":
+                raise ValueError(
+                    f"factored coordinates always use the RANDOM projector "
+                    f"(the projection is the trained object); got "
+                    f"projector={projector!r}")
+            projector_type = ProjectorType.RANDOM
+        else:
+            projector_type = ProjectorType(
+                kv.pop("projector", "INDEX_MAP").upper())
         buckets = kv.pop("buckets", "geometric").lower()
         ds = RandomEffectDatasetConfig(
             random_effect_type=entity,
@@ -147,8 +166,15 @@ def parse_coordinate_config(spec: str):
             max_sample_buckets=int(kv.pop("maxSampleBuckets", 8)),
             max_feature_buckets=int(kv.pop("maxFeatureBuckets", 4)),
         )
-        cfg = RandomEffectCoordinateConfig(
-            dataset=ds, optimization=_optimization(kv))
+        if kind == "factored":
+            cfg = FactoredRandomEffectCoordinateConfig(
+                dataset=ds,
+                lam_projection=float(kv.pop("lamProjection", 0.0)),
+                n_factored_iterations=int(kv.pop("factoredIterations", 2)),
+                optimization=_optimization(kv))
+        else:
+            cfg = RandomEffectCoordinateConfig(
+                dataset=ds, optimization=_optimization(kv))
     else:
         raise ValueError(
             f"coordinate kind must be fixed|random|factored, got {kind!r}")

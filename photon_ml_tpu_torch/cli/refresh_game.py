@@ -156,8 +156,6 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             coordinate_configs = {
                 cid: dataclasses.replace(c, design_dtype=args.design_dtype)
                 for cid, c in coordinate_configs.items()}
-        for cfg in coordinate_configs.values():
-            cfg.check_ported()
         update_sequence = [c for c in args.update_sequence.split(",") if c]
         grid = parse_grid(args.grid)
         if len(grid) != 1:

@@ -24,10 +24,13 @@ the models' metadata its lineage (``parentModel``, ``trainedAt``,
 are reused) and ``--locked-coordinates`` keeps some of its coordinates
 untrained; ``--checkpoint``/``--resume`` save and restore coordinate-
 boundary state under ``<output-dir>/checkpoints``; ``--on-divergence``
-sets the divergence guard's policy. Not written yet: the quality baseline
-and telemetry. Flags of the reference that the port does not run yet are
-accepted by the parser and raise :class:`NotImplementedError` naming the
-flag.
+sets the divergence guard's policy. ``--tuning RANDOM|BAYESIAN`` replaces
+the grid with ``--tuning-iterations`` fits at points a random or a
+Gaussian-process search picks in ``--tuning-range`` (every coordinate's
+lambda), the coordinate datasets built once for all of them. Not written
+yet: the quality baseline and telemetry. Flags of the reference that the
+port does not run yet are accepted by the parser and raise
+:class:`NotImplementedError` naming the flag.
 """
 
 from __future__ import annotations
@@ -57,6 +60,8 @@ from photon_ml_tpu_torch.data_validation import validate_game_data
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.evaluation import parse_evaluators
 from photon_ml_tpu_torch.game.estimator import (
+    FactoredRandomEffectCoordinateConfig,
+    FixedEffectCoordinateConfig,
     GameEstimator,
     GameOptimizationConfiguration,
     RandomEffectCoordinateConfig,
@@ -75,8 +80,6 @@ from photon_ml_tpu_torch.types import DataValidationType, TaskType
 #: the reference's flags this command does not run yet, with their argparse
 #: settings: each is accepted and raises NotImplementedError when given
 _UNPORTED_FLAGS = {
-    "--tuning-iterations": {"type": int},
-    "--tuning-range": {},
     "--debug-nans": {"action": "store_true"},
     "--profile": {"action": "store_true"},
     "--multihost": {"action": "store_true"},
@@ -113,8 +116,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grid", nargs="*", default=[],
                    help="per-coordinate lambda lists 'coordId=0.1;1;10'")
     p.add_argument("--tuning", choices=["NONE", "RANDOM", "BAYESIAN"],
-                   default="NONE",
-                   help="only NONE (the grid) is ported")
+                   default="NONE")
+    p.add_argument("--tuning-iterations", type=int, default=10)
+    p.add_argument("--tuning-range", default="1e-4:1e4",
+                   help="lambda search range 'low:high' for tuning")
     p.add_argument("--evaluators", default="AUC",
                    help="comma-separated; first drives model selection")
     p.add_argument("--output-all-models", action="store_true")
@@ -154,12 +159,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    if args.tuning != "NONE":
-        raise NotImplementedError(f"--tuning {args.tuning} is not ported")
-    refuse_unported(args, _UNPORTED_FLAGS)
-
-
 def _publish_copy(src_dir: str, dst_dir: str) -> None:
     """``dst_dir`` as a copy of the model at ``src_dir`` whose metadata
     names its source in ``aliasOf``: the file tree and metadata of the
@@ -186,13 +185,52 @@ def preset_index_maps(model_dir: str, shard_configs) -> dict[str, IndexMap]:
         for cfg in shard_configs}
 
 
+def _tune(args, est: GameEstimator, data, validation, evaluators,
+          update_sequence, initial_models, locked, guard) -> list:
+    """``--tuning RANDOM|BAYESIAN``: ``--tuning-iterations`` fits at the
+    points the search picks (every trained coordinate's lambda in
+    ``--tuning-range``, log-scaled), the coordinate datasets built once and
+    their device images released after the search."""
+    from photon_ml_tpu_torch.hyperparameter.search import (
+        GaussianProcessSearch,
+        ParamRange,
+        RandomSearch,
+    )
+
+    low, high = (float(x) for x in args.tuning_range.split(":"))
+    # a locked coordinate never trains: its lambda is a dead axis
+    space = {cid: ParamRange(low, high) for cid in update_sequence
+             if cid not in locked}
+    datasets = est.prepare(data, locked=locked)
+    results = []
+
+    def evaluate(config: dict) -> float:
+        r = est.fit(data, [GameOptimizationConfiguration(config)],
+                    validation=validation, datasets=datasets,
+                    initial_models=initial_models, locked=locked,
+                    guard=guard)[0]
+        results.append(r)
+        return r.evaluation.primary[1]
+
+    if args.tuning == "BAYESIAN":
+        GaussianProcessSearch(space, maximize=evaluators[0].maximize).find(
+            evaluate, args.tuning_iterations)
+    else:
+        RandomSearch(space).find(evaluate, args.tuning_iterations)
+    for ds in datasets.values():
+        if hasattr(ds, "clear_device_cache"):
+            ds.clear_device_cache()
+    data.clear_device_cache()
+    return results
+
+
 def run(argv: Optional[Sequence[str]] = None) -> dict:
     from photon_ml_tpu_torch.continuous import delta as delta_mod
     from photon_ml_tpu_torch.io.checkpoint import CheckpointManager
 
     args = build_parser().parse_args(
         list(sys.argv[1:] if argv is None else argv))
-    _refuse_unported(args)
+    refuse_unported(args, _UNPORTED_FLAGS)
     task = TaskType(args.task)
     # the retry policy goes in before anything that may retry
     guard = install_resilience(resilience_from_args(args))
@@ -205,8 +243,20 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         coordinate_configs = dict(parse_coordinate_config(s)
                                   for s in args.coordinates)
         if args.design_dtype != "float32":
+            if any(isinstance(c, FactoredRandomEffectCoordinateConfig)
+                   for c in coordinate_configs.values()):
+                # factored coordinates solve in the projected space on f32
+                # designs: a bf16 request cannot apply to them
+                raise SystemExit(
+                    "--design-dtype bfloat16 does not apply to factored "
+                    "random-effect coordinates (their projected designs "
+                    "are float32); drop the flag or the factored "
+                    "coordinate")
             coordinate_configs = {
-                cid: dataclasses.replace(c, design_dtype=args.design_dtype)
+                cid: (dataclasses.replace(c, design_dtype=args.design_dtype)
+                      if isinstance(c, (FixedEffectCoordinateConfig,
+                                        RandomEffectCoordinateConfig))
+                      else c)
                 for cid, c in coordinate_configs.items()}
         update_sequence = [c for c in args.update_sequence.split(",") if c]
         locked = [c for c in args.locked_coordinates.split(",") if c]
@@ -215,7 +265,8 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         re_types = {
             c.dataset.random_effect_type
             for c in coordinate_configs.values()
-            if isinstance(c, RandomEffectCoordinateConfig)}
+            if isinstance(c, (RandomEffectCoordinateConfig,
+                              FactoredRandomEffectCoordinateConfig))}
         model_dir = None
         if args.model_input_dir:
             model_dir = resolve_game_model_dir(args.model_input_dir)
@@ -236,13 +287,21 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         est = GameEstimator(task=task, coordinate_configs=coordinate_configs,
                             update_sequence=update_sequence,
                             n_cd_iterations=args.cd_iterations, device=device)
-        grid = parse_grid(args.grid)
-        unknown = {cid for g in grid for cid in g} - set(update_sequence)
-        if unknown:
-            raise SystemExit(
-                f"--grid names unknown coordinates {sorted(unknown)}; "
-                f"update sequence is {update_sequence}")
-        configurations = [GameOptimizationConfiguration(g) for g in grid]
+        configurations = None
+        if args.tuning == "NONE":
+            grid = parse_grid(args.grid)
+            unknown = {cid for g in grid for cid in g} - set(update_sequence)
+            if unknown:
+                raise SystemExit(
+                    f"--grid names unknown coordinates {sorted(unknown)}; "
+                    f"update sequence is {update_sequence}")
+            configurations = [GameOptimizationConfiguration(g) for g in grid]
+        else:
+            if not args.validation_data:
+                raise SystemExit("--tuning needs --validation-data")
+            if args.checkpoint or args.resume:
+                raise SystemExit("--checkpoint/--resume don't combine with "
+                                 "--tuning")
         checkpoint = None
         if args.checkpoint or args.resume:
             if len(configurations) != 1:
@@ -309,11 +368,18 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                     entity_vocabs=vocabs)
             validation = (vdata, evaluators)
 
-        with timed("Train (grid)", run_logger):
-            results = est.fit(data, configurations, validation=validation,
-                              initial_models=initial_models, locked=locked,
-                              checkpoint=checkpoint, resume=args.resume,
-                              guard=guard)
+        stage = ("Train (grid)" if configurations is not None
+                 else f"Train ({args.tuning} tuning)")
+        with timed(stage, run_logger):
+            if configurations is not None:
+                results = est.fit(
+                    data, configurations, validation=validation,
+                    initial_models=initial_models, locked=locked,
+                    checkpoint=checkpoint, resume=args.resume, guard=guard)
+            else:
+                results = _tune(args, est, data, validation, evaluators,
+                                update_sequence, initial_models, locked,
+                                guard)
             # the last solves finish inside this stage, not in "Save models"
             if device.type == "cuda":
                 torch.cuda.synchronize(device)

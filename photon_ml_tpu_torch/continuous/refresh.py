@@ -177,7 +177,8 @@ def refresh_game_model(
                                           device=device)
             coords[cid] = FixedEffectCoordinate(
                 coordinate_id=cid, dataset=ds, task=task,
-                config=cfg.optimization, lam=configuration.lam(cid))
+                config=cfg.optimization, lam=configuration.lam(cid),
+                downsampler=cfg.downsampler)
         elif isinstance(cfg, RandomEffectCoordinateConfig):
             prior = models[cid]
             prior_entities[cid] = (
@@ -198,7 +199,8 @@ def refresh_game_model(
         else:
             raise ValueError(
                 f"refresh does not support coordinate {cid!r} of type "
-                f"{type(cfg).__name__}")
+                f"{type(cfg).__name__} (factored coordinates re-learn a "
+                f"projection — run a full retrain)")
 
     # --- seed the score decomposition from the prior model ----------------
     scores = {cid: torch.as_tensor(
@@ -218,7 +220,8 @@ def refresh_game_model(
                 continue  # carried random-effect coordinate
             residual = total - scores[cid]
             with torch.profiler.record_function(f"refresh.step[{cid}]"):
-                model, new_scores = coord.train(residual, models.get(cid))
+                model, new_scores = coord.train(residual, models.get(cid),
+                                                sweep=sweep)
             if isinstance(coord, RandomEffectCoordinate):
                 _solved_counter().labels(coordinate=cid).inc(
                     model.n_entities)

@@ -1,7 +1,8 @@
 """GAME: Generalized Additive Mixed-Effect models on one GPU.
 
 Block coordinate descent over a fixed-effect coordinate (one GLM solve) and
-random-effect coordinates (per-entity solves batched over size buckets).
+random-effect coordinates (per-entity solves batched over size buckets),
+factored random effects among them.
 """
 
 from photon_ml_tpu_torch.game.data import (  # noqa: F401
@@ -11,7 +12,10 @@ from photon_ml_tpu_torch.game.data import (  # noqa: F401
     RandomEffectDataset,
     RandomEffectDatasetConfig,
 )
-from photon_ml_tpu_torch.game.projector import ProjectorType  # noqa: F401
+from photon_ml_tpu_torch.game.projector import (  # noqa: F401
+    ProjectorType,
+    RandomProjector,
+)
 from photon_ml_tpu_torch.game.model import (  # noqa: F401
     FixedEffectModel,
     GameModel,
@@ -30,7 +34,12 @@ from photon_ml_tpu_torch.game.transformer import (  # noqa: F401
     GameTransformer,
     ModelDataScores,
 )
+from photon_ml_tpu_torch.game.factored import (  # noqa: F401
+    FactoredDesign,
+    FactoredRandomEffectCoordinate,
+)
 from photon_ml_tpu_torch.game.estimator import (  # noqa: F401
+    FactoredRandomEffectCoordinateConfig,
     FixedEffectCoordinateConfig,
     GameEstimator,
     GameOptimizationConfiguration,

@@ -4,7 +4,8 @@ Counterpart of ``photon_ml_tpu/game/coordinate.py``. A coordinate owns its
 dataset and optimization problem; ``train(offsets, warm_start)`` fits
 against the residual offsets coordinate descent supplies and returns
 ``(model, scores)``, ``scores`` being this coordinate's margin per global
-sample as a device vector.
+sample as a device vector. ``sweep`` is the coordinate-descent sweep, which
+keys the fixed effect's down-sampling draw.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch.game.data import (
@@ -29,6 +31,7 @@ from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.ops.objective import GLMObjective
+from photon_ml_tpu_torch.sampling import DownSampler
 from photon_ml_tpu_torch.types import TaskType
 
 CoordinateModel = Union[FixedEffectModel, RandomEffectModel]
@@ -37,37 +40,51 @@ CoordinateModel = Union[FixedEffectModel, RandomEffectModel]
 @dataclasses.dataclass(frozen=True)
 class FixedEffectCoordinate:
     """The global GLM solve (reference ``FixedEffectCoordinate.scala``):
-    one-lane L-BFGS or TRON solve whose every evaluation on a dense design
-    is one launch of the fused fixed-effect kernel
-    (:mod:`~photon_ml_tpu_torch.ops.fused_glm`) and, under TRON, every CG
-    product one launch of the Hvp kernel
+    one-lane L-BFGS, OWL-QN (an L1 part) or TRON solve whose every
+    evaluation on a dense design is one launch of the fused fixed-effect
+    kernel (:mod:`~photon_ml_tpu_torch.ops.fused_glm`) and, under TRON,
+    every CG product one launch of the Hvp kernel
     (:mod:`~photon_ml_tpu_torch.ops.fused_hvp`); a chunked sparse design
-    takes the closed forms."""
+    takes the closed forms. Variances, when configured, are computed at the
+    solution. With a ``downsampler`` each sweep trains on a fresh weight
+    vector drawn on the host (rows dropped weigh 0, kept rows 1/rate): only
+    the device weights change, the design stays."""
 
     coordinate_id: str
     dataset: FixedEffectDataset
     task: TaskType
     config: GLMOptimizationConfiguration
     lam: float = 0.0
+    downsampler: Optional[DownSampler] = None
 
     def __post_init__(self):
         self.config.regularization.check_weight(self.lam)
 
     def train(self, offsets: torch.Tensor,
-              warm_start: Optional[FixedEffectModel] = None
-              ) -> tuple[FixedEffectModel, torch.Tensor]:
+              warm_start: Optional[FixedEffectModel] = None,
+              sweep: int = 0) -> tuple[FixedEffectModel, torch.Tensor]:
         data = self.dataset.glm_data(offsets)
         device = offsets.device
+        if self.downsampler is not None:
+            # keyed per (seed, sweep, row id): the same draw on any device
+            labels = data.labels.cpu().numpy()
+            weights = self.downsampler.downsample(
+                labels, data.weights.cpu().numpy(), sweep=sweep,
+                uids=np.arange(labels.size, dtype=np.int64))
+            data = dataclasses.replace(
+                data, weights=torch.as_tensor(weights, device=device))
         w0 = (torch.zeros(self.dataset.dim, dtype=torch.float32, device=device)
               if warm_start is None
               else warm_start.model.coefficients.means.to(device))
         problem = OptimizationProblem(
             GLMObjective(loss=loss_for_task(self.task)), self.config)
         w = problem.run(data, w0, self.lam).w[0]
+        variances = problem.compute_variances(w, data, self.lam)
         scores = data.design.matvec(w)
         model = FixedEffectModel(
             model=GeneralizedLinearModel(
-                coefficients=Coefficients(means=w), task=self.task),
+                coefficients=Coefficients(means=w, variances=variances),
+                task=self.task),
             feature_shard_id=self.dataset.feature_shard_id)
         return model, scores
 
@@ -78,7 +95,7 @@ class RandomEffectCoordinate:
     ``RandomEffectCoordinate.scala``). Active samples are scored on the
     device in the bucket layout; passive samples (rows excluded from
     training by the active-data bounds) are scored by the trained model's
-    host join."""
+    host join (through the projection for a RANDOM-projected model)."""
 
     coordinate_id: str
     dataset: RandomEffectDataset
@@ -92,8 +109,8 @@ class RandomEffectCoordinate:
         self.config.regularization.check_weight(self.lam)
 
     def train(self, offsets: torch.Tensor,
-              warm_start: Optional[RandomEffectModel] = None
-              ) -> tuple[RandomEffectModel, torch.Tensor]:
+              warm_start: Optional[RandomEffectModel] = None,
+              sweep: int = 0) -> tuple[RandomEffectModel, torch.Tensor]:
         solver = RandomEffectSolver(task=self.task, config=self.config,
                                     design_dtype=self.design_dtype,
                                     device=offsets.device)

@@ -58,7 +58,8 @@ class CoordinateDescent:
             checkpoint=None, resume: bool = False, locked: Sequence[str] = (),
             config_fingerprint: Optional[str] = None, guard=None
             ) -> CoordinateDescentResult:
-        """``validation`` is ``(GameData, evaluators)`` or None.
+        """``validation`` is ``(GameData, evaluators)``, a zero-argument
+        callable returning it (called at the first evaluation), or None.
 
         ``locked`` coordinates keep their ``initial_models`` entry: their
         scores take part in the residual accounting, but they never train,
@@ -143,7 +144,7 @@ class CoordinateDescent:
                         with torch.profiler.record_function(
                                 f"cd.step[{cid}]"):
                             model, new_scores = coordinates[cid].train(
-                                residual, models.get(cid))
+                                residual, models.get(cid), sweep=sweep)
                         new_scores = fault_value(
                             "optimizer.step", new_scores, coordinate=cid,
                             sweep=sweep)
@@ -203,6 +204,9 @@ class CoordinateDescent:
                             scores=dict(host_scores)),
                         fingerprint=config_fingerprint)
             if validation is not None:
+                if callable(validation):
+                    # a deferred validation set: its first use joins it
+                    validation = validation()
                 vdata, evaluators = validation
                 gm = GameModel(coordinates=dict(models), task=task)
                 results = evaluate_all(evaluators, gm.score(vdata),
@@ -218,6 +222,8 @@ class CoordinateDescent:
         if validation is not None and final_evaluation is None:
             # no sweep ran (resumed from a finished checkpoint): evaluate
             # the final model so the caller still gets its metrics
+            if callable(validation):
+                validation = validation()
             vdata, evaluators = validation
             final_evaluation = evaluate_all(
                 evaluators, model.score(vdata), vdata.labels,

@@ -9,13 +9,13 @@ too wide to densify (:func:`choose_dense_design`) a
 COO triplets, in f32. A random-effect
 dataset groups entities into fixed-shape size buckets — dense
 ``(entities, samples, features)`` blocks in each entity's compact local
-feature space (the INDEX_MAP projector) — that the batched L-BFGS solves
-one lane per entity. Bucket shapes come from the geometric or the histogram
-strategy; the host packing is the JAX package's numpy path.
-
-Not ported yet (they raise :class:`NotImplementedError`): the RANDOM
-projector, and upload-and-drop streaming buckets
-(``cache_device_buckets=False``).
+feature space (the INDEX_MAP projector), or in the shared space of the
+RANDOM projector, ``(entities, samples, projected_dim)`` — that the
+batched solves run one lane per entity. Bucket shapes come from the
+geometric or the histogram strategy; the host packing is the JAX package's
+numpy path. With ``cache_device_buckets=False`` the solver uploads each
+bucket for its solve and drops it (upload-and-drop streaming) instead of
+keeping every bucket on the device.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.game.projector import ProjectorType
+from photon_ml_tpu_torch.game.projector import ProjectorType, RandomProjector
 from photon_ml_tpu_torch.util import group_starts as _group_starts
 from photon_ml_tpu_torch.util import hash_uniform as _hash_uniform
 
@@ -123,6 +123,10 @@ class GameData:
     @property
     def n_samples(self) -> int:
         return int(self.labels.shape[0])
+
+    def clear_device_cache(self) -> None:
+        """Release the cached device images."""
+        self._device_cache.clear()
 
     def _cached(self, key, make):
         out = self._device_cache.get(key)
@@ -283,8 +287,9 @@ class RandomEffectDatasetConfig:
     bucket_strategy: str = "geometric"
     max_sample_buckets: int = 8
     max_feature_buckets: int = 4
-    #: keep the bucket tensors resident on the device across sweeps (the
-    #: only mode ported)
+    #: keep the bucket tensors resident on the device across sweeps; False
+    #: uploads each bucket for its solve and drops it after, so the device
+    #: holds no more than the bucket in flight and the one before it
     cache_device_buckets: bool = True
     seed: int = 20260729
 
@@ -302,17 +307,6 @@ class RandomEffectDatasetConfig:
             raise ValueError(
                 "max_sample_buckets and max_feature_buckets must be ≥ 1 "
                 f"(got {self.max_sample_buckets}/{self.max_feature_buckets})")
-
-    def check_ported(self) -> None:
-        """Raise for the options this port does not run yet."""
-        if self.projector_type is not ProjectorType.INDEX_MAP:
-            raise NotImplementedError(
-                f"projector_type {self.projector_type.value}: only the "
-                "INDEX_MAP projector is ported")
-        if not self.cache_device_buckets:
-            raise NotImplementedError(
-                "cache_device_buckets=False (upload-and-drop streaming "
-                "buckets) is not ported")
 
 
 def _geom_at_least(x: np.ndarray, growth: float, floor: int = 1) -> np.ndarray:
@@ -404,10 +398,18 @@ class RandomEffectDataset:
     passive_sample_idx: np.ndarray  # (p,) int64
     passive_entity_ids: np.ndarray  # (p,) int64
     n_entities_total: int
+    #: set under the RANDOM projector: the buckets hold projected features
+    #: and models train in the projected space
+    projector: Optional[RandomProjector] = None
     #: device images of the bucket arrays, filled by the solver and kept
-    #: for the dataset's lifetime (one upload per bucket per run)
+    #: for the dataset's lifetime (one upload per bucket per run) unless
+    #: the config streams them
     _device_cache: dict = dataclasses.field(
         default_factory=dict, compare=False, repr=False)
+
+    def clear_device_cache(self) -> None:
+        """Release the cached bucket images."""
+        self._device_cache.clear()
 
     @property
     def n_active_entities(self) -> int:
@@ -415,8 +417,12 @@ class RandomEffectDataset:
 
     @staticmethod
     def build(coordinate_id: str, data: GameData,
-              config: RandomEffectDatasetConfig) -> "RandomEffectDataset":
-        config.check_ported()
+              config: RandomEffectDatasetConfig,
+              projector: Optional[RandomProjector] = None
+              ) -> "RandomEffectDataset":
+        """``projector`` overrides the seeded Gaussian matrix of the RANDOM
+        projector (the factored coordinate passes its learned
+        projection)."""
         shard = data.shards[config.feature_shard_id]
         entities = data.id_columns[config.random_effect_type]
         n = data.n_samples
@@ -466,13 +472,24 @@ class RandomEffectDataset:
         n_entities_total = int(entities.max()) + 1 if n and present.any() \
             else 0
 
-        buckets = (_index_map_buckets(data, shard, all_active, ent_of_active,
-                                      act_entity, config)
-                   if n_active else [])
+        if config.projector_type is ProjectorType.RANDOM:
+            if projector is None:
+                if config.projected_dim is None:
+                    raise ValueError("RANDOM projector requires projected_dim")
+                projector = RandomProjector.build(
+                    shard.dim, config.projected_dim, config.seed)
+            buckets = _random_projection_buckets(
+                data, shard, all_active, ent_of_active, act_entity,
+                projector, config)
+        else:
+            projector = None
+            buckets = (_index_map_buckets(data, shard, all_active,
+                                          ent_of_active, act_entity, config)
+                       if n_active else [])
         return RandomEffectDataset(
             coordinate_id=coordinate_id, config=config, buckets=buckets,
             passive_sample_idx=passive, passive_entity_ids=entities[passive],
-            n_entities_total=n_entities_total)
+            n_entities_total=n_entities_total, projector=projector)
 
 
 def _padded_shapes(n_samp_per_entity: np.ndarray,
@@ -583,3 +600,40 @@ def _bucket_sample_fill(data, all_active, ent_of_active, slot_of_entity,
     weights[es, pos] = data.weights[g]
     sample_idx[es, pos] = g
     return labels, weights, sample_idx, rows_sel, pos
+
+
+def _random_projection_buckets(data, shard, all_active, ent_of_active,
+                               act_entity, projector: RandomProjector,
+                               config) -> list[REBucket]:
+    """Fixed-shape buckets in the shared projected space: every entity has
+    the projected dim as its feature dim, so entities bucket by padded
+    sample count only, and ``feature_index`` is the identity into the
+    projected space (model keys live there until ``to_shard_space``)."""
+    buckets: list[REBucket] = []
+    n_active = len(act_entity)
+    if not n_active:
+        return buckets
+    sub = shard.take(all_active)
+    z = projector.project_rows(sub.cols, sub.vals, sub.rows(),
+                               len(all_active))
+    d = projector.projected_dim
+    n_samp = np.bincount(ent_of_active, minlength=n_active).astype(np.int64)
+    if config.bucket_strategy == "histogram":
+        s_pad = _histogram_pad(n_samp, config.max_sample_buckets)
+    else:
+        s_pad = _geom_at_least(n_samp, config.sample_bucket_growth)
+    for s_key in np.unique(s_pad):
+        sel = np.flatnonzero(s_pad == s_key)
+        S, E = int(s_key), len(sel)
+        x = np.zeros((E, S, d), np.float32)
+        feature_index = np.tile(np.arange(d, dtype=np.int64), (E, 1))
+        slot_of_entity = np.full(n_active, -1, np.int64)
+        slot_of_entity[sel] = np.arange(E)
+        labels, weights, sample_idx, rows_sel, pos = _bucket_sample_fill(
+            data, all_active, ent_of_active, slot_of_entity, E, S,
+            np.flatnonzero(np.isin(ent_of_active, sel)))
+        x[slot_of_entity[ent_of_active[rows_sel]], pos, :] = z[rows_sel]
+        buckets.append(REBucket(
+            entity_ids=act_entity[sel], x=x, labels=labels, weights=weights,
+            sample_idx=sample_idx, feature_index=feature_index))
+    return buckets

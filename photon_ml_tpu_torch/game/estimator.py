@@ -9,10 +9,10 @@ The first validation evaluator is the model-selection criterion.
 ``device`` takes the place of the JAX version's ``mesh``: the fit runs on
 one device, ``cuda`` unless the caller passes ``device="cpu"``. Warm starts
 (``initial_models``), partial retraining (``locked``), checkpoints and
-resume, the divergence guard and ``on_result`` are ported. Not ported yet
-(each raises :class:`NotImplementedError` naming the option): meshes,
-L1 / elastic-net coordinates (OWL-QN), factored random effects,
-down-sampling and coefficient variances.
+resume, the divergence guard, ``on_result``, L1 / elastic-net coordinates
+(OWL-QN), coefficient variances, the RANDOM projector, factored random
+effects, down-sampling, streaming buckets and a deferred (callable)
+validation set are ported; meshes are not.
 """
 
 from __future__ import annotations
@@ -36,46 +36,26 @@ from photon_ml_tpu_torch.game.data import (
     RandomEffectDatasetConfig,
     design_dtype_of,
 )
+from photon_ml_tpu_torch.game.factored import FactoredRandomEffectCoordinate
 from photon_ml_tpu_torch.game.model import GameModel
 from photon_ml_tpu_torch.glm.problem import GLMOptimizationConfiguration
-from photon_ml_tpu_torch.types import (
-    OptimizerType,
-    TaskType,
-    VarianceComputationType,
-)
+from photon_ml_tpu_torch.sampling import DownSampler
+from photon_ml_tpu_torch.types import TaskType
 
 logger = logging.getLogger(__name__)
 
 
-def _check_ported(optimization: GLMOptimizationConfiguration) -> None:
-    if (optimization.optimizer == OptimizerType.OWLQN
-            or optimization.regularization.has_l1):
-        raise NotImplementedError(
-            "L1 / elastic-net regularization (the OWLQN optimizer) of a GAME "
-            "coordinate is not ported")
-    if optimization.variance_type != VarianceComputationType.NONE:
-        raise NotImplementedError(
-            f"variance_type {optimization.variance_type.value}: GAME "
-            "coordinate variances are not ported")
-
-
 @dataclasses.dataclass(frozen=True)
 class FixedEffectCoordinateConfig:
-    """A fixed-effect coordinate: its feature shard, optimization settings
-    and the dtype its dense design is stored in on the device
-    (``"float32"`` or ``"bfloat16"``)."""
+    """A fixed-effect coordinate: its feature shard, optimization settings,
+    an optional down-sampler (a fresh weight vector each sweep) and the
+    dtype its dense design is stored in on the device (``"float32"`` or
+    ``"bfloat16"``)."""
 
     feature_shard_id: str
     optimization: GLMOptimizationConfiguration = GLMOptimizationConfiguration()
-    downsampler: Optional[object] = None
+    downsampler: Optional[DownSampler] = None
     design_dtype: str = "float32"
-
-    def check_ported(self) -> None:
-        _check_ported(self.optimization)
-        design_dtype_of(self.design_dtype)
-        if self.downsampler is not None:
-            raise NotImplementedError("downsampler: down-sampling is not "
-                                      "ported")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,13 +67,24 @@ class RandomEffectCoordinateConfig:
     optimization: GLMOptimizationConfiguration = GLMOptimizationConfiguration()
     design_dtype: str = "float32"
 
-    def check_ported(self) -> None:
-        _check_ported(self.optimization)
-        self.dataset.check_ported()
-        design_dtype_of(self.design_dtype)
+
+@dataclasses.dataclass(frozen=True)
+class FactoredRandomEffectCoordinateConfig:
+    """A factored random-effect coordinate (:mod:`~photon_ml_tpu_torch.game.
+    factored`): ``dataset.projector_type`` must be RANDOM, its
+    ``projected_dim`` is the latent dim; the latent solves take
+    ``optimization``, the projection solves ``projection_optimization``."""
+
+    dataset: RandomEffectDatasetConfig
+    optimization: GLMOptimizationConfiguration = GLMOptimizationConfiguration()
+    projection_optimization: GLMOptimizationConfiguration = (
+        GLMOptimizationConfiguration())
+    lam_projection: float = 0.0
+    n_factored_iterations: int = 2
 
 
-CoordinateConfig = FixedEffectCoordinateConfig | RandomEffectCoordinateConfig
+CoordinateConfig = (FixedEffectCoordinateConfig | RandomEffectCoordinateConfig
+                    | FactoredRandomEffectCoordinateConfig)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,10 +129,11 @@ class GameEstimator:
         # (partial retraining); prepare() and fit() check against locked
         for cid, cfg in self.coordinate_configs.items():
             if not isinstance(cfg, (FixedEffectCoordinateConfig,
-                                    RandomEffectCoordinateConfig)):
+                                    RandomEffectCoordinateConfig,
+                                    FactoredRandomEffectCoordinateConfig)):
                 raise NotImplementedError(
                     f"coordinate {cid!r}: {type(cfg).__name__} is not ported")
-            cfg.check_ported()
+            design_dtype_of(getattr(cfg, "design_dtype", "float32"))
 
     def _check_sequence(self, locked: Sequence[str]) -> None:
         locked = set(locked)
@@ -172,6 +164,9 @@ class GameEstimator:
                 datasets[cid] = FixedEffectDataset.build(
                     cid, data, cfg.feature_shard_id, dtype=cfg.design_dtype,
                     device=self.device)
+            elif isinstance(cfg, FactoredRandomEffectCoordinateConfig):
+                # rebuilt each alternation around the learned projection
+                datasets[cid] = None
             else:
                 ds = RandomEffectDataset.build(cid, data, cfg.dataset)
                 datasets[cid] = ds
@@ -191,7 +186,16 @@ class GameEstimator:
             if isinstance(ccfg, FixedEffectCoordinateConfig):
                 out[cid] = FixedEffectCoordinate(
                     coordinate_id=cid, dataset=datasets[cid], task=self.task,
-                    config=ccfg.optimization, lam=config.lam(cid))
+                    config=ccfg.optimization, lam=config.lam(cid),
+                    downsampler=ccfg.downsampler)
+            elif isinstance(ccfg, FactoredRandomEffectCoordinateConfig):
+                out[cid] = FactoredRandomEffectCoordinate(
+                    coordinate_id=cid, data=data,
+                    dataset_config=ccfg.dataset, task=self.task,
+                    config=ccfg.optimization,
+                    projection_config=ccfg.projection_optimization,
+                    lam=config.lam(cid), lam_projection=ccfg.lam_projection,
+                    n_factored_iterations=ccfg.n_factored_iterations)
             else:
                 out[cid] = RandomEffectCoordinate(
                     coordinate_id=cid, dataset=datasets[cid], data=data,
@@ -225,16 +229,16 @@ class GameEstimator:
             guard=None, on_result=None) -> list[GameResult]:
         """One :class:`GameResult` per configuration. ``datasets`` (from
         :meth:`prepare`) lets repeated fits share the dataset builds;
-        ``validation`` is ``(GameData, evaluators)``.
+        ``validation`` is ``(GameData, evaluators)``, or a zero-argument
+        callable returning it, called where the first sweep's evaluation
+        needs it (a driver can keep the validation read in flight while
+        the first sweep trains).
         ``initial_models``/``locked`` are the partial-retrain path (warm
         start from a saved model; locked coordinates keep their model and
         never train). ``checkpoint``/``resume`` persist and restore
         coordinate-boundary state (one configuration only). ``guard`` is
         the divergence guard, shared by the configurations.
         ``on_result(index, result)`` fires as each configuration ends."""
-        if callable(validation):
-            raise NotImplementedError("a deferred (callable) validation set "
-                                      "is not ported")
         self._check_sequence(locked)
         if checkpoint is not None and len(configurations) != 1:
             raise ValueError(

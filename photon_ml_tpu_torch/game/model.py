@@ -5,7 +5,9 @@ ordered map coordinateId → per-coordinate model; a sample's total score is
 its offset plus the sum of the coordinate scores. The fixed effect is one
 coefficient vector; a random-effect model is a flat, key-sorted
 ``(entity, feature) → coefficient`` table in host numpy, so scoring any
-dataset is one searchsorted join.
+dataset is one searchsorted join. A model trained under the RANDOM
+projector keeps its table in the projected space and scores by projecting
+features first; :meth:`RandomEffectModel.to_shard_space` exports it.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from typing import Mapping, Optional, Sequence
 
 import numpy as np
 
-from photon_ml_tpu_torch.game.data import GameData
+from photon_ml_tpu_torch.game.data import FeatureShard, GameData
+from photon_ml_tpu_torch.game.projector import RandomProjector
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_ml_tpu_torch.types import TaskType
 
@@ -65,15 +68,21 @@ def key_join(keys: np.ndarray, dim: int, entity_ids: np.ndarray,
 class RandomEffectModel:
     """Per-entity coefficient table for one random-effect coordinate:
     ``keys`` are ``entity_id * dim + feature_id`` (int64, sorted),
-    ``coeffs`` the matching f32 coefficients; entities absent from the
-    table score 0."""
+    ``coeffs`` the matching f32 coefficients and ``variances`` (optional)
+    theirs; entities absent from the table score 0.
+
+    With a ``projector`` the table lives in the projected space: ``dim`` is
+    the projected dim and scoring projects shard features through the
+    shared matrix first."""
 
     random_effect_type: str
     feature_shard_id: str
     task: TaskType
-    dim: int  # key modulus: the shard's vocabulary size
+    dim: int  # key modulus: the shard's vocabulary size, or projected dim
     keys: np.ndarray
     coeffs: np.ndarray
+    variances: Optional[np.ndarray] = None
+    projector: Optional[RandomProjector] = None
 
     @property
     def n_entities(self) -> int:
@@ -94,13 +103,17 @@ class RandomEffectModel:
         listed in ``drop_entities``) have their rows replaced by (resp.
         dropped in favour of) the update's; every other entity's rows carry
         forward bit-identically. Both models live in one key space (same
-        ``dim``, same dense entity ids)."""
+        ``dim``, same dense entity ids, no projector). Variances survive
+        only when both sides carry them."""
         if update.random_effect_type != self.random_effect_type:
             raise ValueError(
                 f"merge across random-effect types "
                 f"{self.random_effect_type!r} != {update.random_effect_type!r}")
         if update.dim != self.dim:
             raise ValueError(f"merge across dims {self.dim} != {update.dim}")
+        if self.projector is not None or update.projector is not None:
+            raise ValueError("merge expects shard-space models "
+                             "(call to_shard_space() first)")
         upd_entities = (np.unique(update.keys // self.dim)
                         if len(update.keys) else np.zeros(0, np.int64))
         drop = np.union1d(np.asarray(list(drop_entities), np.int64),
@@ -111,11 +124,17 @@ class RandomEffectModel:
         coeffs = np.concatenate([
             np.asarray(self.coeffs, np.float32)[keep],
             np.asarray(update.coeffs, np.float32)])
+        variances = None
+        if self.variances is not None and update.variances is not None:
+            variances = np.concatenate([
+                np.asarray(self.variances, np.float32)[keep],
+                np.asarray(update.variances, np.float32)])
         order = np.argsort(keys, kind="stable")
         return RandomEffectModel(
             random_effect_type=self.random_effect_type,
             feature_shard_id=self.feature_shard_id, task=self.task,
-            dim=self.dim, keys=keys[order], coeffs=coeffs[order])
+            dim=self.dim, keys=keys[order], coeffs=coeffs[order],
+            variances=None if variances is None else variances[order])
 
     def remap_entities(self, new_of_old: Mapping[int, int]
                        ) -> "RandomEffectModel":
@@ -141,7 +160,9 @@ class RandomEffectModel:
         order = np.argsort(keys, kind="stable")
         return dataclasses.replace(
             self, keys=keys[order],
-            coeffs=np.asarray(self.coeffs, np.float32)[order])
+            coeffs=np.asarray(self.coeffs, np.float32)[order],
+            variances=(None if self.variances is None
+                       else np.asarray(self.variances, np.float32)[order]))
 
     def entity_rows(self, dense_ids: Sequence[int]) -> np.ndarray:
         """Dense ``(len(dense_ids), dim)`` coefficient rows of the given
@@ -168,6 +189,8 @@ class RandomEffectModel:
         if sample_idx is not None:
             shard = shard.take(sample_idx)
             entities = entities[sample_idx]
+        if self.projector is not None:
+            return self._score_projected(shard, entities)
         rows = shard.rows()
         ent_per_nnz = entities[rows]
         valid = ent_per_nnz >= 0
@@ -177,6 +200,53 @@ class RandomEffectModel:
         out = np.zeros(shard.n_samples, np.float64)
         np.add.at(out, rows, shard.vals.astype(np.float64) * w)
         return out.astype(np.float32)
+
+    def _score_projected(self, shard: FeatureShard,
+                         entities: np.ndarray) -> np.ndarray:
+        """Margin ``v·(Px)`` per sample: project the features into the
+        shared space, then join each entity's coefficient row."""
+        z = self.projector.project_rows(
+            shard.cols, shard.vals, shard.rows(), shard.n_samples)
+        valid = np.flatnonzero(entities >= 0)
+        out = np.zeros(shard.n_samples, np.float32)
+        if len(valid):
+            d = self.dim
+            # one coefficient row per distinct entity, gathered per sample
+            uniq, inv = np.unique(entities[valid], return_inverse=True)
+            ent = np.repeat(uniq, d)
+            feat = np.tile(np.arange(d, dtype=np.int64), len(uniq))
+            table = self.lookup(ent, feat).reshape(len(uniq), d)
+            out[valid] = np.einsum("nd,nd->n", z[valid], table[inv])
+        return out
+
+    def to_shard_space(self) -> "RandomEffectModel":
+        """A RANDOM-projected model back in the original feature space
+        (``w = Pᵀ v``, exact for scoring since margins are linear; the
+        variances as :meth:`RandomProjector.project_back_variances` maps
+        them), dense per entity. A shard-space model is returned as is."""
+        if self.projector is None:
+            return self
+        p = self.projector
+        d, full = p.projected_dim, p.shard_dim
+        if not len(self.keys):
+            return dataclasses.replace(self, dim=full, projector=None)
+        ent = np.unique(self.keys // d)
+        v = np.zeros((len(ent), d), np.float32)
+        pos = np.searchsorted(ent, self.keys // d)
+        v[pos, self.keys % d] = self.coeffs
+        w = p.project_back(v)
+        keys = (ent[:, None] * np.int64(full)
+                + np.arange(full, dtype=np.int64)).ravel()
+        variances = None
+        if self.variances is not None:
+            var_v = np.zeros((len(ent), d), np.float32)
+            var_v[pos, self.keys % d] = self.variances
+            variances = p.project_back_variances(var_v).ravel()
+        return RandomEffectModel(
+            random_effect_type=self.random_effect_type,
+            feature_shard_id=self.feature_shard_id, task=self.task,
+            dim=full, keys=keys, coeffs=w.ravel().astype(np.float32),
+            variances=variances, projector=None)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,15 +1,21 @@
 """Random-effect training: batched per-entity solves over fixed-shape buckets.
 
 Counterpart of ``photon_ml_tpu/game/random_effect.py``. Every size bucket is
-one batched L-BFGS or TRON solve whose lanes are the bucket's entities
-(TRON's Hessian-vector products take the closed form over the bucket);
-each objective evaluation is one launch of the entity kernel
+one batched L-BFGS, OWL-QN (an L1 part) or TRON solve whose lanes are the
+bucket's entities, each lane with its own convergence (TRON's
+Hessian-vector products take the closed form over the bucket); each
+objective evaluation is one launch of the entity kernel
 (:mod:`~photon_ml_tpu_torch.ops.fused_re`) over the whole ``(E, S, D)``
-bucket. The sweep is a plain loop over buckets — the JAX package's fused
-whole-sweep program (``_sweep_fused``) has no counterpart yet.
+bucket, a RANDOM-projected ``(E, S, P)`` bucket included. Variances, when
+configured, are computed per bucket at the solution and kept on the real
+``(entity, feature)`` slots. The sweep is a plain loop over buckets — the
+JAX package's fused whole-sweep program (``_sweep_fused``) has no
+counterpart yet. A streaming dataset (``cache_device_buckets=False``)
+uploads each bucket for its solve and drops it.
 
 Padding is inert: padded sample rows carry weight 0, padded feature columns
-are all-zero, so with a zero start their coefficients stay exactly 0.
+are all-zero, so with a zero start their coefficients stay exactly 0 (under
+L1 too: their pseudo-gradient is 0).
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from photon_ml_tpu_torch.glm.problem import (
 from photon_ml_tpu_torch.ops.design import DenseDesign
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.ops.objective import GLMData, GLMObjective
-from photon_ml_tpu_torch.types import TaskType
+from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
 
 
 def _bucket_keys(bucket: REBucket, shard_dim: int) -> np.ndarray:
@@ -83,6 +89,8 @@ class RandomEffectSolver:
 
     def _statics(self, dataset: RandomEffectDataset, i: int,
                  bucket: REBucket) -> _BucketStatics:
+        """Device images of bucket ``i``: cached on the dataset, or under
+        ``cache_device_buckets=False`` uploaded for this solve only."""
         key = ("bucket", i, self.design_dtype, str(self.device))
         st = dataset._device_cache.get(key)
         if st is None:
@@ -97,7 +105,8 @@ class RandomEffectSolver:
                 gather_idx=torch.as_tensor(np.maximum(si, 0), device=dev),
                 slots=torch.as_tensor(np.flatnonzero(live), device=dev),
                 rows=torch.as_tensor(si[live], device=dev))
-            dataset._device_cache[key] = st
+            if dataset.config.cache_device_buckets:
+                dataset._device_cache[key] = st
         return st
 
     def train(self, dataset: RandomEffectDataset, offsets: torch.Tensor,
@@ -106,12 +115,19 @@ class RandomEffectSolver:
               ) -> tuple[RandomEffectModel, torch.Tensor]:
         """Train every bucket against the residual ``offsets`` (a device
         vector over all samples). Returns the model and a device vector of
-        this coordinate's margin on every active sample (0 elsewhere)."""
+        this coordinate's margin on every active sample (0 elsewhere). A
+        RANDOM-projected dataset trains a model keyed in the projected
+        space."""
         cfg = dataset.config
-        shard_dim = dim if dim is not None else _shard_dim(dataset)
+        if dataset.projector is not None:
+            shard_dim = dataset.projector.projected_dim
+        else:
+            shard_dim = dim if dim is not None else _shard_dim(dataset)
         problem = self._problem()
+        want_var = (self.config.variance_type
+                    != VarianceComputationType.NONE)
         scores = torch.zeros_like(offsets, dtype=torch.float32)
-        solved = []
+        solved, solved_var = [], []
         for i, bucket in enumerate(dataset.buckets):
             st = self._statics(dataset, i, bucket)
             live = st.weights > 0
@@ -126,27 +142,39 @@ class RandomEffectSolver:
             # a profiler range per bucket solve: device time by bucket shape
             with torch.profiler.record_function(f"re.bucket[{e}x{s}x{d}]"):
                 w = problem.run(data, w0, lam).w
+                if want_var:
+                    solved_var.append(problem.compute_variances(
+                        w, data, lam).to(torch.float32).reshape(-1))
             margins = DenseDesign(x=st.x).matvec(w)  # (E, S) f32
             scores[st.rows] = margins.reshape(-1)[st.slots]
             solved.append(w.reshape(-1))
-        keys, coeffs = [], []
+        keys, coeffs, variances = [], [], []
         if solved:
-            flat = torch.cat(solved).cpu().numpy()  # one device-to-host copy
-            at = 0
+            # one device-to-host copy of every coefficient and variance
+            flat = torch.cat(solved + solved_var).cpu().numpy()
+            at, at_var = 0, sum(int(w.numel()) for w in solved)
             for bucket in dataset.buckets:
                 e, _, d = bucket.tensor_shape
-                w_np = flat[at:at + e * d].reshape(e, d)
-                at += e * d
+                fmask = bucket.feature_index >= 0
                 keys.append(_bucket_keys(bucket, shard_dim))
-                coeffs.append(w_np[bucket.feature_index >= 0])
+                coeffs.append(flat[at:at + e * d].reshape(e, d)[fmask])
+                at += e * d
+                if want_var:
+                    variances.append(
+                        flat[at_var:at_var + e * d].reshape(e, d)[fmask])
+                    at_var += e * d
         keys = np.concatenate(keys) if keys else np.zeros(0, np.int64)
         coeffs = (np.concatenate(coeffs).astype(np.float32) if coeffs
                   else np.zeros(0, np.float32))
         order = np.argsort(keys, kind="stable")
+        var = None
+        if want_var and variances:
+            var = np.concatenate(variances).astype(np.float32)[order]
         model = RandomEffectModel(
             random_effect_type=cfg.random_effect_type,
             feature_shard_id=cfg.feature_shard_id, task=self.task,
-            dim=shard_dim, keys=keys[order], coeffs=coeffs[order])
+            dim=shard_dim, keys=keys[order], coeffs=coeffs[order],
+            variances=var, projector=dataset.projector)
         return model, scores
 
 

@@ -10,9 +10,8 @@ model and the score decomposition; a run resumes from the last boundary
 with its warm starts intact.
 
 Fixed-effect coefficients restore onto the caller's device; random-effect
-tables and scores stay host numpy. Random-effect variances and projector
-matrices (the RANDOM projector), which the port does not train, raise
-:class:`NotImplementedError` on restore.
+tables (with their variances and the RANDOM projector's matrix, when the
+model has them) and scores stay host numpy.
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from photon_ml_tpu_torch.game.model import (
     GameModel,
     RandomEffectModel,
 )
+from photon_ml_tpu_torch.game.projector import RandomProjector
 from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.io.pipeline import publish_dir
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
@@ -134,9 +134,14 @@ class CheckpointManager:
                 manifest["coordinates"][cid] = {
                     "type": "random", "featureShardId": cm.feature_shard_id,
                     "randomEffectType": cm.random_effect_type, "dim": cm.dim,
-                    "has_variances": False, "has_projector": False}
+                    "has_variances": cm.variances is not None,
+                    "has_projector": cm.projector is not None}
                 arrays[f"re:{cid}:keys"] = cm.keys
                 arrays[f"re:{cid}:coeffs"] = cm.coeffs
+                if cm.variances is not None:
+                    arrays[f"re:{cid}:variances"] = cm.variances
+                if cm.projector is not None:
+                    arrays[f"re:{cid}:projector"] = cm.projector.matrix
         for cid, sc in state.scores.items():
             arrays[f"scores:{cid}"] = sc
 
@@ -179,7 +184,7 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
         # a crashed writer cannot corrupt a renamed step, but disks can:
         # resuming one boundary earlier beats dying. Fingerprint mismatches
-        # (ValueError) and unported state propagate.
+        # (ValueError) propagate.
         last_error: Optional[BaseException] = None
         for s in reversed(steps):
             try:
@@ -187,7 +192,7 @@ class CheckpointManager:
                     lambda s=s: self._restore_step(s, expected_fingerprint,
                                                    device),
                     name=f"ckpt.restore:step-{s}")
-            except (ValueError, NotImplementedError):
+            except ValueError:
                 raise
             except Exception as e:
                 logger.warning("checkpoint step-%d unreadable (%r); "
@@ -224,19 +229,16 @@ class CheckpointManager:
                         task=task),
                     feature_shard_id=info["featureShardId"])
                 continue
-            if info.get("has_projector"):
-                raise NotImplementedError(
-                    f"checkpoint coordinate {cid!r} holds RANDOM projector "
-                    "state: the RANDOM projector is not ported")
-            if info["has_variances"]:
-                raise NotImplementedError(
-                    f"checkpoint coordinate {cid!r} holds random-effect "
-                    "variances: GAME coordinate variances are not ported")
             coordinates[cid] = RandomEffectModel(
                 random_effect_type=info["randomEffectType"],
                 feature_shard_id=info["featureShardId"], task=task,
                 dim=info["dim"], keys=arrays[f"re:{cid}:keys"],
-                coeffs=arrays[f"re:{cid}:coeffs"])
+                coeffs=arrays[f"re:{cid}:coeffs"],
+                variances=(arrays[f"re:{cid}:variances"]
+                           if info["has_variances"] else None),
+                projector=(RandomProjector(
+                    matrix=arrays[f"re:{cid}:projector"])
+                    if info.get("has_projector") else None))
         scores = {k.split(":", 1)[1]: arrays[k]
                   for k in arrays.files if k.startswith("scores:")}
         return CoordinateDescentState(

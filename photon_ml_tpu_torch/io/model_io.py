@@ -12,8 +12,9 @@ one record, a random effect one record per entity (modelId = the raw entity
 id). Both packages write the same records and the same metadata, so a model
 saved by either loads in the other.
 
-The port's random-effect models carry no variances, so their records are
-written with ``variances: null`` and variances found on load are dropped.
+Random-effect variances are written and read in the reference's records
+(per entity, keyed like the means), and a RANDOM-projected model is written
+back in the original feature space.
 Serving reads a model's content identity (:func:`model_lineage_id`), its
 kind (:func:`model_kind`) and its model-derived entity vocabularies
 (:func:`game_model_entity_vocabs`); :func:`load_serving_model` gives all of
@@ -221,10 +222,11 @@ def _save_re_model_native(path: str, model: RandomEffectModel,
     """Columnar fast path for the per-entity part file
     (``native/avro_writer.cc::photon_write_re_models``): the same records
     as :func:`_re_records`. False (fall back) when the native library is
-    missing."""
+    missing or the model needs a per-entity back-projection (the RANDOM
+    projector)."""
     from photon_ml_tpu_torch import native
 
-    if not native.available():
+    if model.projector is not None or not native.available():
         return False
     keys = np.asarray(model.keys)
     coeffs = np.asarray(model.coeffs, np.float64)
@@ -241,6 +243,8 @@ def _save_re_model_native(path: str, model: RandomEffectModel,
     rec_indptr = np.zeros(n_models + 1, np.int64)
     np.cumsum(np.bincount(seg_of[keep], minlength=n_models),
               out=rec_indptr[1:])
+    variances = (np.asarray(model.variances, np.float64)[keep]
+                 if model.variances is not None else None)
     split = [_split_key(k) for k in index_map.names()]
     return native.write_re_models(
         path,
@@ -249,7 +253,7 @@ def _save_re_model_native(path: str, model: RandomEffectModel,
         rec_indptr=rec_indptr,
         name_ids=feat_of[keep],
         values=coeffs[keep],
-        variances=None,
+        variances=variances,
         names=[s[0] for s in split],
         terms=[s[1] for s in split])
 
@@ -257,29 +261,51 @@ def _save_re_model_native(path: str, model: RandomEffectModel,
 def _re_records(model: RandomEffectModel, index_map: IndexMap,
                 reverse_vocab: dict[int, str],
                 sparsity_threshold: float) -> Iterator[dict]:
-    """Per-entity ``BayesianLinearModelAvro`` records, in key order."""
+    """Per-entity ``BayesianLinearModelAvro`` records, in key order. A
+    RANDOM-projected model is written in the original feature space, back-
+    projected one entity at a time (peak memory O(shard_dim))."""
     names = index_map.names()
     if not len(model.keys):
         return
+    proj = model.projector
     entity_of = model.keys // model.dim
     feat_of = model.keys % model.dim
     starts = np.flatnonzero(np.r_[True, entity_of[1:] != entity_of[:-1]])
     bounds = np.r_[starts, len(model.keys)]
     for s, e in zip(bounds[:-1], bounds[1:]):
         entity = int(entity_of[s])
+        if proj is not None:
+            v = np.zeros(model.dim, np.float32)
+            v[feat_of[s:e]] = model.coeffs[s:e]
+            feats = np.arange(proj.shard_dim, dtype=np.int64)
+            vals = proj.project_back(v)
+            var_vals = None
+            if model.variances is not None:
+                var_v = np.zeros(model.dim, np.float32)
+                var_v[feat_of[s:e]] = model.variances[s:e]
+                var_vals = proj.project_back_variances(var_v)
+        else:
+            feats = feat_of[s:e]
+            vals = model.coeffs[s:e]
+            var_vals = (model.variances[s:e]
+                        if model.variances is not None else None)
         means = []
-        for j, v in zip(feat_of[s:e], model.coeffs[s:e]):
+        variances = [] if var_vals is not None else None
+        for idx, (j, v) in enumerate(zip(feats, vals)):
             v = float(v)
             if abs(v) <= sparsity_threshold:
                 continue
             name, term = _split_key(names[int(j)])
             means.append({"name": name, "term": term, "value": v})
+            if variances is not None:
+                variances.append({"name": name, "term": term,
+                                  "value": float(var_vals[idx])})
         yield {
             "modelId": reverse_vocab.get(entity, str(entity)),
             "modelClass": model.task.value,
             "lossFunction": model.task.value,
             "means": means,
-            "variances": None,
+            "variances": variances,
         }
 
 
@@ -458,23 +484,34 @@ def _game_model(metadata: dict, records_of,
         re_type = info["randomEffectType"]
         vocab = entity_vocabs[re_type]
         dim = len(imap)
-        keys, coeffs = [], []
+        keys, coeffs, variances = [], [], []
+        has_var = False
         for rec in records_of(cid):
             entity = vocab.get(rec["modelId"])
             if entity is None:
                 continue  # entity absent from this dataset's vocab
+            # variances are keyed by (name, term) like the means, so a
+            # feature absent from the index map drops both
+            var_by_key = {
+                feature_key(e["name"], e.get("term") or ""): e["value"]
+                for e in rec.get("variances") or ()}
             for e in rec["means"] or ():
-                j = imap.key_to_index.get(
-                    feature_key(e["name"], e.get("term") or ""))
+                key = feature_key(e["name"], e.get("term") or "")
+                j = imap.key_to_index.get(key)
                 if j is not None:
                     keys.append(entity * dim + j)
                     coeffs.append(e["value"])
+                    if var_by_key:
+                        has_var = True
+                        variances.append(var_by_key.get(key, 0.0))
         keys = np.asarray(keys, np.int64)
         order = np.argsort(keys, kind="stable")
         coordinates[cid] = RandomEffectModel(
             random_effect_type=re_type, feature_shard_id=shard_id,
             task=task, dim=dim, keys=keys[order],
-            coeffs=np.asarray(coeffs, np.float32)[order])
+            coeffs=np.asarray(coeffs, np.float32)[order],
+            variances=(np.asarray(variances, np.float32)[order]
+                       if has_var else None))
     return GameModel(coordinates=coordinates, task=task)
 
 

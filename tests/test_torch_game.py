@@ -321,27 +321,43 @@ def test_select_best_prefers_higher_auc():
     assert best is results[1]
 
 
-@pytest.mark.parametrize("override,match", [
+@pytest.mark.parametrize("override,check", [
     ({"global": TFixed("global", TOpt(
-        optimizer=TOptType.TRON, variance_type=TVar.SIMPLE))},
-     "GAME coordinate variances"),
-    ({"global": TFixed("global", TOpt(regularization=TL1))}, "OWLQN"),
+        optimizer=TOptType.TRON, regularization=TL2,
+        variance_type=TVar.SIMPLE))},
+     lambda m: m.coordinates["global"].model.coefficients.variances),
+    ({"global": TFixed("global", TOpt(regularization=TL1))},
+     lambda m: m.coordinates["global"].model.coefficients.means),
     ({"perUser": TRandom(tg.RandomEffectDatasetConfig(
         "userId", "item", projector_type=tg.ProjectorType.RANDOM,
-        projected_dim=2))}, "INDEX_MAP"),
+        projected_dim=2), TOpt(regularization=TL2))},
+     lambda m: m.coordinates["perUser"].projector.matrix),
     ({"perUser": TRandom(tg.RandomEffectDatasetConfig(
-        "userId", "item", cache_device_buckets=False))}, "streaming"),
+        "userId", "item", cache_device_buckets=False),
+        TOpt(regularization=TL2))},
+     lambda m: m.coordinates["perUser"].coeffs),
 ], ids=["tron", "l1", "random-projector", "streaming"])
-def test_unsupported_options_raise(override, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _torch_estimator("float32", **override)
+def test_unsupported_options_raise(override, check):
+    """Options the port once refused (TRON with variances, L1, the RANDOM
+    projector, streaming buckets) now build and fit; their parity with the
+    JAX package is held in tests/test_torch_game_options.py."""
+    result = _torch_estimator("float32", **override).fit(
+        _game_data(tg, 200, 0), [tg.GameOptimizationConfiguration(LAM)])[0]
+    got = check(result.model)
+    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    assert got.size and np.isfinite(got).all()
 
 
 def test_unsupported_fit_arguments_raise():
+    """A deferred (callable) validation set, once refused, is now resolved
+    at the first evaluation."""
     est = _torch_estimator("float32")
-    with pytest.raises(NotImplementedError, match="deferred"):
-        est.fit(_game_data(tg, 50, 0), [tg.GameOptimizationConfiguration(LAM)],
-                validation=lambda: None)
+    result = est.fit(_game_data(tg, 200, 0),
+                     [tg.GameOptimizationConfiguration(LAM)],
+                     validation=lambda: (_game_data(tg, 100, 5),
+                                         t_evaluators(["AUC"])))[0]
+    assert len(result.validation_history) == 2
+    assert 0.5 < result.evaluation.primary[1] <= 1.0
 
 
 def _no_device_entry_points():

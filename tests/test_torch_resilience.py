@@ -330,16 +330,23 @@ def test_checkpoint_restores_across_packages(tmp_path, writer):
 
 
 def test_unported_checkpoint_state_raises(tmp_path):
+    """RANDOM projector state and random-effect variances, once refused on
+    restore, now restore from a JAX checkpoint."""
     from photon_ml_tpu.game.projector import RandomProjector
 
     a = _state_arrays(5)
     state = _jax_state(a)
     re = state.model.coordinates["perUser"]
+    matrix = np.arange(16, dtype=np.float32).reshape(4, 4)
+    var = np.linspace(0.1, 1.0, len(a["keys"])).astype(np.float32)
     state.model.coordinates["perUser"] = dataclasses.replace(
-        re, projector=RandomProjector(matrix=np.ones((4, 6), np.float32)))
+        re, projector=RandomProjector(matrix=matrix), variances=var)
     JManager(str(tmp_path)).save(1, state)
-    with pytest.raises(NotImplementedError, match="RANDOM projector"):
-        TManager(str(tmp_path)).restore(device="cpu")
+    got = TManager(str(tmp_path)).restore(device="cpu")
+    m = got.model.coordinates["perUser"]
+    np.testing.assert_array_equal(m.projector.matrix, matrix)
+    np.testing.assert_array_equal(m.variances, var)
+    np.testing.assert_array_equal(m.coeffs, a["coeffs"])
 
 
 # --- coordinate descent: resume and the guard ---------------------------------
