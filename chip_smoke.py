@@ -160,7 +160,36 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    within 1e-6, BAYESIAN's lambdas lie in the range and RANDOM's equal a
    CPU run's bit for bit; (e) ``perUser`` ``cacheBuckets=false``: the
    model records and the AUC equal phase 8's cached run bit for bit; and
-   (a), (b) at 20k rows on the card and on the CPU, AUCs within 1e-4.
+   (a), (b) at 20k rows on the card and on the CPU, AUCs within 1e-4;
+14. model quality and ranked retrieval, on phase 8's run, phase 9's files,
+   phase 10's records and phase 11 (b)'s patch, every launch counted: (a)
+   ``train_glm --training-diagnostics`` on phase 9's 200k x 1024 files
+   with L-BFGS at phase 6's batched lambda and 16 replicates:
+   ``report.html`` with its six sections; every replicate's reported
+   |grad| equal to the exact f64 one (with its replicate weights) within
+   its f32 rounding scale; the bootstrap and fitting-curve lanes launch
+   kernel 1 and never kernel 4; the card's Hosmer–Lemeshow table equal to
+   the CPU's on the same probabilities (bins, observed positives;
+   expected positives within their f32 summation bound and the
+   chi-square within it carried through); at 20k x 128
+   with L-BFGS and TRON (kernel 3) on the card and on the CPU on the same
+   injected draws, held as phase 9 holds a lambda: replicate, fitting-
+   curve and point-model objectives within OBJECTIVE_RTOL, replicate
+   solutions within the strong-convexity bound, the AUCs within
+   CLI_AUC_TOL where both point solves converged; (b) phase 8's ``quality-baseline.json`` equal to
+   ``compute_baseline`` recomputed on the CPU from phase 10 (a)'s saved
+   scores and breakdown; (c) ranking ``perSong`` (14,998 items) in f32,
+   bf16 and int8: 32 captures at warmup and none after, 32 users' ids
+   and scores at k 1, 10 and 128 equal to the engine's scores of every
+   (user, song) pair sorted stably (bf16 and int8 also within
+   ``quant_bounds`` of the f32 pair scores), phase 11 (b)'s patch
+   activated with no capture and ranking its own tables, ``/rank`` under
+   8 clients (p50, p99, every reply the registry's); (d) under the canary
+   gate the negated-``perSong`` candidate refused (incumbent version,
+   scores and captures unchanged), then the patch activated with its
+   divergence recorded; (e) the drift evaluator's PSI on phase 10's
+   records below the threshold, and above it with one feature shifted,
+   with ``quality_drift_detected`` posted.
 
 Any failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the ``kernels``
@@ -1532,10 +1561,12 @@ def rescore(out, valid_glm, imap, auc):
 
 
 def run_glm_cli_phase(fused_glm, fused_hvp, fused_re, phase6,
-                      device="cuda"):
+                      device="cuda", keep_dir=None):
     """Phase 9; ``phase6`` is {sweep: (best lambda, AUC)} of phase 6's
-    in-memory sweeps. Returns each run's kernel launch counts. The
-    full-width runs' checks run on ``device``."""
+    in-memory sweeps. Returns each run's kernel launch counts and the Avro
+    sets' paths. The full-width runs' checks run on ``device``. With
+    ``keep_dir`` the files are written there and kept (phase 14 reads
+    them), else in a temporary directory removed at the end."""
     from photon_ml_tpu_torch.cli import train_glm
     from photon_ml_tpu_torch.ops.design import ChunkedSparseDesign
 
@@ -1543,7 +1574,8 @@ def run_glm_cli_phase(fused_glm, fused_hvp, fused_re, phase6,
                "fused_hvp": fused_hvp.fused_hvp,
                "fused_glm_multi": fused_glm.fused_value_and_grad_multi,
                "fused_re": fused_re.fused_entity_value_and_grad}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_glm_")
+    tmp = keep_dir or tempfile.mkdtemp(prefix="chip_smoke_glm_")
+    os.makedirs(tmp, exist_ok=True)
     try:
         t0 = time.perf_counter()
         (x_tr, y_tr), (x_va, y_va) = make_glm(**GLM)
@@ -1689,9 +1721,10 @@ def run_glm_cli_phase(fused_glm, fused_hvp, fused_re, phase6,
         log(f"[9] card vs CPU: f64 objectives within {worst:.3e} relative "
             f"({held} lambdas converged on both devices), AUCs within "
             f"{worst_auc:.2e}")
-        return launches
+        return launches, paths
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if keep_dir is None:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def cli_mask(imap):
@@ -1799,7 +1832,11 @@ def quant_bounds(sm, records):
     of its scale max|w|/127 (|dw| <= scale/2); the f32 roundings of the
     margins and the total add 2^-22 (|total| + sum |margin|). ``sm`` is
     the f32 version."""
-    batch = sm.engine.pack(records)
+    return quant_bounds_batch(sm, sm.engine.pack(records))
+
+
+def quant_bounds_batch(sm, batch):
+    """:func:`quant_bounds` of an already packed batch."""
     total, margins = sm.engine.score_batch(batch, with_margins=True)
     slack = 2.0 ** -22 * (np.abs(total) + sum(np.abs(m) for m in margins))
     x_of = dict(zip(sm.engine._shard_order, batch.xs))
@@ -3170,6 +3207,719 @@ def run_options_phase(tg, e2e_run, auc_fe, tmp, device="cuda",
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 14: model quality and ranked retrieval
+# --------------------------------------------------------------------------
+
+#: (a): bootstrap replicates of train_glm --training-diagnostics (its
+#: default), and the seeds of the draws injected into both devices' runs
+QUALITY_REPLICATES = 16
+QUALITY_DRAW_SEEDS = (0, 7)
+#: (a): the f32 arithmetic of a chi-square from its 10 bins' sums (a few
+#: roundings a term), relative, in check_hl_on_cpu's bound
+HL_CHI_RTOL = 1e-6
+#: (a) at 20k x 128: the lambda of the card-vs-CPU diagnostics runs
+DIAG_SMALL_LAMBDA = 10.0
+#: (c): ranked users, the k values, and the ranking engine's bounds (its
+#: captures: user buckets 1 .. 8 times k buckets 1 .. 128)
+RANK_USERS = 32
+RANK_KS = (1, 10, 128)
+RANK_MAX_K = 128
+RANK_CAPTURES = 4 * 8
+#: (c): /rank under HTTP_THREADS clients, this many GETs each
+RANK_HTTP_REQUESTS = 100
+#: (d): the canary's bound. A genuine refresh moves scores (the operator
+#: widens --canary-bound for it, quality/canary.py); a negated item table
+#: moves them by twice the item margin. Set between the two readings of a
+#: CPU rehearsal of this phase at 20k rows with a day 2 of 1,000 rows (5
+#: %, as here): the refresh's patch 1.247, the negated table 4.133
+CANARY_BOUND = 2.5
+CANARY_RESERVOIR_RECORDS = 1024
+#: (e): serve_game's default --drift-threshold (PSI)
+DRIFT_THRESHOLD = 0.25
+
+
+class Recording:
+    """An OptimizationProblem's stand-in that keeps each ``run``'s result
+    (the diagnostics' lanes: per-lane |grad|, converged)."""
+
+    def __init__(self, problem):
+        self.problem, self.objective, self.results = (problem,
+                                                      problem.objective, [])
+
+    def run(self, data, w0, lam=0.0):
+        result = self.problem.run(data, w0, lam)
+        self.results.append(result)
+        return result
+
+
+def diagnostics_run(args):
+    """``train_glm.run(args)`` (with ``--training-diagnostics``), its
+    bootstrap and fitting curve fed draws from seeded CPU generators (so
+    two devices' runs solve the same replicates) and recorded: each
+    solve's result and the kernel launches inside it, the replicate
+    weights, and the Hosmer–Lemeshow inputs. Returns (result, wall, run
+    launches, seen)."""
+    from photon_ml_tpu_torch import diagnostics
+    from photon_ml_tpu_torch.cli import train_glm
+
+    seen = {}
+    real = (train_glm.bootstrap_coefficients, train_glm.fitting_curve,
+            train_glm.hosmer_lemeshow)
+
+    def launches_of(fn):
+        counters = kernel_counters()
+        before = {k: c.launches for k, c in counters.items()}
+        out = fn()
+        return out, {k: c.launches - before[k] for k, c in counters.items()}
+
+    def boot(problem, data, w_point, lam=0.0, n_replicates=16, **kw):
+        gen = torch.Generator().manual_seed(QUALITY_DRAW_SEEDS[0])
+        weights = diagnostics.bootstrap_weights(
+            data.weights.cpu(), n_replicates, gen).to(data.weights.device)
+        rec = Recording(problem)
+        report, n = launches_of(lambda: real[0](
+            rec, data, w_point, lam, replicate_weights=weights, **kw))
+        seen["boot"] = dict(report=report, weights=weights, lam=lam,
+                            result=rec.results[0], launches=n)
+        return report
+
+    def fit(problem, train, validation, w0, lam=0.0, **kw):
+        masks = diagnostics.portion_masks(
+            train.n_samples, generator=torch.Generator().manual_seed(
+                QUALITY_DRAW_SEEDS[1]))
+        rec = Recording(problem)
+        report, n = launches_of(lambda: real[1](
+            rec, train, validation, w0, lam, masks=masks, **kw))
+        seen["fit"] = dict(report=report, result=rec.results[0], launches=n)
+        return report
+
+    def hl(probs, labels, weights):
+        report = real[2](probs, labels, weights)
+        seen["hl"] = dict(report=report, probs=probs, labels=labels,
+                          weights=weights)
+        return report
+
+    train_glm.bootstrap_coefficients, train_glm.fitting_curve, \
+        train_glm.hosmer_lemeshow = boot, fit, hl
+    try:
+        # the run's launches as a difference: phase 14's own counts run on
+        t0 = time.perf_counter()
+        result, launches = launches_of(lambda: train_glm.run(args))
+        wall = time.perf_counter() - t0
+    finally:
+        train_glm.bootstrap_coefficients, train_glm.fitting_curve, \
+            train_glm.hosmer_lemeshow = real
+    return result, wall, launches, seen
+
+
+def check_replicate_gradients(label, c, seen):
+    """Phase 9's gradient check on every bootstrap replicate: its reported
+    |grad| against the exact f64 one, with the replicate's weights, within
+    its f32 rounding scale. Returns [(f(w), |grad f(w)|)] per replicate."""
+    boot = seen["boot"]
+    result, lam = boot["result"], boot["lam"]
+    base = c.wt
+    out, worst = [], 0.0
+    try:
+        for b in range(result.w.shape[0]):
+            c.wt = boot["weights"][b].double()
+            w = result.w[b].double()
+            f, gn, eps = elastic_net_objective(c, w, lam, 0.0, None)
+            reported = float(result.grad_norm[b])
+            assert abs(gn - reported) <= eps, (label, b, gn, reported, eps)
+            worst = max(worst, abs(gn - reported) / eps)
+            out.append((f, gn))
+    finally:
+        c.wt = base
+    log(f"  {label}: {len(out)} replicates' reported |grad| match the f64 "
+        f"|grad f| within their f32 scales (largest |diff| / scale "
+        f"{worst:.3f}); iterations {result.iterations.tolist()}, converged "
+        f"{[bool(v) for v in result.converged.tolist()]}")
+    return out
+
+
+def check_hl_on_cpu(label, seen):
+    """The card's Hosmer–Lemeshow table against the CPU's on the same
+    probabilities: the bins, counts and observed positives (sums of 0s and
+    1s) equal; each bin's expected positives, an f32 sum of its n_b
+    values w·p >= 0 added in another order on the card (atomics), within
+    twice the recursive-summation bound (n_b - 1) 2^-24 Σ w·p; the
+    chi-square within that bound carried through its partial derivatives
+    in the expected positives, plus HL_CHI_RTOL for its own f32
+    arithmetic."""
+    from photon_ml_tpu_torch.diagnostics import hosmer_lemeshow
+
+    card = seen["hl"]["report"]
+    cpu = hosmer_lemeshow(*(seen["hl"][k].cpu() for k in
+                            ("probs", "labels", "weights")))
+    assert np.array_equal(card.bin_counts, cpu.bin_counts), label
+    assert np.array_equal(card.observed_positives, cpu.observed_positives)
+    n = cpu.bin_counts.astype(np.float64)
+    obs = cpu.observed_positives.astype(np.float64)
+    exp = cpu.expected_positives.astype(np.float64)
+    bound = 2.0 * np.maximum(n - 1.0, 0.0) * U32 * exp
+    d_exp = np.abs(card.expected_positives.astype(np.float64) - exp)
+    assert (d_exp <= bound).all(), (label, d_exp, bound)
+    # d chi2 / d E of (O - E)^2 / E + ((n - O) - (n - E))^2 / (n - E)
+    neg = n - exp
+    grad = (-2.0 * (obs - exp) / exp - (obs - exp) ** 2 / exp ** 2
+            + 2.0 * (exp - obs) / neg + (exp - obs) ** 2 / neg ** 2)
+    chi_bound = (float(np.sum(np.abs(grad) * bound))
+                 + HL_CHI_RTOL * cpu.chi_square)
+    d_chi = abs(card.chi_square - cpu.chi_square)
+    log(f"  {label}: HL chi-square {card.chi_square:.6g} (p "
+        f"{card.p_value:.4g}) on the card, {cpu.chi_square:.6g} on the CPU; "
+        f"bins and observed positives equal; expected positives within "
+        f"{float(np.max(d_exp / bound)):.3f} of their f32 summation bound, "
+        f"chi-square |diff| {d_chi:.3e} <= {chi_bound:.3e}")
+    assert d_chi <= chi_bound, (label, d_chi, chi_bound)
+
+
+def diagnostics_phase(paths, lam, device="cuda",
+                      small_devices=("cuda", "cpu")):
+    """(a) ``train_glm --training-diagnostics`` on phase 9's 200k x 1024
+    files with L-BFGS at phase 6's batched lambda on ``device``, and at
+    20k x 128 with L-BFGS and TRON on each of ``small_devices`` (the card
+    and the CPU), compared."""
+    t0 = time.perf_counter()
+    out_dir = os.path.join(os.path.dirname(paths["dense"]), "diagnostics")
+    args = ["--training-data", paths["dense"], "--validation-data",
+            paths["dense_valid"], "--output-dir", out_dir,
+            "--evaluators", "AUC", "--no-intercept",
+            "--regularization-weights", f"{lam:g}",
+            "--max-iterations", str(GLM_LBFGS_MAX_ITER),
+            "--training-diagnostics", "--diagnostic-bootstrap-replicates",
+            str(QUALITY_REPLICATES), "--device", device]
+    result, wall, launches, seen = diagnostics_run(args)
+    report = result["diagnostics_report"]
+    with open(report) as f:
+        doc = f.read()
+    sections = [s.split("</h2>")[0] for s in doc.split("<h2>")[1:]]
+    stages, _, imap = read_run(out_dir)
+    log(f"[14a] train_glm --training-diagnostics (L-BFGS, lambda {lam:g}, "
+        f"{QUALITY_REPLICATES} replicates) on {GLM['rows']} x {GLM['dim']}: "
+        f"{wall:.2f} s; launches {launches}; report {len(doc)} bytes, "
+        f"sections {sections}")
+    for stage, sec in stages:
+        log(f"  {stage}: {sec:.3f} s")
+    for part in ("boot", "fit"):
+        log(f"  {part} lanes: launches {seen[part]['launches']}")
+        assert seen[part]["launches"]["fused_glm"] > 0, seen[part]
+        assert seen[part]["launches"]["fused_glm_multi"] == 0, seen[part]
+    assert launches["fused_glm_multi"] == 0, launches
+    assert len(sections) == 6, sections
+    train = read_glm_data(paths["dense"], imap, device)
+    c = Contractions(train)
+    check_replicate_gradients("200k x 1024", c, seen)
+    if device == "cuda":
+        check_hl_on_cpu("200k x 1024", seen)
+    fit = seen["fit"]["report"]
+    log(f"  fitting curve: portions {fit.portions.tolist()}, train "
+        f"{fit.train_objective.tolist()}, validation "
+        f"{fit.validation_objective.tolist()}")
+    del train, c
+    torch.cuda.empty_cache()
+
+    # 20k x 128: L-BFGS and TRON (kernel 3), card vs CPU on the same draws
+    worst_obj, worst_diag = 0.0, 0.0
+    for optimizer in ("LBFGS", "TRON"):
+        runs = []
+        for i, device in enumerate(small_devices):
+            out = os.path.join(os.path.dirname(paths["small"]),
+                               f"diagnostics_{optimizer}_{i}_{device}")
+            r, sec, n, sn = diagnostics_run([
+                "--training-data", paths["small"], "--validation-data",
+                paths["small_valid"], "--output-dir", out, "--evaluators",
+                "AUC", "--no-intercept", "--regularization-weights",
+                f"{DIAG_SMALL_LAMBDA:g}", "--optimizer", optimizer,
+                "--tolerance", f"{GLM_SMALL_TOLERANCE:g}",
+                "--training-diagnostics", "--device", device])
+            _, lams, imap = read_run(out)
+            c = Contractions(read_glm_data(paths["small"], imap, device))
+            grads = check_replicate_gradients(
+                f"{device} {optimizer}", c, sn)
+            point = lams[DIAG_SMALL_LAMBDA]
+            f_point, _, _ = elastic_net_objective(
+                c, point["w"], DIAG_SMALL_LAMBDA, 0.0, None)
+            runs.append((sn, grads, point, f_point))
+            log(f"[14a] {optimizer} on {GLM_SMALL['rows']} x "
+                f"{GLM_SMALL['dim']} ({device}): {sec:.2f} s; launches {n}")
+            if device == "cuda":
+                assert n["fused_glm"] > 0 and n["fused_glm_multi"] == 0, n
+                assert optimizer != "TRON" or n["fused_hvp"] > 0, n
+                check_hl_on_cpu(f"cuda {optimizer}", sn)
+        (sa, ga, pa, fpa), (sb, gb, pb, fpb) = runs
+        conv_a = sa["boot"]["result"].converged.tolist()
+        conv_b = sb["boot"]["result"].converged.tolist()
+        for b, ((fa, g1), (fb, g2)) in enumerate(zip(ga, gb)):
+            both = bool(conv_a[b]) and bool(conv_b[b])
+            rel = abs(fa - fb) / abs(fb)
+            worst_obj = max(worst_obj, rel)
+            assert rel <= OBJECTIVE_RTOL[both], (optimizer, b, rel, both)
+            # each replicate's objective is lambda-strongly convex (no
+            # intercept): both solutions lie within |grad| / lambda of
+            # the optimum
+            gap = float(np.linalg.norm(
+                sa["boot"]["report"].coefficients[b].astype(np.float64)
+                - sb["boot"]["report"].coefficients[b]))
+            bound = (g1 + g2) / DIAG_SMALL_LAMBDA
+            assert gap <= bound, (optimizer, b, gap, bound)
+        # the fitting curve's lanes, and the point model, as phase 9 holds
+        # a lambda: objectives within OBJECTIVE_RTOL, the AUC within
+        # CLI_AUC_TOL where both converged
+        fa_, fb_ = sa["fit"]["report"], sb["fit"]["report"]
+        conv = [bool(a) and bool(b) for a, b in zip(
+            sa["fit"]["result"].converged.tolist(),
+            sb["fit"]["result"].converged.tolist())]
+        for name in ("train_objective", "validation_objective"):
+            rel = np.abs(getattr(fa_, name) - getattr(fb_, name)) \
+                / np.abs(getattr(fb_, name))
+            worst_diag = max(worst_diag, float(rel.max()))
+            for p_, r_ in enumerate(rel):
+                assert r_ <= OBJECTIVE_RTOL[conv[p_]], (optimizer, name, p_,
+                                                        r_)
+        both = bool(pa["converged"]) and bool(pb["converged"])
+        rel = abs(fpa - fpb) / abs(fpb)
+        assert rel <= OBJECTIVE_RTOL[both], (optimizer, rel, both)
+        assert not both or abs(pa["auc"] - pb["auc"]) <= CLI_AUC_TOL, \
+            (optimizer, pa["auc"], pb["auc"])
+        # the HL statistic, a sum of squared bin residuals that moves with
+        # the two f32 trajectories, is logged
+        hla, hlb = sa["hl"]["report"], sb["hl"]["report"]
+        rel_e = float(np.max(np.abs(hla.expected_positives
+                                    - hlb.expected_positives)
+                             / hlb.expected_positives))
+        log(f"  {optimizer}: point model converged {pa['converged']} / "
+            f"{pb['converged']}, f64 f(w) relative |diff| {rel:.3e}, AUC "
+            f"{pa['auc']:.7f} / {pb['auc']:.7f}; fitting lanes converged "
+            f"{conv}; HL chi-square "
+            f"{hla.chi_square:.6g} / {hlb.chi_square:.6g}, expected "
+            f"positives within {rel_e:.2e} relative")
+    log(f"[14a] {' vs '.join(small_devices)} at {GLM_SMALL['rows']} x "
+        f"{GLM_SMALL['dim']}: replicate f64 objectives within "
+        f"{worst_obj:.3e} relative, fitting-curve objectives within "
+        f"{worst_diag:.3e} (limits {OBJECTIVE_RTOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def baseline_phase(run, valid):
+    """(b) phase 8's quality-baseline.json against ``compute_baseline``
+    recomputed on the CPU from phase 10 (a)'s saved scores and breakdown,
+    with the labels, coverage and cold-start rates of the validation file
+    read against the model's vocabularies."""
+    from photon_ml_tpu_torch.cli.config import parse_feature_shard_config
+    from photon_ml_tpu_torch.io.avro import iter_avro_file
+    from photon_ml_tpu_torch.io.data_reader import AvroDataReader
+    from photon_ml_tpu_torch.io.index import IndexMap
+    from photon_ml_tpu_torch.io.model_io import game_model_entity_vocabs
+    from photon_ml_tpu_torch.quality import (
+        BASELINE_NAME,
+        compute_baseline,
+        load_baseline,
+    )
+
+    t0 = time.perf_counter()
+    saved = load_baseline(os.path.join(run, BASELINE_NAME))
+    assert saved is not None and saved.rank_probes is None
+    scores_dir = os.path.join(os.path.dirname(run), "scores")
+    scores = np.array([r["predictionScore"] for r in iter_avro_file(
+        os.path.join(scores_dir, "scores.avro"))], np.float32)
+    with open(os.path.join(scores_dir, "score-breakdown.json")) as f:
+        margins = {cid: np.asarray(m, np.float32)
+                   for cid, m in json.load(f).items()}
+    shards = tuple(parse_feature_shard_config(s)
+                   for s in E2E_SHARDS.split(","))
+    maps = {c.shard_id: IndexMap.load(os.path.join(
+        run, "feature-indexes", f"{c.shard_id}.json")) for c in shards}
+    vocabs = game_model_entity_vocabs(os.path.join(run, "best"))
+    data, _, _ = AvroDataReader(shard_configs=shards, index_maps=maps).read(
+        valid, id_columns=("songId", "userId"), entity_vocabs=vocabs)
+    cold = {cid: float(np.mean(data.id_columns[t] < 0))
+            for cid, t in (("perUser", "userId"), ("perSong", "songId"))}
+    coverage = {sid: sh.nnz / float(data.n_samples * sh.dim)
+                for sid, sh in data.shards.items()}
+    again = compute_baseline(
+        scores, data.labels, data.weights, task=saved.task, margins=margins,
+        cold_rates=cold, coverage=coverage, lineage=saved.lineage)
+    same = again.to_dict() == saved.to_dict()
+    log(f"[14b] quality-baseline.json of phase 8 ({saved.n_samples} "
+        f"validation rows, AUC {saved.auc:.7f}, mean score "
+        f"{saved.mean_score:.6f}, HL chi-square "
+        f"{saved.calibration['chiSquare']:.6g}, cold rates {cold}) equals "
+        f"compute_baseline on the CPU from the saved scores: {same} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    assert same, (again.to_dict(), saved.to_dict())
+    return saved
+
+
+def pair_batch(engine, users, items):
+    """The RequestBatch of every (user record, item id) pair, user-major:
+    the users' own features and rows, the item rows of ``items``."""
+    from photon_ml_tpu_torch.serving.engine import RequestBatch
+
+    ub = engine.pack(users)
+    n_i = len(items)
+    item_cid = "perSong"
+    item_rows = engine.stores[item_cid].rows_for(list(items))
+    rows = []
+    for cid, r in zip(engine._re_order, ub.rows):
+        rows.append(np.tile(item_rows, len(users)) if cid == item_cid
+                    else np.repeat(r, n_i))
+    return RequestBatch(
+        n=len(users) * n_i, offsets=np.repeat(ub.offsets, n_i),
+        xs=tuple(np.repeat(x, n_i, axis=0) for x in ub.xs),
+        rows=tuple(rows))
+
+
+def brute_force(sm, users):
+    """Every (user, item) pair through the version's scoring engine:
+    (scores (users, items) f32, the stable descending order per user)."""
+    items = sm.rank_engine.index.item_ids
+    scores = sm.engine.score_batch(pair_batch(sm.engine, users, items))
+    scores = scores.reshape(len(users), len(items))
+    return scores, np.argsort(-scores, axis=1, kind="stable")
+
+
+def check_ranks(label, sm, users, ks, want_scores=None, f32=None):
+    """``sm.rank`` at each k against brute force through ``sm``'s engine:
+    ids and scores equal. With ``f32`` (the f32 version) each returned
+    pair's score is held to its format's bound against the f32 pair
+    score. Returns the seconds of the rank calls."""
+    scores, order = brute_force(sm, users)
+    items = sm.rank_engine.index.item_ids
+    sec, worst = 0.0, 0.0
+    for k in ks:
+        t0 = time.perf_counter()
+        got = sm.rank(users, [k] * len(users))
+        sec += time.perf_counter() - t0
+        for u, (ids, vals) in enumerate(got):
+            top = order[u, :k]
+            assert ids == [items[j] for j in top], (label, k, u)
+            assert np.array_equal(vals, scores[u, top]), (label, k, u)
+    if f32 is not None:
+        dtype = sm.rank_engine.index.table_dtype
+        f32_scores, _ = brute_force(f32, users)
+        k = max(ks)
+        pairs_u = np.repeat(np.arange(len(users)), k)
+        pairs_i = order[:, :k].ravel()
+        batch = pair_batch(f32.engine, users, items)
+        flat = pairs_u * len(items) + pairs_i
+        sub = type(batch)(
+            n=len(flat), offsets=batch.offsets[flat],
+            xs=tuple(x[flat] for x in batch.xs),
+            rows=tuple(r[flat] for r in batch.rows))
+        bound = quant_bounds_batch(f32, sub)[dtype]
+        diff = np.abs(scores[pairs_u, pairs_i].astype(np.float64)
+                      - f32_scores[pairs_u, pairs_i])
+        worst = float(np.max(diff / bound))
+        assert worst <= 1.0, (label, worst)
+    log(f"  {label}: {len(users)} users x k in {list(ks)}: ids and scores "
+        f"equal to {len(users)} x {len(items)} pairs scored by the engine "
+        f"and sorted stably"
+        + (f"; each top-{max(ks)} score within {worst:.3f} of its format's "
+           f"bound from the f32 pair score" if f32 is not None else "")
+        + f" ({sec * 1e3:.1f} ms of rank calls)")
+    return sec
+
+
+def rank_http(run, users, device):
+    """``serve_game --rank-item-coordinate perSong``: HTTP_THREADS
+    clients of RANK_HTTP_REQUESTS ``GET /rank?user=...&k=10`` each;
+    every reply equal to the server's own registry's ranking. Returns
+    (p50, p99) milliseconds."""
+    import http.client
+    import threading
+
+    from photon_ml_tpu_torch.cli import serve_game
+
+    t0 = time.perf_counter()
+    server = serve_game.build_server([
+        "--model-dir", run, "--feature-shards", E2E_SHARDS, "--port", "0",
+        "--device", device, "--rank-item-coordinate", "perSong",
+        "--rank-max-k", str(RANK_MAX_K)]).start()
+    up = time.perf_counter() - t0
+    host, port = server.url.split("//")[1].split(":")
+    ids = [u["metadataMap"]["userId"] for u in users]
+    lat, replies, errors = [], {}, []
+    lock = threading.Lock()
+
+    def client(t):
+        conn = http.client.HTTPConnection(host, int(port), timeout=120)
+        try:
+            for i in range(RANK_HTTP_REQUESTS):
+                uid = ids[(t * RANK_HTTP_REQUESTS + i) % len(ids)]
+                t1 = time.perf_counter()
+                conn.request("GET", f"/rank?user={uid}&k=10")
+                resp = conn.getresponse()
+                body = json.loads(resp.read())
+                ms = (time.perf_counter() - t1) * 1e3
+                with lock:
+                    if resp.status != 200:
+                        errors.append((resp.status, body))
+                    lat.append(ms)
+                    replies.setdefault(uid, []).append(
+                        (body.get("ids"), body.get("scores")))
+        finally:
+            conn.close()
+
+    try:
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(HTTP_THREADS)]
+        t1 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t1
+        sm = server.service.registry.active()
+        want = sm.rank([{"features": [], "metadataMap": {"userId": u},
+                         "offset": None} for u in replies],
+                       [10] * len(replies))
+        for uid, (w_ids, w_scores) in zip(replies, want):
+            for got_ids, got_scores in replies[uid]:
+                assert got_ids == w_ids, uid
+                assert got_scores == [float(v) for v in w_scores], uid
+        health = server.service.healthz()
+        compiles = sm.rank_engine.compile_count
+    finally:
+        server.stop()
+    p50, p99 = np.percentile(lat, [50, 99])
+    log(f"[14c] serve_game /rank: up in {up:.2f} s; {len(lat)} GETs from "
+        f"{HTTP_THREADS} clients in {wall:.2f} s ({len(lat) / wall:.0f} "
+        f"requests/s), p50 {p50:.2f} ms, p99 {p99:.2f} ms; errors "
+        f"{len(errors)}; every reply equal to the registry's ranking; "
+        f"rank captures {compiles}; healthz rank {health['rank']}")
+    assert not errors, errors[:3]
+    assert compiles == RANK_CAPTURES, compiles
+    return float(p50), float(p99)
+
+
+def rank_phase(run, patch, records, device):
+    """(c) ranking phase 8's perSong in f32, bf16 and int8; the patch's
+    activation; /rank over HTTP. Returns (f32 registry, users)."""
+    from photon_ml_tpu_torch.cli.config import parse_feature_shard_config
+    from photon_ml_tpu_torch.serving import ModelRegistry
+
+    shards = tuple(parse_feature_shard_config(s)
+                   for s in E2E_SHARDS.split(","))
+    # RANK_USERS distinct users of phase 10's records, as user requests
+    users, seen_ids = [], set()
+    for r in records:
+        uid = r["metadataMap"]["userId"]
+        if uid not in seen_ids:
+            seen_ids.add(uid)
+            users.append({"features": r["features"],
+                          "metadataMap": {"userId": uid},
+                          "offset": r.get("offset")})
+        if len(users) == RANK_USERS:
+            break
+    regs = {}
+    for dtype in ("float32", "bfloat16", "int8"):
+        t0 = time.perf_counter()
+        reg = ModelRegistry(shards, max_batch=ENGINE_MAX_BATCH, warmup=True,
+                            table_dtype=dtype, device=device,
+                            rank_coordinate="perSong",
+                            rank_max_k=RANK_MAX_K)
+        sm = reg.load(run)
+        eng = sm.rank_engine
+        log(f"[14c] {dtype}: loaded with ranking in "
+            f"{time.perf_counter() - t0:.2f} s ({split_line(sm)}); "
+            f"{eng.index.n_items} items in a bucket of {eng.index.bucket}, "
+            f"index {eng.index.matrix_bytes} bytes; rank captures "
+            f"{eng.compile_count}, engine captures "
+            f"{sm.engine.compile_count}")
+        assert eng.compile_count == RANK_CAPTURES, eng.compile_count
+        regs[dtype] = reg
+        check_ranks(dtype, sm, users, RANK_KS,
+                    f32=None if dtype == "float32"
+                    else regs["float32"].active())
+        assert eng.compile_count == RANK_CAPTURES, eng.compile_count
+        if dtype != "float32":
+            del reg, sm, eng
+            regs.pop(dtype)
+            torch.cuda.empty_cache()
+    f32 = regs["float32"]
+    parent = f32.active()
+    t0 = time.perf_counter()
+    sm = f32.load_patch(patch)
+    log(f"[14c] phase 11 (b)'s patch activated in "
+        f"{time.perf_counter() - t0:.2f} s ({split_line(sm)}); items "
+        f"{parent.rank_engine.index.n_items} -> "
+        f"{sm.rank_engine.index.n_items} (bucket "
+        f"{sm.rank_engine.index.bucket}); rank captures "
+        f"{sm.rank_engine.compile_count}")
+    assert sm.rank_engine.compile_count == RANK_CAPTURES
+    check_ranks("f32 patched", sm, users, (10,))
+    check_ranks("f32 parent again", parent, users, (10,))
+    assert sm.rank_engine.compile_count == RANK_CAPTURES
+    p50, p99 = rank_http(run, users, device)
+    return f32, parent, users, (p50, p99)
+
+
+def negated_candidate(run, out):
+    """Phase 8's best/ with its perSong table negated, as a run directory
+    (the canary's corrupt candidate)."""
+    from photon_ml_tpu_torch.io.index import IndexMap
+    from photon_ml_tpu_torch.io.model_io import (
+        load_serving_model,
+        save_game_model,
+    )
+
+    index_dir = os.path.join(run, "feature-indexes")
+    maps = {s: IndexMap.load(os.path.join(index_dir, f"{s}.json"))
+            for s in ("global", "item")}
+    model, vocabs, _ = load_serving_model(os.path.join(run, "best"), maps,
+                                          device="cpu")
+    song = model.coordinates["perSong"]
+    model = dataclasses.replace(model, coordinates=dict(
+        model.coordinates, perSong=dataclasses.replace(
+            song, coeffs=-song.coeffs)))
+    save_game_model(os.path.join(out, "best"), model, maps, vocabs)
+    shutil.copytree(index_dir, os.path.join(out, "feature-indexes"))
+    return out
+
+
+def canary_phase(run, patch, records, tmp, device):
+    """(d) a registry under the canary gate: the negated candidate refused
+    (the incumbent's version, scores and captures unchanged), then phase
+    11 (b)'s patch activated with its divergence recorded."""
+    from photon_ml_tpu_torch.cli.config import parse_feature_shard_config
+    from photon_ml_tpu_torch.quality import CanaryConfig, CanaryRejected
+    from photon_ml_tpu_torch.serving import ModelRegistry, ServingService
+
+    shards = tuple(parse_feature_shard_config(s)
+                   for s in E2E_SHARDS.split(","))
+    reg = ModelRegistry(shards, max_batch=ENGINE_MAX_BATCH, warmup=True,
+                        device=device,
+                        canary=CanaryConfig(gate=True, bound=CANARY_BOUND))
+    sm = reg.load(run)
+    service = ServingService(reg)
+    feed = records[:CANARY_RESERVOIR_RECORDS]
+    for lo in range(0, len(feed), 64):
+        service.score({"records": feed[lo:lo + 64]})
+    before = sm.engine.score(feed)
+    captures = sm.engine.compile_count
+    bad = negated_candidate(run, os.path.join(tmp, "negated"))
+    events = []
+    unsubscribe = reg.bus.subscribe(events.append)
+    t0 = time.perf_counter()
+    try:
+        reg.reload(bad)
+        raise AssertionError("the negated candidate was activated")
+    except CanaryRejected as e:
+        message = str(e)
+    sec = time.perf_counter() - t0
+    after = sm.engine.score(feed)
+    verdict = [e.payload for e in events if e.name == "canary_evaluated"]
+    log(f"[14d] canary gate (bound {CANARY_BOUND:g}, reservoir "
+        f"{len(reg.reservoir)} of {len(feed)} requests): the negated "
+        f"candidate refused in {sec:.2f} s: {message}; active version "
+        f"{reg.active_version}, {len(feed)} scores bit-identical: "
+        f"{np.array_equal(before, after)}; incumbent captures {captures} -> "
+        f"{sm.engine.compile_count}")
+    assert reg.active_version == 1 and reg.versions() == [1]
+    assert np.array_equal(before, after)
+    assert sm.engine.compile_count == captures
+    assert verdict and verdict[-1]["verdict"] == "rejected", verdict
+    t0 = time.perf_counter()
+    patched = reg.reload(patch)
+    unsubscribe()
+    log(f"[14d] phase 11 (b)'s patch under the gate: active version "
+        f"{reg.active_version} in {time.perf_counter() - t0:.2f} s, "
+        f"canary {patched.canary}")
+    assert reg.active_version == patched.version == 2
+    assert patched.canary is not None \
+        and patched.canary["verdict"] == "pass", patched.canary
+    return patched.canary["divergence"], verdict[-1]["divergence"]
+
+
+def shifted_records(records, model, imap, baseline):
+    """``records`` with the fixed effect's heaviest feature moved by three
+    baseline score deviations' worth (added where absent)."""
+    from photon_ml_tpu_torch.types import INTERCEPT_KEY, NAME_TERM_DELIMITER
+
+    w = model.coordinates["global"].model.coefficients.means.cpu().numpy()
+    weight = np.abs(w.astype(np.float64))
+    weight[imap.key_to_index[INTERCEPT_KEY]] = 0.0
+    j = int(np.argmax(weight))
+    name = imap.names()[j].split(NAME_TERM_DELIMITER)[0]
+    shift = 3.0 * baseline.std_score / float(weight[j])
+    out = []
+    for r in records:
+        feats = [dict(f) for f in r["features"]]
+        hit = [f for f in feats if f["name"] == name]
+        if hit:
+            hit[0]["value"] += shift
+        else:
+            feats.append({"name": name, "term": "", "value": shift})
+        out.append({**r, "features": feats})
+    return out, name, shift
+
+
+def drift_phase(reg, records):
+    """(e) the drift evaluator over phase 10's records served through the
+    engine, then the same records with one feature shifted."""
+    from photon_ml_tpu_torch.quality import (
+        TOTAL_COORDINATE,
+        DriftEvaluator,
+        QualityMonitor,
+    )
+
+    sm = reg.active()
+    sm.engine.monitor = QualityMonitor(sm.baseline)
+    ev = DriftEvaluator(reg, threshold=DRIFT_THRESHOLD, poll_s=3600)
+    events = []
+    unsubscribe = reg.bus.subscribe(events.append)
+    try:
+        for lo in range(0, len(records), ENGINE_MAX_BATCH):
+            sm.score(records[lo:lo + ENGINE_MAX_BATCH])
+        calm = ev.evaluate_once()
+        fired_calm = [e for e in events if e.name == "quality_drift_detected"]
+        shifted, name, shift = shifted_records(
+            records, sm.model, sm.index_maps["global"], sm.baseline)
+        sm.engine.monitor = QualityMonitor(sm.baseline)
+        for lo in range(0, len(shifted), ENGINE_MAX_BATCH):
+            sm.score(shifted[lo:lo + ENGINE_MAX_BATCH])
+        drifted = ev.evaluate_once()
+        fired = [e for e in events if e.name == "quality_drift_detected"]
+    finally:
+        unsubscribe()
+    psi0 = calm[(TOTAL_COORDINATE, "psi")]
+    psi1 = drifted[(TOTAL_COORDINATE, "psi")]
+    log(f"[14e] drift over {len(records)} served records: PSI {psi0:.4f}, "
+        f"KS {calm[(TOTAL_COORDINATE, 'ks')]:.4f}, rank overlap drift "
+        f"{calm.get(('perSong', 'rank_overlap'))}; with {name} moved by "
+        f"{shift:.3f}: PSI {psi1:.4f}, KS "
+        f"{drifted[(TOTAL_COORDINATE, 'ks')]:.4f} (threshold "
+        f"{DRIFT_THRESHOLD:g}); events {[e.payload for e in fired]}")
+    assert psi0 < DRIFT_THRESHOLD and not fired_calm, (psi0, fired_calm)
+    assert psi1 > DRIFT_THRESHOLD, psi1
+    assert fired and fired[0].payload["kind"] == "psi", fired
+    return psi0, psi1
+
+
+def run_quality_phase(e2e_run, refresh_run, records, glm_paths, lam, tmp,
+                      device="cuda", small_devices=("cuda", "cpu")):
+    """Phase 14 on phase 8's run, phase 9's files, phase 10's records and
+    phase 11 (b)'s patch."""
+    t_start = time.perf_counter()
+    run = e2e_run["run"]
+    patch = os.path.join(refresh_run, "patch")
+    diagnostics_phase(glm_paths, lam, device, small_devices)
+    baseline_phase(run, e2e_run["valid"])
+    f32, parent, users, http_ms = rank_phase(run, patch, records, device)
+    # (e) on phase 8's version of the f32 registry (the patch left it
+    # registered, not active): activate it again
+    f32.activate(parent.version)
+    drift_phase(f32, records)
+    del f32, parent
+    torch.cuda.empty_cache()
+    canary_phase(run, patch, records, tmp, device)
+    log(f"[14] done in {time.perf_counter() - t_start:.1f} s")
+    return http_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3493,7 +4243,9 @@ def main() -> int:
 
         # 9. the GLM command, Avro in and model directory out ---------------
         t0 = time.perf_counter()
-        glm_cli = run_glm_cli_phase(fused_glm, fused_hvp, fused_re, phase6)
+        glm_cli, glm_paths = run_glm_cli_phase(
+            fused_glm, fused_hvp, fused_re, phase6,
+            keep_dir=os.path.join(e2e_tmp, "glm"))
         log(f"[9] done in {time.perf_counter() - t0:.1f} s")
 
         # 10. scoring phase 8's model: batch, engine, HTTP ------------------
@@ -3511,6 +4263,16 @@ def main() -> int:
 
         # 13. the remaining GAME training options, on phase 8's files -------
         options_launches = run_options_phase(tg, e2e_run, auc_fe, e2e_tmp)
+
+        # 14. model quality and ranked retrieval ----------------------------
+        rank_ms, _, quality_launches = counted_call(
+            run_quality_phase, e2e_run, refresh_run, records, glm_paths,
+            phase6["batched"][0], e2e_tmp)
+        log(f"[14] kernel launches {quality_launches}; /rank p50 "
+            f"{rank_ms[0]:.2f} ms, p99 {rank_ms[1]:.2f} ms")
+        assert quality_launches["fused_glm"] > 0, quality_launches
+        assert quality_launches["fused_hvp"] > 0, quality_launches
+        assert quality_launches["fused_glm_multi"] == 0, quality_launches
     finally:
         shutil.rmtree(e2e_tmp, ignore_errors=True)
 
@@ -3531,6 +4293,7 @@ def main() -> int:
              locked=dict(launches=locked_launches["fused_glm"]),
              train_glm=dict(launches=train_glm_launches("fused_glm")),
              options=dict(launches=options("fused_glm")),
+             quality=dict(launches=quality_launches["fused_glm"]),
              glm_path=dict(launches=glm_launches["tron"]["fused_glm"],
                            **t1_glm),
              glm_small=dict(launches=runs["cuda"]["tron"][3]["fused_glm"],
@@ -3544,7 +4307,8 @@ def main() -> int:
              refresh=dict(launches=refresh_launches["fused_re"]),
              locked=dict(launches=locked_launches["fused_re"]),
              train_glm=dict(launches=train_glm_launches("fused_re")),
-             options=dict(launches=options("fused_re"))),
+             options=dict(launches=options("fused_re")),
+             quality=dict(launches=quality_launches["fused_re"])),
         dict(name="fused_hvp", route="cuda", status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_hvp.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:447",
@@ -3554,7 +4318,8 @@ def main() -> int:
              train_glm=dict(launches=train_glm_launches("fused_hvp")),
              refresh=dict(launches=refresh_launches["fused_hvp"]),
              locked=dict(launches=locked_launches["fused_hvp"]),
-             options=dict(launches=options("fused_hvp"))),
+             options=dict(launches=options("fused_hvp")),
+             quality=dict(launches=quality_launches["fused_hvp"])),
         dict(name="fused_value_and_grad_multi", route="cuda",
              status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_glm_multi.cu",
@@ -3563,7 +4328,8 @@ def main() -> int:
              train_glm=dict(launches=train_glm_launches("fused_glm_multi")),
              refresh=dict(launches=refresh_launches["fused_glm_multi"]),
              locked=dict(launches=locked_launches["fused_glm_multi"]),
-             options=dict(launches=options("fused_glm_multi"))),
+             options=dict(launches=options("fused_glm_multi")),
+             quality=dict(launches=quality_launches["fused_glm_multi"])),
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"):

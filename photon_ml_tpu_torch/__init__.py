@@ -1,7 +1,9 @@
 """PyTorch/CUDA port of photon_ml_tpu: GLM regularization sweeps and GAME
 (GLMix) training on an NVIDIA GPU, with hand-written CUDA kernels for the
 fused GLM value+gradient (one, M or E coefficient rows at a time) and the
-Hessian-vector product of TRON.
+Hessian-vector product of TRON; the CLIs around them, batch and online
+scoring with ranked retrieval, and the model-quality layer (training
+diagnostics, quality baselines, the canary and the drift monitor).
 
 Runs on ``cuda`` by default; pass ``device="cpu"`` to run on the CPU (the
 kernels' plain PyTorch versions). The JAX package ``photon_ml_tpu`` stays

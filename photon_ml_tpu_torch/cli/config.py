@@ -23,11 +23,12 @@
 
     coordId=0.1;1;10  [space-separated groups → cartesian product]
 
-The resilience flags (:func:`add_resilience_flags`:
-retries, retry deadline, divergence policy) are ported; the telemetry,
-supervision and serving flag groups are not: :func:`add_unported_flags`
-lets a command accept such flags and :func:`refuse_unported` raise naming
-them.
+The resilience flags (:func:`add_resilience_flags`: retries, retry
+deadline, divergence policy) and serve_game's model-quality and ranking
+flags (:func:`add_quality_flags`, :func:`add_rank_flags`) are ported; the
+telemetry, supervision, fleet and retained-telemetry flag groups are not:
+:func:`add_unported_flags` lets a command accept such flags and
+:func:`refuse_unported` raise naming them.
 """
 
 from __future__ import annotations
@@ -279,6 +280,126 @@ def install_resilience(config: ResilienceConfig):
 
     set_default_policy(config.retry_policy())
     return config.guard()
+
+
+# ---------------------------------------------------------------------------
+# Model-quality configuration (serve_game)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class QualityConfig:
+    """serve_game's model-quality knobs.
+
+    ``canary_gate`` refuses divergent candidates at activation
+    (``canary_bound`` None = the table dtype's documented score
+    tolerance, see quality/canary.py); ``quality_poll_s`` (0 = disabled)
+    runs the background drift evaluator at that period, raising
+    ``quality_drift_detected`` past ``drift_threshold`` (PSI).
+    """
+
+    canary_gate: bool = False
+    canary_bound: Optional[float] = None
+    quality_poll_s: float = 0.0
+    drift_threshold: float = 0.25
+
+    def __post_init__(self):
+        if self.quality_poll_s < 0:
+            raise ValueError(f"quality_poll_s must be >= 0, "
+                             f"got {self.quality_poll_s}")
+        if self.canary_bound is not None and self.canary_bound < 0:
+            raise ValueError(f"canary_bound must be >= 0, "
+                             f"got {self.canary_bound}")
+
+    def canary(self):
+        from photon_ml_tpu_torch.quality import CanaryConfig
+
+        return CanaryConfig(gate=self.canary_gate, bound=self.canary_bound)
+
+
+def add_quality_flags(parser) -> None:
+    """The serve_game model-quality flags (drift monitoring + canary)."""
+    parser.add_argument(
+        "--canary-gate", action="store_true",
+        help="REFUSE a /reload or watch-dir candidate — exactly like a "
+             "validation failure, the incumbent keeps serving — when its "
+             "shadow scores over a reservoir of recent live requests "
+             "diverge from the incumbent's past the bound. Without the "
+             "flag the divergence is still measured and annotated onto "
+             "the activation")
+    parser.add_argument(
+        "--canary-bound", type=float, default=None,
+        help="max relative score divergence the canary accepts; default "
+             "= the configured --table-dtype's documented score "
+             "tolerance (bf16 1e-2, int8 5e-2; float32 takes 5e-2). "
+             "Widen it for intended large model changes")
+    parser.add_argument(
+        "--quality-poll-s", type=float, default=0.0,
+        help="period of the background drift evaluator: fold the live "
+             "score distribution against the active model's train-time "
+             "quality-baseline.json into photon_quality_drift_score "
+             "gauges, posting quality_drift_detected past "
+             "--drift-threshold (0 disables; evaluation is host-side "
+             "accumulator reads — never touches the score path)")
+    parser.add_argument(
+        "--drift-threshold", type=float, default=0.25,
+        help="total-score PSI above which quality_drift_detected fires "
+             "(rule of thumb: >0.25 = significant population shift)")
+
+
+def quality_from_args(args) -> QualityConfig:
+    return QualityConfig(canary_gate=args.canary_gate,
+                         canary_bound=args.canary_bound,
+                         quality_poll_s=args.quality_poll_s,
+                         drift_threshold=args.drift_threshold)
+
+
+# ---------------------------------------------------------------------------
+# Ranked-retrieval configuration (serve_game)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RankConfig:
+    """serve_game's ``/rank`` knobs.
+
+    ``item_coordinate`` names the random-effect coordinate whose entity
+    axis ``/rank`` retrieves over (None = ranking disabled — ``/rank``
+    answers 400); ``max_k`` bounds the requestable k and sizes the
+    power-of-two k buckets whose ranking programs are captured at warmup.
+    """
+
+    item_coordinate: Optional[str] = None
+    max_k: int = 128
+
+    def __post_init__(self):
+        if self.max_k < 1:
+            raise ValueError(f"max_k must be >= 1, got {self.max_k}")
+
+
+
+def add_rank_flags(parser) -> None:
+    """The serve_game ranked-retrieval flags."""
+    parser.add_argument(
+        "--rank-item-coordinate", default=None, metavar="COORD",
+        help="enable GET /rank?user=...&k=...: the random-effect "
+             "coordinate whose entity axis is the ITEM vocabulary — its "
+             "dense serving table is re-packed item-major (same "
+             "--table-dtype, dequantized in the ranking program) and "
+             "each request batch scores every item and sorts them "
+             "stably on the device. "
+             "Default: ranking disabled")
+    parser.add_argument(
+        "--rank-max-k", type=int, default=128,
+        help="largest requestable k (/rank k past it is a 400); also "
+             "sizes the power-of-two k buckets whose ranking programs "
+             "are captured at warmup")
+
+
+def rank_from_args(args) -> RankConfig:
+    return RankConfig(item_coordinate=args.rank_item_coordinate,
+                      max_k=args.rank_max_k)
+
 
 
 def add_unported_flags(parser: argparse.ArgumentParser,

@@ -20,9 +20,10 @@ parent's feature space), while entity vocabularies extend: new entities
 train and patch in as new rows. It runs on the card unless ``--device
 cpu`` asks for the CPU; ``--design-dtype`` (port-only, default float32 as
 in the reference) sets the dense designs' storage dtype. Saves run in the
-calling thread. Not ported yet (each raises :class:`NotImplementedError`
-naming the flag): ``--fleet-shards N > 0`` and the telemetry flags; the
-quality baseline is not written.
+calling thread, ``quality-baseline.json`` (the refreshed model profiled
+on the validation data, else the training data) among them. Not ported
+yet (each raises :class:`NotImplementedError` naming the flag):
+``--fleet-shards N > 0`` and the telemetry flags.
 """
 
 from __future__ import annotations
@@ -65,6 +66,11 @@ from photon_ml_tpu_torch.io.model_io import (
 )
 from photon_ml_tpu_torch.io.pipeline import save_model_patch_atomic
 from photon_ml_tpu_torch.logging_util import RunLogger, timed
+from photon_ml_tpu_torch.quality.baseline import (
+    BASELINE_NAME,
+    baseline_from_game,
+    save_baseline,
+)
 from photon_ml_tpu_torch.types import DataValidationType, TaskType
 
 logger = logging.getLogger(__name__)
@@ -268,6 +274,15 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             delta_mod.save_manifest(
                 os.path.join(args.output_dir, delta_mod.MANIFEST_NAME),
                 manifest)
+            # the refreshed model's quality baseline, with the refresh's
+            # lineage, at the run root: serving finds it for both best/
+            # and the sibling patch/
+            save_baseline(
+                os.path.join(args.output_dir, BASELINE_NAME),
+                baseline_from_game(
+                    result.model,
+                    validation[0] if validation is not None else data,
+                    task=task, lineage=lineage))
 
         # --- publish: the entity-level coefficient patch ----------------
         patch_dir = None

@@ -13,9 +13,14 @@ device, so f32 scores equal ``score_game``'s. ``--watch-dir`` applies the
 full models and coefficient patches published into a directory,
 ``--reqlog-dir`` logs every served request to Avro segments, and
 ``--max-connections`` refuses connections past a budget with a typed 503.
-Flags of the reference that the port does not run yet (fleet shards, the
-autopilot, the canary and quality monitor, ranked retrieval, retained
-telemetry, telemetry) are accepted by the parser and raise
+``--rank-item-coordinate`` (with ``--rank-max-k``) serves ``/rank``
+through a rank micro-batcher; ``--canary-gate`` (``--canary-bound``)
+refuses a candidate whose shadow scores over recent requests diverge from
+the incumbent's; ``--quality-poll-s`` runs the drift evaluator against the
+active version's ``quality-baseline.json``, posting
+``quality_drift_detected`` past ``--drift-threshold``. Flags of the
+reference that the port does not run yet (fleet shards, the autopilot,
+retained telemetry, telemetry) are accepted by the parser and raise
 :class:`NotImplementedError` naming the flag when given away from their
 default.
 """
@@ -26,9 +31,15 @@ import argparse
 import sys
 from typing import Optional, Sequence
 
+import numpy as np
+
 from photon_ml_tpu_torch.cli.config import (
+    add_quality_flags,
+    add_rank_flags,
     add_unported_flags,
     parse_feature_shard_config,
+    quality_from_args,
+    rank_from_args,
     refuse_unported,
 )
 
@@ -38,12 +49,6 @@ _UNPORTED_FLAGS = {
     "--fleet-shard": {"type": int, "default": None},
     "--fleet-shard-count": {"type": int, "default": None},
     "--autopilot-config": {"default": None},
-    "--canary-gate": {"action": "store_true"},
-    "--canary-bound": {"type": float, "default": None},
-    "--quality-poll-s": {"type": float, "default": 0.0},
-    "--drift-threshold": {"type": float, "default": 0.25},
-    "--rank-item-coordinate": {"default": None},
-    "--rank-max-k": {"type": int, "default": 128},
     "--history-capacity": {"type": int, "default": 240},
     "--history-period-s": {"type": float, "default": 0.0},
     "--flight-dir": {"default": None},
@@ -133,6 +138,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "with Connection: close, counted in "
                         "photon_connections_refused_total and shown by "
                         "/readyz as connections_exhausted")
+    add_quality_flags(p)
+    add_rank_flags(p)
     add_unported_flags(p, _UNPORTED_FLAGS)
     return p
 
@@ -157,18 +164,39 @@ def build_server(argv: Optional[Sequence[str]] = None):
     if args.max_connections < 0:
         raise ValueError(f"max_connections must be >= 0, got "
                          f"{args.max_connections}")
+    quality = quality_from_args(args)
+    rank = rank_from_args(args)
     shard_configs = tuple(parse_feature_shard_config(s)
                           for s in args.feature_shards.split(","))
     registry = ModelRegistry(shard_configs, max_batch=args.max_batch,
                              warmup=not args.no_warmup,
                              table_dtype=args.table_dtype,
-                             device=args.device)
+                             device=args.device,
+                             canary=quality.canary(),
+                             rank_coordinate=rank.item_coordinate,
+                             rank_max_k=rank.max_k)
     registry.load(args.model_dir)
     batcher = None
     if args.microbatch > 0:
         batcher = MicroBatcher(
             lambda records: registry.active().score(records),
             max_batch=args.microbatch, max_wait_ms=args.max_wait_ms,
+            max_queue=args.max_queue if args.max_queue > 0 else None)
+    rank_batcher = None
+    if rank.item_coordinate and args.microbatch > 0:
+        def rank_fn(entries):
+            # entries are opaque (record, k) pairs; the results ride a 1-D
+            # object array, the batcher's shape contract
+            results = registry.active().rank([r for r, _ in entries],
+                                             [k for _, k in entries])
+            out = np.empty(len(results), dtype=object)
+            for i, res in enumerate(results):
+                out[i] = res
+            return out
+
+        rank_batcher = MicroBatcher(
+            rank_fn, coerce=lambda v: v, max_batch=8,
+            max_wait_ms=args.max_wait_ms,
             max_queue=args.max_queue if args.max_queue > 0 else None)
     connections = ConnectionTracker(max_connections=args.max_connections)
     overload = None
@@ -183,7 +211,7 @@ def build_server(argv: Optional[Sequence[str]] = None):
             segment_records=args.reqlog_segment_records,
             max_bytes=int(args.reqlog_max_mb * (1 << 20)))
     service = ServingService(registry, default_model_dir=args.model_dir,
-                             batcher=batcher,
+                             batcher=batcher, rank_batcher=rank_batcher,
                              default_timeout_ms=args.request_timeout_ms,
                              overload=overload, connections=connections,
                              reqlog=reqlog)
@@ -191,15 +219,26 @@ def build_server(argv: Optional[Sequence[str]] = None):
     if args.watch_dir:
         watcher = ModelDirectoryWatcher(registry, args.watch_dir,
                                         poll_s=args.watch_poll_s)
+    drift = None
+    if quality.quality_poll_s > 0:
+        # live score distribution vs the active version's train-time
+        # baseline, on a background thread (host accumulators only)
+        from photon_ml_tpu_torch.quality import DriftEvaluator
+
+        drift = DriftEvaluator(registry, threshold=quality.drift_threshold,
+                               poll_s=quality.quality_poll_s)
     return GameServer(service, host=args.host, port=args.port,
-                      watcher=watcher)
+                      watcher=watcher, drift_evaluator=drift)
 
 
 def run(argv: Optional[Sequence[str]] = None) -> dict:
     server = build_server(argv)
     version = server.service.registry.active_version
+    rank_on = server.service.registry.rank_coordinate is not None
+    endpoints = ("/score" + (" /rank" if rank_on else "")
+                 + " /healthz /readyz /metrics /reload")
     print(f"serving GAME model version {version} on {server.url} "
-          f"(/score /healthz /readyz /metrics /reload)", flush=True)
+          f"({endpoints})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

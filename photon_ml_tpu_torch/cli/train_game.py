@@ -27,9 +27,11 @@ boundary state under ``<output-dir>/checkpoints``; ``--on-divergence``
 sets the divergence guard's policy. ``--tuning RANDOM|BAYESIAN`` replaces
 the grid with ``--tuning-iterations`` fits at points a random or a
 Gaussian-process search picks in ``--tuning-range`` (every coordinate's
-lambda), the coordinate datasets built once for all of them. Not written
-yet: the quality baseline and telemetry. Flags of the reference that the
-port does not run yet are accepted by the parser and raise
+lambda), the coordinate datasets built once for all of them. The run root
+also holds ``quality-baseline.json``: the best model's score profile on the
+validation data (the training data without one), which serving's canary
+and drift monitor read. Not written yet: telemetry. Flags of the reference
+that the port does not run yet are accepted by the parser and raise
 :class:`NotImplementedError` naming the flag.
 """
 
@@ -75,6 +77,11 @@ from photon_ml_tpu_torch.io.model_io import (
     save_game_model,
 )
 from photon_ml_tpu_torch.logging_util import RunLogger, timed
+from photon_ml_tpu_torch.quality.baseline import (
+    BASELINE_NAME,
+    baseline_from_game,
+    save_baseline,
+)
 from photon_ml_tpu_torch.types import DataValidationType, TaskType
 
 #: the reference's flags this command does not run yet, with their argparse
@@ -409,6 +416,15 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             else:
                 save_game_model(best_dir, best.model, index_maps, vocabs,
                                 **save)
+            # the winner's quality baseline at the run root: its score
+            # distribution on the validation data (the training data when
+            # the run has none), which serving compares live traffic with
+            save_baseline(
+                os.path.join(args.output_dir, BASELINE_NAME),
+                baseline_from_game(
+                    best.model,
+                    validation[0] if validation is not None else data,
+                    task=task, lineage=lineage))
         return {
             "best_config": dict(best.configuration.regularization_weights),
             "best_evaluation": (best.evaluation.as_dict()

@@ -8,7 +8,12 @@ solve; L-BFGS, TRON, or OWL-QN where the regularization has an L1 part) →
 score each on the validation data and select the best by the first
 evaluator → write ``best/`` and ``all/lambda-*/`` (``model.avro`` and
 ``model.txt`` each) beside ``feature-index.json`` and, when asked,
-``summary.avro``. The directory loads in either package.
+``summary.avro``; with ``--training-diagnostics``, then the reference's
+diagnosed stage: ``diagnostics/report.html`` with
+``--diagnostic-bootstrap-replicates`` bootstrap solves (coefficient CIs in
+the original feature space), Hosmer–Lemeshow on the validation data (the
+training data without one; logistic only), feature importance and, with
+validation data, the fitting curve. The directory loads in either package.
 
     python -m photon_ml_tpu_torch train_glm --training-data train.avro \\
         --validation-data valid.avro --output-dir out \\
@@ -46,11 +51,20 @@ from photon_ml_tpu_torch.cli.config import (
 )
 from photon_ml_tpu_torch.data_validation import validate_game_data
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.diagnostics import (
+    bootstrap_coefficients,
+    expected_magnitude_importance,
+    fitting_curve,
+    hosmer_lemeshow,
+    variance_importance,
+    write_report,
+)
 from photon_ml_tpu_torch.evaluation import parse_evaluators
 from photon_ml_tpu_torch.events import GLOBAL_BUS
 from photon_ml_tpu_torch.game.data import GameData, design_dtype_of
 from photon_ml_tpu_torch.glm.problem import GLMOptimizationConfiguration
 from photon_ml_tpu_torch.glm.training import (
+    build_problem,
     train_glm_sweep,
     train_glm_sweep_batched,
     validate_and_select,
@@ -98,8 +112,6 @@ DENSE_MAX_DIM = 4096
 #: the reference's flags this command does not run yet, with their argparse
 #: settings: each is accepted and raises NotImplementedError when given
 _UNPORTED_FLAGS = {
-    "--training-diagnostics": {"action": "store_true"},
-    "--diagnostic-bootstrap-replicates": {"type": int},
     "--profile": {"action": "store_true"},
     "--debug-nans": {"action": "store_true"},
     "--multihost": {"action": "store_true"},
@@ -143,6 +155,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=[v.value for v in DataValidationType])
     p.add_argument("--summarization-output", action="store_true",
                    help="write per-feature summary stats avro")
+    p.add_argument("--training-diagnostics", action="store_true",
+                   help="write diagnostics/report.html (bootstrap CIs, "
+                        "Hosmer-Lemeshow, feature importance, fitting "
+                        "curve)")
+    p.add_argument("--diagnostic-bootstrap-replicates", type=_positive_int,
+                   default=16)
     p.add_argument("--input-columns", default="",
                    help="remap record fields, e.g. 'response=label'")
     p.add_argument("--warm-start", metavar="DIR",
@@ -167,6 +185,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _positive_int(s: str) -> int:
+    v = int(s)
+    if v < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
+    return v
+
+
 def _to_glm_data(data: GameData, shard_id: str, dtype, device) -> GLMData:
     """The shard as a :class:`GLMData` on ``device``: dense in ``dtype`` up
     to :data:`DENSE_MAX_DIM` columns (densified on the device), else a
@@ -185,6 +210,60 @@ def _to_glm_data(data: GameData, shard_id: str, dtype, device) -> GLMData:
 
     return GLMData(design=design, labels=put(data.labels),
                    offsets=put(data.offsets), weights=put(data.weights))
+
+
+def _run_diagnostics(args, task, best, glm_train, glm_val, shard, stats, imap,
+                     config, normalization, reg_mask, run_logger) -> str:
+    """The reference driver's DIAGNOSED stage (``--training-diagnostics``):
+    bootstrap CIs, Hosmer-Lemeshow (logistic only), feature importance and
+    the fitting curve, written as ``diagnostics/report.html``. The
+    replicate and portion solves run where the training data lies, each
+    lane with its own weight vector (kernel 1 per lane on a dense design).
+    """
+    problem = build_problem(task, config, normalization, reg_mask)
+    lam = best.regularization_weight
+    # the sweep's solution in transformed (normalized) space
+    w_t = best.result.w
+    # replicate solutions live in transformed space; report the CIs in the
+    # original feature space, as the published coefficients are
+    transform = (None if normalization.is_identity
+                 else normalization.model_to_original)
+    boot = bootstrap_coefficients(
+        problem, glm_train, w_t, lam,
+        n_replicates=args.diagnostic_bootstrap_replicates,
+        transform=transform)
+
+    hl = None
+    if task == TaskType.LOGISTIC_REGRESSION:
+        ev_data = glm_val if glm_val is not None else glm_train
+        probs = best.model.predict_mean(ev_data.design, ev_data.offsets)
+        hl = hosmer_lemeshow(probs, ev_data.labels, ev_data.weights)
+        run_logger.metric(stage="diagnostics", hl_chi_square=hl.chi_square,
+                          hl_p_value=hl.p_value)
+
+    if stats is None:
+        stats = FeatureDataStatistics.from_shard(shard)
+    names = imap.names()
+    coefs = best.model.coefficients.means
+    importance = [variance_importance(coefs, stats, names=names),
+                  expected_magnitude_importance(coefs, stats, names=names)]
+
+    fitting = None
+    if glm_val is not None:
+        # every portion warm-starts from the trained solution
+        fitting = fitting_curve(problem, glm_train, glm_val, w_t, lam)
+
+    return write_report(
+        os.path.join(args.output_dir, "diagnostics", "report.html"),
+        model_summary={
+            "task": task.value,
+            "best lambda": lam,
+            "optimizer": config.optimizer.value,
+            "iterations": int(best.result.iterations),
+            "converged": bool(best.result.converged),
+        },
+        bootstrap=boot, hosmer_lemeshow=hl, importance=importance,
+        fitting=fitting, feature_names=names)
 
 
 def run(argv: Optional[Sequence[str]] = None) -> dict:
@@ -223,6 +302,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         shard = data.shards["global"]
         norm_type = NormalizationType(args.normalization)
         normalization = NoNormalization
+        stats = None
         if norm_type != NormalizationType.NONE or args.summarization_output:
             with timed("Summarize features", run_logger):
                 stats = FeatureDataStatistics.from_shard(shard).allreduce()
@@ -320,7 +400,10 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             trained = [tm for tm in trained if tm not in diverged]
 
         best_idx = 0
-        if args.validation_data and evaluators:
+        glm_val = None
+        # the diagnostics read the validation data too (the fitting curve,
+        # out-of-sample HL), also without evaluators
+        if args.validation_data and (evaluators or args.training_diagnostics):
             reader_v = AvroDataReader(shard_configs=reader.shard_configs,
                                       index_maps=index_maps,
                                       input_columns=reader.input_columns)
@@ -329,6 +412,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                                             id_columns=id_columns)
             glm_val = _to_glm_data(vdata, "global", args.design_dtype,
                                    device)
+        if glm_val is not None and evaluators:
             with timed("Validate models", run_logger):
                 best_idx, trained = validate_and_select(
                     trained, evaluators, glm_val,
@@ -353,12 +437,20 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                 save(tm.model, os.path.join(args.output_dir, "all",
                                             model_id), model_id)
             save(best.model, os.path.join(args.output_dir, "best"), "best")
+        report_path = None
+        if args.training_diagnostics:
+            with timed("Diagnostics", run_logger):
+                report_path = _run_diagnostics(
+                    args, task, best, glm_train, glm_val, shard, stats, imap,
+                    config, normalization, reg_mask, run_logger)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
         return {
             "best_lambda": best.regularization_weight,
             "best_evaluation": (best.evaluation.as_dict()
                                 if best.evaluation else None),
             "output_dir": args.output_dir,
-            "diagnostics_report": None,
+            "diagnostics_report": report_path,
         }
     finally:
         run_logger.close()

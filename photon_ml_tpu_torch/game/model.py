@@ -16,6 +16,7 @@ import dataclasses
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 
 from photon_ml_tpu_torch.game.data import FeatureShard, GameData
 from photon_ml_tpu_torch.game.projector import RandomProjector
@@ -40,9 +41,17 @@ class FixedEffectModel:
         return out.astype(np.float32)
 
 
-def sum_coordinate_margins(offsets, margins) -> np.ndarray:
+def sum_coordinate_margins(offsets, margins):
     """The GAME score-summation contract: ``f32(f64(offset) + Σ f64(mᵢ))``
-    accumulated in coordinate order."""
+    accumulated in coordinate order, in numpy, or in torch where
+    ``offsets`` is a tensor (the serving and ranking programs; the margins
+    then broadcast against the offsets, e.g. ``(b, 1)`` user terms and
+    ``(b, items)`` item terms)."""
+    if isinstance(offsets, torch.Tensor):
+        total = offsets.to(torch.float64)
+        for m in margins:
+            total = total + m.to(torch.float64)
+        return total.to(torch.float32)
     total = np.asarray(offsets).astype(np.float64)
     for m in margins:
         total = total + np.asarray(m).astype(np.float64)

@@ -18,6 +18,9 @@ this explicit dispatch):
 - ``x`` ``(n, d)``, ``w`` ``(M, d)``: M lanes sharing the data, e.g. the
   lambdas of a batched sweep
   (:func:`~photon_ml_tpu_torch.ops.fused_glm.fused_value_and_grad_multi`);
+  lanes whose weights (labels, offsets) are ``(M, n)``, one row each (the
+  bootstrap replicates and fitting-curve portions of
+  :mod:`photon_ml_tpu_torch.diagnostics`), are one kernel-1 call per lane;
 
 and the Hessian-vector products of an ``(n, d)`` design through
 :mod:`~photon_ml_tpu_torch.ops.fused_hvp`. Each wrapper launches its CUDA
@@ -146,13 +149,30 @@ class GLMObjective:
         if self.uses_kernel(data):
             x = data.design.x
             if x.dim() == 3:
-                fused = fused_entity_value_and_grad
+                value, grad = fused_entity_value_and_grad(
+                    self.loss, x, w, data.labels, data.offsets, data.weights)
             elif w.dim() == 1:
-                fused = fused_value_and_grad
+                value, grad = fused_value_and_grad(
+                    self.loss, x, w, data.labels, data.offsets, data.weights)
+            elif max(data.labels.dim(), data.offsets.dim(),
+                     data.weights.dim()) > 1:
+                # lanes with data vectors of their own (bootstrap
+                # replicates, fitting-curve portions): kernel 4 shares one
+                # weight vector across its lanes, so each lane is a launch
+                # of kernel 1, as the JAX kernel's batching rule maps
+                # kernel 1 over such lanes
+                def lane(v, m):
+                    return v[m] if v.dim() > 1 else v
+
+                pairs = [fused_value_and_grad(
+                    self.loss, x, w[m], lane(data.labels, m),
+                    lane(data.offsets, m), lane(data.weights, m))
+                    for m in range(w.shape[0])]
+                value = torch.stack([v for v, _ in pairs])
+                grad = torch.stack([g for _, g in pairs])
             else:
-                fused = fused_value_and_grad_multi
-            value, grad = fused(self.loss, x, w, data.labels, data.offsets,
-                                data.weights)
+                value, grad = fused_value_and_grad_multi(
+                    self.loss, x, w, data.labels, data.offsets, data.weights)
             return (value + self._l2_term(w, l2),
                     grad.to(w.dtype) + _per_lane(l2) * self._reg_w(w))
         return self._closed_value_and_grad(w, data, l2)

@@ -13,8 +13,8 @@ versions (counterpart of ``photon_ml_tpu/serving``).
   scores bit-identical to ``score_game``;
 - :mod:`~photon_ml_tpu_torch.serving.batcher` and
   :mod:`~photon_ml_tpu_torch.serving.http`: the microbatching queue and the
-  stdlib JSON endpoint (``/score``, ``/reload``, ``/healthz``,
-  ``/readyz``, ``/metrics``) behind
+  stdlib JSON endpoint (``/score``, ``/rank``, ``/reload``,
+  ``/healthz``, ``/readyz``, ``/metrics``) behind
   ``python -m photon_ml_tpu_torch serve_game``, with the connection
   budget;
 - :mod:`~photon_ml_tpu_torch.serving.watcher`: polls a publish directory
@@ -24,8 +24,10 @@ versions (counterpart of ``photon_ml_tpu/serving``).
 - :mod:`~photon_ml_tpu_torch.serving.overload`: typed load shedding,
   deadlines and the brownout controller.
 
-Not ported: fleet shards and fleet-shard patches, the live reshard, the
-canary and quality monitor, ranked retrieval and span tracing.
+Each version carries its quality baseline and monitor, a canary can gate
+its activation (:mod:`photon_ml_tpu_torch.quality`), and ``/rank`` ranks
+an item coordinate (:mod:`photon_ml_tpu_torch.retrieval`). Not ported:
+fleet shards and fleet-shard patches, the live reshard and request spans.
 """
 
 from photon_ml_tpu_torch.serving.overload import (  # noqa: F401

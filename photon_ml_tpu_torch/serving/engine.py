@@ -45,7 +45,9 @@ still replaying on the parent reads the parent's tables, and no buffer is
 shared between versions. Each engine captures its buckets once at warmup
 and none after, whichever way its version was made; what a patch saves
 over a full load is the decode and the rebuild of the untouched rows, not
-the captures. Not ported: the quality monitor (``monitor`` stays None).
+the captures. Each scored batch is handed to the version's quality monitor
+(``monitor``, attached by the registry) after the copy to the host,
+outside the graphs; brownout's ``quality`` level sheds it.
 """
 
 from __future__ import annotations
@@ -58,12 +60,17 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device
-from photon_ml_tpu_torch.game.model import FixedEffectModel, GameModel
+from photon_ml_tpu_torch.game.model import (
+    FixedEffectModel,
+    GameModel,
+    sum_coordinate_margins,
+)
 from photon_ml_tpu_torch.io.data_reader import (
     FeatureShardConfig,
     _record_features,
 )
 from photon_ml_tpu_torch.io.index import IndexMap
+from photon_ml_tpu_torch.serving import overload as _overload
 from photon_ml_tpu_torch.serving import stages as _stages
 from photon_ml_tpu_torch.serving import store as _store
 from photon_ml_tpu_torch.serving.store import EntityCoefficientStore
@@ -162,7 +169,9 @@ class ScoringEngine:
         self._programs: dict[int, _BucketProgram] = {}
         self._build_lock = threading.Lock()
         self._compiles = 0  # guarded-by: _build_lock
-        #: the JAX engine's quality monitor hook; not ported, stays None
+        #: the version's online quality monitor
+        #: (:class:`~photon_ml_tpu_torch.quality.monitor.QualityMonitor`),
+        #: attached by the registry at load; None = no accumulation
         self.monitor = None
 
     # --- the scoring program ----------------------------------------------
@@ -183,11 +192,7 @@ class ScoringEngine:
                                          re_rows[cid], f64)
                 m = (x * tab).sum(dim=1)
             margins.append(m.to(torch.float32))
-        # sum_coordinate_margins in torch: f32(f64(offset) + Σ f64(mᵢ))
-        total = offsets.to(f64)
-        for m in margins:
-            total = total + m.to(f64)
-        return total.to(torch.float32), tuple(margins)
+        return sum_coordinate_margins(offsets, margins), tuple(margins)
 
     def _build(self, b: int) -> _BucketProgram:
         dev = self.device
@@ -315,6 +320,19 @@ class ScoringEngine:
         _stages.record("execute", exec_t.seconds)
         with self._lock:
             self._n_scored += batch.n
+        monitor = self.monitor
+        if monitor is not None and not _overload.is_shed("quality"):
+            # live quality accumulation (brownout level 2+ sheds it as
+            # optional work): fallback-row hits per coordinate and nonzero
+            # design cells per shard, host facts this batch already holds
+            cold = {
+                cid: int(np.count_nonzero(
+                    np.asarray(r) == self.stores[cid].fallback_row))
+                for cid, r in zip(self._re_order, batch.rows)}
+            coverage = {
+                cfg.shard_id: (int(np.count_nonzero(x)), int(x.size))
+                for cfg, x in zip(self.shard_configs, batch.xs)}
+            monitor.observe(out, cold=cold, coverage=coverage)
         return (out, margins) if with_margins else out
 
     def _score_chunk(self, batch: RequestBatch, lo: int, hi: int,

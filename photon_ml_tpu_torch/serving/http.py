@@ -26,8 +26,15 @@ Counterpart of ``photon_ml_tpu/serving/http.py``, JSON endpoints over
   serving. Two-phase: ``"phase": "prepare"`` registers a warmed version
   without activating it, ``"activate"`` or ``"abort"`` with its
   ``"version"`` pins or retires it.
-- ``GET /rank`` and ``GET /history`` answer **501**: ranked retrieval and
-  the retained-telemetry ring are not ported.
+- ``GET /rank?user=...&k=...`` (also ``POST /rank`` with a full
+  ``record``): top-k retrieval over the configured item coordinate
+  (``serve_game --rank-item-coordinate``): ``{"ids": [...], "scores":
+  [...], "k", "version", "lineage", "latency_ms", "request_id"}``, with
+  the admission control, deadline and brownout of ``/score``; a bad k, a
+  payload without ``user`` or ``record``, or ranking off is a 400. Ranked
+  requests land in the request log as ``kind="rank"`` with their top-k.
+- ``GET /history`` answers **501**: the retained-telemetry ring is not
+  ported.
 
 Every request gets an id here (an inbound ``X-Photon-Request-Id`` is
 honoured, else one is minted), echoed as a header and in the ``/score``
@@ -39,8 +46,11 @@ execute|respond}``. 200 ``/score`` replies carry the
 when a swap lands while the request waits in the microbatcher. With a
 :class:`~photon_ml_tpu_torch.serving.reqlog.RequestLog` every served
 ``/score`` is logged with its stage timings, version and lineage, and
-``/healthz`` carries the log's counters. Not ported: spans, the canary
-reservoir, shard-map checks and the live-reshard ``prepare``.
+``/healthz`` carries the log's counters. Scored records feed the
+registry's canary reservoir; ``/healthz`` carries whether the active
+version has a quality baseline, the reservoir's size, the active version's
+canary annotation and, with ranking on, the rank counters. Not ported:
+request spans, shard-map checks and the live-reshard ``prepare``.
 """
 
 from __future__ import annotations
@@ -51,7 +61,7 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Mapping, Optional
-from urllib.parse import urlsplit
+from urllib.parse import parse_qs, urlsplit
 
 from photon_ml_tpu_torch.serving import overload as _overload
 from photon_ml_tpu_torch.serving import stages as _stages
@@ -211,10 +221,20 @@ LEG_SUMMARY_HEADER = "X-Photon-Leg-Summary"
 LEG_SUMMARY_STAGES = (
     "parse", "queue_wait", "batch_assemble", "execute", "respond")
 
+#: end-to-end /rank handling time (sheds excluded, as for /score)
+_RANK_REQUEST_LATENCY = _metrics.histogram(
+    "photon_rank_request_latency_seconds",
+    "End-to-end /rank request handling time")
+
+#: requested k of admitted /rank requests
+_RANK_K = _metrics.histogram(
+    "photon_rank_k",
+    "Requested k per admitted /rank request",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024))
+
 #: the endpoints of the JAX front end that the port does not serve, with
 #: what is missing
 _UNPORTED_PATHS = {
-    "/rank": "ranked retrieval (/rank) is not ported",
     "/history": "the retained-telemetry ring (/history) is not ported",
 }
 
@@ -251,6 +271,7 @@ class ServingService:
     def __init__(self, registry: ModelRegistry, *,
                  default_model_dir: Optional[str] = None,
                  batcher: Optional[MicroBatcher] = None,
+                 rank_batcher: Optional[MicroBatcher] = None,
                  default_timeout_ms: float = 0.0,
                  overload=None,
                  connections: Optional[ConnectionTracker] = None,
@@ -258,6 +279,9 @@ class ServingService:
         self.registry = registry
         self.default_model_dir = default_model_dir
         self.batcher = batcher
+        #: the /rank coalescing queue (a MicroBatcher over (record, k)
+        #: entries), None = rank calls go straight to the engine
+        self.rank_batcher = rank_batcher
         #: server-side deadline of requests that carry no
         #: X-Photon-Deadline-Ms of their own (0 = none)
         self.default_timeout_ms = float(default_timeout_ms)
@@ -271,6 +295,7 @@ class ServingService:
         self._lock = threading.Lock()
         self.n_requests = 0  # guarded-by: _lock
         self.n_scored = 0  # guarded-by: _lock
+        self.n_ranked = 0  # guarded-by: _lock
         self._started_monotonic = time.monotonic()
 
     # --- deadlines --------------------------------------------------------
@@ -367,6 +392,9 @@ class ServingService:
         with self._lock:
             self.n_requests += 1
             self.n_scored += len(records)
+        # scored records feed the canary reservoir: the workload the next
+        # candidate is shadow-scored on
+        self.registry.observe_requests(records)
         if self.reqlog is not None:
             timings = dict(stage_ms or {})
             timings["score"] = latency_ms
@@ -388,15 +416,103 @@ class ServingService:
             out["deadline_ms"] = round(self.remaining_ms(deadline), 1)
         return out
 
+    def rank(self, payload: dict,
+             request_id: Optional[str] = None,
+             stage_ms: Optional[Mapping[str, float]] = None,
+             deadline: Optional[float] = None,
+             stage_sink: Optional[dict] = None) -> dict:
+        """Rank one user against the active version's item axis.
+        ``payload`` carries ``k`` and either ``user`` (a raw entity id,
+        ranked featureless and applied to every non-item coordinate's
+        entity type) or a full ``record``. Admission as for :meth:`score`:
+        an expired deadline, a full rank queue or max brownout raises
+        :class:`~photon_ml_tpu_torch.serving.overload.Shed` (→ 429) before
+        the engine runs, and sheds stay out of the latency histogram."""
+        if request_id is None:
+            request_id = new_request_id()
+        active = self.registry.active()
+        engine = active.rank_engine
+        if engine is None:
+            raise ValueError("ranking is not enabled (start serve_game "
+                             "with --rank-item-coordinate)")
+        try:
+            # an absent k is 10, bounded by the engine's
+            k = int(payload.get("k", min(10, engine.max_k)))
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"bad k {payload.get('k')!r} (want an integer)") from None
+        if not 1 <= k <= engine.max_k:
+            raise ValueError(f"k must be in [1, {engine.max_k}], got {k}")
+        record = payload.get("record")
+        if record is None:
+            user = payload.get("user")
+            if not user:
+                raise ValueError("payload needs 'user' (raw entity id) "
+                                 "or 'record' ({features, metadataMap})")
+            record = {"features": [],
+                      "metadataMap": {t: str(user)
+                                      for t in engine.user_entity_types},
+                      "offset": None}
+        if deadline is not None and time.monotonic() >= deadline:
+            raise _overload.shed(
+                "deadline", message="deadline expired before ranking")
+        if _overload.traffic_shed():
+            raise _overload.shed(
+                "brownout",
+                message=f"brownout level {_overload.level()} is shedding "
+                        f"traffic",
+                retry_after_s=2.0)
+        sink = stage_sink if stage_sink is not None else {}
+        with _RANK_REQUEST_LATENCY.time() as timer, _stages.collect(sink):
+            try:
+                if self.rank_batcher is not None:
+                    ids, scores = self.rank_batcher.score(
+                        (record, k), deadline=deadline, stage_out=sink)
+                else:
+                    ((ids, scores),) = active.rank([record], [k])
+            except _overload.Shed:
+                timer.discard()
+                raise
+        _RANK_K.observe(k)
+        latency_ms = timer.seconds * 1e3
+        served = sink.get(_stages.SERVED_BY)
+        if served is None:
+            served = (active.version, active.lineage)
+        version, lineage = served
+        with self._lock:
+            self.n_requests += 1
+            self.n_ranked += 1
+        if self.reqlog is not None:
+            timings = dict(stage_ms or {})
+            timings["rank"] = latency_ms
+            self.reqlog.log(
+                request_id=request_id, records=[record], scores=[0.0],
+                version=version, lineage=lineage, stage_ms=timings,
+                kind="rank",
+                topk={"k": k, "ids": list(ids),
+                      "scores": [float(v) for v in scores]})
+        self.registry.bus.post("rank_request", k=k, n=len(ids),
+                               latency_ms=latency_ms, version=version,
+                               request_id=request_id)
+        out = {"ids": list(ids), "scores": [float(v) for v in scores],
+               "k": k, "version": version, "lineage": lineage,
+               "latency_ms": round(latency_ms, 3),
+               "request_id": request_id}
+        if deadline is not None:
+            out["deadline_ms"] = round(self.remaining_ms(deadline), 1)
+        return out
+
     def healthz(self) -> dict:
         active = self.registry.active_or_none()
-        return {
+        out = {
             "status": "ok" if active is not None else "no_model",
             "version": self.registry.active_version,
             "versions": self.registry.versions(),
             "model_lineage_id": None if active is None else active.lineage,
             "parentModel": (None if active is None
                             else active.parent_lineage),
+            "quality_baseline": (active is not None
+                                 and active.baseline is not None),
             # the model's coordinate walk (id, entity type or null for the
             # fixed effect), in the order scores sum
             "coordinates": (None if active is None else [
@@ -407,15 +523,29 @@ class ServingService:
             "device": str(self.registry.device),
             "requests": self.n_requests,
             "scored": self.n_scored,
+            # the canary's shadow-scoring workload size
+            "reservoir": len(self.registry.reservoir),
             "uptime_s": round(time.monotonic() - self._started_monotonic, 1),
             "queue_depth": (0 if self.batcher is None
                             else self.batcher.queue_depth()),
             "shed": _overload.shed_counts(),
             "brownout_level": _overload.level(),
             "connections": self.connections.stats(),
-            **({} if self.reqlog is None
-               else {"reqlog": self.reqlog.stats()}),
         }
+        if self.reqlog is not None:
+            out["reqlog"] = self.reqlog.stats()
+        if active is not None and active.canary is not None:
+            out["canary"] = active.canary
+        if active is not None and active.rank_engine is not None:
+            out["rank"] = {
+                "items": active.rank_engine.index.n_items,
+                "max_k": active.rank_engine.max_k,
+                "requests": self.n_ranked,
+                "compiles": active.rank_engine.compile_count,
+                "user_re_coordinates": list(
+                    active.rank_engine.user_re_coordinates),
+            }
+        return out
 
     def readyz(self) -> tuple[int, dict]:
         """Readiness: ``(200 | 503, body)`` with the reasons and the same
@@ -425,6 +555,9 @@ class ServingService:
             reasons.append("no_active_model")
         if self.batcher is not None and self.batcher.dead is not None:
             reasons.append("batcher_worker_dead")
+        if self.rank_batcher is not None \
+                and self.rank_batcher.dead is not None:
+            reasons.append("rank_batcher_worker_dead")
         lvl = _overload.level()
         if lvl >= _overload.MAX_LEVEL:
             reasons.append("brownout_max")
@@ -479,12 +612,18 @@ class ServingService:
         previous = self.registry.active_version
         if phase == "prepare":
             sm = self.registry.prepare(model_dir)
-            return {"version": sm.version, "previous": previous,
-                    "lineage": sm.lineage, "model_dir": sm.model_dir,
-                    "phase": "prepared"}
-        sm = self.registry.reload(model_dir)
-        return {"version": sm.version, "previous": previous,
-                "model_dir": sm.model_dir}
+            out = {"version": sm.version, "previous": previous,
+                   "lineage": sm.lineage, "model_dir": sm.model_dir,
+                   "phase": "prepared"}
+        else:
+            sm = self.registry.reload(model_dir)
+            out = {"version": sm.version, "previous": previous,
+                   "model_dir": sm.model_dir}
+        if sm.canary is not None:
+            # the activation's canary annotation (divergence vs the
+            # incumbent over the request reservoir)
+            out["canary"] = sm.canary
+        return out
 
     def close(self) -> None:
         if self.overload is not None:
@@ -492,6 +631,8 @@ class ServingService:
             self.overload.stop()
         if self.batcher is not None:
             self.batcher.close()
+        if self.rank_batcher is not None:
+            self.rank_batcher.close()
         if self.reqlog is not None:
             self.reqlog.close()
 
@@ -612,9 +753,17 @@ def _make_handler(service: ServingService):
             self._conn_requests += 1
             service.connections.request_begin()
             try:
-                self._request_id()
-                path = urlsplit(self.path).path
-                if path == "/healthz":
+                rid = self._request_id()
+                parsed = urlsplit(self.path)
+                path = parsed.path
+                if path == "/rank":
+                    # ?user=<raw id>&k=<int>; the deadline is stamped in
+                    # the parse stage of the shared tail
+                    qs = parse_qs(parsed.query)
+                    self._handle_rank(rid, {key: values[0]
+                                            for key, values in qs.items()
+                                            if values})
+                elif path == "/healthz":
                     self._reply(200, service.healthz())
                 elif path == "/readyz":
                     status, body = service.readyz()
@@ -632,6 +781,41 @@ def _make_handler(service: ServingService):
                     self._reply(404, {"error": f"unknown path {self.path}"})
             finally:
                 service.connections.request_end()
+
+        def _handle_rank(self, rid: str, payload: dict,
+                         parse_s: Optional[float] = None) -> None:
+            """The /rank tail of the GET (query parameters) and POST (JSON
+            body) routes: stamp the deadline unless the POST parse did,
+            rank, and map a Shed to 429 as /score does."""
+            headers = None
+            leg_stages: dict = {}
+            try:
+                if parse_s is None:
+                    with _STAGE_SECONDS.labels(stage="parse").time() as t:
+                        self.deadline = service.resolve_deadline(
+                            self.headers.get(DEADLINE_HEADER))
+                    parse_s = t.seconds
+                out = service.rank(payload, request_id=rid,
+                                   stage_ms={"parse": parse_s * 1e3},
+                                   deadline=self.deadline,
+                                   stage_sink=leg_stages)
+                status = 200
+            except BatcherClosed as e:
+                self.close_connection = True
+                out = {"error": str(e), "reason": "stopping",
+                       "request_id": rid}
+                status = 503
+            except _overload.Shed as e:
+                out = {"error": str(e), "reason": e.reason,
+                       "request_id": rid}
+                status = shed_status(e)
+                headers = {"Retry-After": str(max(1, round(e.retry_after_s)))}
+            except ValueError as e:
+                out, status = {"error": str(e)}, 400
+            except Exception as e:
+                out, status = {"error": repr(e)}, 500
+            self._reply_with_summary(status, out, headers, leg_stages,
+                                     parse_s or 0.0)
 
         def do_POST(self):  # noqa: N802
             if self._refuse_if_stopping() or self._refuse_if_exhausted():
@@ -684,6 +868,9 @@ def _make_handler(service: ServingService):
                     out, status = {"error": repr(e)}, 500
                 self._reply_with_summary(status, out, headers, leg_stages,
                                          parse_t.seconds)
+            elif path == "/rank":
+                # a full record: {"record": ..., "k": N}
+                self._handle_rank(rid, payload, parse_s=parse_t.seconds)
             elif path == "/reload":
                 try:
                     self._reply(200, service.reload(payload))
@@ -704,12 +891,15 @@ def _make_handler(service: ServingService):
 class GameServer:
     """Threaded HTTP server wrapper with a test-friendly lifecycle. A
     ``watcher`` (:class:`~photon_ml_tpu_torch.serving.watcher.
-    ModelDirectoryWatcher`) starts and stops with the server."""
+    ModelDirectoryWatcher`) and a ``drift_evaluator``
+    (:class:`~photon_ml_tpu_torch.quality.monitor.DriftEvaluator`) start
+    and stop with the server."""
 
     def __init__(self, service: ServingService, *, host: str = "127.0.0.1",
-                 port: int = 0, watcher=None):
+                 port: int = 0, watcher=None, drift_evaluator=None):
         self.service = service
         self.watcher = watcher
+        self.drift_evaluator = drift_evaluator
         self._httpd = ThreadingHTTPServer((host, port),
                                           _make_handler(service))
         self._thread: Optional[threading.Thread] = None  # guarded-by: caller
@@ -723,9 +913,14 @@ class GameServer:
         host, port = self._httpd.server_address[:2]
         return f"http://{host}:{port}"
 
-    def start(self) -> "GameServer":
+    def _start_background(self) -> None:
         if self.watcher is not None:
             self.watcher.start()
+        if self.drift_evaluator is not None:
+            self.drift_evaluator.start()
+
+    def start(self) -> "GameServer":
+        self._start_background()
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True,
                                         name="photon-serving-http")
@@ -733,8 +928,7 @@ class GameServer:
         return self
 
     def serve_forever(self) -> None:
-        if self.watcher is not None:
-            self.watcher.start()
+        self._start_background()
         self._httpd.serve_forever()
 
     def stop(self) -> None:
@@ -743,6 +937,8 @@ class GameServer:
         self._httpd.photon_stopping = True
         if self.watcher is not None:
             self.watcher.stop()
+        if self.drift_evaluator is not None:
+            self.drift_evaluator.stop()
         self._httpd.shutdown()
         self._httpd.server_close()
         if self._thread is not None:

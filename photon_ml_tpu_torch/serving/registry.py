@@ -34,9 +34,29 @@ Loads and patches run under the resilience retry policy, with the
 ``serving.reload`` fault site at the verb and ``io.delta_publish`` between
 a patch's validation and its registration; a failure at any point leaves
 the active version serving and :meth:`versions` unchanged. Each version
-records its load's split (``load_seconds``). Not ported: reshard, the
-canary and quality monitor, fleet shards and fleet-shard patches, and the
-ranking engine.
+records its load's split (``load_seconds``).
+
+Quality and ranking:
+
+- each version carries the train-time baseline found at its run root
+  (:func:`~photon_ml_tpu_torch.quality.baseline.find_baseline`; a patch
+  without one inherits its parent's) and attaches a
+  :class:`~photon_ml_tpu_torch.quality.monitor.QualityMonitor` on it to
+  its engine;
+- with a :class:`~photon_ml_tpu_torch.quality.canary.CanaryConfig`, a
+  candidate (full load, reload or patch) shadow-scores the request
+  reservoir against the incumbent after its warmup and before it
+  registers; under the gate a divergence past the bound raises
+  :class:`~photon_ml_tpu_torch.quality.canary.CanaryRejected` through the
+  reject path, and the incumbent keeps serving;
+- with a ``rank_coordinate``, each version gets a
+  :class:`~photon_ml_tpu_torch.retrieval.engine.RankingEngine`: a patch
+  re-gathers only its touched items into the next
+  :class:`~photon_ml_tpu_torch.retrieval.index.ItemIndex` and shares the
+  parent's ranking programs, and a full load pins the rank-drift probes
+  into its baseline.
+
+Not ported: reshard, fleet shards and fleet-shard patches.
 """
 
 from __future__ import annotations
@@ -61,6 +81,16 @@ from photon_ml_tpu_torch.io.model_io import (
     model_kind,
     resolve_game_model_dir,
 )
+from photon_ml_tpu_torch.quality import (
+    CanaryConfig,
+    QualityMonitor,
+    RequestReservoir,
+    find_baseline,
+    load_baseline,
+    rank_probe_records,
+    rank_probe_sample,
+    run_canary,
+)
 from photon_ml_tpu_torch.resilience import fault_point, retry
 from photon_ml_tpu_torch.serving import stages as _stages
 from photon_ml_tpu_torch.serving.engine import ScoringEngine
@@ -76,6 +106,17 @@ _TABLE_BYTES = _metrics.gauge(
     "photon_serving_table_bytes",
     "Device bytes of the active serving coefficient table",
     labels=("coordinate", "dtype"))
+
+#: item-axis size of the active version's retrieval index (0 when ranking
+#: is off)
+_RANK_ITEMS = _metrics.gauge(
+    "photon_rank_items",
+    "Items in the active version's retrieval index (the /rank candidate "
+    "vocabulary; 0 = ranking disabled)")
+_metrics.mark_host_owned("photon_rank_items")
+
+#: how many probe users the rank-drift reference pins
+_RANK_PROBE_USERS = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +144,15 @@ class ServingModel:
     #: then ``capture`` (the warmup's graphs, with ``warmup``)
     load_seconds: Mapping[str, float] = dataclasses.field(
         default_factory=dict)
+    #: train-time quality profile found at the run root; seeds the
+    #: engine's monitor
+    baseline: object = None
+    #: canary annotation of this version's activation (divergence vs the
+    #: incumbent over the request reservoir), None when not evaluated
+    canary: Optional[Mapping] = None
+    #: this version's :class:`~photon_ml_tpu_torch.retrieval.engine.
+    #: RankingEngine` (None = ranking disabled)
+    rank_engine: object = None
 
     def score(self, records: Sequence[dict]):
         # the request path learns which version answered, also across the
@@ -113,6 +163,13 @@ class ServingModel:
     def score_margins(self, records: Sequence[dict]):
         _stages.note_served_by(self.version, self.lineage)
         return self.engine.score_margins(records)
+
+    def rank(self, records: Sequence[dict], ks: Sequence[int]):
+        if self.rank_engine is None:
+            raise RuntimeError("ranking is not enabled on this registry "
+                               "(pass rank_coordinate=)")
+        _stages.note_served_by(self.version, self.lineage)
+        return self.rank_engine.rank(records, ks)
 
 
 class ModelRegistry:
@@ -125,6 +182,9 @@ class ModelRegistry:
     def __init__(self, shard_configs: Sequence[FeatureShardConfig], *,
                  max_batch: int = 1024, warmup: bool = False,
                  table_dtype: str = "float32", device=None,
+                 canary: Optional[CanaryConfig] = None,
+                 rank_coordinate: Optional[str] = None,
+                 rank_max_k: int = 128,
                  bus: Optional[EventBus] = None):
         if table_dtype not in TABLE_DTYPES:
             raise ValueError(f"unknown table_dtype {table_dtype!r}; "
@@ -135,6 +195,16 @@ class ModelRegistry:
         self.warmup = warmup
         #: storage format of every loaded version's coefficient tables
         self.table_dtype = table_dtype
+        #: canary policy: None disables shadow scoring;
+        #: CanaryConfig(gate=False) annotates, gate=True refuses
+        self.canary = canary
+        #: bounded uniform sample of recent request records, the canary's
+        #: shadow-scoring workload (fed by observe_requests)
+        self.reservoir = RequestReservoir()
+        #: random-effect coordinate whose entity axis /rank retrieves over
+        #: (None = ranking disabled)
+        self.rank_coordinate = rank_coordinate
+        self.rank_max_k = int(rank_max_k)
         self.bus = bus if bus is not None else GLOBAL_BUS
         self._lock = threading.Lock()
         self._versions: dict[int, ServingModel] = {}  # guarded-by: _lock
@@ -163,6 +233,10 @@ class ModelRegistry:
     def get(self, version: int) -> ServingModel:
         with self._lock:
             return self._versions[version]
+
+    def observe_requests(self, records: Sequence[dict]) -> None:
+        """Feed scored request records into the canary reservoir."""
+        self.reservoir.add(records)
 
     # --- lifecycle --------------------------------------------------------
     def load(self, model_dir: str, *, activate: bool = True) -> ServingModel:
@@ -203,8 +277,13 @@ class ModelRegistry:
                 # incumbent while the new engine warms
                 t0 = time.perf_counter()
                 loaded["engine"].warmup()
+                if loaded["rank_engine"] is not None:
+                    loaded["rank_engine"].warmup()
                 loaded["load_seconds"]["capture"] = \
                     time.perf_counter() - t0
+            # the structure is sound; now the predictions are judged,
+            # on the warm candidate (its shadow scores capture nothing)
+            loaded["canary"] = self._canary_evaluate(loaded)
         except Exception as e:
             self.bus.post("model_reload_rejected", path=path,
                           error=repr(e))
@@ -232,6 +311,8 @@ class ModelRegistry:
             _TABLE_BYTES.labels(coordinate=cid,
                                 dtype=store.table_dtype).set(
                                     store.table_bytes)
+        _RANK_ITEMS.set(0 if sm.rank_engine is None
+                        else sm.rank_engine.index.n_items)
         self.bus.post("model_activated", version=sm.version,
                       previous=None if previous is None
                       else previous.version)
@@ -304,13 +385,90 @@ class ModelRegistry:
             if not isinstance(cm, FixedEffectModel)}
         engine = ScoringEngine(model, self.shard_configs, index_maps, stores,
                                max_batch=self.max_batch, device=self.device)
+        incumbent = self._active
+        rank_engine = self._build_rank_engine(
+            engine, stores,
+            share_from=None if incumbent is None else incumbent.rank_engine)
+        # the train-time profile published at the run root; without one
+        # the monitor accumulates without score bins
+        baseline = load_baseline(find_baseline(model_dir))
+        # a full load pins the rank-drift reference (patches inherit it)
+        baseline = self._pin_rank_reference(baseline, rank_engine, stores)
+        engine.monitor = QualityMonitor(baseline)
         return {"model_dir": model_dir, "model": model,
                 "index_maps": index_maps, "stores": stores,
-                "engine": engine, "lineage": lineage,
+                "engine": engine, "rank_engine": rank_engine,
+                "lineage": lineage,
                 "parent_lineage": metadata.get("parentModel"),
-                "entity_vocabs": vocabs,
+                "entity_vocabs": vocabs, "baseline": baseline,
                 "load_seconds": {"read": t1 - t0,
                                  "build": time.perf_counter() - t1}}
+
+    # --- ranking ----------------------------------------------------------
+    def _build_rank_engine(self, engine: ScoringEngine, stores, *,
+                           index=None, share_from=None):
+        """The version's RankingEngine (None when ranking is off).
+        ``index`` replaces the from-scratch ItemIndex build (the patch
+        path's incremental one); ``share_from`` reuses a compatible
+        engine's programs."""
+        if self.rank_coordinate is None:
+            return None
+        from photon_ml_tpu_torch.retrieval import ItemIndex, RankingEngine
+
+        store = stores.get(self.rank_coordinate)
+        if store is None:
+            raise ValueError(
+                f"rank coordinate {self.rank_coordinate!r} is not a "
+                f"random-effect coordinate of this model "
+                f"(have {sorted(stores)})")
+        if index is None:
+            index = ItemIndex.build(store, self.rank_coordinate)
+        return RankingEngine(engine, index, max_k=self.rank_max_k,
+                             share_from=share_from)
+
+    def _pin_rank_reference(self, baseline, rank_engine, stores):
+        """Attach the rank-drift reference (deterministic probe users →
+        their top-k ids now) to a full load's baseline; at load time,
+        before activation, never on the request path."""
+        if baseline is None or rank_engine is None \
+                or baseline.rank_probes is not None \
+                or rank_engine.index.n_items == 0:
+            return baseline
+        user_ids: list = []
+        for cid in rank_engine.user_re_coordinates:
+            user_ids.extend(stores[cid].row_of_id)
+        if not user_ids:
+            # a model without user coordinates ranks every user cold
+            user_ids = [f"__rank_probe_{i}"
+                        for i in range(_RANK_PROBE_USERS)]
+        probes = rank_probe_sample(user_ids, _RANK_PROBE_USERS)
+        k = min(10, rank_engine.max_k, rank_engine.index.n_items)
+        results = rank_engine.rank(
+            rank_probe_records(probes, rank_engine.user_entity_types),
+            [k] * len(probes))
+        return dataclasses.replace(
+            baseline, rank_k=k,
+            rank_probes={u: tuple(ids)
+                         for u, (ids, _) in zip(probes, results)})
+
+    def _canary_evaluate(self, loaded: dict) -> Optional[dict]:
+        """Shadow-score the request reservoir through the candidate vs the
+        incumbent. None (skipped) without a canary config, an incumbent,
+        or enough reservoir traffic; raises CanaryRejected past the bound
+        when the config gates."""
+        cfg = self.canary
+        if cfg is None:
+            return None
+        incumbent = self._active
+        if incumbent is None:
+            return None
+        records = self.reservoir.sample()
+        if len(records) < cfg.min_records:
+            return None
+        return run_canary(
+            incumbent.engine.score, loaded["engine"].score, records,
+            bound=cfg.bound_for(self.table_dtype), gate=cfg.gate,
+            candidate_dir=loaded["model_dir"], bus=self.bus)
 
     def _load_patch_validated(self, patch_dir: str) -> dict:
         t0 = time.perf_counter()
@@ -395,9 +553,36 @@ class ModelRegistry:
         engine = ScoringEngine(model, self.shard_configs, parent.index_maps,
                                stores, max_batch=self.max_batch,
                                device=self.device)
+        rank_engine = None
+        if self.rank_coordinate is not None:
+            parent_rank = parent.rank_engine
+            cid = self.rank_coordinate
+            index = None if parent_rank is None else parent_rank.index
+            if index is not None and stores.get(cid) is not \
+                    parent.stores.get(cid):
+                # the patch touched the item coordinate: re-gather only
+                # the touched rows (new items append inside the padding)
+                t = model.coordinates[cid].random_effect_type
+                touched = (list(patch_vocabs.get(t, {}))
+                           + list(removed_by_cid.get(cid, [])))
+                index = index.apply_patch(stores[cid], touched)
+            rank_engine = self._build_rank_engine(
+                engine, stores, index=index, share_from=parent_rank)
+        # the refresh publishes its baseline at its run root (the patch's
+        # parent dir); a patch shipped alone inherits the incumbent's
+        baseline = load_baseline(find_baseline(model_dir)) or parent.baseline
+        if baseline is not None and baseline.rank_probes is None \
+                and parent.baseline is not None \
+                and parent.baseline.rank_probes is not None:
+            # the rank-drift reference chains through patches
+            baseline = dataclasses.replace(
+                baseline, rank_k=parent.baseline.rank_k,
+                rank_probes=parent.baseline.rank_probes)
+        engine.monitor = QualityMonitor(baseline)
         return {"model_dir": model_dir, "model": model,
                 "index_maps": parent.index_maps, "stores": stores,
-                "engine": engine,
+                "engine": engine, "rank_engine": rank_engine,
+                "baseline": baseline,
                 # the patched version is the merged full model: the next
                 # patch chains onto it
                 "lineage": metadata.get("modelId"),

@@ -129,17 +129,20 @@ class RequestLog:
     def log(self, *, request_id: str, records: Sequence[dict],
             scores: Sequence[float], version: int,
             lineage: Optional[str] = None,
-            stage_ms: Optional[Mapping[str, float]] = None) -> bool:
+            stage_ms: Optional[Mapping[str, float]] = None,
+            kind: str = "score",
+            topk: Optional[Mapping] = None) -> bool:
         """Append one served request. Returns True when it was accepted
         into the log, False when sampled out or dropped on backpressure.
-        The schema's ranked-request fields stay ``kind="score"`` and
-        ``topk=null``: the port serves no ``/rank``."""
+        ``kind`` marks the workload (``score`` | ``rank``); a ranked
+        request logs its request record (score 0.0) and the returned result
+        in ``topk`` (``{"k", "ids", "scores"}``)."""
         if not self.should_log(request_id):
             return False
         entry = {
             "requestId": str(request_id),
             "ts": time.time(),
-            "kind": "score",
+            "kind": str(kind),
             "modelVersion": int(version if version is not None else -1),
             "modelLineage": lineage,
             "stageMs": {k: float(v) for k, v in (stage_ms or {}).items()},
@@ -155,7 +158,12 @@ class RequestLog:
                 "label": (None if rec.get("label") is None
                           else float(rec["label"])),
             } for rec, s in zip(records, scores)],
-            "topk": None,
+            "topk": None if topk is None else {
+                "k": int(topk["k"]),
+                "ids": [str(i) for i in topk["ids"]],
+                # f32 scores widened to double: exact
+                "scores": [float(v) for v in topk["scores"]],
+            },
         }
         flush_batch = None
         with self._lock:

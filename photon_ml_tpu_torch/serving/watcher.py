@@ -16,7 +16,9 @@ into place, ``io/pipeline.py::publish_dir``), so a poll never sees half a
 model; entries whose name starts with ``.`` are never read. The seen set
 is keyed by content (:func:`candidate_content_key`), not by name alone: a
 corrected republish under the same name changes the key and is attempted
-again on the next poll. Not ported: the canary gate.
+again on the next poll. Under a canary-gated registry (``serve_game
+--canary-gate``) a candidate whose shadow scores diverge past the bound is
+rejected like an invalid one.
 """
 
 from __future__ import annotations
@@ -117,8 +119,15 @@ class ModelDirectoryWatcher:
             with self._lock:
                 self.n_applied += 1
             applied += 1
-            logger.info("watch-dir activated %s as version %d", path,
-                        sm.version)
+            if sm.canary is not None:
+                logger.info(
+                    "watch-dir activated %s as version %d (canary: %s, "
+                    "divergence %.4g over %d records)", path, sm.version,
+                    sm.canary["verdict"], sm.canary["divergence"],
+                    sm.canary["n"])
+            else:
+                logger.info("watch-dir activated %s as version %d", path,
+                            sm.version)
         return applied
 
     # --- lifecycle --------------------------------------------------------

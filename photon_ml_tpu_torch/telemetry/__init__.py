@@ -2,5 +2,5 @@
 (:mod:`~photon_ml_tpu_torch.telemetry.metrics`, a copy of the JAX
 package's) and its Prometheus text exposition
 (:mod:`~photon_ml_tpu_torch.telemetry.prometheus`), which ``GET /metrics``
-serves. Span tracing, compile accounting and the flight recorder are not
-ported."""
+serves, and span tracing (:mod:`~photon_ml_tpu_torch.telemetry.tracing`,
+a copy). Compile accounting and the flight recorder are not ported."""

@@ -157,9 +157,9 @@ def test_best_model_cross_loads(runs, data_files, trained_by):
     assert abs(t_auc - res["best_evaluation"]["AUC"]) < 1e-6
 
 
-#: run-root artefacts of the JAX package's train_game that the port does not write yet
-#: (quality/'s baseline)
-NOT_WRITTEN = {"quality-baseline.json"}
+#: run-root artefacts of the JAX package's train_game that the port does not
+#: write yet (none since the port writes quality-baseline.json)
+NOT_WRITTEN: set = set()
 
 
 def _tree(root):
@@ -189,6 +189,130 @@ def test_output_tree_matches(runs):
                       "Validate data",
                       "Read validation data", "Train (grid)", "best",
                       "Save models"]
+
+
+#: the baseline's label statistics (AUC, positive rate, bin masses), held
+#: as the runs' AUCs are (absolute, floor 1)
+BASELINE_TOL = 1e-4
+#: its chi-square and p-value, functions of the per-bin sums (relative)
+CHI_RTOL = 1e-2
+
+
+def _margins(run_dir, valid, shards=SHARDS, ids=("songId", "userId")):
+    """Per-coordinate margins and total scores of ``run_dir``'s best model
+    on ``valid``, loaded by the port."""
+    configs = tuple(parse_feature_shard_config(s) for s in shards.split(","))
+    maps = {c.shard_id: TIndexMap.load(os.path.join(
+        run_dir, "feature-indexes", f"{c.shard_id}.json")) for c in configs}
+    data, _, vocabs = TReader(shard_configs=configs, index_maps=maps).read(
+        valid, id_columns=ids)
+    model = tio.load_game_model(tio.resolve_game_model_dir(run_dir), maps,
+                                vocabs, device="cpu")
+    out = {cid: np.asarray(m, np.float64)
+           for cid, m in model.score_by_coordinate(data).items()}
+    out["total"] = np.asarray(model.score(data), np.float64)
+    return out
+
+
+def assert_baselines_close(t_dir, j_dir, t_margins, j_margins, n):
+    """The two runs' quality-baseline.json: the same keys and lineage (but
+    the training time); the label statistics at the AUC tolerance; the
+    score statistics within what the two fits' scores differ by
+    (quantiles, means and standard deviations move by at most the largest
+    score difference, a bin's expected positives by its count times a
+    quarter of it)."""
+    from photon_ml_tpu_torch.quality import BASELINE_NAME
+
+    docs = {}
+    for name, root in (("port", t_dir), ("jax", j_dir)):
+        with open(os.path.join(root, BASELINE_NAME)) as f:
+            docs[name] = json.load(f)
+        assert docs[name]["lineage"].pop("trainedAt")
+    t, j = docs["port"], docs["jax"]
+    assert t.keys() == j.keys()
+    for key in ("task", "nSamples", "coldRates", "coverage", "lineage",
+                "rankProbes"):
+        assert t[key] == j[key], key
+    assert t["nSamples"] == n and t["rankProbes"] is None
+    delta = {cid: float(np.abs(t_margins[cid] - j_margins[cid]).max())
+             + 1e-6 for cid in t_margins}
+
+    def close(a, b, tol):
+        assert abs(a - b) <= tol, (a, b, tol)
+
+    close(t["positiveRate"], j["positiveRate"], BASELINE_TOL)
+    if j["auc"] is not None:
+        close(t["auc"], j["auc"], BASELINE_TOL)
+    for a, b in zip(t["scoreBins"]["proportions"],
+                    j["scoreBins"]["proportions"]):
+        close(a, b, BASELINE_TOL)
+    assert len(t["scoreBins"]["edges"]) == len(j["scoreBins"]["edges"])
+    for a, b in zip(t["scoreBins"]["edges"], j["scoreBins"]["edges"]):
+        close(a, b, delta["total"])
+    for key in ("meanScore", "stdScore"):
+        close(t[key], j[key], delta["total"])
+    assert t["coordinates"].keys() == j["coordinates"].keys()
+    for cid, stats in t["coordinates"].items():
+        for key, v in stats.items():
+            close(v, j["coordinates"][cid][key], delta[cid])
+    tc, jc = t["calibration"], j["calibration"]
+    assert tc["binCounts"] == jc["binCounts"]
+    assert tc["observedPositives"] == jc["observedPositives"]
+    for count, a, b in zip(tc["binCounts"], tc["expectedPositives"],
+                           jc["expectedPositives"]):
+        close(a, b, count * delta["total"] / 4)
+    for a, b in zip(tc["meanPredicted"], jc["meanPredicted"]):
+        close(a, b, delta["total"] / 4)
+    for key in ("chiSquare", "pValue"):
+        close(tc[key], jc[key], CHI_RTOL * abs(jc[key]))
+
+
+def assert_baselines_cross_load(t_dir, j_dir, shards):
+    """Each package's registry finds and reads the other's baseline."""
+    from photon_ml_tpu.quality import load_baseline as j_load
+    from photon_ml_tpu.serving import ModelRegistry as JRegistry
+    from photon_ml_tpu_torch.quality import BASELINE_NAME
+    from photon_ml_tpu_torch.quality import load_baseline as t_load
+    from photon_ml_tpu_torch.serving import ModelRegistry as TRegistry
+
+    configs = tuple(parse_feature_shard_config(s) for s in shards.split(","))
+    t_sm = TRegistry(configs, device="cpu").load(j_dir)
+    j_sm = JRegistry(tuple(JShard(c.shard_id, c.feature_bags,
+                                  c.has_intercept) for c in configs)).load(
+        t_dir)
+    assert t_sm.baseline.to_dict() == t_load(
+        os.path.join(j_dir, BASELINE_NAME)).to_dict()
+    assert j_sm.baseline.to_dict() == j_load(
+        os.path.join(t_dir, BASELINE_NAME)).to_dict()
+    assert t_sm.engine.monitor.baseline is t_sm.baseline
+
+
+def test_quality_baseline_matches_and_cross_loads(runs, data_files):
+    """quality-baseline.json of both packages' train_game on the
+    validation file (:func:`assert_baselines_close`), read across."""
+    _, _, t_dir, _, j_dir = runs
+    assert_baselines_close(t_dir, j_dir, _margins(t_dir, data_files[1]),
+                           _margins(j_dir, data_files[1]), 1000)
+    assert_baselines_cross_load(t_dir, j_dir, SHARDS)
+
+
+def test_build_index_matches_jax(data_files, tmp_path):
+    """Both packages' build_index on one Avro write the same bytes."""
+    from photon_ml_tpu.cli import build_index as j_build
+    from photon_ml_tpu_torch.cli import build_index as t_build
+
+    args = ["--data", data_files[0], "--feature-shards", SHARDS]
+    t_res = t_build.run(args + ["--output-dir", str(tmp_path / "t")])
+    j_res = j_build.run(args + ["--output-dir", str(tmp_path / "j")])
+    assert t_res["sizes"] == j_res["sizes"] == {"global": 33, "item": 8}
+    for shard in ("global", "item"):
+        with open(tmp_path / "t" / f"{shard}.json", "rb") as a, \
+                open(tmp_path / "j" / f"{shard}.json", "rb") as b:
+            assert a.read() == b.read()
+    assert t_main(["build_index"] + args
+                  + ["--output-dir", str(tmp_path / "m")]) is None
+    assert sorted(os.listdir(tmp_path / "m")) == sorted(
+        os.listdir(tmp_path / "j"))
 
 
 def test_output_all_models_publishes_best(data_files, tmp_path):

@@ -41,6 +41,11 @@ from photon_ml_tpu_torch.io.pipeline import save_model_patch_atomic
 from photon_ml_tpu_torch.resilience import FaultPlan, FaultSpec, injected
 from photon_ml_tpu_torch.telemetry import metrics as tmetrics
 from photon_ml_tpu_torch.types import TaskType
+from test_torch_cli import (
+    _margins,
+    assert_baselines_close,
+    assert_baselines_cross_load,
+)
 
 SHARDS = "global=fixed|intercept,user=user|noIntercept"
 SHARD_IDS = ("global", "user")
@@ -302,6 +307,24 @@ def test_lineage_chains_to_prior(loop):
     assert (t_delta.load_manifest(os.path.join(p["t1"], "data-manifest.json"))
             == j_delta.load_manifest(os.path.join(p["j1"],
                                                   "data-manifest.json")))
+
+
+def test_refresh_writes_the_quality_baseline(loop):
+    """Both packages' refresh of the JAX prior write the same run-root
+    files, quality-baseline.json among them (profiled on the day-1
+    training data: the runs have no validation file), held as
+    tests/test_torch_cli.py holds train_game's and read across."""
+    p = loop["paths"]
+    assert sorted(os.listdir(p["tj1"])) == sorted(os.listdir(p["j1"]))
+    ids = ("userId",)
+    tm = _margins(p["tj1"], loop["d1"], SHARDS, ids)
+    assert_baselines_close(p["tj1"], p["j1"], tm,
+                           _margins(p["j1"], loop["d1"], SHARDS, ids),
+                           len(tm["total"]))
+    assert_baselines_cross_load(p["tj1"], p["j1"], SHARDS)
+    with open(os.path.join(p["t1"], "quality-baseline.json")) as f:
+        lineage = json.load(f)["lineage"]
+    assert lineage["parentModel"] == model_lineage_id(p["t0"])
 
 
 def test_patch_holds_exactly_the_solved_rows(loop):

@@ -349,6 +349,17 @@ _REQUIRED = ["--training-data", "x.avro", "--output-dir", "out"]
     ["--metrics-port", "9"],
 ], ids=lambda e: e[0][2:])
 def test_unported_flag_names_itself(tmp_path, extra):
+    if extra[0] in ("--training-diagnostics",
+                    "--diagnostic-bootstrap-replicates"):
+        # the diagnostics flags are ported (tests/test_torch_diagnostics.py
+        # runs them): they parse, with the reference's positive-int check
+        args = t_cli.build_parser().parse_args(_REQUIRED + extra)
+        assert (args.training_diagnostics if len(extra) == 1
+                else args.diagnostic_bootstrap_replicates == 4)
+        with pytest.raises(SystemExit):
+            t_cli.build_parser().parse_args(
+                _REQUIRED + ["--diagnostic-bootstrap-replicates", "0"])
+        return
     with pytest.raises(NotImplementedError, match=extra[0]):
         t_cli.run(_REQUIRED + extra)
 

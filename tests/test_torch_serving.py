@@ -518,9 +518,11 @@ def test_http_scores_reload_and_endpoints(trained):
         assert status == 200
         assert b'photon_serving_stage_seconds_count{stage="execute"}' in text
         assert b"photon_serving_table_bytes" in text
-        for path in ("/rank?user=u1", "/history"):
-            status, text = _get(f"{url}{path}")
-            assert status == 501 and b"not ported" in text
+        # /rank is ported: without --rank-item-coordinate it is a 400
+        status, text = _get(f"{url}/rank?user=u1")
+        assert status == 400 and b"ranking is not enabled" in text
+        status, text = _get(f"{url}/history")
+        assert status == 501 and b"not ported" in text
         assert _get(f"{url}/nope")[0] == 404
     finally:
         server.stop()
@@ -566,9 +568,36 @@ def test_stopped_server_closes_its_socket(trained):
     ["--telemetry-poll-s", "1"], ["--metrics-port", "9"],
 ], ids=lambda e: e[0][2:])
 def test_unported_serve_flag_names_itself(extra):
+    if extra[0] in _QUALITY_AND_RANK_FLAGS:
+        # ported (tests/test_torch_quality.py serves with them): they
+        # parse into the quality and rank configurations
+        from photon_ml_tpu_torch.cli.config import (
+            quality_from_args,
+            rank_from_args,
+        )
+
+        args = t_serve.build_parser().parse_args(
+            ["--model-dir", "m", "--feature-shards", SHARDS] + extra)
+        configs = (quality_from_args(args), rank_from_args(args))
+        key, want = _QUALITY_AND_RANK_FLAGS[extra[0]]
+        assert [getattr(c, key) for c in configs if hasattr(c, key)] == \
+            [want]
+        return
     with pytest.raises(NotImplementedError, match=extra[0]):
         t_serve.build_server(["--model-dir", "m", "--feature-shards", SHARDS,
                               "--device", "cpu"] + extra)
+
+
+#: the ported quality and rank flags of the list above, with the config
+#: key each sets and its value there
+_QUALITY_AND_RANK_FLAGS = {
+    "--canary-gate": ("canary_gate", True),
+    "--canary-bound": ("canary_bound", 1.0),
+    "--quality-poll-s": ("quality_poll_s", 1.0),
+    "--drift-threshold": ("drift_threshold", 0.5),
+    "--rank-item-coordinate": ("item_coordinate", "perUser"),
+    "--rank-max-k": ("max_k", 8),
+}
 
 
 #: each flag that now runs, with what it sets on the built server

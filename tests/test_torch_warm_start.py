@@ -240,8 +240,7 @@ def test_cli_lineage_and_manifest_equal_jax(cli):
         prior = json.load(f)
     assert prior["parentModel"] is None
     assert isinstance(prior["trainedAt"], str)
-    assert sorted(os.listdir(p["port"])) == sorted(
-        n for n in os.listdir(p["jax"]) if n != "quality-baseline.json")
+    assert sorted(os.listdir(p["port"])) == sorted(os.listdir(p["jax"]))
 
 
 def test_cli_checkpoint_resume_matches_uninterrupted(cli, tmp_path):
