@@ -189,7 +189,21 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    scores and captures unchanged), then the patch activated with its
    divergence recorded; (e) the drift evaluator's PSI on phase 10's
    records below the threshold, and above it with one feature shifted,
-   with ``quality_drift_detected`` posted.
+   with ``quality_drift_detected`` posted;
+15. multi-process training and scoring, two gloo ranks sharing the card:
+   (a) the distributed objective at phase 6's 200k x 1024 against one
+   process's kernels 1 and 3, and over NCCL at world size 1 (bit-identical
+   to one process); (b) ``train_glm --multihost`` on phase 9's dense
+   files (``MP_GLM_RUNS``) against one process: ranks bit-identical, the
+   gradient check, objectives within OBJECTIVE_RTOL, coefficients within
+   the JAX package's tolerance where both sides converged; (c)
+   ``train_game --multihost`` and (d) ``score_game --multihost`` against
+   phases 8 and 10 (a); (e) ``train_game --supervise 2`` on phase 8's
+   files with rank 1 killed at sweep 1: a restart, and the records of an
+   uninterrupted supervised run.
+
+``python3 chip_smoke.py --mp-gap-seeds 0,1,2`` runs phase 15 (b) alone
+over seeds of phase 6's problem and prints its gaps.
 
 Any failure exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the ``kernels``
@@ -199,6 +213,7 @@ summary. Data and coefficients are random, made from fixed seeds.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -1156,12 +1171,13 @@ def log_sweep(name, trained, best, sec, launches):
 # phase 8: the e2e CLI, Avro in, model directory out
 # --------------------------------------------------------------------------
 
-def e2e_records(data):
+def e2e_records(data, first_uid=0):
     """TrainingExampleAvro records of one make_e2e GameData, laid out as
     ``bench.py::_write_e2e_file`` lays them out: the global shard's
     features as ``g.x{k}`` (its intercept column left to the reader), the
     item shard's as ``it.x{k}``, ``userId`` ``u{user}`` and ``songId``
-    ``s{song}`` in the metadata map, null offsets and weights."""
+    ``s{song}`` in the metadata map, null offsets and weights; uids count
+    from ``first_uid``."""
     n = data.n_samples
     g, it = data.shards["global"], data.shards["item"]
     assert (np.diff(g.indptr) == 7).all() and (np.diff(it.indptr) == 4).all()
@@ -1176,7 +1192,8 @@ def e2e_records(data):
                  for k, v in zip(g_cols[j], g_vals[j]) if k != intercept]
         feats += [{"name": f"it.x{k}", "term": "", "value": v}
                   for k, v in zip(i_cols[j], i_vals[j])]
-        yield {"uid": str(j), "response": labels[j], "offset": None,
+        yield {"uid": str(first_uid + j), "response": labels[j],
+               "offset": None,
                "weight": None, "features": feats,
                "metadataMap": {"userId": f"u{users[j]}",
                                "songId": f"s{songs[j]}"}}
@@ -1204,6 +1221,59 @@ def cli_args(train, valid, out):
         "--design-dtype", "bfloat16",
         "--evaluators", "AUC",
     ]
+
+
+#: phase 8's training rows go to this many contiguous part files, written
+#: in parallel; read in name order they are the rows in the order one file
+#: held them, so the model is the one-file model. The validation rows go to
+#: one file (phases 10-14 read it) and to this many parts (phase 15's
+#: multi-process scoring needs a file a process).
+E2E_TRAIN_PARTS = 8
+E2E_VALID_PARTS = 2
+
+
+def write_e2e_part(path, data, first_uid):
+    """One TrainingExampleAvro file (null codec) of make_e2e rows. Runs in
+    a worker process."""
+    from photon_ml_tpu_torch.io import data_reader
+
+    data_reader.write_training_examples(path, e2e_records(data, first_uid),
+                                        codec="null")
+    return os.path.getsize(path)
+
+
+def _rows_of(data, lo, hi):
+    """Rows ``[lo, hi)`` of a host GameData."""
+    from photon_ml_tpu_torch.game.multiprocess import _take_rows
+
+    return _take_rows(data, np.arange(lo, hi))
+
+
+def write_e2e_files(root, train, valid):
+    """Phase 8's files under ``root``: ``train/part-NNNNN.avro``
+    (:data:`E2E_TRAIN_PARTS` contiguous parts), ``valid.avro`` and ``valid_parts/``
+    (:data:`E2E_VALID_PARTS`), all at once over a pool of spawned writer
+    processes. Returns (paths, {set: bytes})."""
+    import concurrent.futures
+    import multiprocessing
+
+    paths = {"train": os.path.join(root, "train"),
+             "valid": os.path.join(root, "valid.avro"),
+             "valid_parts": os.path.join(root, "valid_parts")}
+    jobs = [(paths["valid"], valid, 0)]
+    for key, data, parts in (("train", train, E2E_TRAIN_PARTS),
+                             ("valid_parts", valid, E2E_VALID_PARTS)):
+        os.makedirs(paths[key])
+        cuts = np.linspace(0, data.n_samples, parts + 1).astype(np.int64)
+        for k, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+            jobs.append((os.path.join(paths[key], f"part-{k:05d}.avro"),
+                         _rows_of(data, int(lo), int(hi)), int(lo)))
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(len(jobs), os.cpu_count() or 1, 8),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        sizes = list(pool.map(write_e2e_part, *zip(*jobs)))
+    return paths, {"valid": sizes[0],
+                   "train": sum(sizes[1:1 + E2E_TRAIN_PARTS])}
 
 
 class Counted:
@@ -1238,18 +1308,13 @@ def run_cli_phase(tg, fused_glm, fused_re, auc_phase3, auc_fe, tmp):
     from photon_ml_tpu_torch.io.index import IndexMap
 
     train, valid = make_e2e(tg, **E2E)
-    paths = {}
     t0 = time.perf_counter()
-    for name, data in (("train", train), ("valid", valid)):
-        paths[name] = os.path.join(tmp, f"{name}.avro")
-        data_reader.write_training_examples(
-            paths[name], e2e_records(data), codec="null")
-    write_s = time.perf_counter() - t0
-    size = {k: os.path.getsize(p) for k, p in paths.items()}
-    log(f"[8] wrote phase 3's rows to Avro ({E2E['rows']} + "
-        f"{E2E['valid_rows']} records, null codec, {size['train']} + "
-        f"{size['valid']} bytes) in {write_s:.2f} s (pure Python, not "
-        "in the wall below)")
+    paths, size = write_e2e_files(tmp, train, valid)
+    log(f"[8] wrote phase 3's rows to Avro ({E2E['rows']} records in "
+        f"{E2E_TRAIN_PARTS} part files, {E2E['valid_rows']} in one file "
+        f"and again in {E2E_VALID_PARTS} parts; null codec, {size['train']}"
+        f" + {size['valid']} bytes) in {time.perf_counter() - t0:.2f} s "
+        "(spawned writer processes, not in the wall below)")
     del train, valid
     # the native library's g++ build happens once a checkout, outside
     # the wall
@@ -1268,7 +1333,8 @@ def run_cli_phase(tg, fused_glm, fused_re, auc_phase3, auc_fe, tmp):
         wall = time.perf_counter() - t0
     launches = {"fused_glm": fused_glm.fused_value_and_grad.launches,
                 "fused_re": fused_re.fused_entity_value_and_grad.launches}
-    decoder = ("native" if nat.calls == 2 and py.calls == 0 else
+    decoder = ("native" if nat.calls == E2E_TRAIN_PARTS + 1
+               and py.calls == 0 else
                f"python ({py.calls} files; native {nat.calls})")
     with open(os.path.join(out, "metrics.jsonl")) as f:
         stages = [json.loads(line) for line in f]
@@ -1316,7 +1382,8 @@ def run_cli_phase(tg, fused_glm, fused_re, auc_phase3, auc_fe, tmp):
         f"{RELOAD_AUC_TOL:g})")
     assert abs(reload_auc - auc) <= RELOAD_AUC_TOL, (reload_auc, auc)
     return launches, dict(run=out, train=paths["train"], valid=paths["valid"],
-                          auc=reload_auc)
+                          valid_parts=paths["valid_parts"], auc=reload_auc,
+                          train_auc=auc, model_bytes=model_bytes)
 
 
 # --------------------------------------------------------------------------
@@ -2171,19 +2238,21 @@ def log_run(label, wall, launches, out, auc=None):
 
 
 def write_day2(tg, train_path, root):
-    """Day 2: phase 8's training file and one new part file of DAY2_ROWS
-    rows, in a directory. Returns (directory, the new part's raw user and
-    song ids)."""
+    """Day 2: phase 8's training parts and one new part file of DAY2_ROWS
+    rows after them, in a directory. Returns (directory, the new part's
+    raw user and song ids)."""
     from photon_ml_tpu_torch.io import data_reader
 
     day2 = os.path.join(root, "day2")
     os.makedirs(day2)
-    os.link(train_path, os.path.join(day2, "part-00000.avro"))
+    parts = sorted(os.listdir(train_path))
+    for name in parts:
+        os.link(os.path.join(train_path, name), os.path.join(day2, name))
     new, _ = make_e2e(tg, DAY2_ROWS, E2E["users"], E2E["songs"], 1,
                       draw_seeds=DAY2_SEEDS)
     t0 = time.perf_counter()
     data_reader.write_training_examples(
-        os.path.join(day2, "part-00001.avro"), e2e_records(new),
+        os.path.join(day2, f"part-{len(parts):05d}.avro"), e2e_records(new),
         codec="null")
     log(f"[11] wrote day 2's new part ({DAY2_ROWS} records) in "
         f"{time.perf_counter() - t0:.2f} s (pure Python, not in the walls)")
@@ -3920,6 +3989,575 @@ def run_quality_phase(e2e_run, refresh_run, records, glm_paths, lam, tmp,
     return http_ms
 
 
+# --------------------------------------------------------------------------
+# phase 15: multi-process training and scoring over torch.distributed
+# --------------------------------------------------------------------------
+
+#: ranks of phase 15's jobs: two processes sharing the one card over gloo
+#: (NCCL refuses two ranks on one device: "Duplicate GPU detected")
+MP_RANKS = 2
+MP_TIMEOUT_S = 600
+#: multi-process against one process: the JAX package's tolerances for
+#: the same comparison (tests/test_multihost.py:326, :476)
+MP_COEF_TOL = dict(atol=2e-3, rtol=2e-2)
+MP_AUC_TOL = 5e-3
+#: phase 15 (e): process 1 dies at the start of sweep 1, first launch only
+MP_KILL_PLAN = {"seed": 0, "specs": [{"site": "worker.stall", "at": [1],
+                                      "mode": "kill", "processes": [1],
+                                      "attempts": [0]}]}
+#: phase 15 (b)'s runs: (name, train_glm flags). The first two are phase
+#: 9's: at its tolerance 1e-6 no f32 solve at 200k x 1024 converges (phase
+#: 7), two f32 trajectories drift apart along flat directions, and only
+#: their objectives are held. The "_loose" pair stops at tolerance 1e-3,
+#: where lambda 100 converges on both sides for either optimizer (phase 6's
+#: problem, seeds 0-2 of --mp-gap-seeds), and holds the coefficients to
+#: MP_COEF_TOL; it ends at lambda 10, since a chain warm-started from
+#: loosely converged solves drifts further at the small lambdas
+MP_GLM_LOOSE = dict(tolerance="1e-3", regularization_weights="100;10")
+MP_GLM_RUNS = [
+    ("TRON", dict(optimizer="TRON", max_iterations=GLM_TRON_MAX_ITER)),
+    ("LBFGS", dict(optimizer="LBFGS", max_iterations=GLM_LBFGS_MAX_ITER)),
+    ("TRON_loose", dict(optimizer="TRON", max_iterations=GLM_TRON_MAX_ITER,
+                        **MP_GLM_LOOSE)),
+    ("LBFGS_loose", dict(optimizer="LBFGS",
+                         max_iterations=GLM_LBFGS_MAX_ITER, **MP_GLM_LOOSE)),
+]
+
+
+def mp_glm_args(paths, out, flags, device):
+    """A phase 15 (b) run's train_glm arguments on phase 9's dense files,
+    less ``--multihost``."""
+    return flag_args(glm_cli_args(paths["dense"], paths["dense_valid"], out,
+                                  ["--no-intercept"], device=device),
+                     **flags)
+
+
+def mp_probe(d, device):
+    """The coefficient and direction phase 15 (a) evaluates at (margins of
+    O(1) on phase 6's column scales)."""
+    rng = np.random.default_rng(15)
+    return (torch.as_tensor(rng.normal(size=d).astype(np.float32) * 0.01,
+                            device=device),
+            torch.as_tensor(rng.normal(size=d).astype(np.float32),
+                            device=device))
+
+
+def _call_ms(fn, device):
+    """Milliseconds a call: CUDA events on the card, the host clock on the
+    CPU."""
+    if torch.device(device).type == "cuda":
+        return time_ms(fn)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fn()
+    return (time.perf_counter() - t0) / 5 * 1e3
+
+
+def _rank_stages(out, rank):
+    """A run's stage walls as the rank logged them."""
+    if rank:
+        out = os.path.join(out, "workers", f"proc-{rank}")
+    return [(m["stage"], m["seconds"]) for m in stages_of(out)
+            if "seconds" in m]
+
+
+def _rank_objective(rank, arrays):
+    """(a) in a rank: its contiguous share of phase 6's rows as its block,
+    the distributed value, gradient and Hvp at :func:`mp_probe`, and the
+    layer's times: an evaluation with its all_reduce, the rank's kernel
+    call alone, and a host gather of 10^6 int64."""
+    from photon_ml_tpu_torch.ops import losses as tl
+    from photon_ml_tpu_torch.ops.design import DenseDesign
+    from photon_ml_tpu_torch.ops.objective import GLMData, GLMObjective
+    from photon_ml_tpu_torch.parallel import multihost
+    from photon_ml_tpu_torch.parallel.distributed import (
+        DistributedGLMObjective,
+    )
+
+    n_proc = multihost.process_count()
+    x = np.load(arrays["x"], mmap_mode="r")
+    y = np.load(arrays["y"], mmap_mode="r")
+    cuts = np.linspace(0, len(y), n_proc + 1).astype(np.int64)
+    lo, hi = int(cuts[rank]), int(cuts[rank + 1])
+    block = multihost.global_glm_data_multihost(GLMData(
+        design=DenseDesign(x=torch.from_numpy(np.array(x[lo:hi]))),
+        labels=torch.from_numpy(np.array(y[lo:hi])),
+        offsets=torch.zeros(hi - lo), weights=torch.ones(hi - lo)))
+    local = GLMObjective(tl.LogisticLoss)
+    dist = DistributedGLMObjective(local)
+    device = block.labels.device
+    w, v = mp_probe(x.shape[1], device)
+
+    def evaluate():
+        value, grad = dist.value_and_grad(w, block, 0.0)
+        return value, grad, dist.hvp(w, v, block, 0.0)
+
+    (value, grad, hv), wall, launches = counted_call(evaluate)
+    gather = np.arange(1_000_000, dtype=np.int64)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        multihost.allgather_concat(gather)
+    gather_ms = (time.perf_counter() - t0) / 5 * 1e3
+    # the reduction alone, on the device and staged through the host's
+    # gloo group, at an evaluation's size (value and gradient packed)
+    packed = torch.zeros(x.shape[1] + 1, device=device)
+    host = multihost._state.get("host_group")
+
+    def host_reduce():
+        t = packed.cpu()
+        if host is not None:
+            torch.distributed.all_reduce(t, group=host)
+        return t.to(device)
+
+    return dict(
+        value=value.cpu(), grad=grad.cpu(), hvp=hv.cpu(), wall=wall,
+        launches=launches, rows=(lo, hi), device=str(w.device),
+        backend=multihost.backend(), world=n_proc,
+        eval_ms=_call_ms(lambda: dist.value_and_grad(w, block, 0.0), device),
+        kernel_ms=_call_ms(lambda: local.value_and_grad(w, block, 0.0),
+                           device),
+        reduce_ms=_call_ms(lambda: multihost.device_all_reduce(packed),
+                           device),
+        host_reduce_ms=_call_ms(host_reduce, device), gather_ms=gather_ms)
+
+
+def _rank_glm(rank, paths, root, device, runs=None):
+    """(b) in a rank: ``train_glm --multihost`` on phase 9's dense part
+    files, each run of ``runs`` (default :data:`MP_GLM_RUNS`); each sweep's
+    coefficients as the rank holds them."""
+    from photon_ml_tpu_torch.cli import train_glm
+
+    out = {}
+    for name, flags in runs or MP_GLM_RUNS:
+        seen = []
+        sweep = train_glm.train_glm_sweep
+
+        def capture(*a, **k):
+            seen.extend(sweep(*a, **k))
+            return seen
+
+        train_glm.train_glm_sweep = capture
+        run = os.path.join(root, f"glm_{name}")
+        try:
+            result, wall, launches = counted_call(train_glm.run, mp_glm_args(
+                paths, run, flags, device) + ["--multihost"])
+        finally:
+            train_glm.train_glm_sweep = sweep
+        out[name] = dict(result=result, wall=wall, launches=launches,
+                         stages=_rank_stages(run, rank), run=run,
+                         w={tm.regularization_weight:
+                            tm.model.coefficients.means.cpu().numpy()
+                            for tm in seen})
+    return out
+
+
+def _rank_game(rank, e2e_run, root, device):
+    """(c) in a rank: ``train_game --multihost`` on phase 8's part files;
+    the model arrays as the rank holds them."""
+    from photon_ml_tpu_torch.cli import train_game
+    from photon_ml_tpu_torch.game import multiprocess
+
+    seen = []
+    fit = multiprocess.train_game_multiprocess
+
+    def capture(*a, **k):
+        seen.append(fit(*a, **k))
+        return seen[-1]
+
+    multiprocess.train_game_multiprocess = capture
+    run = os.path.join(root, "game")
+    try:
+        result, wall, launches = counted_call(train_game.run, cli_args(
+            e2e_run["train"], e2e_run["valid"], run) + [
+                "--multihost", "--device", device])
+    finally:
+        multiprocess.train_game_multiprocess = fit
+    model = seen[0].model.coordinates
+    arrays = {"global": model["global"].model.coefficients.means.cpu()
+              .numpy()}
+    for cid in ("perUser", "perSong"):
+        arrays[cid] = (model[cid].keys, model[cid].coeffs)
+    return dict(result=result, wall=wall, launches=launches, run=run,
+                stages=_rank_stages(run, rank), arrays=arrays,
+                rows=len(seen[0].global_rows))
+
+
+def _rank_score(rank, e2e_run, root, device):
+    """(d) in a rank: ``score_game --multihost`` over phase 8's validation
+    parts with phase 8's model."""
+    from photon_ml_tpu_torch.cli import score_game
+
+    out = os.path.join(root, "scores")
+    result, wall, launches = counted_call(score_game.run, [
+        "--data", e2e_run["valid_parts"], "--model-dir", e2e_run["run"],
+        "--output-dir", out, "--feature-shards", E2E_SHARDS,
+        "--evaluators", "AUC", "--multihost", "--device", device])
+    return dict(result=result, wall=wall, launches=launches, run=out,
+                stages=_rank_stages(out, rank))
+
+
+def mp_rank(rank, jobs):
+    """A phase-15 rank: each ``(name, function name, args)`` of ``jobs`` in
+    turn; ``{name: result}``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return {name: globals()[fn](rank, *args) for name, fn, args in jobs}
+
+
+def _log_ranks(label, outs, key):
+    for r, o in enumerate(outs):
+        o = o[key] if key else o
+        stages = ", ".join(f"{s} {sec:.3f}" for s, sec in o.get("stages", ()))
+        log(f"  {label} rank {r}: {o['wall']:.2f} s; launches "
+            f"{o['launches']}" + (f"; {stages}" if stages else ""))
+
+
+def _hold_objective(label, outs, ref):
+    """(a)'s readings of every rank against the one-process kernels: the
+    ranks bit-identical, each within the f32 summation bound."""
+    ref_v, ref_g, ref_hv = ref
+    worst = 0.0
+    for r, o in enumerate(outs):
+        _, rel = _max_err((o["value"], o["grad"]), (ref_v, ref_g))
+        rel_h = float((o["hvp"] - ref_hv).abs().max()
+                      / ref_hv.abs().max().clamp_min(1.0))
+        worst = max(worst, rel, rel_h)
+        log(f"  {label} rank {r} ({o['backend']}, world {o['world']}, "
+            f"{o['device']}, rows {o['rows']}): {o['wall']:.3f} s; launches "
+            f"{o['launches']}; value/gradient rel {rel:.2e}, Hvp rel "
+            f"{rel_h:.2e} (limit {KERNEL_RTOL:g}); an evaluation "
+            f"{o['eval_ms']:.3f} ms with its all_reduce, the rank's kernel "
+            f"{o['kernel_ms']:.3f} ms, the all_reduce alone "
+            f"{o['reduce_ms']:.3f} ms (staged through the host's gloo group "
+            f"{o['host_reduce_ms']:.3f} ms); host gather of 10^6 int64 "
+            f"{o['gather_ms']:.2f} ms")
+        assert o["launches"]["fused_glm"] == 1, o["launches"]
+        assert o["launches"]["fused_hvp"] == 1, o["launches"]
+    for o in outs[1:]:
+        assert all(torch.equal(o[k], outs[0][k])
+                   for k in ("value", "grad", "hvp")), label
+    assert worst <= KERNEL_RTOL, (label, worst)
+    return worst
+
+
+def _max_gap(got, want):
+    """max |got - want| and the tolerance's use of it (|d| / (atol + rtol
+    |want|), at most 1 to pass)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    d = np.abs(got - want)
+    use = d / (MP_COEF_TOL["atol"] + MP_COEF_TOL["rtol"] * np.abs(want))
+    return float(d.max()) if d.size else 0.0, (float(use.max()) if d.size
+                                               else 0.0)
+
+
+def _records_by_key(model_dir, cid, kind):
+    return {(mid, m["name"], m["term"]): m["value"]
+            for mid, means in coefficient_records(model_dir, cid,
+                                                  kind).items()
+            for m in means}
+
+
+def mp_glm_compare(label, ranks, paths, root, singles, device):
+    """(b)'s comparison: each run of :data:`MP_GLM_RUNS` in ``ranks`` (the
+    ranks' :func:`_rank_glm` results) against train_glm in one process on
+    the same files with the same flags (``singles[name]`` where that run
+    exists, else run here). The ranks' results and models must be
+    bit-identical and every lambda's reported |grad| within its f32 scale
+    of the exact f64 one. Returns {name: {lam: (both converged, largest
+    coefficient gap, its use of MP_COEF_TOL, f64 objectives' relative
+    gap)}}."""
+    from photon_ml_tpu_torch.cli import train_glm
+
+    contractions, rows = None, {}
+    for name, flags in MP_GLM_RUNS:
+        _log_ranks(f"{label} train_glm {name}", ranks, name)
+        a = ranks[0][name]
+        for b in ranks[1:]:
+            assert a["result"] == b[name]["result"], (name, a["result"])
+            assert a["w"].keys() == b[name]["w"].keys(), name
+            for lam in a["w"]:
+                assert np.array_equal(a["w"][lam], b[name]["w"][lam]), (
+                    name, lam)
+        single = singles.get(name)
+        if single is None:
+            single = os.path.join(root, f"glm_{name}_one")
+            sec = time.perf_counter()
+            train_glm.run(mp_glm_args(paths, single, flags, device))
+            log(f"  {label} {name} in one process: "
+                f"{time.perf_counter() - sec:.2f} s")
+        _, lams_mp, imap_mp = read_run(a["run"])
+        _, lams_one, imap_one = read_run(single)
+        assert imap_mp.names() == imap_one.names()
+        assert lams_mp.keys() == lams_one.keys() == a["w"].keys(), name
+        for lam in lams_mp:
+            assert np.array_equal(lams_mp[lam]["w"],
+                                  a["w"][lam].astype(np.float64)), lam
+        if contractions is None:
+            contractions = Contractions(read_glm_data(paths["dense"],
+                                                      imap_mp, device))
+        f_mp = check_cli_gradients(f"{label} {name} multi-process",
+                                   contractions, lams_mp, 0.0,
+                                   cli_mask(imap_mp))
+        rows[name] = {}
+        for lam in sorted(lams_mp, reverse=True):
+            f_one = elastic_net_objective(contractions, lams_one[lam]["w"],
+                                          lam, 0.0, cli_mask(imap_one))[0]
+            gap, use = _max_gap(lams_mp[lam]["w"], lams_one[lam]["w"])
+            both = bool(lams_mp[lam]["converged"]
+                        and lams_one[lam]["converged"])
+            rel_f = abs(f_mp[lam] - f_one) / abs(f_one)
+            log(f"  {label} {name} lambda={lam:g}: iterations "
+                f"{lams_mp[lam]['iterations']}/{lams_one[lam]['iterations']}"
+                f", converged {lams_mp[lam]['converged']}/"
+                f"{lams_one[lam]['converged']}; largest |multi - one "
+                f"process| coefficient gap {gap:.2e} ({100 * use:.1f} % of "
+                f"atol {MP_COEF_TOL['atol']:g} + rtol {MP_COEF_TOL['rtol']:g}"
+                + (")" if both else ", not held: unconverged)")
+                + f"; f64 f(w) relative gap {rel_f:.2e} (limit "
+                f"{OBJECTIVE_RTOL[both]:g})")
+            rows[name][lam] = (both, gap, use, rel_f)
+    return rows
+
+
+def run_multiprocess_phase(e2e_run, glm_paths, phase9_dir, phase6, tmp,
+                           device="cuda"):
+    """Phase 15: (a) the distributed objective over 2 gloo ranks on the
+    card against one process's kernels 1 and 3, and over NCCL at world
+    size 1 (one rank a card where there are several); (b)-(d) train_glm,
+    train_game and score_game --multihost in one 2-rank job at full width;
+    (e) train_game --supervise 2 with a rank killed, on phase 8's files.
+    Returns the per-rank launches."""
+    from photon_ml_tpu_torch.cli import train_game, train_glm
+    from photon_ml_tpu_torch.events import GLOBAL_BUS
+    from photon_ml_tpu_torch.io.avro import iter_avro_file
+    from photon_ml_tpu_torch.ops import losses as tl
+    from photon_ml_tpu_torch.ops.design import DenseDesign
+    from photon_ml_tpu_torch.ops.objective import GLMData, GLMObjective
+    from photon_ml_tpu_torch.testing import run_ranks
+
+    t_start = time.perf_counter()
+    root = os.path.join(tmp, "mp")
+    os.makedirs(root)
+    launches = {}
+
+    # (a) one process's kernels on the whole design, then the ranks
+    (x, y), _ = make_glm(**GLM)
+    arrays = {"x": os.path.join(root, "x.npy"),
+              "y": os.path.join(root, "y.npy")}
+    np.save(arrays["x"], x)
+    np.save(arrays["y"], y)
+    full = GLMData(design=DenseDesign(x=torch.as_tensor(x, device=device)),
+                   labels=torch.as_tensor(y, device=device),
+                   offsets=torch.zeros(len(y), device=device),
+                   weights=torch.ones(len(y), device=device))
+    del x
+    obj = GLMObjective(tl.LogisticLoss)
+    w, v = mp_probe(GLM["dim"], device)
+    ref_v, ref_g = obj.value_and_grad(w, full, 0.0)
+    ref = (ref_v.cpu(), ref_g.cpu(), obj.hvp(w, v, full, 0.0).cpu())
+    del full
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    outs = run_ranks(mp_rank, MP_RANKS, [
+        ("objective", "_rank_objective", (arrays,)),
+        ("glm", "_rank_glm", (glm_paths, root, device)),
+        ("game", "_rank_game", (e2e_run, root, device)),
+        ("score", "_rank_score", (e2e_run, root, device))],
+        backend="gloo", device=device, timeout_s=MP_TIMEOUT_S, threads=4)
+    log(f"[15] {MP_RANKS} gloo ranks on the card, one job for (a)-(d): "
+        f"{time.perf_counter() - t0:.1f} s")
+    worst = _hold_objective("(a) gloo", [o["objective"] for o in outs], ref)
+    launches["objective"] = [o["objective"]["launches"] for o in outs]
+    n_dev = torch.cuda.device_count() if device == "cuda" else 0
+    if n_dev:
+        t0 = time.perf_counter()
+        nccl = run_ranks(mp_rank, 1, [("objective", "_rank_objective",
+                                       (arrays,))],
+                         backend="nccl", device="cuda", timeout_s=300,
+                         threads=4)[0]["objective"]
+        same = all(torch.equal(a, nccl[k]) for a, k in
+                   zip(ref, ("value", "grad", "hvp")))
+        log(f"[15a] NCCL, world size 1: {time.perf_counter() - t0:.1f} s; "
+            f"bit-identical to one process: {same}")
+        assert same, "NCCL at world size 1 differs from one process"
+        worst = max(worst, _hold_objective("(a) nccl", [nccl], ref))
+    if n_dev >= 2:
+        per_card = run_ranks(mp_rank, n_dev, [
+            ("objective", "_rank_objective", (arrays,))], backend="nccl",
+            device="cuda", timeout_s=300, threads=4)
+        worst = max(worst, _hold_objective(
+            f"(a) nccl {n_dev} cards", [o["objective"] for o in per_card],
+            ref))
+    else:
+        log(f"[15a] NCCL one rank a card: not run ({n_dev} card)")
+    os.unlink(arrays["x"])
+
+    # (b) train_glm --multihost against phase 9 (TRON) and one process
+    # (the other runs, sequential, the same arguments): ranks bit-identical,
+    # every lambda's reported |grad| against the exact f64 one (the check a
+    # wrong reduction fails), the f64 objectives within OBJECTIVE_RTOL as
+    # phase 7 holds the card to the CPU, and the coefficients within the
+    # JAX package's tolerance where both solves converged (in each "_loose"
+    # run at least one lambda)
+    rows = mp_glm_compare("(b)", [o["glm"] for o in outs], glm_paths, root,
+                          {"TRON": os.path.join(phase9_dir, "tron")}, device)
+    for name, flags in MP_GLM_RUNS:
+        a = outs[0]["glm"][name]
+        for lam, (both, gap, use, rel_f) in rows[name].items():
+            assert rel_f <= OBJECTIVE_RTOL[both], (name, lam, rel_f)
+            assert use <= 1.0 or not both, (name, lam, gap)
+        assert a["launches"]["fused_glm"] > 0, a["launches"]
+        if flags["optimizer"] == "TRON":
+            assert a["launches"]["fused_hvp"] > 0, a["launches"]
+        if "tolerance" in flags:
+            held = [lam for lam, r in rows[name].items() if r[0]]
+            log(f"  (b) {name}: coefficients held at lambda {held}")
+            assert held, f"{name}: no lambda converged on both sides"
+        else:
+            best = a["result"]["best_lambda"]
+            log(f"  (b) {name}: best lambda {best:g} (phase 9 "
+                f"{phase6['tron'][0]:g}); AUC "
+                f"{a['result']['best_evaluation']['AUC']:.7f}")
+            assert best == phase6["tron"][0], (name, best, phase6)
+        launches[f"glm_{name}"] = [o["glm"][name]["launches"] for o in outs]
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) train_game --multihost against phase 8
+    _log_ranks("(c) train_game", outs, "game")
+    a, b = (o["game"] for o in outs)
+    assert a["result"] == b["result"]
+    assert np.array_equal(a["arrays"]["global"], b["arrays"]["global"])
+    for cid in ("perUser", "perSong"):
+        for x_a, x_b in zip(a["arrays"][cid], b["arrays"][cid]):
+            assert np.array_equal(x_a, x_b), cid
+    assert a["launches"]["fused_glm"] > 0 and a["launches"]["fused_re"] > 0
+    assert b["launches"]["fused_re"] > 0, b["launches"]
+    auc = a["result"]["best_evaluation"]["AUC"]
+    one = os.path.join(e2e_run["run"], "best")
+    mine = os.path.join(a["run"], "best")
+    for cid, kind in (("global", "fixed-effect"), ("perUser", "random-effect"),
+                      ("perSong", "random-effect")):
+        got = _records_by_key(mine, cid, kind)
+        want = _records_by_key(one, cid, kind)
+        assert got.keys() == want.keys(), (cid, len(got), len(want))
+        keys = sorted(want)
+        gap = _max_gap([got[k] for k in keys], [want[k] for k in keys])
+        log(f"  (c) {cid}: {len(keys)} coefficients, keys equal phase 8's; "
+            f"largest gap {gap[0]:.2e} ({100 * gap[1]:.1f} % of the "
+            f"tolerance)")
+        assert gap[1] <= 1.0, (cid, gap)
+    log(f"  (c) AUC {auc:.7f}, phase 8 {e2e_run['train_auc']:.7f} (|diff| "
+        f"{abs(auc - e2e_run['train_auc']):.2e}, limit {MP_AUC_TOL:g}); "
+        f"rows owned {[o['game']['rows'] for o in outs]}; ranks "
+        f"bit-identical")
+    assert abs(auc - e2e_run["train_auc"]) <= MP_AUC_TOL
+    launches["game"] = [o["game"]["launches"] for o in outs]
+
+    # (d) score_game --multihost against phase 10 (a)
+    _log_ranks("(d) score_game", outs, "score")
+    parts = sorted(glob.glob(os.path.join(outs[0]["score"]["run"],
+                                          "scores-part-*.avro")))
+    got = [r["predictionScore"] for p in parts for r in iter_avro_file(p)]
+    want = [r["predictionScore"] for r in iter_avro_file(os.path.join(
+        os.path.dirname(e2e_run["run"]), "scores", "scores.avro"))]
+    same = sum(g == w_ for g, w_ in zip(got, want))
+    log(f"  (d) {len(parts)} parts, {len(got)} scores: {same} equal phase "
+        f"10 (a)'s scores.avro row for row; AUC "
+        f"{outs[0]['score']['result']['evaluation']['AUC']:.7f}")
+    assert len(got) == len(want) == same, (len(got), len(want), same)
+    launches["score"] = [o["score"]["launches"] for o in outs]
+
+    # (e) train_game --supervise 2 on phase 8's part files and validation
+    # file, two sweeps, rank 1 killed at the start of sweep 1; the restart
+    # re-reads the rows and resumes from the sweep-0 checkpoints
+    events = []
+    unsub = GLOBAL_BUS.subscribe(
+        lambda e: events.append((time.perf_counter(), e.name, e.payload))
+        if e.name.startswith("supervisor_") else None)
+    os.environ["PHOTON_DIST_BACKEND"] = "gloo"
+    walls = {}
+    try:
+        for name in ("clean", "kill"):
+            if name == "kill":
+                os.environ["PHOTON_FAULT_PLAN"] = json.dumps(MP_KILL_PLAN)
+            out = os.path.join(root, f"supervised_{name}")
+            t0 = time.perf_counter()
+            res = train_game.run(flag_args(
+                cli_args(e2e_run["train"], e2e_run["valid"], out),
+                cd_iterations="2", supervise=str(MP_RANKS),
+                max_restarts="2", device=device))
+            walls[name] = (time.perf_counter() - t0, res, out)
+            os.environ.pop("PHOTON_FAULT_PLAN", None)
+    finally:
+        unsub()
+        os.environ.pop("PHOTON_FAULT_PLAN", None)
+        os.environ.pop("PHOTON_DIST_BACKEND", None)
+    for name, (wall, res, out) in walls.items():
+        per_rank = "; ".join(
+            f"rank {r}: " + ", ".join(f"{s} {sec:.3f}"
+                                      for s, sec in _rank_stages(out, r))
+            for r in range(MP_RANKS))
+        log(f"  (e) supervised {name}: {wall:.2f} s, restarts "
+            f"{res['restarts']}, AUC {res['best_evaluation']['AUC']:.7f}; "
+            f"{per_rank} (launches: not counted, the ranks are the "
+            f"supervisor's subprocesses)")
+    fault = [t for t, n, _ in events if n == "supervisor_fault_detected"]
+    done = [t for t, n, _ in events if n == "supervisor_completed"]
+    restart_s = done[-1] - fault[0] if fault else float("nan")
+    kill_best, clean_best = (os.path.join(walls[k][2], "best")
+                             for k in ("kill", "clean"))
+    all_same = all(coefficient_records(kill_best, cid, k)
+                   == coefficient_records(clean_best, cid, k)
+                   for cid, k in (("global", "fixed-effect"),
+                                  ("perUser", "random-effect"),
+                                  ("perSong", "random-effect")))
+    log(f"  (e) fault detected to fleet done {restart_s:.2f} s; the killed "
+        f"run's wall - the clean run's {walls['kill'][0] - walls['clean'][0]:.2f}"
+        f" s; best model records equal the uninterrupted run's: {all_same}")
+    assert walls["clean"][1]["restarts"] == 0
+    assert walls["kill"][1]["restarts"] >= 1
+    assert all_same
+    log(f"[15] done in {time.perf_counter() - t_start:.1f} s (worst "
+        f"objective error {worst:.2e})")
+    return launches
+
+
+def mp_gap_seeds(seeds, device="cuda"):
+    """``python3 chip_smoke.py --mp-gap-seeds 0,1,2``: phase 15 (b) alone,
+    on phase 6's problem drawn from each seed (seed 0 is phase 9's data):
+    every run of :data:`MP_GLM_RUNS` in 2 gloo ranks against one process,
+    by lambda, as :func:`mp_glm_compare` reads it. Reads the headroom of
+    (b)'s limits over data; prints the gaps as one JSON line."""
+    from photon_ml_tpu_torch.ops import cuda_build
+    from photon_ml_tpu_torch.testing import run_ranks
+
+    cuda_build.build(["fused_glm", "fused_hvp"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_gaps_")
+    gaps = {}
+    try:
+        for seed in seeds:
+            root = os.path.join(tmp, f"seed{seed}")
+            (x, y), (xv, yv) = make_glm(**GLM, seed=seed)
+            paths, _, _ = write_glm_files(root, {
+                "dense": dense_csr(x, y), "dense_valid": dense_csr(xv, yv)})
+            del x, xv
+            outs = run_ranks(mp_rank, MP_RANKS, [
+                ("glm", "_rank_glm", (paths, root, device))],
+                backend="gloo", device=device, timeout_s=MP_TIMEOUT_S,
+                threads=4)
+            rows = mp_glm_compare(f"[seed {seed}]", [o["glm"] for o in outs],
+                                  paths, root, {}, device)
+            gaps[seed] = {name: {f"{lam:g}": r for lam, r in by.items()}
+                          for name, by in rows.items()}
+            shutil.rmtree(root)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"mp_gaps (both converged, gap, use, f gap)": gaps}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3943,6 +4581,9 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    if "--mp-gap-seeds" in sys.argv:
+        seeds = sys.argv[sys.argv.index("--mp-gap-seeds") + 1]
+        return mp_gap_seeds([int(v) for v in seeds.split(",")])
     t_start = time.perf_counter()
 
     # 1. build -------------------------------------------------------------
@@ -4273,6 +4914,11 @@ def main() -> int:
         assert quality_launches["fused_glm"] > 0, quality_launches
         assert quality_launches["fused_hvp"] > 0, quality_launches
         assert quality_launches["fused_glm_multi"] == 0, quality_launches
+
+        # 15. multi-process training and scoring ----------------------------
+        mp_launches = run_multiprocess_phase(
+            e2e_run, glm_paths, os.path.join(e2e_tmp, "glm"), phase6,
+            e2e_tmp)
     finally:
         shutil.rmtree(e2e_tmp, ignore_errors=True)
 
@@ -4281,6 +4927,11 @@ def main() -> int:
 
     def options(kernel):
         return {name: n[kernel] for name, n in options_launches.items()}
+
+    def multihost(kernel):
+        """Phase 15's launches of ``kernel`` by run, one count a rank."""
+        return {name: [n[kernel] for n in ranks]
+                for name, ranks in mp_launches.items()}
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [
@@ -4294,6 +4945,7 @@ def main() -> int:
              train_glm=dict(launches=train_glm_launches("fused_glm")),
              options=dict(launches=options("fused_glm")),
              quality=dict(launches=quality_launches["fused_glm"]),
+             multihost=dict(launches=multihost("fused_glm")),
              glm_path=dict(launches=glm_launches["tron"]["fused_glm"],
                            **t1_glm),
              glm_small=dict(launches=runs["cuda"]["tron"][3]["fused_glm"],
@@ -4308,7 +4960,8 @@ def main() -> int:
              locked=dict(launches=locked_launches["fused_re"]),
              train_glm=dict(launches=train_glm_launches("fused_re")),
              options=dict(launches=options("fused_re")),
-             quality=dict(launches=quality_launches["fused_re"])),
+             quality=dict(launches=quality_launches["fused_re"]),
+             multihost=dict(launches=multihost("fused_re"))),
         dict(name="fused_hvp", route="cuda", status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_hvp.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:447",
@@ -4319,7 +4972,8 @@ def main() -> int:
              refresh=dict(launches=refresh_launches["fused_hvp"]),
              locked=dict(launches=locked_launches["fused_hvp"]),
              options=dict(launches=options("fused_hvp")),
-             quality=dict(launches=quality_launches["fused_hvp"])),
+             quality=dict(launches=quality_launches["fused_hvp"]),
+             multihost=dict(launches=multihost("fused_hvp"))),
         dict(name="fused_value_and_grad_multi", route="cuda",
              status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_glm_multi.cu",

@@ -2,8 +2,10 @@
 (GLMix) training on an NVIDIA GPU, with hand-written CUDA kernels for the
 fused GLM value+gradient (one, M or E coefficient rows at a time) and the
 Hessian-vector product of TRON; the CLIs around them, batch and online
-scoring with ranked retrieval, and the model-quality layer (training
-diagnostics, quality baselines, the canary and the drift monitor).
+scoring with ranked retrieval, the model-quality layer (training
+diagnostics, quality baselines, the canary and the drift monitor), and
+multi-process training and scoring over ``torch.distributed``, one process
+a card (``parallel/``, ``game/multiprocess.py``, the fleet supervisor).
 
 Runs on ``cuda`` by default; pass ``device="cpu"`` to run on the CPU (the
 kernels' plain PyTorch versions). The JAX package ``photon_ml_tpu`` stays

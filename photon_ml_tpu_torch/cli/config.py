@@ -25,8 +25,10 @@
 
 The resilience flags (:func:`add_resilience_flags`: retries, retry
 deadline, divergence policy) and serve_game's model-quality and ranking
-flags (:func:`add_quality_flags`, :func:`add_rank_flags`) are ported; the
-telemetry, supervision, fleet and retained-telemetry flag groups are not:
+flags (:func:`add_quality_flags`, :func:`add_rank_flags`) are ported, and
+the supervision flags live beside the supervisor
+(:func:`~photon_ml_tpu_torch.resilience.supervisor.add_supervision_flags`);
+the telemetry, fleet and retained-telemetry flag groups are not:
 :func:`add_unported_flags` lets a command accept such flags and
 :func:`refuse_unported` raise naming them.
 """

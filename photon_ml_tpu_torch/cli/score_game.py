@@ -13,9 +13,12 @@ the scored output::
 
 The model join is host numpy, as in the JAX package (its f32 scores are
 what the online engine matches bit for bit); the fixed-effect coefficients
-load onto ``--device`` (the card unless ``--device cpu``). Multi-process
-scoring and telemetry are not ported: their flags raise
-:class:`NotImplementedError` naming the flag.
+load onto ``--device`` (the card unless ``--device cpu``). Under
+``--multihost`` each process scores its share of the input files into
+``scores-part-NNNNN.avro`` (concatenated in process order, the parts are
+the single-process ``scores.avro``), and the evaluation runs on every
+process over the gathered scores. Telemetry is not ported: its flags
+raise :class:`NotImplementedError` naming the flag.
 """
 
 from __future__ import annotations
@@ -50,10 +53,10 @@ from photon_ml_tpu_torch.io.model_io import (
 )
 from photon_ml_tpu_torch.io.schemas import SCORING_RESULT_AVRO
 from photon_ml_tpu_torch.logging_util import RunLogger, timed
+from photon_ml_tpu_torch.parallel import multihost
 
 #: the reference's flags this command does not run yet
 _UNPORTED_FLAGS = {
-    "--multihost": {"action": "store_true"},
     "--telemetry-dir": {},
     "--telemetry-poll-s": {"type": float},
     "--metrics-port": {"type": int},
@@ -81,6 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where the fixed-effect coefficients load "
                         "(default: the GPU; there is no fall-back to the "
                         "CPU)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the multi-process job of the PHOTON_* "
+                        "environment: each process scores its share of "
+                        "the input files into a part file")
     add_unported_flags(p, _UNPORTED_FLAGS)
     return p
 
@@ -104,7 +111,14 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     refuse_unported(args, _UNPORTED_FLAGS)
     # fail before the reads when no card is present
     device = resolve_device(args.device)
-    run_logger = RunLogger(args.output_dir)
+    multiproc = False
+    if args.multihost:
+        multiproc = multihost.initialize(device=args.device)
+        device = multihost.local_device()
+    pid = multihost.process_index()
+    run_logger = RunLogger(
+        args.output_dir if multihost.is_chief()
+        else os.path.join(args.output_dir, "workers", f"proc-{pid}"))
     try:
         model_dir = resolve_game_model_dir(args.model_dir)
         index_dir = find_feature_index_dir(model_dir)
@@ -131,33 +145,72 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         with timed("Read data", run_logger):
             # the entity vocabularies come from the data; entities the
             # model never saw score 0 in its random effects
-            data, _, vocabs = reader.read(args.data, id_columns=id_columns)
+            if multiproc:
+                from photon_ml_tpu_torch.game.multiprocess import (
+                    process_file_share,
+                    reconcile_vocabs,
+                )
+
+                data, _, vocabs = reader.read(
+                    process_file_share(reader, args.data),
+                    id_columns=id_columns)
+                if evaluators:
+                    # grouped metrics compare id tags across processes:
+                    # one global id space for them (and the lookups)
+                    data, vocabs = reconcile_vocabs(data, vocabs,
+                                                    id_columns)
+            else:
+                data, _, vocabs = reader.read(args.data,
+                                              id_columns=id_columns)
 
         with timed("Load model", run_logger):
             model = load_game_model(model_dir, index_maps, vocabs,
                                     device=device)
 
         transformer = GameTransformer(
-            model=model, evaluators=evaluators,
+            model=model, evaluators=() if multiproc else evaluators,
             score_breakdown=args.score_breakdown)
         with timed("Score", run_logger):
             result = transformer.transform(data)
 
         with timed("Write scores", run_logger):
             os.makedirs(args.output_dir, exist_ok=True)
-            write_scores(os.path.join(args.output_dir, "scores.avro"),
+            # one part file a process (the reference's part-NNNNN outputs)
+            part = f"-part-{pid:05d}" if multiproc else ""
+            write_scores(os.path.join(args.output_dir,
+                                      f"scores{part}.avro"),
                          result.scores, data.labels)
             if result.by_coordinate is not None:
                 with open(os.path.join(args.output_dir,
-                                       "score-breakdown.json"), "w") as f:
+                                       f"score-breakdown{part}.json"),
+                          "w") as f:
                     json.dump({k: v.tolist()
                                for k, v in result.by_coordinate.items()}, f)
 
         evaluation = None
-        if result.evaluation is not None:
+        n_scored = data.n_samples
+        if multiproc:
+            n_scored = int(multihost.allreduce_sum(
+                np.array([data.n_samples], np.int64))[0])
+            if evaluators:
+                # the evaluation of the gathered scores, the same on every
+                # process
+                from photon_ml_tpu_torch.evaluation import evaluate_all
+
+                gather = multihost.allgather_concat
+                evaluation = evaluate_all(
+                    evaluators, gather(np.asarray(result.scores, np.float32)),
+                    gather(np.asarray(data.labels, np.float32)),
+                    weights=gather(np.asarray(data.weights, np.float32)),
+                    id_tags={c: gather(data.id_columns[c])
+                             for c in sorted(data.id_columns)}).as_dict()
+        elif result.evaluation is not None:
             evaluation = result.evaluation.as_dict()
+        if evaluation is not None:
             run_logger.metric(stage="evaluate", **evaluation)
-        return {"n_scored": data.n_samples, "evaluation": evaluation,
+        # every process returns once every part file is written
+        multihost.barrier()
+        return {"n_scored": n_scored, "evaluation": evaluation,
                 "output_dir": args.output_dir}
     finally:
         run_logger.close()

@@ -30,9 +30,25 @@ Gaussian-process search picks in ``--tuning-range`` (every coordinate's
 lambda), the coordinate datasets built once for all of them. The run root
 also holds ``quality-baseline.json``: the best model's score profile on the
 validation data (the training data without one), which serving's canary
-and drift monitor read. Not written yet: telemetry. Flags of the reference
-that the port does not run yet are accepted by the parser and raise
-:class:`NotImplementedError` naming the flag.
+and drift monitor read.
+
+``--multihost`` runs one process per card
+(:mod:`photon_ml_tpu_torch.game.multiprocess`, the job from the
+``PHOTON_*`` environment): each process reads its share of the training
+files, feature indexes and entity vocabularies are agreed across
+processes, rows are shuffled so each process owns whole entities, the
+fixed effect is one distributed solve (kernel 1 on each rank's rows, one
+``all_reduce`` a evaluation) and the random effects solve on each
+process's own card (kernel 2) with no collective; process 0 writes the
+outputs, the others log under ``workers/proc-N``, and ``--checkpoint``
+writes per-process sweep states under ``checkpoints-mp``. ``--supervise
+N`` runs N such processes under the fleet supervisor
+(:mod:`photon_ml_tpu_torch.resilience.supervisor`), which restarts them
+from the checkpoint on a crash or a stale heartbeat. ``--mesh`` (one
+process over several cards) is not ported: one process drives one card,
+and several cards take ``--multihost``. Not written yet: telemetry. Flags
+of the reference that the port does not run yet are accepted by the parser
+and raise :class:`NotImplementedError` naming the flag.
 """
 
 from __future__ import annotations
@@ -77,10 +93,16 @@ from photon_ml_tpu_torch.io.model_io import (
     save_game_model,
 )
 from photon_ml_tpu_torch.logging_util import RunLogger, timed
+from photon_ml_tpu_torch.parallel import multihost
 from photon_ml_tpu_torch.quality.baseline import (
     BASELINE_NAME,
     baseline_from_game,
     save_baseline,
+)
+from photon_ml_tpu_torch.resilience.supervisor import (
+    add_supervision_flags,
+    supervise_from_args,
+    write_result_file,
 )
 from photon_ml_tpu_torch.types import DataValidationType, TaskType
 
@@ -89,12 +111,6 @@ from photon_ml_tpu_torch.types import DataValidationType, TaskType
 _UNPORTED_FLAGS = {
     "--debug-nans": {"action": "store_true"},
     "--profile": {"action": "store_true"},
-    "--multihost": {"action": "store_true"},
-    "--mesh": {},
-    "--supervise": {"type": int},
-    "--max-restarts": {"type": int},
-    "--heartbeat-timeout-s": {"type": float},
-    "--restart-deadline-s": {"type": float},
     "--telemetry-dir": {},
     "--telemetry-poll-s": {"type": float},
     "--metrics-port": {"type": int},
@@ -161,6 +177,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the solves run (default: the GPU; there is "
                         "no fall-back to the CPU)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the multi-process job of the PHOTON_* "
+                        "environment (one process per card): per-process "
+                        "file reads, entity-partitioned random effects, a "
+                        "distributed fixed effect; process 0 writes")
+    p.add_argument("--mesh", default=None,
+                   help="not ported: one process drives one card; several "
+                        "cards take --multihost")
+    add_supervision_flags(p)
     add_resilience_flags(p)
     add_unported_flags(p, _UNPORTED_FLAGS)
     return p
@@ -193,11 +218,14 @@ def preset_index_maps(model_dir: str, shard_configs) -> dict[str, IndexMap]:
 
 
 def _tune(args, est: GameEstimator, data, validation, evaluators,
-          update_sequence, initial_models, locked, guard) -> list:
+          update_sequence, initial_models, locked, guard,
+          mp_fit=None) -> list:
     """``--tuning RANDOM|BAYESIAN``: ``--tuning-iterations`` fits at the
     points the search picks (every trained coordinate's lambda in
     ``--tuning-range``, log-scaled), the coordinate datasets built once and
-    their device images released after the search."""
+    their device images released after the search. With ``mp_fit`` (the
+    multi-process path) every process runs the same seeded search, each
+    point one collective fit whose metric every process computes alike."""
     from photon_ml_tpu_torch.hyperparameter.search import (
         GaussianProcessSearch,
         ParamRange,
@@ -208,14 +236,17 @@ def _tune(args, est: GameEstimator, data, validation, evaluators,
     # a locked coordinate never trains: its lambda is a dead axis
     space = {cid: ParamRange(low, high) for cid in update_sequence
              if cid not in locked}
-    datasets = est.prepare(data, locked=locked)
+    datasets = {} if mp_fit else est.prepare(data, locked=locked)
     results = []
 
     def evaluate(config: dict) -> float:
-        r = est.fit(data, [GameOptimizationConfiguration(config)],
-                    validation=validation, datasets=datasets,
-                    initial_models=initial_models, locked=locked,
-                    guard=guard)[0]
+        if mp_fit:
+            r = mp_fit(GameOptimizationConfiguration(config))
+        else:
+            r = est.fit(data, [GameOptimizationConfiguration(config)],
+                        validation=validation, datasets=datasets,
+                        initial_models=initial_models, locked=locked,
+                        guard=guard)[0]
         results.append(r)
         return r.evaluation.primary[1]
 
@@ -231,19 +262,97 @@ def _tune(args, est: GameEstimator, data, validation, evaluators,
     return results
 
 
+def _refuse_mesh(multiproc: bool) -> None:
+    """``--mesh``: the JAX driver's refusal beside ``--multihost`` over
+    several processes; otherwise not ported."""
+    if multiproc:
+        raise SystemExit(
+            "multi-process --multihost training does not take --mesh: the "
+            "ranks' data layout is built automatically, the entity axis is "
+            "subsumed by the entity->process partition, and feature "
+            "sharding across processes has no photon-scale workload")
+    raise NotImplementedError(
+        "--mesh is not ported: one process drives one card; several cards "
+        "take --multihost (one process per card)")
+
+
+def _run_supervised(raw_argv: Sequence[str], args) -> dict:
+    """``--supervise N``: this command relaunched as an N-process
+    supervised fleet; the workers get ``--checkpoint --resume`` (a restart
+    resumes from the latest agreed checkpoint) and, at N > 1,
+    ``--multihost``. The supervising process never trains."""
+    if args.tuning != "NONE" or len(parse_grid(args.grid)) != 1:
+        raise SystemExit(
+            "--supervise needs a single-config grid and no --tuning: "
+            "restart-from-checkpoint resumes ONE training (the same "
+            "constraint as --checkpoint/--resume)")
+    worker_flags = ["--checkpoint", "--resume"]
+    if args.supervise > 1:
+        worker_flags.append("--multihost")
+    return supervise_from_args("train_game", raw_argv, args,
+                               worker_flags=worker_flags)
+
+
+def _mp_fit_fn(args, data, task, coordinate_configs, update_sequence,
+               initial_models, locked, validation, guard, device):
+    """One collective multi-process fit of a configuration, evaluated
+    and wrapped as a :class:`GameResult` (grid and tuning share it)."""
+    from photon_ml_tpu_torch.evaluation import evaluate_all
+    from photon_ml_tpu_torch.game.estimator import GameResult
+    from photon_ml_tpu_torch.game.multiprocess import train_game_multiprocess
+
+    mp_ckpt = (os.path.join(args.output_dir, "checkpoints-mp")
+               if args.checkpoint or args.resume else None)
+
+    def fit(config: GameOptimizationConfiguration) -> GameResult:
+        mp = train_game_multiprocess(
+            data, task, coordinate_configs, update_sequence,
+            config.regularization_weights,
+            n_cd_iterations=args.cd_iterations, checkpoint_dir=mp_ckpt,
+            resume=args.resume, initial_models=initial_models,
+            locked=locked, validation=validation, guard=guard,
+            device=device)
+        evaluation = None
+        if validation is not None:
+            vdata, evs = validation
+            evaluation = evaluate_all(
+                evs, mp.model.score(vdata), vdata.labels,
+                weights=vdata.weights, id_tags=vdata.id_columns)
+        return GameResult(model=mp.model, configuration=config,
+                          evaluation=evaluation,
+                          validation_history=list(mp.validation_history))
+
+    return fit
+
+
 def run(argv: Optional[Sequence[str]] = None) -> dict:
     from photon_ml_tpu_torch.continuous import delta as delta_mod
     from photon_ml_tpu_torch.io.checkpoint import CheckpointManager
 
-    args = build_parser().parse_args(
-        list(sys.argv[1:] if argv is None else argv))
+    raw_argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(raw_argv)
     refuse_unported(args, _UNPORTED_FLAGS)
+    if args.supervise:
+        return _run_supervised(raw_argv, args)
+    if args.mesh and not args.multihost:
+        _refuse_mesh(False)
     task = TaskType(args.task)
-    # the retry policy goes in before anything that may retry
+    # the retry policy goes in before anything that may retry (the job's
+    # formation is the first)
     guard = install_resilience(resilience_from_args(args))
     # fail before the reads when no card is present
     device = resolve_device(args.device)
-    run_logger = RunLogger(args.output_dir)
+    multiproc = False
+    if args.multihost:
+        multiproc = multihost.initialize(device=args.device)
+        device = multihost.local_device()
+    if args.mesh:
+        _refuse_mesh(multiproc)
+    chief = multihost.is_chief()
+    # a non-chief process logs under its own directory: N processes
+    # appending to one photon.log / metrics.jsonl would interleave
+    run_logger = RunLogger(args.output_dir if chief else os.path.join(
+        args.output_dir, "workers", f"proc-{multihost.process_index()}"))
     try:
         shard_configs = tuple(parse_feature_shard_config(s)
                               for s in args.feature_shards.split(","))
@@ -315,8 +424,10 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                 raise SystemExit(
                     "--checkpoint/--resume need a single-config grid (got "
                     f"{len(configurations)} configs)")
-            checkpoint = CheckpointManager(
-                os.path.join(args.output_dir, "checkpoints"))
+            if not multiproc:
+                # the multi-process path keeps per-process sweep states
+                checkpoint = CheckpointManager(
+                    os.path.join(args.output_dir, "checkpoints"))
 
         reader = AvroDataReader(
             shard_configs=shard_configs,
@@ -324,11 +435,26 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                         if model_dir else None),
             input_columns=parse_input_columns(args.input_columns))
         with timed("Read training data", run_logger):
-            data, index_maps, vocabs = reader.read(
-                args.training_data, id_columns=id_columns)
-        for shard_id, imap in index_maps.items():
-            imap.save(os.path.join(args.output_dir, "feature-indexes",
-                                   f"{shard_id}.json"))
+            if multiproc:
+                # this process's share of the files, then one feature
+                # index and entity vocabulary agreed by every process
+                from photon_ml_tpu_torch.game.multiprocess import (
+                    process_file_share,
+                    reconcile_global_ids,
+                )
+
+                data, index_maps, vocabs = reader.read(
+                    process_file_share(reader, args.training_data),
+                    id_columns=id_columns)
+                data, index_maps, vocabs = reconcile_global_ids(
+                    data, index_maps, vocabs, id_columns)
+            else:
+                data, index_maps, vocabs = reader.read(
+                    args.training_data, id_columns=id_columns)
+        if chief:
+            for shard_id, imap in index_maps.items():
+                imap.save(os.path.join(args.output_dir, "feature-indexes",
+                                       f"{shard_id}.json"))
 
         initial_models = None
         parent_lineage = None
@@ -344,21 +470,27 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                     f"the input model")
 
         # the data manifest (fingerprints of each entity's training rows,
-        # from the host columns) and the lineage every saved model records
-        re_coords = {
-            cid: (c.dataset.random_effect_type, c.dataset.feature_shard_id)
-            for cid, c in coordinate_configs.items()
-            if isinstance(c, RandomEffectCoordinateConfig)}
-        with timed("Build data manifest", run_logger):
-            manifest = delta_mod.build_manifest(data, re_coords, vocabs)
-            delta_mod.save_manifest(
-                os.path.join(args.output_dir, delta_mod.MANIFEST_NAME),
-                manifest)
+        # from the host columns) and the lineage every saved model records;
+        # a multi-process share sees part of the rows, so its manifest
+        # would flag every entity read elsewhere as changed: none there
+        manifest_digest = None
+        if not multiproc:
+            re_coords = {
+                cid: (c.dataset.random_effect_type,
+                      c.dataset.feature_shard_id)
+                for cid, c in coordinate_configs.items()
+                if isinstance(c, RandomEffectCoordinateConfig)}
+            with timed("Build data manifest", run_logger):
+                manifest = delta_mod.build_manifest(data, re_coords, vocabs)
+                delta_mod.save_manifest(
+                    os.path.join(args.output_dir, delta_mod.MANIFEST_NAME),
+                    manifest)
+            manifest_digest = delta_mod.manifest_digest(manifest)
         lineage = {
             "parentModel": parent_lineage,
             "trainedAt": datetime.datetime.now(
                 datetime.timezone.utc).isoformat(),
-            "dataManifest": delta_mod.manifest_digest(manifest),
+            "dataManifest": manifest_digest,
         }
         with timed("Validate data", run_logger):
             validate_game_data(data, task,
@@ -375,10 +507,20 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                     entity_vocabs=vocabs)
             validation = (vdata, evaluators)
 
+        mp_fit = None
+        if multiproc:
+            mp_fit = _mp_fit_fn(args, data, task, coordinate_configs,
+                                update_sequence, initial_models, locked,
+                                validation, guard, device)
         stage = ("Train (grid)" if configurations is not None
                  else f"Train ({args.tuning} tuning)")
+        if multiproc:
+            stage = stage[:-1] + ", multi-process)"
         with timed(stage, run_logger):
-            if configurations is not None:
+            if configurations is not None and multiproc:
+                # grid points in turn, each one collective fit
+                results = [mp_fit(c) for c in configurations]
+            elif configurations is not None:
                 results = est.fit(
                     data, configurations, validation=validation,
                     initial_models=initial_models, locked=locked,
@@ -386,7 +528,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             else:
                 results = _tune(args, est, data, validation, evaluators,
                                 update_sequence, initial_models, locked,
-                                guard)
+                                guard, mp_fit=mp_fit)
             # the last solves finish inside this stage, not in "Save models"
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -404,6 +546,17 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         best_dir = os.path.join(args.output_dir, "best")
         save = dict(sparsity_threshold=args.model_sparsity_threshold,
                     lineage=lineage)
+        result = {
+            "best_config": dict(best.configuration.regularization_weights),
+            "best_evaluation": (best.evaluation.as_dict()
+                                if best.evaluation else None),
+            "n_configurations": len(results),
+            "output_dir": args.output_dir,
+        }
+        if not chief:
+            # returns once the chief's outputs are complete
+            multihost.barrier()
+            return result
         with timed("Save models", run_logger):
             if args.output_all_models:
                 for i, r in enumerate(results):
@@ -425,13 +578,10 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                     best.model,
                     validation[0] if validation is not None else data,
                     task=task, lineage=lineage))
-        return {
-            "best_config": dict(best.configuration.regularization_weights),
-            "best_evaluation": (best.evaluation.as_dict()
-                                if best.evaluation else None),
-            "n_configurations": len(results),
-            "output_dir": args.output_dir,
-        }
+        multihost.barrier()
+        # a supervised run hands its result to the supervisor
+        write_result_file(result)
+        return result
     finally:
         run_logger.close()
 

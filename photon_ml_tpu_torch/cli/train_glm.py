@@ -27,8 +27,22 @@ retry policy of ``--max-retries`` and ``--retry-deadline-s``; a lambda
 whose coefficients are not finite fails the run under ``--on-divergence
 fail`` and is dropped from selection under ``rollback`` or ``freeze``.
 Saves run in the calling thread (the reference's background saver only
-overlaps them: the bytes are the same). Flags of the reference that the
-port does not run yet are accepted by the parser and raise
+overlaps them: the bytes are the same).
+
+``--multihost`` runs one process per card (the job from the
+``PHOTON_COORDINATOR_ADDRESS`` / ``PHOTON_NUM_PROCESSES`` /
+``PHOTON_PROCESS_ID`` environment, :mod:`photon_ml_tpu_torch.parallel.
+multihost`): each process reads its share of the training files, the
+feature index is agreed across processes, feature statistics are
+all-reduced, and the sequential sweep solves the distributed objective —
+kernel 1 (and kernel 3 under TRON) on each rank's rows, one
+``all_reduce`` a evaluation — in lockstep; process 0 writes the outputs,
+the others log under ``workers/proc-N``. ``--supervise N`` runs N such
+processes under the fleet supervisor
+(:mod:`photon_ml_tpu_torch.resilience.supervisor`), restarting them on a
+crash or a stale heartbeat (the sweep has no checkpoint: a restart
+re-solves it, bit for bit). Flags of the reference that the port does not
+run yet are accepted by the parser and raise
 :class:`NotImplementedError` naming the flag.
 """
 
@@ -61,7 +75,11 @@ from photon_ml_tpu_torch.diagnostics import (
 )
 from photon_ml_tpu_torch.evaluation import parse_evaluators
 from photon_ml_tpu_torch.events import GLOBAL_BUS
-from photon_ml_tpu_torch.game.data import GameData, design_dtype_of
+from photon_ml_tpu_torch.game.data import (
+    GameData,
+    design_dtype_of,
+    host_design_for_shard,
+)
 from photon_ml_tpu_torch.glm.problem import GLMOptimizationConfiguration
 from photon_ml_tpu_torch.glm.training import (
     build_problem,
@@ -94,7 +112,13 @@ from photon_ml_tpu_torch.ops.normalization import (
 from photon_ml_tpu_torch.ops.objective import GLMData
 from photon_ml_tpu_torch.ops.regularization import RegularizationContext
 from photon_ml_tpu_torch.optimize import OptimizerConfig
+from photon_ml_tpu_torch.parallel import multihost
 from photon_ml_tpu_torch.resilience import DivergenceError
+from photon_ml_tpu_torch.resilience.supervisor import (
+    add_supervision_flags,
+    supervise_from_args,
+    write_result_file,
+)
 from photon_ml_tpu_torch.stat import FeatureDataStatistics
 from photon_ml_tpu_torch.types import (
     INTERCEPT_KEY,
@@ -114,11 +138,6 @@ DENSE_MAX_DIM = 4096
 _UNPORTED_FLAGS = {
     "--profile": {"action": "store_true"},
     "--debug-nans": {"action": "store_true"},
-    "--multihost": {"action": "store_true"},
-    "--supervise": {"type": int},
-    "--max-restarts": {"type": int},
-    "--heartbeat-timeout-s": {"type": float},
-    "--restart-deadline-s": {"type": float},
     "--telemetry-dir": {},
     "--telemetry-poll-s": {"type": float},
     "--metrics-port": {"type": int},
@@ -180,6 +199,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the solves run (default: the GPU; there is "
                         "no fall-back to the CPU)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the multi-process job of the PHOTON_* "
+                        "environment: each process reads its share of the "
+                        "training files and solves on its own rows, and "
+                        "only process 0 writes outputs")
+    add_supervision_flags(p)
     add_resilience_flags(p)
     add_unported_flags(p, _UNPORTED_FLAGS)
     return p
@@ -267,9 +292,14 @@ def _run_diagnostics(args, task, best, glm_train, glm_val, shard, stats, imap,
 
 
 def run(argv: Optional[Sequence[str]] = None) -> dict:
-    args = build_parser().parse_args(
-        list(sys.argv[1:] if argv is None else argv))
+    raw_argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(raw_argv)
     refuse_unported(args, _UNPORTED_FLAGS)
+    if args.supervise:
+        # the sweep has no checkpoint: a restarted fleet re-solves it
+        return supervise_from_args(
+            "train_glm", raw_argv, args,
+            worker_flags=("--multihost",) if args.supervise > 1 else ())
     task = TaskType(args.task)
     if args.warm_start and args.sweep_mode == "batched":
         raise SystemExit(
@@ -278,7 +308,23 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     # fail before the reads when no card is present
     device = resolve_device(args.device)
     install_resilience(resilience_from_args(args))
-    run_logger = RunLogger(args.output_dir)
+    multiproc = False
+    if args.multihost:
+        multiproc = multihost.initialize(device=args.device)
+        device = multihost.local_device()
+    if multiproc:
+        bad = [msg for flag, msg in (
+            (args.training_diagnostics, "--training-diagnostics"),
+            (args.sweep_mode == "batched", "--sweep-mode batched (its "
+             "lanes share one design; the multi-process objective sums "
+             "one lane over the ranks)"),
+        ) if flag]
+        if bad:
+            raise SystemExit("multi-process --multihost training does not "
+                             "support: " + ", ".join(bad))
+    chief = multihost.is_chief()
+    run_logger = RunLogger(args.output_dir if chief else os.path.join(
+        args.output_dir, "workers", f"proc-{multihost.process_index()}"))
     try:
         evaluators = parse_evaluators(
             [e for e in args.evaluators.split(",") if e])
@@ -291,8 +337,22 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                                    has_intercept=not args.no_intercept),),
             input_columns=parse_input_columns(args.input_columns))
         with timed("Read training data", run_logger):
-            data, index_maps, _ = reader.read(args.training_data,
-                                              id_columns=id_columns)
+            if multiproc:
+                # this process's share of the files, then one feature
+                # index (and id-tag vocabulary) agreed by every process
+                from photon_ml_tpu_torch.game.multiprocess import (
+                    process_file_share,
+                    reconcile_global_ids,
+                )
+
+                data, index_maps, vocabs = reader.read(
+                    process_file_share(reader, args.training_data),
+                    id_columns=id_columns)
+                data, index_maps, _ = reconcile_global_ids(
+                    data, index_maps, vocabs, id_columns)
+            else:
+                data, index_maps, _ = reader.read(args.training_data,
+                                                  id_columns=id_columns)
         imap = index_maps["global"]
 
         with timed("Validate data", run_logger):
@@ -305,8 +365,10 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         stats = None
         if norm_type != NormalizationType.NONE or args.summarization_output:
             with timed("Summarize features", run_logger):
+                # global statistics when rows span processes, so every
+                # process builds the same normalization
                 stats = FeatureDataStatistics.from_shard(shard).allreduce()
-            if args.summarization_output:
+            if args.summarization_output and chief:
                 write_avro_file(
                     os.path.join(args.output_dir, "summary.avro"),
                     stats.to_records(imap.names()),
@@ -336,7 +398,18 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             mask[imap.key_to_index[INTERCEPT_KEY]] = 0.0
             reg_mask = torch.as_tensor(mask, device=device)
 
-        glm_train = _to_glm_data(data, "global", args.design_dtype, device)
+        if multiproc:
+            # this rank's rows, padded to the row count every rank agreed
+            glm_train = multihost.global_glm_data_multihost(GLMData(
+                design=host_design_for_shard(
+                    shard, dense=shard.dim <= DENSE_MAX_DIM,
+                    dtype=args.design_dtype),
+                labels=torch.as_tensor(data.labels),
+                offsets=torch.as_tensor(data.offsets),
+                weights=torch.as_tensor(data.weights)), device)
+        else:
+            glm_train = _to_glm_data(data, "global", args.design_dtype,
+                                     device)
         initial = None
         if args.warm_start:
             warm_path = os.path.join(args.warm_start, "best", "model.avro")
@@ -359,7 +432,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                 trained = train_glm_sweep(
                     task, glm_train, lambdas, config,
                     normalization=normalization, reg_mask=reg_mask,
-                    initial=initial)
+                    initial=initial, distributed=multiproc)
             # the last solve finishes inside this stage
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -430,13 +503,16 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             save_glm_model_text(os.path.join(out_dir, "model.txt"), model,
                                 imap)
 
-        with timed("Save models", run_logger):
-            imap.save(os.path.join(args.output_dir, "feature-index.json"))
-            for tm in trained:
-                model_id = f"lambda-{tm.regularization_weight:g}"
-                save(tm.model, os.path.join(args.output_dir, "all",
-                                            model_id), model_id)
-            save(best.model, os.path.join(args.output_dir, "best"), "best")
+        if chief:
+            with timed("Save models", run_logger):
+                imap.save(os.path.join(args.output_dir,
+                                       "feature-index.json"))
+                for tm in trained:
+                    model_id = f"lambda-{tm.regularization_weight:g}"
+                    save(tm.model, os.path.join(args.output_dir, "all",
+                                                model_id), model_id)
+                save(best.model, os.path.join(args.output_dir, "best"),
+                     "best")
         report_path = None
         if args.training_diagnostics:
             with timed("Diagnostics", run_logger):
@@ -445,13 +521,19 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                     config, normalization, reg_mask, run_logger)
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
-        return {
+        result = {
             "best_lambda": best.regularization_weight,
             "best_evaluation": (best.evaluation.as_dict()
                                 if best.evaluation else None),
             "output_dir": args.output_dir,
             "diagnostics_report": report_path,
         }
+        # every process returns once the chief's outputs are complete
+        multihost.barrier()
+        if chief:
+            # a supervised run hands its result to the supervisor
+            write_result_file(result)
+        return result
     finally:
         run_logger.close()
 

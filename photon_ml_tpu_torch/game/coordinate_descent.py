@@ -24,7 +24,7 @@ from photon_ml_tpu_torch.evaluation import evaluate_all
 from photon_ml_tpu_torch.game.coordinate import Coordinate, CoordinateModel
 from photon_ml_tpu_torch.game.data import GameData
 from photon_ml_tpu_torch.game.model import GameModel
-from photon_ml_tpu_torch.resilience import fault_value
+from photon_ml_tpu_torch.resilience import fault_point, fault_value, heartbeat
 from photon_ml_tpu_torch.types import TaskType
 
 logger = logging.getLogger(__name__)
@@ -127,9 +127,12 @@ class CoordinateDescent:
         final_evaluation = None
         step_seconds = []
         for sweep in range(start_sweep, self.n_iterations):
+            heartbeat("cd.sweep")
+            fault_point("worker.stall", sweep=sweep)
             for ci, cid in enumerate(self.update_sequence):
                 if sweep == start_sweep and ci < start_coord:
                     continue
+                heartbeat("cd.step")
                 if cid in locked:
                     continue  # frozen: scores stay as seeded
                 if (guard is not None and cid in guard.frozen

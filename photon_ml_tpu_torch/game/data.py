@@ -66,6 +66,14 @@ class FeatureShard:
         return np.repeat(np.arange(self.n_samples, dtype=np.int64),
                          self.row_counts())
 
+    def to_dense(self) -> np.ndarray:
+        """The ``(n, dim)`` f32 host matrix (duplicate entries add)."""
+        flat = np.bincount(
+            self.rows() * np.int64(self.dim) + self.cols.astype(np.int64),
+            weights=self.vals.astype(np.float64),
+            minlength=self.n_samples * self.dim)
+        return flat.astype(np.float32).reshape(self.n_samples, self.dim)
+
     def take(self, sample_idx: np.ndarray) -> "FeatureShard":
         """Row subset (and reorder) by sample indices."""
         sample_idx = np.asarray(sample_idx, np.int64)
@@ -186,14 +194,45 @@ class GameData:
 def choose_dense_design(shard: FeatureShard, *, itemsize: int = 4) -> bool:
     """Dense vs sparse layout for a fixed-effect design — the JAX package's
     measured crossover rule (``choose_dense_design_stats`` there)."""
-    n, dim = shard.n_samples, shard.dim
-    if n * dim * 4 > DENSE_DESIGN_MAX_HOST_BYTES:
+    return choose_dense_design_stats(shard.n_samples, shard.dim, shard.nnz,
+                                     itemsize=itemsize)
+
+
+def choose_dense_design_stats(n_samples: int, dim: int, nnz: int, *,
+                              n_shards: int = 1,
+                              n_local_samples: Optional[int] = None,
+                              itemsize: int = 4) -> bool:
+    """:func:`choose_dense_design`'s rule on explicit statistics: a
+    multi-process job passes the GLOBAL ``(n, nnz)`` (summed over ranks) so
+    every rank picks the same layout; ``n_local_samples`` (the largest
+    rank's rows) bounds the host image each rank builds, and the device cap
+    applies to one of ``n_shards`` blocks."""
+    n_local = n_samples if n_local_samples is None else n_local_samples
+    if n_local * dim * 4 > DENSE_DESIGN_MAX_HOST_BYTES:
         return False
-    if n * dim * itemsize > DENSE_DESIGN_MAX_BYTES:
+    if n_samples * dim * itemsize // max(n_shards, 1) \
+            > DENSE_DESIGN_MAX_BYTES:
         return False
     if dim <= DENSE_DESIGN_MAX_DIM:
         return True
-    return dim <= DENSE_CROSSOVER_NNZ_MULT * (shard.nnz / max(n, 1))
+    return dim <= DENSE_CROSSOVER_NNZ_MULT * (nnz / max(n_samples, 1))
+
+
+def host_design_for_shard(shard: FeatureShard, *, dense: bool,
+                          dtype=torch.float32):
+    """The shard as a host design for the per-rank feed
+    (:func:`~photon_ml_tpu_torch.parallel.multihost.
+    global_glm_data_multihost`): a dense CPU tensor in ``dtype``, or a
+    :class:`~photon_ml_tpu_torch.ops.design.CsrDesign` with f32 values
+    (the sparse layout keeps f32 whatever ``dtype`` says)."""
+    from photon_ml_tpu_torch.ops.design import CsrDesign, DenseDesign
+
+    if dense:
+        return DenseDesign(x=torch.from_numpy(shard.to_dense()).to(
+            design_dtype_of(dtype)))
+    return CsrDesign.from_coo(shard.rows(), shard.cols, shard.vals,
+                              n_rows=shard.n_samples, n_cols=shard.dim,
+                              device="cpu")
 
 
 def design_dtype_of(dtype) -> torch.dtype:
@@ -418,15 +457,19 @@ class RandomEffectDataset:
     @staticmethod
     def build(coordinate_id: str, data: GameData,
               config: RandomEffectDatasetConfig,
-              projector: Optional[RandomProjector] = None
+              projector: Optional[RandomProjector] = None,
+              sample_uids: Optional[np.ndarray] = None
               ) -> "RandomEffectDataset":
         """``projector`` overrides the seeded Gaussian matrix of the RANDOM
         projector (the factored coordinate passes its learned
-        projection)."""
+        projection). ``sample_uids`` (default: the row indices) key the
+        active-data subsample: a multi-process build passes global row ids,
+        so each rank keeps the rows a single-process build keeps."""
         shard = data.shards[config.feature_shard_id]
         entities = data.id_columns[config.random_effect_type]
         n = data.n_samples
-        sample_uids = np.arange(n, dtype=np.int64)
+        if sample_uids is None:
+            sample_uids = np.arange(n, dtype=np.int64)
 
         present = entities >= 0
         order = np.argsort(entities[present], kind="stable")

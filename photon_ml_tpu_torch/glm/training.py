@@ -15,9 +15,14 @@ evaluation (and kernel 3 for every CG product under TRON); the batched
 sweep runs kernel 4, one pass over the design for all lambdas. L1 and
 elastic net solve with OWL-QN in both sweeps. A sparse design
 (:class:`~photon_ml_tpu_torch.ops.design.ChunkedSparseDesign`) takes the
-closed forms, its lanes sharing each gather in the batched sweep. Meshes and
-the JAX package's telemetry, fault-injection and heartbeat hooks are not
-ported. Grouped evaluators read their groups from ``id_tags``. Host arrays
+closed forms, its lanes sharing each gather in the batched sweep. With
+``distributed=True`` (a multi-process job, ``train_glm --multihost``) the
+objective is :class:`~photon_ml_tpu_torch.parallel.distributed.
+DistributedGLMObjective`: each rank solves on its own rows and one
+``all_reduce`` a evaluation sums them, every rank running the same sweep in
+lockstep. Each lambda beats the supervisor's heartbeat and passes the
+``worker.stall`` fault point. The JAX package's telemetry is not ported.
+Grouped evaluators read their groups from ``id_tags``. Host arrays
 become a :class:`GLMData` on the device through
 :func:`photon_ml_tpu_torch.convert.glm_data_from_arrays` (the dense branch
 of the JAX package's ``cli/train_glm.py::_to_glm_data``).
@@ -65,13 +70,21 @@ class TrainedModel:
 
 def build_problem(task: TaskType, config: GLMOptimizationConfiguration,
                   normalization: NormalizationContext = NoNormalization,
-                  reg_mask: Optional[torch.Tensor] = None
-                  ) -> OptimizationProblem:
+                  reg_mask: Optional[torch.Tensor] = None,
+                  distributed: bool = False) -> OptimizationProblem:
     """The one place the sweep's optimization problem is assembled. A
     dense design with identity normalization runs the fused kernels; any
-    other combination takes the closed forms."""
+    other combination takes the closed forms. ``distributed`` sums the
+    objective over the job's ranks (the JAX package's ``mesh``): ``data``
+    is then this rank's block of rows."""
     objective = GLMObjective(loss=loss_for_task(task),
                              normalization=normalization, reg_mask=reg_mask)
+    if distributed:
+        from photon_ml_tpu_torch.parallel.distributed import (
+            DistributedGLMObjective,
+        )
+
+        return OptimizationProblem(DistributedGLMObjective(objective), config)
     return OptimizationProblem(objective, config)
 
 
@@ -96,6 +109,7 @@ def train_glm_sweep(
     normalization: NormalizationContext = NoNormalization,
     reg_mask: Optional[torch.Tensor] = None,
     initial: Optional[torch.Tensor] = None,
+    distributed: bool = False,
 ) -> list[TrainedModel]:
     """Train one GLM per regularization weight with warm starts.
 
@@ -103,10 +117,14 @@ def train_glm_sweep(
     first, the reference's warm-start direction); the returned list follows
     that order. ``reg_mask`` excludes coefficients (e.g. the intercept) from
     regularization. ``initial`` (transformed space) starts the first solve
-    in place of zeros. The solve runs where ``data`` lies."""
+    in place of zeros. The solve runs where ``data`` lies; with
+    ``distributed`` over every rank's rows, ``data`` being this rank's."""
+    from photon_ml_tpu_torch.resilience import fault_point, heartbeat
+
     for lam in regularization_weights:
         config.regularization.check_weight(lam)
-    problem = build_problem(task, config, normalization, reg_mask)
+    problem = build_problem(task, config, normalization, reg_mask,
+                            distributed=distributed)
     design = data.design
     dt = accumulation_dtype(design.dtype)
     w = (torch.zeros(design.dim, dtype=dt, device=design.device)
@@ -114,6 +132,8 @@ def train_glm_sweep(
          else initial.to(dtype=dt, device=design.device))
     out: list[TrainedModel] = []
     for lam in sorted(regularization_weights, reverse=True):
+        heartbeat("glm.sweep")
+        fault_point("worker.stall", regularization_weight=float(lam))
         result = _lane(problem.run(data, w, lam), 0)
         out.append(_trained(problem, task, normalization, data, lam, result))
         w = result.w

@@ -12,12 +12,12 @@ divergence guard of GAME training (counterpart of
   policy)`` primitive around Avro reads, checkpoint save/restore, the
   patch publish and serving's model loads.
 - :mod:`~photon_ml_tpu_torch.resilience.heartbeat` — the supervisor's
-  liveness file, touched by each read.
+  liveness file, touched at reads, sweeps, lambdas and collectives.
 - :mod:`~photon_ml_tpu_torch.resilience.guard` — NaN/Inf detection at
   coordinate boundaries with rollback / regularization backoff / freeze.
-
-Not ported yet: the fleet supervisor (``resilience/supervisor.py``), which
-watches the heartbeat files.
+- :mod:`~photon_ml_tpu_torch.resilience.supervisor` — the fleet supervisor
+  behind ``--supervise N``: it launches N processes, watches their exits
+  and heartbeat files, and restarts the whole fleet from its checkpoint.
 """
 
 from photon_ml_tpu_torch.resilience.faults import (

@@ -2,8 +2,9 @@
 
 A copy of ``heartbeat`` in ``photon_ml_tpu/resilience/supervisor.py``: a
 supervised run names a heartbeat file in ``PHOTON_HEARTBEAT_FILE`` and the
-hot paths (each Avro file read) touch it. Unsupervised, a beat costs one
-environment lookup. The supervisor itself is not ported.
+hot paths (Avro file reads, coordinate-descent sweeps and steps, lambdas,
+host collectives) touch it. Unsupervised, a beat costs one environment
+lookup. :mod:`~photon_ml_tpu_torch.resilience.supervisor` reads it.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 the reference's ``FeatureDataStatistics``): mean, variance, min, max, max
 magnitude and nonzero count of every feature column, computed in one
 vectorized numpy pass over a CSR shard with the implicit zeros counted.
-They feed the normalization contexts and the summarization output file.
+They feed the normalization contexts and the summarization output file;
+:meth:`FeatureDataStatistics.allreduce` combines a multi-process job's.
 """
 
 from __future__ import annotations
@@ -58,17 +59,35 @@ class FeatureDataStatistics:
             max_magnitude=max_magnitude, num_nonzeros=nnz, count=n)
 
     def allreduce(self) -> "FeatureDataStatistics":
-        """The global statistics of a job: the identity in one process.
-        Several processes (the JAX package's multihost training) are not
-        ported."""
-        import torch.distributed as dist
+        """The global statistics of a multi-process job from each process's
+        own (the identity in one process), so every process builds the
+        same normalization. Means and variances recombine through the
+        moment sums (s1, s2); min, max and nonzero counts reduce directly,
+        over the host collectives of
+        :mod:`photon_ml_tpu_torch.parallel.multihost`."""
+        from photon_ml_tpu_torch.parallel.multihost import (
+            allreduce_max,
+            allreduce_sum,
+            process_count,
+        )
 
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "FeatureDataStatistics.allreduce over several processes "
-                "(multihost training) is not ported")
-        return self
+        if process_count() == 1:
+            return self
+        n = self.count
+        s1 = self.mean * n
+        s2 = self.variance * max(n - 1, 1) + n * np.square(self.mean)
+        n_g = int(allreduce_sum(np.array([n], np.int64))[0])
+        s1_g = allreduce_sum(s1)
+        s2_g = allreduce_sum(s2)
+        mean = s1_g / max(n_g, 1)
+        variance = np.maximum(
+            (s2_g - n_g * np.square(mean)) / max(n_g - 1, 1), 0.0)
+        vmin = -allreduce_max(-self.min)
+        vmax = allreduce_max(self.max)
+        return FeatureDataStatistics(
+            mean=mean, variance=variance, min=vmin, max=vmax,
+            max_magnitude=np.maximum(np.abs(vmin), np.abs(vmax)),
+            num_nonzeros=allreduce_sum(self.num_nonzeros), count=n_g)
 
     def to_records(self, names: list[str]):
         """FeatureSummarizationResultAvro-shaped records."""

@@ -340,9 +340,48 @@ def test_output_all_models_publishes_best(data_files, tmp_path):
     assert abs(auc - res["best_evaluation"]["AUC"]) < 1e-6
 
 
+def test_part_files_train_the_one_file_model(data_files, tmp_path):
+    """The training rows split into contiguous part files (a directory,
+    read in name order) give the one file's model: the same files, the
+    same Avro records (each Avro file has its own random sync marker) and
+    metadata but for the training time and the input files' manifest."""
+    from photon_ml_tpu_torch.io.avro import iter_avro_file
+    from photon_ml_tpu_torch.io.data_reader import (
+        write_training_examples as t_write,
+    )
+
+    records = list(iter_avro_file(data_files[0]))
+    parts = tmp_path / "parts"
+    parts.mkdir()
+    cuts = np.linspace(0, len(records), 4).astype(int)
+    for k, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+        t_write(str(parts / f"part-{k:05d}.avro"), records[lo:hi],
+                codec="null")
+    best = {}
+    for name, train in (("one", data_files[0]), ("parts", str(parts))):
+        out = str(tmp_path / name)
+        t_cli.run(_bench_args(train, data_files[1], "bfloat16")
+                  + ["--output-dir", out, "--device", "cpu"])
+        root = os.path.join(out, "best")
+        best[name] = {rel: list(iter_avro_file(os.path.join(root, rel)))
+                      for rel in _tree(root) if rel.endswith(".avro")}
+        with open(os.path.join(root, "model-metadata.json")) as f:
+            meta = json.load(f)
+        assert meta.pop("trainedAt") and meta.pop("dataManifest")
+        best[name]["model-metadata.json"] = meta
+    assert sorted(best["one"]) == _tree(root)
+    assert best["parts"] == best["one"]
+
+
 _REQUIRED = ["--training-data", "x.avro", "--output-dir", "out",
              "--feature-shards", "global=g", "--coordinates",
              "global=fixed,shard=global", "--update-sequence", "global"]
+
+
+#: the multi-process and supervision flags, which run (see
+#: tests/test_torch_multihost_cli.py)
+_MULTI_PROCESS_FLAGS = ("--multihost", "--supervise", "--max-restarts",
+                        "--heartbeat-timeout-s", "--restart-deadline-s")
 
 
 @pytest.mark.parametrize("extra", [
@@ -363,6 +402,13 @@ def test_unported_flag_names_itself(tmp_path, extra):
         with pytest.raises(SystemExit, match="--tuning needs"):
             t_cli.run(_REQUIRED + tuning + ["--device", "cpu",
                                             "--output-dir", str(tmp_path)])
+        return
+    if extra[0] in _MULTI_PROCESS_FLAGS:
+        # ported (tests/test_torch_multihost_cli.py runs them): they parse
+        args = t_cli.build_parser().parse_args(_REQUIRED + extra)
+        dest = extra[0][2:].replace("-", "_")
+        assert getattr(args, dest) == (
+            True if len(extra) == 1 else type(getattr(args, dest))(extra[1]))
         return
     with pytest.raises(NotImplementedError, match=extra[0]):
         t_cli.run(_REQUIRED + extra)

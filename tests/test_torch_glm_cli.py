@@ -340,6 +340,12 @@ def test_warm_start_converges_in_fewer_iterations(files, tmp_path):
 _REQUIRED = ["--training-data", "x.avro", "--output-dir", "out"]
 
 
+#: the multi-process and supervision flags, which run (see
+#: tests/test_torch_multihost_cli.py)
+_MULTI_PROCESS_FLAGS = ("--multihost", "--supervise", "--max-restarts",
+                        "--heartbeat-timeout-s", "--restart-deadline-s")
+
+
 @pytest.mark.parametrize("extra", [
     ["--training-diagnostics"], ["--diagnostic-bootstrap-replicates", "4"],
     ["--profile"], ["--debug-nans"], ["--multihost"],
@@ -359,6 +365,13 @@ def test_unported_flag_names_itself(tmp_path, extra):
         with pytest.raises(SystemExit):
             t_cli.build_parser().parse_args(
                 _REQUIRED + ["--diagnostic-bootstrap-replicates", "0"])
+        return
+    if extra[0] in _MULTI_PROCESS_FLAGS:
+        # ported (tests/test_torch_multihost_cli.py runs them): they parse
+        args = t_cli.build_parser().parse_args(_REQUIRED + extra)
+        dest = extra[0][2:].replace("-", "_")
+        assert getattr(args, dest) == (
+            True if len(extra) == 1 else type(getattr(args, dest))(extra[1]))
         return
     with pytest.raises(NotImplementedError, match=extra[0]):
         t_cli.run(_REQUIRED + extra)
