@@ -200,7 +200,37 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    ``train_game --multihost`` and (d) ``score_game --multihost`` against
    phases 8 and 10 (a); (e) ``train_game --supervise 2`` on phase 8's
    files with rank 1 killed at sweep 1: a restart, and the records of an
-   uninterrupted supervised run.
+   uninterrupted supervised run;
+16. the entity-sharded serving fleet on phase 8's run, phase 10's
+   records and phase 11's day 2: (a) ``serve_fleet --fleet-shards 4``:
+   the hosts' perUser and perSong rows disjoint, their union the
+   unsharded table bit for bit, each host's table bytes ~1/4; (b) the
+   20,000 records through the router's ``/score`` bit-identical to one
+   unsharded host, records crossing shards among them (the router's
+   margin merge), and through the unsharded engine and one host's at
+   every bucket size 1 .. 1024 bit for bit; (c) a ``global`` +
+   ``perSong`` model trained on phase 8's files, ranked by a fleet: ids
+   and scores of ``/rank`` equal to the unsharded ranking's; (d)
+   ``refresh_game --fleet-shards 4`` on day 2 (kernels 1 and 2): the
+   shard patches partition the touched set, a host refuses another
+   shard's patch, the router's two-phase ``/reload`` of the set
+   activates one lineage everywhere (a host the refresh did not touch
+   captures nothing), the patched fleet scores as the merged model does
+   unsharded, bit for bit; bf16 and int8 fleets (``python -m
+   photon_ml_tpu_torch serve_fleet`` processes, started with the phase
+   and loading beside it) within ``quant_bounds`` before and after the
+   same set comes through ``--router-watch-dir``, and refusing ``/rank``
+   for phase 8's model (perUser); the patched
+   fleet refuses a reshard; (e) ``/reshard`` on (c)'s fleet: an injected
+   refusal keeps the incumbent map, 64 buckets moved and
+   ``ShardMap.rebalanced`` after, only those buckets' rows moving and
+   every score bit for bit; (g) p50 and p99 under 8 clients at a fixed
+   rate of the router with its hosts in its process, of one host, and of
+   a router over ``serve_game --fleet-shard`` processes (their scores
+   checked); (f) 2 shards x 2 replicas: a stopped
+   replica is a retry, a ``fleet.replica`` fault exhausting the group a
+   typed 503 ``reason=upstream`` with ``Retry-After``, a spent deadline a
+   429 ``reason=deadline``.
 
 ``python3 chip_smoke.py --mp-gap-seeds 0,1,2`` runs phase 15 (b) alone
 over seeds of phase 6's problem and prints its gaps.
@@ -4558,6 +4588,623 @@ def mp_gap_seeds(seeds, device="cuda"):
     return 0
 
 
+# --------------------------------------------------------------------------
+# phase 16: the entity-sharded serving fleet — serve_fleet, per-host
+# patches, the live reshard, replica groups
+# --------------------------------------------------------------------------
+
+#: hosts of phase 16's fleets; each packs ~1/FLEET_SHARDS of every table
+FLEET_SHARDS = 4
+#: records a /score request through the router carries
+FLEET_BATCH = 500
+#: records scored through one host at every bucket size (1 .. max batch)
+FLEET_BUCKET_RECORDS = 2_048
+#: records of the quantized fleets' checks and of the reshard's
+FLEET_CHECK_RECORDS = 4_000
+#: (c) /rank requests compared with the unsharded ranking, at this k
+FLEET_RANK_RECORDS = 64
+FLEET_RANK_K = 10
+#: (e) buckets moved from shard 0 to shard 1, before a rebalance
+FLEET_MOVED_BUCKETS = 64
+#: (g) load: clients, single-record requests a second each, seconds
+FLEET_CLIENTS = 8
+FLEET_RATE = 25
+FLEET_LOAD_S = 2.0
+
+
+def fleet_request(url, method, path, payload=None, headers=None):
+    """(status, JSON body, headers) of one request, refusals included."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        url + path, data=data, method=method,
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read()), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def fleet_scores(url, records, batch=FLEET_BATCH):
+    """f32 scores of ``records`` through ``url``'s ``/score`` in requests
+    of ``batch`` records, and how many records the router merged."""
+    out, merged = [], 0
+    for lo in range(0, len(records), batch):
+        status, body, _ = fleet_request(url, "POST", "/score",
+                                        {"records": records[lo:lo + batch]})
+        assert status == 200, (status, body)
+        out += body["scores"]
+        merged += body.get("fanout", {}).get("merged", 0)
+    return np.asarray(out, np.float32), merged
+
+
+def engine_scores(sm, records, chunk=ENGINE_MAX_BATCH):
+    """One version's f32 scores of ``records`` in calls of ``chunk``."""
+    return np.concatenate([sm.engine.score(records[lo:lo + chunk])
+                           for lo in range(0, len(records), chunk)])
+
+
+def start_fleet(run, device, *flags):
+    """``serve_fleet.build_fleet`` on ``run``: (fleet, seconds to up)."""
+    from photon_ml_tpu_torch.cli import serve_fleet
+
+    t0 = time.perf_counter()
+    fleet = serve_fleet.build_fleet(
+        ["--model-dir", run, "--feature-shards", E2E_SHARDS, "--port", "0",
+         "--device", device, *flags])
+    return fleet, time.perf_counter() - t0
+
+
+def host_ids(fleet, cid):
+    """Each host's raw ids of coordinate ``cid``."""
+    return [set(h.service.registry.active().stores[cid].row_of_id)
+            for h in fleet.hosts]
+
+
+def fleet_shard_views(fleet, single):
+    """(a): disjoint host views whose union is the unsharded table, bit
+    for bit; returns each host's table bytes over the unsharded ones."""
+    hosts = [h.service.registry.active() for h in fleet.hosts]
+    for cid in ("perUser", "perSong"):
+        ids = host_ids(fleet, cid)
+        union = set().union(*ids)
+        assert sum(map(len, ids)) == len(union), cid  # disjoint
+        assert union == set(single.stores[cid].row_of_id), cid
+        for sm, mine in zip(hosts, ids):
+            raws = sorted(mine)
+            for a, b in zip(table_rows(sm.stores[cid], raws),
+                            table_rows(single.stores[cid], raws)):
+                assert (a is None and b is None) or np.array_equal(a, b)
+        assert (sum(sm.stores[cid].table.shape[0] for sm in hosts)
+                == single.stores[cid].table.shape[0] + len(hosts) - 1), cid
+    full = sum(s.table_bytes for s in single.stores.values())
+    return [sum(s.table_bytes for s in sm.stores.values()) / full
+            for sm in hosts], full
+
+
+def bucket_sweep(sm, records):
+    """Scores of ``records`` through ``sm``'s engine in calls of every
+    bucket size: each must equal the largest bucket's, bit for bit.
+    Returns the sizes held."""
+    ref = engine_scores(sm, records)
+    sizes = []
+    b = 1
+    while b <= sm.engine.max_batch:
+        got = engine_scores(sm, records, chunk=b)
+        bad = int(np.count_nonzero(got != ref))
+        assert bad == 0, (b, bad)
+        sizes.append(b)
+        b <<= 1
+    return sizes
+
+
+def fleet_latency(url, records):
+    """(g): FLEET_CLIENTS clients, each sending single-record /score
+    requests on a fixed schedule of FLEET_RATE a second for FLEET_LOAD_S
+    seconds; latency from each request's scheduled time (so a stall
+    delays the requests behind it). Returns (p50, p99, requests)."""
+    import http.client
+    import threading
+
+    host, port = url.split("//")[1].split(":")
+    lat, errors = [], []
+    lock = threading.Lock()
+    n = int(FLEET_RATE * FLEET_LOAD_S)
+    start = time.perf_counter() + 0.2
+
+    def client(t):
+        conn = http.client.HTTPConnection(host, int(port), timeout=120)
+        try:
+            for k in range(n):
+                due = start + k / FLEET_RATE + t / (FLEET_RATE *
+                                                    FLEET_CLIENTS)
+                wait = due - time.perf_counter()
+                if wait > 0:
+                    time.sleep(wait)
+                rec = records[(t * n + k) % len(records)]
+                conn.request("POST", "/score", json.dumps({"record": rec}),
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                body = resp.read()
+                ms = (time.perf_counter() - due) * 1e3
+                with lock:
+                    lat.append(ms)
+                    if resp.status != 200:
+                        errors.append((resp.status, body[:200]))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(FLEET_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors[:3]
+    p50, p99 = np.percentile(lat, [50, 99])
+    return float(p50), float(p99), len(lat)
+
+
+def spawn_servers(commands):
+    """Start one ``python -m photon_ml_tpu_torch`` server process for each
+    argument list in ``commands`` (each binding port 0). Returns the
+    processes and a function that waits for their URLs, read from the line
+    each prints once it serves, and the seconds each took to get there.
+    The caller stops the processes."""
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    # one CPU thread each: they serve from the card, and load beside work
+    # of this process
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "photon_ml_tpu_torch", *argv], cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+        text=True) for argv in commands]
+    urls, ready = [None] * len(procs), [None] * len(procs)
+
+    def read_url(i):
+        for line in procs[i].stdout:
+            if line.startswith("serving GAME"):
+                urls[i] = line.split(" on ", 1)[1].split()[0]
+                ready[i] = time.perf_counter() - t0
+                return
+
+    readers = [threading.Thread(target=read_url, args=(i,), daemon=True)
+               for i in range(len(procs))]
+    for th in readers:
+        th.start()
+
+    def wait_urls(timeout_s=600):
+        for th in readers:
+            th.join(timeout=timeout_s)
+        if None in urls:
+            raise RuntimeError(f"a server did not start: {urls}")
+        return list(urls), list(ready)
+
+    return procs, wait_urls
+
+
+def wait_lineage(url, lineage, timeout_s=300):
+    """Poll a router's /healthz until every host serves ``lineage``."""
+    limit = time.perf_counter() + timeout_s
+    while True:
+        _, body, _ = fleet_request(url, "GET", "/healthz")
+        if {h.get("lineage") for h in body["hosts"]} == {lineage}:
+            return
+        if time.perf_counter() > limit:
+            raise TimeoutError(f"{url}: hosts at {body['hosts']}")
+        time.sleep(0.5)
+
+
+def rank_model_args(train, valid, out):
+    """Phase 8's arguments without the user-side perUser: the item
+    coordinate is the only random effect, as fleet /rank requires."""
+    args = [a for a in cli_args(train, valid, out)
+            if not a.startswith("perUser=")]
+    args[args.index("global,perUser,perSong")] = "global,perSong"
+    return args
+
+
+def replica_phase(rank_run, records, device):
+    """(f) 2 shards x 2 replicas of the ranking model: a stopped replica
+    is a retry; a ``fleet.replica`` fault that exhausts the group a typed
+    503 ``reason=upstream`` with ``Retry-After``; a spent deadline a 429
+    ``reason=deadline``."""
+    from photon_ml_tpu_torch.fleet.sharding import (
+        retry_jitter_s,
+        shard_of_id,
+        stable_hash_u32,
+    )
+    from photon_ml_tpu_torch.resilience import FaultPlan, injected
+    from photon_ml_tpu_torch.telemetry.prometheus import parse_text, render
+
+    def retries():
+        return sum(v for labels, v in parse_text(render()).get(
+            "photon_fleet_replica_retries_total", ()))
+
+    fleet, up = start_fleet(rank_run, device, "--fleet-shards", "2",
+                            "--replicas", "2", "--no-warmup")
+    try:
+        recs = records[:FLEET_BATCH]
+        before, _ = fleet_scores(fleet.url, recs)
+        r0 = retries()
+        fleet.hosts[1].stop()  # shard 0, replica 1
+        for i in range(8):
+            status, body, _ = fleet_request(
+                fleet.url, "POST", "/score", {"records": recs},
+                headers={"X-Photon-Request-Id": f"stop-{i}"})
+            assert status == 200, (status, body)
+            assert np.array_equal(np.asarray(body["scores"], np.float32),
+                                  before)
+        n_retries = retries() - r0
+        assert n_retries > 0
+        ready = fleet_request(fleet.url, "GET", "/readyz")
+        assert ready[0] == 200 and ready[1]["ready"], ready
+        rid = next(r for r in (f"r{i}" for i in range(100))
+                   if stable_hash_u32(f"replica:{r}") % 2 == 1)
+        rec = next(r for r in records
+                   if shard_of_id(r["metadataMap"]["songId"], 2) == 0)
+        plan = FaultPlan.from_json({"seed": 0, "specs": [
+            {"site": "fleet.replica", "at": [0]}]})
+        with injected(plan):
+            status, body, headers = fleet_request(
+                fleet.url, "POST", "/score", {"record": rec},
+                headers={"X-Photon-Request-Id": rid})
+        assert (status, body.get("reason")) == (503, "upstream"), body
+        retry_after = headers.get("Retry-After")
+        assert retry_after == str(max(1, round(retry_jitter_s(rid)))), \
+            headers
+        status, body, headers = fleet_request(
+            fleet.url, "POST", "/score", {"record": rec},
+            headers={"X-Photon-Deadline-Ms": "0"})
+        assert (status, body.get("reason")) == (429, "deadline"), body
+        assert headers.get("Retry-After"), headers
+    finally:
+        fleet.stop()
+    log(f"[16f] 2 shards x 2 replicas up in {up:.2f} s: shard 0's replica "
+        f"1 stopped, 8 requests of {len(recs)} records all answered "
+        f"bit-identically through {int(n_retries)} replica retries, "
+        f"/readyz ready; a fleet.replica fault exhausting the group: 503 "
+        f"reason=upstream, Retry-After {retry_after} s; a spent "
+        f"deadline: 429 reason=deadline")
+
+
+def reshard_phase(fleet, records):
+    """(e) on ``fleet`` (the ranking model's): moves of
+    FLEET_MOVED_BUCKETS buckets from shard 0 to 1, after a refusal
+    injected at one host's prepare, then ``ShardMap.rebalanced``: only the
+    moved buckets' rows move, scores bit for bit. Returns the two epochs'
+    walls."""
+    from photon_ml_tpu_torch.fleet.sharding import N_BUCKETS, bucket_of_id
+    from photon_ml_tpu_torch.resilience import FaultPlan, injected
+
+    router = fleet.router
+    recs = records[:FLEET_CHECK_RECORDS]
+    before, _ = fleet_scores(fleet.url, recs)
+    incumbent = router.shard_map
+    donors = [b for b in range(N_BUCKETS)
+              if incumbent.buckets[b] == 0][:FLEET_MOVED_BUCKETS]
+    moves = {str(b): 1 for b in donors}
+    plan = FaultPlan.from_json({"seed": 0, "specs": [
+        {"site": "serving.reload", "at": [1]}]})
+    with injected(plan):
+        status, body, _ = fleet_request(fleet.url, "POST", "/reshard",
+                                        {"moves": moves})
+    assert status == 409 and "incumbent map" in body["error"], body
+    assert router.shard_map is incumbent
+    assert {h.service.registry.shard_map_hash for h in fleet.hosts} == \
+        {incumbent.map_hash}
+    after, _ = fleet_scores(fleet.url, recs)
+    assert np.array_equal(after, before)
+    walls = []
+    for payload in ({"moves": moves}, None):
+        old = router.shard_map
+        if payload is None:
+            payload = {"shard_map": old.rebalanced(FLEET_SHARDS).as_dict()}
+        held = {cid: host_ids(fleet, cid)
+                for cid in fleet.hosts[0].service.registry.active().stores}
+        t0 = time.perf_counter()
+        status, out, _ = fleet_request(fleet.url, "POST", "/reshard",
+                                       payload)
+        walls.append(time.perf_counter() - t0)
+        assert status == 200, out
+        new = router.shard_map
+        moved = set(old.moved_buckets(new))
+        assert out["moved_buckets"] == len(moved) == FLEET_MOVED_BUCKETS
+        rows = 0
+        for cid, was in held.items():
+            now = host_ids(fleet, cid)
+            everyone = set().union(*was)
+            for i, (a, b) in enumerate(zip(was, now)):
+                want = {r for r in everyone if bucket_of_id(r) in moved
+                        and (old.shard_of(r) == i) != (new.shard_of(r) == i)}
+                assert a ^ b == want, (cid, i)
+            rows += sum(1 for r in everyone if bucket_of_id(r) in moved)
+        got, _ = fleet_scores(fleet.url, recs)
+        assert np.array_equal(got, before)
+        log(f"[16e] /reshard {old.map_hash} -> {new.map_hash}: "
+            f"{len(moved)} buckets, {rows} rows moved (hosts' moved "
+            f"{out['moved']}), epoch {walls[-1]:.2f} s; "
+            f"{len(recs)} scores bit-identical after")
+    return walls
+
+
+def run_fleet_phase(e2e_run, records, tmp, card, device="cuda"):
+    """Phase 16 on phase 8's run, phase 10's records and phase 11's day-2
+    data; returns the kernels' launches of ``refresh_game --fleet-shards``
+    (d). The processes of (g) (``serve_game --fleet-shard``) and of the
+    quantized fleets (``serve_fleet --table-dtype``) start first and load
+    while the in-process fleets run."""
+    t_start = time.perf_counter()
+    run, valid = e2e_run["run"], e2e_run["valid"]
+    quantized = ("bfloat16", "int8")
+    watch = {dtype: os.path.join(tmp, f"fleet_watch_{dtype}")
+             for dtype in quantized}
+    for d in watch.values():
+        os.makedirs(d)
+    base = ["--model-dir", run, "--feature-shards", E2E_SHARDS, "--port",
+            "0", "--device", device]
+    procs, wait_urls = spawn_servers(
+        [["serve_game", *base, "--fleet-shard", str(i),
+          "--fleet-shard-count", str(FLEET_SHARDS)]
+         for i in range(FLEET_SHARDS)]
+        + [["serve_fleet", *base, "--fleet-shards", str(FLEET_SHARDS),
+            "--no-warmup", "--table-dtype", dtype, "--router-watch-dir",
+            watch[dtype], "--router-watch-poll-s", "0.5",
+            "--rank-item-coordinate", "perSong", "--rank-max-k", "8"]
+           for dtype in quantized])
+    try:
+        launches = _fleet_phase(e2e_run, records, tmp, card, device,
+                                quantized, watch, wait_urls)
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            p.wait(timeout=60)
+    log(f"[16] done in {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+def _fleet_phase(e2e_run, records, tmp, card, device, quantized, watch,
+                 wait_urls):
+    """:func:`run_fleet_phase`'s checks, with its server processes
+    started."""
+    from photon_ml_tpu_torch.cli import refresh_game, train_game
+    from photon_ml_tpu_torch.cli.config import parse_feature_shard_config
+    from photon_ml_tpu_torch.fleet.router import FleetRouter, RouterServer
+    from photon_ml_tpu_torch.fleet.sharding import ShardMap
+    from photon_ml_tpu_torch.serving import (
+        GameServer,
+        MicroBatcher,
+        ModelRegistry,
+        ServingService,
+    )
+
+    run, valid = e2e_run["run"], e2e_run["valid"]
+    shards = tuple(parse_feature_shard_config(s)
+                   for s in E2E_SHARDS.split(","))
+    single_reg = ModelRegistry(shards, max_batch=ENGINE_MAX_BATCH,
+                               device=device, warmup=True)
+    single = single_reg.load(run)
+    want = engine_scores(single, records)
+    check = records[:FLEET_CHECK_RECORDS]
+
+    # (a) shard views ------------------------------------------------------
+    fleet, up = start_fleet(run, device, "--fleet-shards", str(FLEET_SHARDS))
+    try:
+        fractions, full = fleet_shard_views(fleet, single)
+        captures = [h.service.registry.active().engine.compile_count
+                    for h in fleet.hosts]
+        log(f"[16a] serve_fleet --fleet-shards {FLEET_SHARDS} up in "
+            f"{up:.2f} s ({card}); perUser and perSong rows disjoint across "
+            f"hosts, union = the unsharded table bit for bit; table bytes a "
+            f"host / unsharded ({full} bytes): "
+            + ", ".join(f"{f:.4f}" for f in fractions)
+            + f"; captures {captures}")
+        assert all(0.2 < f < 0.3 for f in fractions), fractions
+        assert captures == [ENGINE_CAPTURES] * FLEET_SHARDS, captures
+
+        # (b) /score -------------------------------------------------------
+        smap = ShardMap.default(FLEET_SHARDS)
+        crossed = sum(
+            smap.shard_of(r["metadataMap"]["userId"])
+            != smap.shard_of(r["metadataMap"]["songId"]) for r in records)
+        t0 = time.perf_counter()
+        got, merged = fleet_scores(fleet.url, records)
+        wall = time.perf_counter() - t0
+        mismatch = int(np.count_nonzero(got != want))
+        log(f"[16b] {len(records)} records through the router in "
+            f"{wall:.2f} s ({len(records) // FLEET_BATCH} requests): "
+            f"{merged} crossed shards (margin merge; {crossed} expected), "
+            f"{mismatch} scores differ from the unsharded host's")
+        assert merged == crossed > 0, (merged, crossed)
+        assert mismatch == 0, mismatch
+        sweep = records[:FLEET_BUCKET_RECORDS]
+        t0 = time.perf_counter()
+        sizes = bucket_sweep(single, sweep)
+        bucket_sweep(fleet.hosts[0].service.registry.active(), sweep)
+        log(f"  {len(sweep)} records through the unsharded engine and "
+            f"host 0's at every bucket size {sizes[0]}-{sizes[-1]}: bit "
+            f"for bit equal ({time.perf_counter() - t0:.2f} s)")
+
+        # (c) /rank --------------------------------------------------------
+        rank_run = os.path.join(tmp, "fleet_rank")
+        res, rank_wall, rank_launches = counted_call(
+            train_game.run, rank_model_args(e2e_run["train"], valid,
+                                            rank_run))
+        rank_reg = ModelRegistry(shards, max_batch=ENGINE_MAX_BATCH,
+                                 device=device, rank_coordinate="perSong",
+                                 rank_max_k=16)
+        rank_sm = rank_reg.load(rank_run)
+        rank_fleet, rank_up = start_fleet(
+            rank_run, device, "--fleet-shards", str(FLEET_SHARDS),
+            "--no-warmup", "--rank-item-coordinate", "perSong",
+            "--rank-max-k", "16")
+        try:
+            asked = records[:FLEET_RANK_RECORDS]
+            ranked = rank_sm.rank(asked, [FLEET_RANK_K] * len(asked))
+            for rec, (ids, scores) in zip(asked, ranked):
+                status, body, _ = fleet_request(
+                    rank_fleet.url, "POST", "/rank",
+                    {"record": rec, "k": FLEET_RANK_K})
+                assert status == 200, body
+                assert body["ids"] == list(ids), rec["metadataMap"]
+                assert body["scores"] == [float(v) for v in scores]
+            # (e) the live reshard, on this fleet ---------------------------
+            reshard_walls = reshard_phase(rank_fleet, records)
+        finally:
+            rank_fleet.stop()
+        log(f"[16c] train_game global + perSong: {rank_wall:.2f} s "
+            f"(launches {rank_launches}, AUC "
+            f"{res['best_evaluation']['AUC']:.6f}); fleet of "
+            f"{FLEET_SHARDS} ranking perSong up in {rank_up:.2f} s: "
+            f"{len(asked)} /rank replies (k {FLEET_RANK_K}) equal the "
+            f"unsharded ranking's ids and scores")
+        del rank_reg, rank_sm
+
+        # (d) per-host patches ---------------------------------------------
+        day2 = os.path.join(tmp, "day2")
+        assert os.path.isdir(day2), day2
+        out_f = os.path.join(tmp, "refresh_fleet")
+        res_f, refresh_wall, launches = counted_call(
+            refresh_game.run, flag_args(refresh_args(run, day2, valid,
+                                                     out_f),
+                                        fleet_shards=FLEET_SHARDS))
+        assert launches["fused_glm"] > 0 and launches["fused_re"] > 0
+        dirs = res_f["shard_patch_dirs"]
+        touched_hosts = []
+        for cid in ("perUser", "perSong"):
+            whole = set(coefficient_records(res_f["patch_dir"], cid))
+            parts = [set(coefficient_records(d, cid)) for d in dirs]
+            assert sum(map(len, parts)) == len(whole) == len(
+                set().union(*parts)), cid
+            assert set().union(*parts) == whole, cid
+            for i, part in enumerate(parts):
+                assert all(smap.shard_of(r) == i for r in part), cid
+            touched_hosts.append([len(p) for p in parts])
+        host0 = fleet.hosts[0]
+        status, body, _ = fleet_request(host0.url, "POST", "/reload",
+                                        {"model_dir": dirs[1]})
+        assert status == 409 and "foreign shard" in body["error"], body
+        parents = [h.service.registry.active().engine for h in fleet.hosts]
+        t0 = time.perf_counter()
+        status, out, _ = fleet_request(fleet.url, "POST", "/reload",
+                                       {"model_dirs": dirs})
+        epoch_wall = time.perf_counter() - t0
+        assert status == 200, out
+        lineages = {h.service.registry.active().lineage
+                    for h in fleet.hosts}
+        assert lineages == {out["lineage"]}, lineages
+        # a version sharing its parent's programs counts the shared cache
+        new_captures = []
+        for h, parent in zip(fleet.hosts, parents):
+            engine = h.service.registry.active().engine
+            shared = engine._root is parent._root
+            new_captures.append(engine.compile_count
+                                - (parent.compile_count if shared else 0))
+        for i, c in enumerate(new_captures):
+            touched = any(t[i] for t in touched_hosts)
+            assert c == (ENGINE_CAPTURES if touched else 0), (i, c)
+        merged_reg = ModelRegistry(shards, max_batch=ENGINE_MAX_BATCH,
+                                   device=device)
+        merged_sm = merged_reg.load(os.path.join(out_f, "best"))
+        assert merged_sm.lineage == out["lineage"]
+        merged_want = engine_scores(merged_sm, check)
+        got, _ = fleet_scores(fleet.url, check)
+        mismatch = int(np.count_nonzero(got != merged_want))
+        log(f"[16d] refresh_game --fleet-shards {FLEET_SHARDS} on day 2: "
+            f"{refresh_wall:.2f} s, launches {launches}; rows per shard "
+            f"patch (perUser, perSong): {touched_hosts}; host 0 refused "
+            f"shard 1's patch; the two-phase /reload of the set "
+            f"{epoch_wall:.2f} s, one lineage, captures per host "
+            f"{new_captures}; {mismatch} of {len(check)} scores differ "
+            f"from the merged model's unsharded")
+        assert mismatch == 0, mismatch
+
+        # (b, d) the bf16 and int8 fleets (serve_fleet processes) against
+        # their formats' bounds, before and after the same patch set comes
+        # through their --router-watch-dir
+        urls, ready = wait_urls()
+        bounds = [quant_bounds(single, check), quant_bounds(merged_sm, check)]
+        f32 = [want[:len(check)], merged_want]
+        for j, dtype in enumerate(quantized):
+            url = urls[FLEET_SHARDS + j]
+            worst = []
+            for k in range(2):
+                if k == 1:
+                    t0 = time.perf_counter()
+                    publish(out_f, watch[dtype], "refresh")
+                    wait_lineage(url, out["lineage"])
+                    watch_wall = time.perf_counter() - t0
+                got, _ = fleet_scores(url, check)
+                err = np.abs(got.astype(np.float64) - f32[k])
+                worst.append(float((err / bounds[k][dtype]).max()))
+            status, body, _ = fleet_request(url, "GET", "/rank?user=u1&k=3")
+            log(f"[16b/d] python -m photon_ml_tpu_torch serve_fleet "
+                f"--table-dtype {dtype}: up in {ready[FLEET_SHARDS + j]:.2f} "
+                f"s (in the background); |diff| from f32 at most "
+                f"{worst[0]:.3f} of the format's bound, {worst[1]:.3f} after "
+                f"the patch set came through --router-watch-dir (published "
+                f"to one lineage everywhere in {watch_wall:.2f} s); /rank "
+                f"with perUser: {status} {body.get('error', '')[:72]}")
+            assert max(worst) <= 1.0, (dtype, worst)
+            assert status == 400 and "only random effect" in body["error"]
+
+        # a version made from per-host patches refuses a reshard: its
+        # model holds only its own shard's refreshed rows
+        incumbent = fleet.router.shard_map
+        status, body, _ = fleet_request(
+            fleet.url, "POST", "/reshard",
+            {"shard_map": incumbent.with_moves({0: 1}).as_dict()})
+        assert status == 409 and "per-host patch" in body["error"], body
+        assert fleet.router.shard_map is incumbent
+        log(f"[16e] /reshard of the patched fleet: {status}, incumbent map "
+            f"{incumbent.map_hash} kept ({body['error'][:120]})")
+
+        # (g) latency: the router beside one host ---------------------------
+        batcher = MicroBatcher(lambda recs: single_reg.active().score(recs),
+                               max_batch=HTTP_MICROBATCH, max_wait_ms=2.0,
+                               max_queue=1024)
+        one = GameServer(ServingService(single_reg, batcher=batcher),
+                         port=0).start()
+        try:
+            lat = {"router, hosts in its process": fleet_latency(
+                       fleet.url, records),
+                   "one host": fleet_latency(one.url, records)}
+        finally:
+            one.stop()
+        # the same load through a router whose hosts are processes of
+        # their own (serve_game --fleet-shard, phase 8's model): the share
+        # of the gap the one interpreter lock makes
+        apart = RouterServer(FleetRouter(urls[:FLEET_SHARDS])).start()
+        try:
+            got, _ = fleet_scores(apart.url, check)
+            assert np.array_equal(got, want[:len(got)])
+            lat["router, hosts apart"] = fleet_latency(apart.url, records)
+        finally:
+            apart.stop()
+        log(f"[16g] {FLEET_CLIENTS} clients x {FLEET_RATE} single-record "
+            f"/score a second for {FLEET_LOAD_S:g} s ({card}): "
+            + "; ".join(f"{k} p50 {v[0]:.2f} ms, p99 {v[1]:.2f} ms "
+                        f"({v[2]} requests)" for k, v in lat.items())
+            + f" (the {FLEET_SHARDS} serve_game --fleet-shard processes up "
+            f"in {max(ready[:FLEET_SHARDS]):.2f} s in the background, "
+            f"{len(check)} scores through them the unsharded host's); "
+            f"reshard epochs {reshard_walls[0]:.2f} and "
+            f"{reshard_walls[1]:.2f} s")
+    finally:
+        fleet.stop()
+
+    # (f) replica groups ---------------------------------------------------
+    replica_phase(rank_run, records, device)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4919,6 +5566,9 @@ def main() -> int:
         mp_launches = run_multiprocess_phase(
             e2e_run, glm_paths, os.path.join(e2e_tmp, "glm"), phase6,
             e2e_tmp)
+
+        # 16. the entity-sharded serving fleet ------------------------------
+        fleet_launches = run_fleet_phase(e2e_run, records, e2e_tmp, card)
     finally:
         shutil.rmtree(e2e_tmp, ignore_errors=True)
 
@@ -4946,6 +5596,7 @@ def main() -> int:
              options=dict(launches=options("fused_glm")),
              quality=dict(launches=quality_launches["fused_glm"]),
              multihost=dict(launches=multihost("fused_glm")),
+             fleet=dict(launches=fleet_launches["fused_glm"]),
              glm_path=dict(launches=glm_launches["tron"]["fused_glm"],
                            **t1_glm),
              glm_small=dict(launches=runs["cuda"]["tron"][3]["fused_glm"],
@@ -4961,7 +5612,8 @@ def main() -> int:
              train_glm=dict(launches=train_glm_launches("fused_re")),
              options=dict(launches=options("fused_re")),
              quality=dict(launches=quality_launches["fused_re"]),
-             multihost=dict(launches=multihost("fused_re"))),
+             multihost=dict(launches=multihost("fused_re")),
+             fleet=dict(launches=fleet_launches["fused_re"])),
         dict(name="fused_hvp", route="cuda", status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_hvp.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:447",
@@ -4973,7 +5625,8 @@ def main() -> int:
              locked=dict(launches=locked_launches["fused_hvp"]),
              options=dict(launches=options("fused_hvp")),
              quality=dict(launches=quality_launches["fused_hvp"]),
-             multihost=dict(launches=multihost("fused_hvp"))),
+             multihost=dict(launches=multihost("fused_hvp")),
+             fleet=dict(launches=fleet_launches["fused_hvp"])),
         dict(name="fused_value_and_grad_multi", route="cuda",
              status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_glm_multi.cu",
@@ -4983,7 +5636,8 @@ def main() -> int:
              refresh=dict(launches=refresh_launches["fused_glm_multi"]),
              locked=dict(launches=locked_launches["fused_glm_multi"]),
              options=dict(launches=options("fused_glm_multi")),
-             quality=dict(launches=quality_launches["fused_glm_multi"])),
+             quality=dict(launches=quality_launches["fused_glm_multi"]),
+             fleet=dict(launches=fleet_launches["fused_glm_multi"])),
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"):

@@ -1,7 +1,7 @@
 """Subcommand dispatch: ``python -m photon_ml_tpu_torch <command> [args...]``
 (counterpart of ``photon_ml_tpu/__main__.py``). ``train_game``,
-``refresh_game``, ``train_glm``, ``score_game``, ``serve_game`` and
-``build_index`` are the commands ported so far."""
+``refresh_game``, ``train_glm``, ``score_game``, ``serve_game``,
+``serve_fleet`` and ``build_index`` are the commands ported so far."""
 
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ _COMMANDS = {
     "train_glm": "photon_ml_tpu_torch.cli.train_glm",
     "score_game": "photon_ml_tpu_torch.cli.score_game",
     "serve_game": "photon_ml_tpu_torch.cli.serve_game",
+    "serve_fleet": "photon_ml_tpu_torch.cli.serve_fleet",
     "build_index": "photon_ml_tpu_torch.cli.build_index",
 }
 

@@ -28,9 +28,10 @@ deadline, divergence policy) and serve_game's model-quality and ranking
 flags (:func:`add_quality_flags`, :func:`add_rank_flags`) are ported, and
 the supervision flags live beside the supervisor
 (:func:`~photon_ml_tpu_torch.resilience.supervisor.add_supervision_flags`);
-the telemetry, fleet and retained-telemetry flag groups are not:
-:func:`add_unported_flags` lets a command accept such flags and
-:func:`refuse_unported` raise naming them.
+so is the fleet router's group (:class:`RouterConfig`,
+:func:`add_router_flags`, serve_fleet's). The telemetry and
+retained-telemetry flag groups are not: :func:`add_unported_flags` lets a
+command accept such flags and :func:`refuse_unported` raise naming them.
 """
 
 from __future__ import annotations
@@ -402,6 +403,144 @@ def rank_from_args(args) -> RankConfig:
     return RankConfig(item_coordinate=args.rank_item_coordinate,
                       max_k=args.rank_max_k)
 
+
+
+# ---------------------------------------------------------------------------
+# Fleet-routing configuration (serve_fleet; shard flags on serve_game)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RouterConfig:
+    """The fleet router's knobs (``serve_fleet``), round-trippable through
+    a JSON config file like :class:`ResilienceConfig`.
+
+    ``fleet_shards`` is N — how many entity-sharded shard groups the
+    router fronts; ``replicas`` is R — how many serving hosts per shard
+    group (each serving the SAME ``--fleet-shard I --fleet-shard-count
+    N`` view; R ≥ 2 turns a dead host into a replica retry instead of a
+    503, and lets the router hedge slow legs); ``hedge_delay_ms`` fixes
+    when the backup replica fires against a still-pending primary (0 =
+    adaptive: the p99 of the shard's recent leg latencies);
+    ``fanout_timeout_s`` bounds each per-host leg (a slower host becomes
+    a typed 503 ``reason=upstream``, never a hang);
+    ``request_timeout_ms`` is the router-side default deadline for
+    requests carrying no ``X-Photon-Deadline-Ms`` of their own (0 =
+    none), propagated to hosts as the REMAINING budget.
+
+    ``slo_objective_ms`` arms the fleet SLO burn-rate tracker
+    (``fleet/observe.py``): a routed request slower than the objective
+    (or failed) spends error budget against ``slo_target``; the tracker
+    ticks every ``slo_tick_s`` and posts edge-triggered
+    ``slo_burn_alert`` events on the bus. 0 = no tracker.
+    """
+
+    fleet_shards: int = 2
+    replicas: int = 1
+    hedge_delay_ms: float = 0.0
+    fanout_timeout_s: float = 30.0
+    request_timeout_ms: float = 0.0
+    slo_objective_ms: float = 0.0
+    slo_target: float = 0.999
+    slo_tick_s: float = 10.0
+
+    def __post_init__(self):
+        if self.fleet_shards < 1:
+            raise ValueError(f"fleet_shards must be >= 1, "
+                             f"got {self.fleet_shards}")
+        if self.replicas < 1:
+            raise ValueError(f"replicas must be >= 1, "
+                             f"got {self.replicas}")
+        if self.hedge_delay_ms < 0:
+            raise ValueError(f"hedge_delay_ms must be >= 0, "
+                             f"got {self.hedge_delay_ms}")
+        if self.fanout_timeout_s <= 0:
+            raise ValueError(f"fanout_timeout_s must be > 0, "
+                             f"got {self.fanout_timeout_s}")
+        if self.slo_objective_ms < 0:
+            raise ValueError(f"slo_objective_ms must be >= 0, "
+                             f"got {self.slo_objective_ms}")
+        if not 0.0 < self.slo_target < 1.0:
+            raise ValueError(f"slo_target must be in (0, 1), "
+                             f"got {self.slo_target}")
+        if self.slo_tick_s <= 0:
+            raise ValueError(f"slo_tick_s must be > 0, "
+                             f"got {self.slo_tick_s}")
+
+    # --- config-file round-trip ------------------------------------------
+    def as_dict(self) -> dict:
+        return {"fleetShards": self.fleet_shards,
+                "replicas": self.replicas,
+                "hedgeDelayMs": self.hedge_delay_ms,
+                "fanoutTimeoutS": self.fanout_timeout_s,
+                "requestTimeoutMs": self.request_timeout_ms,
+                "sloObjectiveMs": self.slo_objective_ms,
+                "sloTarget": self.slo_target,
+                "sloTickS": self.slo_tick_s}
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "RouterConfig":
+        return cls(fleet_shards=int(d.get("fleetShards", 2)),
+                   replicas=int(d.get("replicas", 1)),
+                   hedge_delay_ms=float(d.get("hedgeDelayMs", 0.0)),
+                   fanout_timeout_s=float(d.get("fanoutTimeoutS", 30.0)),
+                   request_timeout_ms=float(d.get("requestTimeoutMs", 0.0)),
+                   slo_objective_ms=float(d.get("sloObjectiveMs", 0.0)),
+                   slo_target=float(d.get("sloTarget", 0.999)),
+                   slo_tick_s=float(d.get("sloTickS", 10.0)))
+
+
+def add_router_flags(parser) -> None:
+    """The serve_fleet routing-tier flags."""
+    parser.add_argument(
+        "--fleet-shards", type=int, default=2, metavar="N",
+        help="how many entity-sharded serving hosts to launch behind the "
+             "router: raw entity ids hash to shards via "
+             "fleet/sharding.py, each host packs only its ~1/N slice of "
+             "every dense coefficient table")
+    parser.add_argument(
+        "--replicas", type=int, default=1, metavar="R",
+        help="serving hosts PER SHARD (R×N hosts total): at R >= 2 a "
+             "dead host becomes a replica retry instead of a 503 "
+             "reason=upstream, and slow legs are hedged (backup fired "
+             "after the p99-derived hedge delay, first answer wins)")
+    parser.add_argument(
+        "--hedge-delay-ms", type=float, default=0.0,
+        help="fixed hedge delay for slow-leg backups (0 = adaptive: the "
+             "p99 of the shard's recent leg latencies; only meaningful "
+             "with --replicas >= 2)")
+    parser.add_argument(
+        "--fanout-timeout-s", type=float, default=30.0,
+        help="per-host fan-out leg timeout; a slower or dead host maps "
+             "to a typed 503 (reason=upstream) instead of a hang, and a "
+             "request's remaining deadline budget caps each leg below "
+             "this")
+    parser.add_argument(
+        "--slo-objective-ms", type=float, default=0.0,
+        help="latency objective arming the fleet SLO burn-rate tracker: "
+             "a routed request slower than this (or failed) spends error "
+             "budget; crossing a burn-rate threshold posts slo_burn_alert "
+             "on the event bus. 0 = no tracker")
+    parser.add_argument(
+        "--slo-target", type=float, default=0.999,
+        help="SLO success-rate target (the error budget is 1 - target); "
+             "burn rate 1.0 spends the budget exactly at the sustainable "
+             "rate")
+    parser.add_argument(
+        "--slo-tick-s", type=float, default=10.0,
+        help="how often the burn-rate tracker closes a bucket and "
+             "evaluates its alert windows")
+
+
+def router_from_args(args) -> RouterConfig:
+    return RouterConfig(fleet_shards=args.fleet_shards,
+                        replicas=args.replicas,
+                        hedge_delay_ms=args.hedge_delay_ms,
+                        fanout_timeout_s=args.fanout_timeout_s,
+                        request_timeout_ms=args.request_timeout_ms,
+                        slo_objective_ms=args.slo_objective_ms,
+                        slo_target=args.slo_target,
+                        slo_tick_s=args.slo_tick_s)
 
 
 def add_unported_flags(parser: argparse.ArgumentParser,

@@ -21,9 +21,11 @@ train and patch in as new rows. It runs on the card unless ``--device
 cpu`` asks for the CPU; ``--design-dtype`` (port-only, default float32 as
 in the reference) sets the dense designs' storage dtype. Saves run in the
 calling thread, ``quality-baseline.json`` (the refreshed model profiled
-on the validation data, else the training data) among them. Not ported
-yet (each raises :class:`NotImplementedError` naming the flag):
-``--fleet-shards N > 0`` and the telemetry flags.
+on the validation data, else the training data) among them.
+``--fleet-shards N`` also publishes the per-host patches of an N-host
+serving fleet (``patch-shard-0`` … ``patch-shard-N-1``), each chained to
+the same merged model. Not ported yet (each raises
+:class:`NotImplementedError` naming the flag): the telemetry flags.
 """
 
 from __future__ import annotations
@@ -77,7 +79,6 @@ logger = logging.getLogger(__name__)
 
 #: the reference's flags this command does not run yet (see train_game)
 _UNPORTED_FLAGS = {
-    "--fleet-shards": {"type": int, "default": 0},
     "--telemetry-dir": {},
     "--telemetry-poll-s": {"type": float},
     "--metrics-port": {"type": int},
@@ -127,6 +128,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-patch", action="store_true",
                    help="skip the coefficient-patch artifact (full model "
                         "dir only)")
+    p.add_argument("--fleet-shards", type=int, default=0, metavar="N",
+                   help="also publish N per-host patches "
+                        "(patch-shard-0 .. patch-shard-N-1) for an "
+                        "entity-sharded serving fleet: the touched set "
+                        "partitioned by the hash the serving hosts pack "
+                        "by (fleet/sharding.py), each patch naming its "
+                        "shard (fleetShard/fleetShardCount), so a host "
+                        "refuses any other shard's. 0 = none")
     p.add_argument("--design-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="storage dtype of the dense designs on the device "
@@ -286,6 +295,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
 
         # --- publish: the entity-level coefficient patch ----------------
         patch_dir = None
+        shard_patch_dirs: list = []
         if not args.no_patch:
             patch_dir = os.path.join(args.output_dir, "patch")
             reverse = {t: {v: k for k, v in vocabs[t].items()}
@@ -293,22 +303,53 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             removed_raw = {
                 cid: [reverse[re_coords[cid][0]][int(e)] for e in dense_ids]
                 for cid, dense_ids in result.removed.items()}
+            model_id = model_lineage_id(best_dir)
+            patch_lineage = {"trainedAt": trained_at,
+                             "dataManifest": manifest_dig}
             with timed("Publish patch", run_logger):
                 patch_bytes = save_model_patch_atomic(
                     patch_dir, result.patch, index_maps, vocabs,
                     task=task, parent_model=prior_lineage,
-                    model_id=model_lineage_id(best_dir),
-                    removed=removed_raw,
-                    lineage={"trainedAt": trained_at,
-                             "dataManifest": manifest_dig},
+                    model_id=model_id, removed=removed_raw,
+                    lineage=patch_lineage,
                     sparsity_threshold=args.model_sparsity_threshold)
             patch_bytes_counter().inc(patch_bytes)
             run_logger.metric(stage="patch", bytes=patch_bytes,
                               coordinates=sorted(result.patch))
+            if args.fleet_shards > 0:
+                # per-host patches of an entity-sharded serving fleet: the
+                # hash the hosts pack by partitions the touched set, and
+                # every shard's patch chains to the same merged model, so
+                # the fleet's lineage is uniform once each host applies
+                # its own
+                from photon_ml_tpu_torch.continuous.refresh import (
+                    partition_patch_by_shard,
+                )
+
+                parts = partition_patch_by_shard(
+                    result.patch, removed_raw, vocabs, args.fleet_shards)
+                with timed("Publish fleet patches", run_logger):
+                    for shard, (models, rm) in enumerate(parts):
+                        sdir = os.path.join(args.output_dir,
+                                            f"patch-shard-{shard}")
+                        sbytes = save_model_patch_atomic(
+                            sdir, models, index_maps, vocabs,
+                            task=task, parent_model=prior_lineage,
+                            model_id=model_id, removed=rm,
+                            lineage=patch_lineage,
+                            sparsity_threshold=(
+                                args.model_sparsity_threshold),
+                            fleet_shard=(shard, args.fleet_shards))
+                        patch_bytes_counter().inc(sbytes)
+                        shard_patch_dirs.append(sdir)
+                        run_logger.metric(stage="patch", shard=shard,
+                                          of=args.fleet_shards,
+                                          bytes=sbytes)
 
         return {
             "output_dir": args.output_dir,
             "patch_dir": patch_dir,
+            "shard_patch_dirs": shard_patch_dirs,
             "parent_model": prior_lineage,
             "touched": {cid: st.touched
                         for cid, st in result.stats.items()},

@@ -18,9 +18,12 @@ through a rank micro-batcher; ``--canary-gate`` (``--canary-bound``)
 refuses a candidate whose shadow scores over recent requests diverge from
 the incumbent's; ``--quality-poll-s`` runs the drift evaluator against the
 active version's ``quality-baseline.json``, posting
-``quality_drift_detected`` past ``--drift-threshold``. Flags of the
-reference that the port does not run yet (fleet shards, the autopilot,
-retained telemetry, telemetry) are accepted by the parser and raise
+``quality_drift_detected`` past ``--drift-threshold``. ``--fleet-shard I
+--fleet-shard-count N`` serves shard I of an entity-sharded fleet: the
+tables hold only the ids the shard owns, and per-host patches of other
+shards are refused (``serve_fleet`` puts a router in front). Flags of the
+reference that the port does not run yet (the autopilot, retained
+telemetry, telemetry) are accepted by the parser and raise
 :class:`NotImplementedError` naming the flag when given away from their
 default.
 """
@@ -46,8 +49,6 @@ from photon_ml_tpu_torch.cli.config import (
 #: the reference's flags this command does not run yet, with their argparse
 #: settings and the reference defaults (which are accepted)
 _UNPORTED_FLAGS = {
-    "--fleet-shard": {"type": int, "default": None},
-    "--fleet-shard-count": {"type": int, "default": None},
     "--autopilot-config": {"default": None},
     "--history-capacity": {"type": int, "default": 240},
     "--history-period-s": {"type": float, "default": 0.0},
@@ -108,6 +109,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where the tables and bucket programs live "
                         "(default: the GPU; there is no fall-back to the "
                         "CPU)")
+    p.add_argument("--fleet-shard", type=int, default=None, metavar="I",
+                   help="serve fleet shard I of --fleet-shard-count N: "
+                        "the tables pack only the raw ids this shard owns "
+                        "(fleet/sharding.py), ~1/N of the device bytes, "
+                        "and per-host patches of other shards are "
+                        "refused; put a serve_fleet router in front. "
+                        "Default: unsharded")
+    p.add_argument("--fleet-shard-count", type=int, default=None,
+                   metavar="N",
+                   help="the fleet's shard count (required with "
+                        "--fleet-shard)")
     p.add_argument("--watch-dir", metavar="DIR",
                    help="poll DIR for new model versions (full "
                         "train_game / refresh_game output dirs or "
@@ -168,13 +180,20 @@ def build_server(argv: Optional[Sequence[str]] = None):
     rank = rank_from_args(args)
     shard_configs = tuple(parse_feature_shard_config(s)
                           for s in args.feature_shards.split(","))
+    fleet_shard = None
+    if args.fleet_shard is not None or args.fleet_shard_count is not None:
+        if args.fleet_shard is None or args.fleet_shard_count is None:
+            raise SystemExit("--fleet-shard and --fleet-shard-count go "
+                             "together (I of N)")
+        fleet_shard = (args.fleet_shard, args.fleet_shard_count)
     registry = ModelRegistry(shard_configs, max_batch=args.max_batch,
                              warmup=not args.no_warmup,
                              table_dtype=args.table_dtype,
                              device=args.device,
                              canary=quality.canary(),
                              rank_coordinate=rank.item_coordinate,
-                             rank_max_k=rank.max_k)
+                             rank_max_k=rank.max_k,
+                             fleet_shard=fleet_shard)
     registry.load(args.model_dir)
     batcher = None
     if args.microbatch > 0:

@@ -8,13 +8,13 @@
 - :mod:`~photon_ml_tpu_torch.continuous.refresh` — the refresh loop: every
   optimizer seeded from the prior model, random-effect coordinates
   re-solving only the touched entities, every other entity's coefficients
-  carried forward bit for bit.
+  carried forward bit for bit; ``partition_patch_by_shard`` cuts the patch
+  into a serving fleet's per-host patches.
 
 The refresh writes a full model directory (the next refresh's parent) and
 an entity-level coefficient patch
 (``io/model_io.py::save_game_model_patch``) in the JAX package's format,
-which the JAX package's serving registry activates (``load_patch``); the
-port's serving does not activate patches yet.
+which either package's serving registry activates (``load_patch``).
 """
 
 from photon_ml_tpu_torch.continuous.delta import (  # noqa: F401
@@ -31,5 +31,6 @@ from photon_ml_tpu_torch.continuous.delta import (  # noqa: F401
 )
 from photon_ml_tpu_torch.continuous.refresh import (  # noqa: F401
     RefreshResult,
+    partition_patch_by_shard,
     refresh_game_model,
 )

@@ -22,9 +22,10 @@ entities' coefficients pass through :meth:`RandomEffectModel.merge`
 untouched, so they come back bit for bit.
 
 Observability: the ``photon_refresh_*`` counters (touched / carried /
-solved entities per coordinate, patch bytes at publish). Not ported yet:
-the ``refresh.*`` tracing spans and ``partition_patch_by_shard`` (per-host
-patches of an entity-sharded serving fleet).
+solved entities per coordinate, patch bytes at publish).
+:func:`partition_patch_by_shard` splits a refresh's patch into the
+per-host patches of an entity-sharded serving fleet. Not ported yet: the
+``refresh.*`` tracing spans.
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ from photon_ml_tpu_torch.game.estimator import (
     GameOptimizationConfiguration,
     RandomEffectCoordinateConfig,
 )
-from photon_ml_tpu_torch.game.model import GameModel
+from photon_ml_tpu_torch.fleet.sharding import shard_of_id
+from photon_ml_tpu_torch.game.model import GameModel, RandomEffectModel
 from photon_ml_tpu_torch.telemetry import metrics as tmetrics
 from photon_ml_tpu_torch.types import TaskType
 
@@ -114,6 +116,52 @@ class RefreshResult:
     stats: dict[str, CoordinateRefreshStats]
     validation_history: list[dict]
     final_evaluation: object = None
+
+
+def partition_patch_by_shard(patch: Mapping[str, object],
+                             removed_raw: Mapping[str, Sequence[str]],
+                             vocabs: Mapping[str, Mapping[str, int]],
+                             n_shards: int) -> list:
+    """Split one refresh's coefficient patch into N per-host patches for
+    an entity-sharded serving fleet (``refresh_game --fleet-shards N``).
+
+    Shard ``i``'s patch carries every fixed-effect coordinate's model in
+    full (the fixed effect is replicated on every host) and each
+    random-effect coordinate's partial model restricted to the re-solved
+    entities whose raw ids hash to shard ``i``
+    (``fleet/sharding.py::shard_of_id``, the function the serving store
+    packs by); ``removed_raw``'s raw ids partition the same way. Returns
+    ``[(patch_models, removed), ...]`` indexed by shard. Every touched
+    entity lands in exactly one shard's patch.
+    """
+    out = []
+    for shard in range(int(n_shards)):
+        models: dict[str, object] = {}
+        removed: dict[str, list] = {}
+        for cid, model in patch.items():
+            if not isinstance(model, RandomEffectModel):
+                models[cid] = model  # the fixed effect: on every host
+                continue
+            reverse = {int(d): raw
+                       for raw, d in vocabs[model.random_effect_type].items()}
+            keys = np.asarray(model.keys, np.int64)
+            ent = keys // model.dim
+            mask = (np.fromiter(
+                (shard_of_id(reverse[int(e)], n_shards) == shard
+                 for e in ent), bool, count=len(ent))
+                if len(ent) else np.zeros(0, bool))
+            models[cid] = dataclasses.replace(
+                model, keys=keys[mask],
+                coeffs=np.asarray(model.coeffs)[mask],
+                variances=(None if model.variances is None
+                           else np.asarray(model.variances)[mask]))
+        for cid, raws in (removed_raw or {}).items():
+            mine = [raw for raw in raws
+                    if shard_of_id(raw, n_shards) == shard]
+            if mine:
+                removed[cid] = mine
+        out.append((models, removed))
+    return out
 
 
 def _masked_view(data: GameData, re_type: str,

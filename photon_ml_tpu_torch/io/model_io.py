@@ -326,6 +326,7 @@ def save_game_model_patch(
     removed: Optional[dict[str, list[str]]] = None,
     lineage: Optional[dict] = None,
     sparsity_threshold: float = 0.0,
+    fleet_shard: Optional[tuple] = None,
 ) -> None:
     """Write an entity-level coefficient patch (the refresh's delta
     publish): the full model's directory layout and records, but only
@@ -334,11 +335,18 @@ def save_game_model_patch(
     ``kind=coefficient-patch``, names ``parentModel`` (the lineage id of
     the model whose tables it patches) and ``modelId`` (the lineage id of
     the equivalent merged full model), and lists per coordinate the raw
-    entity ids in ``removed`` as ``removedEntities``."""
+    entity ids in ``removed`` as ``removedEntities``. ``fleet_shard=(index,
+    count)`` marks a per-host patch (``refresh_game --fleet-shards``):
+    metadata ``fleetShard`` / ``fleetShardCount`` name the one serving
+    shard whose rows it carries, and a host of any other shard refuses
+    it."""
     os.makedirs(output_dir, exist_ok=True)
     metadata: dict = {"task": task.value, "kind": PATCH_KIND,
                       "modelId": model_id, "parentModel": parent_model,
                       "coordinates": {}}
+    if fleet_shard is not None:
+        metadata["fleetShard"] = int(fleet_shard[0])
+        metadata["fleetShardCount"] = int(fleet_shard[1])
     _apply_lineage(metadata, {**(lineage or {}),
                               "parentModel": parent_model})
     for cid, cm in patch_models.items():

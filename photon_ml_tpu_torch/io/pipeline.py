@@ -50,7 +50,8 @@ def save_model_patch_atomic(output_dir: str, patch_models, index_maps,
                             entity_vocabs, *, task, parent_model: str,
                             model_id: str, removed=None,
                             lineage: Optional[dict] = None,
-                            sparsity_threshold: float = 0.0) -> int:
+                            sparsity_threshold: float = 0.0,
+                            fleet_shard: Optional[tuple] = None) -> int:
     """:func:`~photon_ml_tpu_torch.io.model_io.save_game_model_patch`
     written into a hidden staging sibling and published with
     :func:`publish_dir`, under the retry policy, with the
@@ -74,7 +75,8 @@ def save_model_patch_atomic(output_dir: str, patch_models, index_maps,
                 staging, patch_models, index_maps, entity_vocabs,
                 task=task, parent_model=parent_model, model_id=model_id,
                 removed=removed, lineage=lineage,
-                sparsity_threshold=sparsity_threshold)
+                sparsity_threshold=sparsity_threshold,
+                fleet_shard=fleet_shard)
             fault_point("io.delta_publish", path=output_dir)
             publish_dir(staging, output_dir)
         except BaseException:

@@ -48,7 +48,7 @@ from typing import Mapping, Optional, Sequence
 
 import numpy as np
 
-from photon_ml_tpu_torch.resilience.faults import stable_hash_u32
+from photon_ml_tpu_torch.fleet.sharding import stable_hash_u32
 
 #: artifact name, published at the RUN root (``best/`` and
 #: ``all/config-i`` are siblings under it, like ``data-manifest.json``)

@@ -97,17 +97,12 @@ import contextlib
 import dataclasses
 import json
 import os
-import zlib
 from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 
-
-
-def stable_hash_u32(key: str) -> int:
-    """Unsigned crc32 of the UTF-8 key (the JAX package's
-    ``fleet/sharding.py::stable_hash_u32``): seeds each site's generator."""
-    return zlib.crc32(str(key).encode("utf-8")) & 0xFFFFFFFF
+# the one crc32 home: seeds each site's generator
+from photon_ml_tpu_torch.fleet.sharding import stable_hash_u32
 
 #: canonical site names (free-form strings are accepted; these are the ones
 #: the framework threads)

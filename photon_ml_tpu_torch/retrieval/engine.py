@@ -56,6 +56,7 @@ from photon_ml_tpu_torch.retrieval.index import ItemIndex
 from photon_ml_tpu_torch.serving import stages as _stages
 from photon_ml_tpu_torch.serving import store as _store
 from photon_ml_tpu_torch.serving.engine import (
+    CAPTURE_LOCK,
     RequestBatch,
     ScoringEngine,
     next_bucket,
@@ -209,16 +210,17 @@ class RankingEngine:
         dev = prog.x.device
         if dev.type != "cuda":
             return prog
-        # one eager run on a side stream first (the sort's and the
-        # allocator's first blocks), then the capture
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._rank_padded(prog, k_b)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            prog.vals, prog.idx = self._rank_padded(prog, k_b)
+        with CAPTURE_LOCK:  # one graph build at a time (serving/engine.py)
+            # one eager run on a side stream first (the sort's and the
+            # allocator's first blocks), then the capture
+            side = torch.cuda.Stream(device=dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._rank_padded(prog, k_b)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                prog.vals, prog.idx = self._rank_padded(prog, k_b)
         prog.graph = graph
         return prog
 

@@ -26,8 +26,10 @@ versions (counterpart of ``photon_ml_tpu/serving``).
 
 Each version carries its quality baseline and monitor, a canary can gate
 its activation (:mod:`photon_ml_tpu_torch.quality`), and ``/rank`` ranks
-an item coordinate (:mod:`photon_ml_tpu_torch.retrieval`). Not ported:
-fleet shards and fleet-shard patches, the live reshard and request spans.
+an item coordinate (:mod:`photon_ml_tpu_torch.retrieval`). A host can be
+one shard of an entity-sharded fleet (``fleet_shard=``, per-host patches,
+the live reshard's prepare) behind the router of
+:mod:`photon_ml_tpu_torch.fleet`. Not ported: request spans.
 """
 
 from photon_ml_tpu_torch.serving.overload import (  # noqa: F401

@@ -8,6 +8,7 @@ input buffers (offsets, each feature shard's dense rows, each random-effect
 coordinate's table rows) and static outputs (the total and the per-
 coordinate f32 margins): :meth:`ScoringEngine.warmup` captures all of them
 and steady-state serving captures nothing, whatever the request sizes.
+Captures in one process run one at a time (:data:`CAPTURE_LOCK`).
 ``compile_count`` counts captures on the card and bucket programs built on
 the CPU. A graph that fails to capture or to replay raises: there is no
 eager fallback on the card.
@@ -33,21 +34,26 @@ every output row depends only on its own input row, their outputs are
 never read.
 
 Versions and graphs (the port's design for coefficient patches): a graph
-holds the device pointers of the tables it was captured over, so it scores
-its own version's tables and no other's. A patch therefore does not share
-the parent's programs, as the JAX engine's ``share_from`` shares its jitted
-executables (there the tables ride as arguments). The patched version's
-tables are fresh tensors derived from the parent's
+holds the device pointers of the random-effect tables it was captured over,
+so it scores those tables and no others. The fixed effects' coefficients
+are the program's own static buffers instead, loaded from the engine that
+replays it when they are not that engine's already (a device copy of a few
+hundred bytes, under the bucket's lock). An engine built with
+``share_from`` therefore reuses its parent's programs (the JAX engine's
+shared executables) when its random-effect tables are the parent's own
+tensors and its structure matches: a patch that writes no row of this
+host's tables, as on a fleet host whose shard the refresh did not touch,
+captures nothing whatever its fixed effects, and ``compile_count`` counts
+the shared cache. A patch that writes rows derives fresh tables
 (:meth:`~photon_ml_tpu_torch.serving.store.EntityCoefficientStore.
-apply_patch`), and the patched version gets an engine of its own whose
-warmup captures its own bucket graphs. Versions stay immutable: a request
-still replaying on the parent reads the parent's tables, and no buffer is
-shared between versions. Each engine captures its buckets once at warmup
-and none after, whichever way its version was made; what a patch saves
-over a full load is the decode and the rebuild of the untouched rows, not
-the captures. Each scored batch is handed to the version's quality monitor
-(``monitor``, attached by the registry) after the copy to the host,
-outside the graphs; brownout's ``quality`` level sheds it.
+apply_patch`), and its engine captures its own bucket graphs at warmup.
+Versions stay immutable: a request still replaying on the parent reads the
+parent's tables, and the only buffers versions share are the programs'
+inputs, written under the bucket's lock. Each engine captures its buckets
+once at warmup and none after, whichever way its version was made. Each
+scored batch is handed to the version's quality monitor (``monitor``,
+attached by the registry) after the copy to the host, outside the graphs;
+brownout's ``quality`` level sheds it.
 """
 
 from __future__ import annotations
@@ -92,6 +98,16 @@ _STAGE_SECONDS = _metrics.histogram(
     labels=("stage",))
 
 
+#: one CUDA graph build at a time in the process: a capture that names no
+#: stream records on torch's one default capture stream, and the side
+#: streams of the eager run before it come from torch's round-robin stream
+#: pool, so one of them can be that stream; two threads building at once
+#: (a fleet's in-process hosts preparing an epoch, or their first requests
+#: under --no-warmup) would record into, or wait inside, each other's
+#: capture. Replays need no lock: they run on the caller's stream
+CAPTURE_LOCK = threading.Lock()
+
+
 def next_bucket(n: int) -> int:
     """Smallest power of two ≥ max(n, 1)."""
     return 1 << max(int(n) - 1, 0).bit_length()
@@ -113,13 +129,25 @@ class _BucketProgram:
     CUDA graph captured over them (None on the CPU, where the plain
     function runs on the buffers)."""
 
-    __slots__ = ("lock", "offsets", "xs", "rows", "total", "margins",
-                 "graph")
+    __slots__ = ("lock", "offsets", "xs", "rows", "fe", "fe_of", "total",
+                 "margins", "graph")
 
-    def __init__(self, offsets, xs, rows):
+    def __init__(self, offsets, xs, rows, fe):
         self.lock = threading.Lock()
         self.offsets, self.xs, self.rows = offsets, xs, rows
+        #: the fixed effects' f64 coefficients, and the engine they are
+        #: loaded from
+        self.fe, self.fe_of = fe, None
         self.total = self.margins = self.graph = None
+
+    def load_fe(self, engine: "ScoringEngine") -> None:
+        """Copy ``engine``'s fixed-effect coefficients into the program's
+        buffers unless they are there already (under :attr:`lock`)."""
+        if self.fe_of is engine:
+            return
+        for buf, cid in zip(self.fe, engine._fe_order):
+            buf.copy_(engine._fe[cid])
+        self.fe_of = engine
 
 
 class ScoringEngine:
@@ -134,7 +162,8 @@ class ScoringEngine:
                  shard_configs: Sequence[FeatureShardConfig],
                  index_maps: Mapping[str, IndexMap],
                  stores: Mapping[str, EntityCoefficientStore],
-                 *, max_batch: int = 1024, device=None):
+                 *, max_batch: int = 1024, device=None,
+                 share_from: Optional["ScoringEngine"] = None):
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # tensors made on "cuda" land on the current device, and carry
@@ -159,34 +188,64 @@ class ScoringEngine:
                 raise ValueError(
                     f"store {cid!r} is on {self.stores[cid].table.device}, "
                     f"the engine on {self.device}")
+        self._fe_order = [cid for cid, cm in self._coords
+                          if isinstance(cm, FixedEffectModel)]
         self._fe = {
             cid: cm.model.coefficients.means.detach().to(
                 device=self.device, dtype=torch.float32).to(torch.float64)
             for cid, cm in self._coords if isinstance(cm, FixedEffectModel)}
         self._lock = threading.Lock()
         self._n_scored = 0  # guarded-by: _lock
-        #: bucket size → program; built under _build_lock
-        self._programs: dict[int, _BucketProgram] = {}
-        self._build_lock = threading.Lock()
-        self._compiles = 0  # guarded-by: _build_lock
+        #: the engine owning the program cache: this one, or with
+        #: share_from a compatible parent's root
+        self._root = self
+        if share_from is not None and self._shares_tables(share_from):
+            self._root = share_from._root
+        else:
+            #: bucket size → program; built under _build_lock
+            self._programs: dict[int, _BucketProgram] = {}
+            self._build_lock = threading.Lock()
+            self._compiles = 0  # guarded-by: _build_lock
         #: the version's online quality monitor
         #: (:class:`~photon_ml_tpu_torch.quality.monitor.QualityMonitor`),
         #: attached by the registry at load; None = no accumulation
         self.monitor = None
 
+    def _shares_tables(self, other: "ScoringEngine") -> bool:
+        """May this engine replay ``other``'s programs? True when the
+        coordinate structure (ids and kinds in order), the feature shards
+        and widths, the bucket range and the device match and every
+        random-effect table is ``other``'s own tensor."""
+        def structure(e):
+            return ([(cid, isinstance(cm, FixedEffectModel))
+                     for cid, cm in e._coords],
+                    [(sid, len(e.index_maps[sid])) for sid in e._shard_order],
+                    [c.feature_shard_id for _, c in e._coords],
+                    e.max_batch, e.device)
+
+        if structure(self) != structure(other):
+            return False
+        for cid in self._re_order:
+            mine, theirs = self.stores[cid], other.stores[cid]
+            if mine.table is not theirs.table \
+                    or mine.scales is not theirs.scales:
+                return False
+        return True
+
     # --- the scoring program ----------------------------------------------
-    def _score_padded(self, offsets: torch.Tensor, xs, rows):
+    def _score_padded(self, offsets: torch.Tensor, xs, rows, fe):
         """Total and per-coordinate f32 margins of one padded batch: f64
         row dots (``x @ w`` for a fixed effect, ``Σ x·row`` over gathered
         table rows for a random effect), then the summation contract."""
         f64 = torch.float64
         x64 = {sid: x.to(f64) for sid, x in zip(self._shard_order, xs)}
         re_rows = dict(zip(self._re_order, rows))
+        fe_w = dict(zip(self._fe_order, fe))
         margins = []
         for cid, cm in self._coords:
             x = x64[cm.feature_shard_id]
             if isinstance(cm, FixedEffectModel):
-                m = torch.mv(x, self._fe[cid])
+                m = torch.mv(x, fe_w[cid])
             else:
                 tab = _store.gather_rows(self.stores[cid].device_params,
                                          re_rows[cid], f64)
@@ -203,44 +262,51 @@ class ScoringEngine:
                      for sid in self._shard_order),
             rows=tuple(torch.full((b,), self.stores[cid].fallback_row,
                                   dtype=torch.int32, device=dev)
-                       for cid in self._re_order))
+                       for cid in self._re_order),
+            fe=tuple(torch.empty_like(self._fe[cid])
+                     for cid in self._fe_order))
+        prog.load_fe(self)
         if dev.type != "cuda":
             return prog
-        # one eager run on a side stream first (the library handles and
-        # the allocator's first blocks), then the capture
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._score_padded(prog.offsets, prog.xs, prog.rows)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
         # thread_local: HTTP threads replaying other graphs keep running
         # while this one captures (a reload's warmup, or a first request
         # of this size under --no-warmup)
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            prog.total, prog.margins = self._score_padded(
-                prog.offsets, prog.xs, prog.rows)
+        with CAPTURE_LOCK:
+            # one eager run on a side stream first (the library handles
+            # and the allocator's first blocks), then the capture
+            side = torch.cuda.Stream(device=dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._score_padded(prog.offsets, prog.xs, prog.rows, prog.fe)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                prog.total, prog.margins = self._score_padded(
+                    prog.offsets, prog.xs, prog.rows, prog.fe)
         prog.graph = graph
         return prog
 
     def _program(self, b: int) -> _BucketProgram:
-        prog = self._programs.get(b)
+        root = self._root
+        prog = root._programs.get(b)
         if prog is None:
-            with self._build_lock:
-                prog = self._programs.get(b)
+            with root._build_lock:
+                prog = root._programs.get(b)
                 if prog is None:
                     prog = self._build(b)
-                    self._programs[b] = prog
-                    self._compiles += 1
+                    root._programs[b] = prog
+                    root._compiles += 1
         return prog
 
     # --- stats --------------------------------------------------------------
     @property
     def compile_count(self) -> int:
-        """Bucket programs built so far: CUDA graph captures on the card,
-        plain programs on the CPU. Constant after :meth:`warmup`: the
-        zero-recompile contract."""
-        return self._compiles
+        """Bucket programs built so far in this engine's (possibly shared)
+        cache: CUDA graph captures on the card, plain programs on the CPU.
+        Constant after :meth:`warmup`: the zero-recompile contract; an
+        engine sharing its parent's programs reports their count, so a
+        swap that captured nothing leaves it unchanged."""
+        return self._root._compiles
 
     @property
     def n_scored(self) -> int:
@@ -341,6 +407,7 @@ class ScoringEngine:
         b = next_bucket(n)
         prog = self._program(b)
         with prog.lock, _SCORE_LATENCY.labels(bucket=str(b)).time():
+            prog.load_fe(self)
             prog.offsets[:n].copy_(torch.from_numpy(batch.offsets[lo:hi]))
             for buf, x in zip(prog.xs, batch.xs):
                 buf[:n].copy_(torch.from_numpy(x[lo:hi]))
@@ -352,7 +419,7 @@ class ScoringEngine:
                 total, margins = prog.total, prog.margins
             else:
                 total, margins = self._score_padded(prog.offsets, prog.xs,
-                                                    prog.rows)
+                                                    prog.rows, prog.fe)
             # the copy to the host waits for the device: inside the timer
             out = total[:n].cpu().numpy()
             out_margins = ([m[:n].cpu().numpy() for m in margins]

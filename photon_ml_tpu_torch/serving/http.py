@@ -25,7 +25,9 @@ Counterpart of ``photon_ml_tpu/serving/http.py``, JSON endpoints over
   patch; a rejected candidate gets 409 and the active version keeps
   serving. Two-phase: ``"phase": "prepare"`` registers a warmed version
   without activating it, ``"activate"`` or ``"abort"`` with its
-  ``"version"`` pins or retires it.
+  ``"version"`` pins or retires it. ``"phase": "prepare"`` with a
+  ``"shard_map"`` instead of a model dir prepares a live reshard on a
+  fleet host.
 - ``GET /rank?user=...&k=...`` (also ``POST /rank`` with a full
   ``record``): top-k retrieval over the configured item coordinate
   (``serve_game --rank-item-coordinate``): ``{"ids": [...], "scores":
@@ -49,8 +51,13 @@ when a swap lands while the request waits in the microbatcher. With a
 ``/healthz`` carries the log's counters. Scored records feed the
 registry's canary reservoir; ``/healthz`` carries whether the active
 version has a quality baseline, the reservoir's size, the active version's
-canary annotation and, with ranking on, the rank counters. Not ported:
-request spans, shard-map checks and the live-reshard ``prepare``.
+canary annotation and, with ranking on, the rank counters.
+
+On a fleet host (``serve_game --fleet-shard``) ``/score`` and ``/rank``
+replies carry the active shard map's hash beside the lineage, a request
+stamped by the router with another map's hash (``X-Photon-Shard-Map``) is
+refused with 503 ``reason=shard_map_mismatch``, and ``/healthz`` names the
+host's shard and map. Not ported: request spans.
 """
 
 from __future__ import annotations
@@ -213,6 +220,12 @@ REQUEST_ID_HEADER = "X-Photon-Request-Id"
 #: remaining when the response was written
 DEADLINE_HEADER = "X-Photon-Deadline-Ms"
 
+#: the bucket → shard map's content hash (``ShardMap.map_hash``): outbound
+#: on a sharded host's replies beside the lineage; inbound from the fleet
+#: router, held against the host's active map (a mismatch is a 503
+#: ``reason=shard_map_mismatch``, as a mixed lineage is)
+SHARD_MAP_HEADER = "X-Photon-Shard-Map"
+
 #: outbound on 200 ``/score`` responses: this request's per-stage seconds,
 #: compactly encoded (``parse=<s>;queue_wait=<s>;...``)
 LEG_SUMMARY_HEADER = "X-Photon-Leg-Summary"
@@ -252,6 +265,35 @@ def format_leg_summary(stages: Mapping[str, float]) -> str:
         if value is not None:
             parts.append(f"{key}={float(value):.6f}")
     return ";".join(parts)
+
+
+def parse_leg_summary(value: "Optional[str]") -> dict:
+    """Decode a leg-summary header → ``{stage: seconds}`` (plus ``span``
+    as an int). Unknown keys and malformed values are dropped: an upstream
+    must not mint unbounded attribute keys in the router's trace."""
+    out: dict = {}
+    for part in (value or "").split(";"):
+        key, eq, raw = part.partition("=")
+        if not eq:
+            continue
+        key = key.strip()
+        if key == "span":
+            try:
+                out["span"] = int(raw)
+            except ValueError:
+                pass
+        elif key in LEG_SUMMARY_STAGES:
+            try:
+                out[key] = float(raw)
+            except ValueError:
+                pass
+    return out
+
+
+class ShardMapMismatch(RuntimeError):
+    """Router and host disagree on the bucket → shard map: refused like a
+    mixed lineage, since mid-reshard a request routed under one map must
+    never be answered under another."""
 
 
 def new_request_id() -> str:
@@ -324,6 +366,21 @@ class ServingService:
         if deadline is None:
             return None
         return max(0.0, (deadline - time.monotonic()) * 1e3)
+
+    # --- shard map --------------------------------------------------------
+    def check_shard_map(self, claimed: "Optional[str]") -> None:
+        """Refuse a request routed under another bucket → shard map than
+        this host's active one (the ``X-Photon-Shard-Map`` header): raises
+        :class:`ShardMapMismatch`. No header, or an unsharded host: no
+        check."""
+        if not claimed:
+            return
+        have = self.registry.shard_map_hash
+        if have is not None and claimed != have:
+            raise ShardMapMismatch(
+                f"request routed under shard map {claimed} but this host "
+                f"serves {have} — refusing rather than answering for "
+                f"rows it may not own")
 
     # --- endpoints --------------------------------------------------------
     def score(self, payload: dict,
@@ -407,6 +464,9 @@ class ServingService:
         out = {"scores": scores, "version": version, "lineage": lineage,
                "latency_ms": round(latency_ms, 3),
                "request_id": request_id}
+        smh = self.registry.shard_map_hash
+        if smh is not None:
+            out["shard_map"] = smh
         if with_margins:
             # f32 widened to double: exact
             out["margins"] = [[cid, [float(v) for v in m]]
@@ -498,6 +558,9 @@ class ServingService:
                "k": k, "version": version, "lineage": lineage,
                "latency_ms": round(latency_ms, 3),
                "request_id": request_id}
+        smh = self.registry.shard_map_hash
+        if smh is not None:
+            out["shard_map"] = smh
         if deadline is not None:
             out["deadline_ms"] = round(self.remaining_ms(deadline), 1)
         return out
@@ -513,6 +576,14 @@ class ServingService:
                             else active.parent_lineage),
             "quality_baseline": (active is not None
                                  and active.baseline is not None),
+            # the fleet facts a router needs: this host's shard and the
+            # governing bucket → shard map
+            "fleet_shard": (None if self.registry.fleet_shard is None
+                            else list(self.registry.fleet_shard)),
+            "shard_map": (None if self.registry.shard_map is None
+                          else {"hash": self.registry.shard_map.map_hash,
+                                "version": self.registry.shard_map.version,
+                                "nShards": self.registry.shard_map.n_shards}),
             # the model's coordinate walk (id, entity type or null for the
             # fixed effect), in the order scores sum
             "coordinates": (None if active is None else [
@@ -602,9 +673,15 @@ class ServingService:
             raise ValueError(f"unknown reload phase {phase!r} (want "
                              f"prepare | activate | abort)")
         if phase == "prepare" and payload.get("shard_map") is not None:
-            raise NotImplementedError(
-                "/reload phase=prepare with a shard_map (a live reshard of "
-                "fleet shards) is not ported")
+            # a live reshard's prepare: the candidate is a bucket → shard
+            # map (the active model repacked), not a model dir;
+            # activate / abort above work unchanged on its version
+            previous = self.registry.active_version
+            sm, moved = self.registry.prepare_reshard(payload["shard_map"])
+            return {"version": sm.version, "previous": previous,
+                    "lineage": sm.lineage,
+                    "shard_map": sm.shard_map.map_hash,
+                    "moved": moved, "phase": "prepared"}
         model_dir = payload.get("model_dir") or self.default_model_dir
         if not model_dir:
             raise ValueError("payload needs 'model_dir' (no default "
@@ -795,11 +872,16 @@ def _make_handler(service: ServingService):
                         self.deadline = service.resolve_deadline(
                             self.headers.get(DEADLINE_HEADER))
                     parse_s = t.seconds
+                service.check_shard_map(self.headers.get(SHARD_MAP_HEADER))
                 out = service.rank(payload, request_id=rid,
                                    stage_ms={"parse": parse_s * 1e3},
                                    deadline=self.deadline,
                                    stage_sink=leg_stages)
                 status = 200
+            except ShardMapMismatch as e:
+                out = {"error": str(e), "reason": "shard_map_mismatch",
+                       "request_id": rid}
+                status = 503
             except BatcherClosed as e:
                 self.close_connection = True
                 out = {"error": str(e), "reason": "stopping",
@@ -846,11 +928,18 @@ def _make_handler(service: ServingService):
                 headers = None
                 leg_stages: dict = {}
                 try:
+                    service.check_shard_map(
+                        self.headers.get(SHARD_MAP_HEADER))
                     out = service.score(
                         payload, request_id=rid,
                         stage_ms={"parse": parse_t.seconds * 1e3},
                         deadline=self.deadline, stage_sink=leg_stages)
                     status = 200
+                except ShardMapMismatch as e:
+                    # the fan-out was routed under another map generation
+                    out = {"error": str(e), "reason": "shard_map_mismatch",
+                           "request_id": rid}
+                    status = 503
                 except BatcherClosed as e:
                     self.close_connection = True
                     out = {"error": str(e), "reason": "stopping",

@@ -56,7 +56,21 @@ Quality and ranking:
   parent's ranking programs, and a full load pins the rank-drift probes
   into its baseline.
 
-Not ported: reshard, fleet shards and fleet-shard patches.
+Fleet shards: a registry built with ``fleet_shard=(index, count)`` packs
+every version's tables as that shard's view (``serving/store.py``) under
+its active bucket → shard table (:attr:`ModelRegistry.shard_map`, which
+travels with each version and swaps with it at activation). A per-host
+patch (``refresh_game --fleet-shards``, metadata ``fleetShard`` /
+``fleetShardCount``) applies only on its own shard: a host refuses a
+foreign shard's patch, an unsharded host refuses any, and a host serving
+a map other than the default placement the refresh cut the set by
+refuses it too (a global patch applies on any host). A patch that
+writes none of this host's rows shares the parent's tables and engine
+programs, so its activation captures nothing.
+:meth:`ModelRegistry.prepare_reshard` repacks the active version under a
+candidate map as phase one of a live reshard; it refuses a version made
+from a per-host patch, whose model holds only its own shard's refreshed
+rows (the JAX registry repacks such a version's stale rows).
 """
 
 from __future__ import annotations
@@ -70,6 +84,7 @@ from typing import Mapping, Optional, Sequence
 
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.events import GLOBAL_BUS, EventBus
+from photon_ml_tpu_torch.fleet.sharding import ShardMap, check_shard
 from photon_ml_tpu_torch.game.model import FixedEffectModel, GameModel
 from photon_ml_tpu_torch.io.data_reader import FeatureShardConfig
 from photon_ml_tpu_torch.io.index import IndexMap
@@ -153,6 +168,14 @@ class ServingModel:
     #: this version's :class:`~photon_ml_tpu_torch.retrieval.engine.
     #: RankingEngine` (None = ranking disabled)
     rank_engine: object = None
+    #: the bucket → shard table the version's stores were packed under
+    #: (None on an unsharded host); activating the version swaps the
+    #: registry's active map with it
+    shard_map: object = None
+    #: derived through a per-host patch: the version's model holds only
+    #: this host's shard's refreshed rows, so it cannot repack another
+    #: shard's (a reshard needs the merged model loaded first)
+    shard_patched: bool = False
 
     def score(self, records: Sequence[dict]):
         # the request path learns which version answered, also across the
@@ -176,7 +199,8 @@ class ModelRegistry:
     """Thread-safe version store with one pinned *active* version.
 
     Tables and engines live on ``device`` (``cuda`` unless the caller
-    passes ``device="cpu"``; no card raises).
+    passes ``device="cpu"``; no card raises). ``fleet_shard=(index,
+    count)`` makes this host one shard of an entity-sharded fleet.
     """
 
     def __init__(self, shard_configs: Sequence[FeatureShardConfig], *,
@@ -185,11 +209,18 @@ class ModelRegistry:
                  canary: Optional[CanaryConfig] = None,
                  rank_coordinate: Optional[str] = None,
                  rank_max_k: int = 128,
+                 fleet_shard: Optional[tuple] = None,
                  bus: Optional[EventBus] = None):
         if table_dtype not in TABLE_DTYPES:
             raise ValueError(f"unknown table_dtype {table_dtype!r}; "
                              f"expected one of {TABLE_DTYPES}")
         self.device = resolve_device(device)
+        #: this host's fleet shard ``(index, count)``, None when unsharded
+        self.fleet_shard = check_shard(fleet_shard)
+        #: the active bucket → shard table (None when unsharded): the
+        #: default map until a reshard epoch activates another
+        self.shard_map = (None if self.fleet_shard is None
+                          else ShardMap.default(self.fleet_shard[1]))
         self.shard_configs = tuple(shard_configs)
         self.max_batch = max_batch
         self.warmup = warmup
@@ -238,6 +269,14 @@ class ModelRegistry:
         """Feed scored request records into the canary reservoir."""
         self.reservoir.add(records)
 
+    @property
+    def shard_map_hash(self) -> Optional[str]:
+        """Content hash of the active shard map (None when unsharded): it
+        rides every response beside the lineage, and the router and the
+        host compare it to refuse a mixed-map fan-out."""
+        sm = self.shard_map
+        return None if sm is None else sm.map_hash
+
     # --- lifecycle --------------------------------------------------------
     def load(self, model_dir: str, *, activate: bool = True) -> ServingModel:
         """Load and validate a candidate dir; register (and by default
@@ -264,7 +303,8 @@ class ModelRegistry:
                           name=name),
             patch_dir, activate)
 
-    def _register(self, load, path: str, activate: bool) -> ServingModel:
+    def _register(self, load, path: str, activate: bool,
+                  canary: bool = True) -> ServingModel:
         """Run ``load`` (the validated candidate's fields), warm its engine
         when configured, then register it under the next version id and
         by default activate it. Nothing registers when either step
@@ -283,7 +323,8 @@ class ModelRegistry:
                     time.perf_counter() - t0
             # the structure is sound; now the predictions are judged,
             # on the warm candidate (its shadow scores capture nothing)
-            loaded["canary"] = self._canary_evaluate(loaded)
+            loaded["canary"] = (self._canary_evaluate(loaded) if canary
+                                else None)
         except Exception as e:
             self.bus.post("model_reload_rejected", path=path,
                           error=repr(e))
@@ -307,6 +348,10 @@ class ModelRegistry:
             sm = self._versions[version]
             previous = self._active
             self._active = sm
+            if sm.shard_map is not None:
+                # the map travels with the version: a reshard's activation
+                # (or its rollback) swaps tables and map in one pin
+                self.shard_map = sm.shard_map
         for cid, store in sm.stores.items():
             _TABLE_BYTES.labels(coordinate=cid,
                                 dtype=store.table_dtype).set(
@@ -360,6 +405,99 @@ class ModelRegistry:
                                  "another version before retiring it")
             self._versions.pop(version, None)
 
+    def prepare_reshard(self, shard_map) -> "tuple[ServingModel, dict]":
+        """Phase one of a live reshard: repack the active version's tables
+        under a candidate bucket → shard map and register the result,
+        warmed, without activating it. Returns ``(prepared, moved)``, where
+        ``moved`` counts this host's rows by direction (``moved_in``,
+        ``moved_out``, ``retained``): only ids of reassigned buckets move.
+        The model content is untouched (same lineage, same coefficients);
+        a coordinate whose membership did not change keeps the incumbent's
+        table, and when none changed the version shares the incumbent's
+        engine programs. Runs the ``serving.reload`` fault site, so an
+        injected refusal aborts the fleet epoch."""
+        if not isinstance(shard_map, ShardMap):
+            shard_map = ShardMap.from_dict(shard_map)
+        parent = self.active()
+        if self.fleet_shard is None:
+            raise ValueError(
+                "reshard needs a fleet-sharded host (serve with "
+                "--fleet-shard/--fleet-shard-count); an unsharded host "
+                "has no bucket table to move")
+        if shard_map.n_shards != self.fleet_shard[1]:
+            raise ValueError(
+                f"shard map names {shard_map.n_shards} shards, this "
+                f"fleet has {self.fleet_shard[1]} hosts per replica "
+                f"group — resizing the host set is a topology change, "
+                f"not a map move")
+        if parent.shard_patched:
+            raise ValueError(
+                f"version {parent.version} came through a per-host patch: "
+                f"its model holds only shard {self.fleet_shard[0]}'s "
+                f"refreshed rows, and a reshard would pack stale rows of "
+                f"the moved buckets — /reload the merged full model first")
+        index = self.fleet_shard[0]
+        moved = {"moved_in": 0, "moved_out": 0, "retained": 0}
+        path = f"shard-map:{shard_map.map_hash}"
+        try:
+            fault_point("serving.reload", path=path, phase="prepare")
+            t0 = time.perf_counter()
+            stores: dict[str, EntityCoefficientStore] = {}
+            for cid, store in parent.stores.items():
+                vocab = parent.entity_vocabs.get(store.random_effect_type,
+                                                 {})
+                old_ids = set(store.row_of_id)
+                new_ids = {raw for raw in vocab
+                           if shard_map.owns(raw, index)}
+                moved["moved_in"] += len(new_ids - old_ids)
+                moved["moved_out"] += len(old_ids - new_ids)
+                moved["retained"] += len(old_ids & new_ids)
+                if new_ids == old_ids:
+                    # membership unchanged: the incumbent's table, with
+                    # only the governing map advanced
+                    stores[cid] = dataclasses.replace(store,
+                                                      shard_map=shard_map)
+                else:
+                    stores[cid] = EntityCoefficientStore.build(
+                        parent.model.coordinates[cid], vocab,
+                        table_dtype=self.table_dtype,
+                        shard=self.fleet_shard, shard_map=shard_map,
+                        device=self.device)
+            engine = ScoringEngine(parent.model, self.shard_configs,
+                                   parent.index_maps, stores,
+                                   max_batch=self.max_batch,
+                                   device=self.device,
+                                   share_from=parent.engine)
+            rank_engine = None
+            if self.rank_coordinate is not None:
+                cid = self.rank_coordinate
+                unchanged = (parent.rank_engine is not None
+                             and stores[cid].table
+                             is parent.stores[cid].table)
+                rank_engine = self._build_rank_engine(
+                    engine, stores,
+                    index=parent.rank_engine.index if unchanged else None,
+                    share_from=parent.rank_engine)
+            engine.monitor = QualityMonitor(parent.baseline)
+            loaded = {
+                "model_dir": parent.model_dir, "model": parent.model,
+                "index_maps": parent.index_maps, "stores": stores,
+                "engine": engine, "rank_engine": rank_engine,
+                "lineage": parent.lineage,
+                "entity_vocabs": parent.entity_vocabs,
+                "parent_lineage": parent.parent_lineage,
+                "baseline": parent.baseline, "shard_map": shard_map,
+                "load_seconds": {"build": time.perf_counter() - t0}}
+        except Exception as e:
+            self.bus.post("model_reload_rejected", path=path,
+                          error=repr(e))
+            raise
+        # no canary: the content is the incumbent's, only its placement
+        # moved
+        sm = self._register(lambda: loaded, path, activate=False,
+                            canary=False)
+        return sm, moved
+
     # --- internals --------------------------------------------------------
     def _load_validated(self, model_dir: str) -> dict:
         t0 = time.perf_counter()
@@ -380,7 +518,8 @@ class ModelRegistry:
         stores = {
             cid: EntityCoefficientStore.build(
                 cm, vocabs[cm.random_effect_type],
-                table_dtype=self.table_dtype, device=self.device)
+                table_dtype=self.table_dtype, shard=self.fleet_shard,
+                shard_map=self.shard_map, device=self.device)
             for cid, cm in model.coordinates.items()
             if not isinstance(cm, FixedEffectModel)}
         engine = ScoringEngine(model, self.shard_configs, index_maps, stores,
@@ -401,6 +540,7 @@ class ModelRegistry:
                 "lineage": lineage,
                 "parent_lineage": metadata.get("parentModel"),
                 "entity_vocabs": vocabs, "baseline": baseline,
+                "shard_map": self.shard_map,
                 "load_seconds": {"read": t1 - t0,
                                  "build": time.perf_counter() - t1}}
 
@@ -493,12 +633,34 @@ class ModelRegistry:
                 f"against (refresh from the currently served model, or "
                 f"publish a full model instead)")
         if metadata.get("fleetShardCount") is not None:
-            raise ValueError(
-                f"{model_dir}: patch is for fleet shard "
-                f"{metadata.get('fleetShard')}/"
-                f"{metadata['fleetShardCount']} but this host is "
-                f"unsharded — serve with --fleet-shard/"
-                f"--fleet-shard-count or publish a global patch")
+            # a per-host patch (refresh_game --fleet-shards) carries one
+            # shard's rows; applied anywhere else it would leave that
+            # host's slice stale under the merged model's lineage
+            want_shard = (int(metadata.get("fleetShard")),
+                          int(metadata["fleetShardCount"]))
+            if self.fleet_shard is None:
+                raise ValueError(
+                    f"{model_dir}: patch is for fleet shard "
+                    f"{want_shard[0]}/{want_shard[1]} but this host is "
+                    f"unsharded — serve with --fleet-shard/"
+                    f"--fleet-shard-count or publish a global patch")
+            if want_shard != self.fleet_shard:
+                raise ValueError(
+                    f"{model_dir}: patch is for fleet shard "
+                    f"{want_shard[0]}/{want_shard[1]}, this host holds "
+                    f"shard {self.fleet_shard[0]}/{self.fleet_shard[1]} "
+                    f"— a foreign shard's patch never applies")
+            default = ShardMap.default(want_shard[1])
+            if parent.shard_map is not None \
+                    and parent.shard_map.buckets != default.buckets:
+                # the refresh cut the patch set by the default placement:
+                # under another map this host would skip rows it now owns
+                raise ValueError(
+                    f"{model_dir}: per-host patches are cut by the default "
+                    f"bucket map {default.map_hash}, this host serves "
+                    f"shard map {parent.shard_map.map_hash} — publish the "
+                    f"global patch (each host applies its own rows) or "
+                    f"reshard back to the default placement")
         self._check_metadata(model_dir, metadata)
         # the patch rides its parent's feature space by contract (the
         # refresh presets the parent's index maps): the parent's maps are
@@ -549,10 +711,12 @@ class ModelRegistry:
             stores[cid] = parent.stores[cid].apply_patch(
                 upd, patch_vocabs.get(t, {}), removed=removed)
         model = GameModel(coordinates=coordinates, task=parent.model.task)
-        # an engine of its own: its graphs will hold the derived tables
+        # the parent's programs when every table is the parent's (a patch
+        # that wrote no row of this host's), else an engine whose graphs
+        # will hold the derived tables
         engine = ScoringEngine(model, self.shard_configs, parent.index_maps,
                                stores, max_batch=self.max_batch,
-                               device=self.device)
+                               device=self.device, share_from=parent.engine)
         rank_engine = None
         if self.rank_coordinate is not None:
             parent_rank = parent.rank_engine
@@ -588,6 +752,11 @@ class ModelRegistry:
                 "lineage": metadata.get("modelId"),
                 "parent_lineage": want,
                 "entity_vocabs": vocabs,
+                "shard_patched": (parent.shard_patched or metadata.get(
+                    "fleetShardCount") is not None),
+                "shard_map": (parent.shard_map
+                              if parent.shard_map is not None
+                              else self.shard_map),
                 "load_seconds": {"read": t1 - t0,
                                  "apply": time.perf_counter() - t1}}
 

@@ -9,7 +9,9 @@ either package reads the other's log.
   timings, and the scored records (features, entity ids, offset, the f32
   score widened to double, which is exact);
 - **sampled** deterministically by request id (``crc32(id)`` against
-  ``sample_rate``): the same request logs on every host or on none;
+  ``sample_rate``, through the one hashing home,
+  :mod:`photon_ml_tpu_torch.fleet.sharding`): the same request logs on
+  every host or on none;
 - **segmented and rotated**: records buffer in memory and flush as whole
   Avro files (``reqlog-NNNNNNNN.avro``) every ``segment_records``
   requests; ``max_bytes`` bounds the directory by deleting the oldest
@@ -39,10 +41,8 @@ from typing import Mapping, Optional, Sequence
 
 from photon_ml_tpu_torch.io.avro import iter_avro_file, write_avro_file
 from photon_ml_tpu_torch.io.schemas import REQUEST_LOG_AVRO
-from photon_ml_tpu_torch.resilience.faults import (
-    fault_point,
-    stable_hash_u32,
-)
+from photon_ml_tpu_torch.fleet.sharding import crc_bucket
+from photon_ml_tpu_torch.resilience.faults import fault_point
 from photon_ml_tpu_torch.serving import overload as _overload
 from photon_ml_tpu_torch.telemetry import metrics as _metrics
 
@@ -64,12 +64,6 @@ _SAMPLE_MOD = 1 << 16
 #: buffer plus the segments submitted and not yet written) stay below
 #: ``BUFFERED_SEGMENTS * segment_records`` (the JAX log's default budget)
 BUFFERED_SEGMENTS = 8
-
-
-def crc_bucket(key: str, mod: int) -> int:
-    """``crc32(key) % mod`` (the JAX package's
-    ``fleet/sharding.py::crc_bucket``)."""
-    return stable_hash_u32(key) % int(mod)
 
 
 class RequestLog:

@@ -24,8 +24,12 @@ two writers of serving tables, :meth:`EntityCoefficientStore.build` and
 :meth:`EntityCoefficientStore.apply_patch` (a coefficient patch's
 functional, O(touched) derivation of the next version's table).
 
-Not ported: fleet shard views (``shard=``, ``shard_map=``); they raise
-:class:`NotImplementedError`.
+Fleet shard views (``shard=(index, count)``, optionally under an explicit
+:class:`~photon_ml_tpu_torch.fleet.sharding.ShardMap`): the table packs
+only the raw ids the shard owns (``fleet/sharding.py``), so a host of an
+N-host fleet holds ~1/N of the rows on its device; every other id lands on
+the fallback row exactly as an unseen one does, and a patch applies only
+its owned slice.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.fleet import sharding as _sharding
 from photon_ml_tpu_torch.game.model import RandomEffectModel
 
 #: supported table storage formats, in decreasing precision
@@ -93,7 +98,10 @@ class EntityCoefficientStore:
     ``table_dtype`` storage; row ``n_entities`` is the fallback row (zeros,
     which dequantize to exact zeros in every format). ``row_of_id`` maps a
     raw entity id to its row; ``scales`` is the ``(n_entities + 1,)`` f32
-    scale vector of an int8 table, ``None`` otherwise.
+    scale vector of an int8 table, ``None`` otherwise. ``shard`` is the
+    fleet shard ``(index, count)`` whose ids alone have rows (None:
+    unsharded), ``shard_map`` the bucket → shard table governing ownership
+    (None: the default map).
     """
 
     random_effect_type: str
@@ -103,6 +111,8 @@ class EntityCoefficientStore:
     row_of_id: Mapping[str, int]
     table_dtype: str = "float32"
     scales: Optional[torch.Tensor] = None
+    shard: Optional[tuple] = None
+    shard_map: Optional[object] = None
 
     @property
     def n_entities(self) -> int:
@@ -111,6 +121,24 @@ class EntityCoefficientStore:
     @property
     def fallback_row(self) -> int:
         return int(self.table.shape[0]) - 1
+
+    def shard_of(self, raw_id: str) -> Optional[int]:
+        """The fleet shard owning this raw id (None on an unsharded
+        store), by the store's map when it has one, else the default
+        hash."""
+        if self.shard is None:
+            return None
+        if self.shard_map is not None:
+            return self.shard_map.shard_of(raw_id)
+        return _sharding.shard_of_id(raw_id, self.shard[1])
+
+    def owns(self, raw_id: str) -> bool:
+        """Is this raw id in the store's shard slice? An unsharded store
+        owns every id; a sharded one scores foreign ids on the fallback
+        row and never packs rows for them."""
+        if self.shard is not None and self.shard_map is not None:
+            return self.shard_map.owns(raw_id, self.shard[0])
+        return _sharding.owns_id(raw_id, self.shard)
 
     @property
     def device_params(self):
@@ -197,7 +225,13 @@ class EntityCoefficientStore:
                 if raw is None:
                     raise ValueError(
                         f"patch entity {int(e)} has no vocabulary entry")
+                if not self.owns(raw):
+                    # a foreign entity belongs to (and is patched on)
+                    # another host of the fleet
+                    continue
                 updates[target_row(raw)] = block[i]
+        if not updates:
+            return self
         device = self.table.device
         n_rows = n_old + len(new_raws) + 1
         # torch.cat allocates: the parent's table is only read
@@ -227,7 +261,8 @@ class EntityCoefficientStore:
             random_effect_type=self.random_effect_type,
             feature_shard_id=self.feature_shard_id, dim=self.dim,
             table=table, row_of_id=row_of_id,
-            table_dtype=self.table_dtype, scales=scales)
+            table_dtype=self.table_dtype, scales=scales,
+            shard=self.shard, shard_map=self.shard_map)
 
     @staticmethod
     def build(model: RandomEffectModel,
@@ -241,22 +276,36 @@ class EntityCoefficientStore:
         caller passes ``device="cpu"``). ``entity_vocab`` is the
         model-derived raw → dense id map
         (:func:`photon_ml_tpu_torch.io.model_io.game_model_entity_vocabs`).
+
+        ``shard=(index, count)`` builds the fleet shard view: only the raw
+        ids the shard owns get rows (the device table shrinks to ~1/count),
+        every other id resolves to the fallback row. ``shard_map`` (a
+        :class:`~photon_ml_tpu_torch.fleet.sharding.ShardMap`) replaces the
+        default placement with an explicit bucket table, the live
+        reshard's repack.
         """
         if table_dtype not in TABLE_DTYPES:
             raise ValueError(f"unknown table_dtype {table_dtype!r}; "
                              f"expected one of {TABLE_DTYPES}")
-        if shard is not None or shard_map is not None:
-            raise NotImplementedError(
-                "EntityCoefficientStore.build: fleet shard views (shard=, "
-                "shard_map=) are not ported")
         device = resolve_device(device)
+        shard = _sharding.check_shard(shard)
+        entity_vocab = _sharding.map_shard_vocab(entity_vocab, shard_map,
+                                                 shard)
         keys = np.asarray(model.keys, np.int64)
         ent = keys // model.dim
         feat = keys % model.dim
+        coeffs = np.asarray(model.coeffs)
+        if shard is not None and len(keys):
+            # only the shard's entities' coefficients: the device table is
+            # what sharding shrinks
+            kept = np.fromiter((int(d) for d in entity_vocab.values()),
+                               np.int64, count=len(entity_vocab))
+            mask = np.isin(ent, kept)
+            ent, feat, coeffs = ent[mask], feat[mask], coeffs[mask]
         uniq = np.unique(ent)
         dense = np.zeros((len(uniq) + 1, model.dim), np.float32)
-        if len(keys):
-            dense[np.searchsorted(uniq, ent), feat] = model.coeffs
+        if len(ent):
+            dense[np.searchsorted(uniq, ent), feat] = coeffs
         # dense entity id -> packed row, then raw id -> packed row; vocab
         # entries without coefficients (coordinates sharing an entity type
         # merge their vocabularies) map to the fallback zeros row
@@ -269,4 +318,5 @@ class EntityCoefficientStore:
             random_effect_type=model.random_effect_type,
             feature_shard_id=model.feature_shard_id,
             dim=model.dim, table=table, row_of_id=row_of_id,
-            table_dtype=table_dtype, scales=scales)
+            table_dtype=table_dtype, scales=scales, shard=shard,
+            shard_map=shard_map)

@@ -425,9 +425,9 @@ def test_fault_mid_patch_save_retries_and_publishes(loop, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--fleet-shards", "2"], "--fleet-shards"),
+    (["--metrics-port", "9"], "--metrics-port"),
     (["--telemetry-dir", "t"], "--telemetry-dir"),
-], ids=["fleet-shards", "telemetry-dir"])
+], ids=["metrics-port", "telemetry-dir"])
 def test_refresh_unported_flags_name_themselves(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         t_refresh.run(["--prior-dir", "p", "--training-data", "x",

@@ -73,3 +73,15 @@ def test_pyproject_lists_every_subpackage_of_the_port():
                 for p in PORT.rglob("__init__.py")}
     assert "photon_ml_tpu_torch.resilience" in packages
     assert sorted(packages - listed) == []
+
+
+def test_crc32_has_one_home_in_the_port():
+    """Identity bucketing (shard placement, request-log sampling, probe
+    selection, fault-plan seeding) hashes through
+    ``photon_ml_tpu_torch/fleet/sharding.py`` alone; ``io/avro.py``'s
+    container checksums are data integrity and stay where they are."""
+    allowed = {PORT / "fleet" / "sharding.py", PORT / "io" / "avro.py"}
+    users = sorted(str(p.relative_to(ROOT)) for p in PORT_FILES
+                   if "zlib.crc32" in p.read_text() and p not in allowed)
+    assert users == []
+    assert "zlib.crc32" in (PORT / "fleet" / "sharding.py").read_text()

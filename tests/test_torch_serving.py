@@ -193,19 +193,22 @@ def test_rows_for_fallback_and_unknown_ids(trained):
 
 
 def test_store_refuses_what_is_not_ported(trained):
-    """Shard views stay refused; an empty patch is ported and derives a
-    new table equal to the parent's, which it leaves unwritten."""
+    """Shard views are ported (tests/test_torch_fleet.py holds them to the
+    JAX store): a view packs only its shard's ids. An empty patch derives
+    no new table: the parent's store comes back, unwritten. An unknown
+    table format stays refused."""
     sm = _registry().load(trained["v1"])
     model = sm.model.coordinates["perUser"]
     vocab = sm.entity_vocabs["userId"]
-    with pytest.raises(NotImplementedError, match="shard"):
-        EntityCoefficientStore.build(model, vocab, shard=(0, 2),
-                                     device="cpu")
+    view = EntityCoefficientStore.build(model, vocab, shard=(0, 2),
+                                        device="cpu")
+    assert view.shard == (0, 2) and 0 < view.n_entities < len(vocab)
+    assert all(view.owns(raw) for raw in view.row_of_id)
     parent = sm.stores["perUser"]
+    before = parent.table.clone()
     derived = parent.apply_patch(None, {})
-    assert derived.table is not parent.table
-    assert torch.equal(derived.table, parent.table)
-    assert derived.row_of_id == parent.row_of_id
+    assert derived is parent
+    assert torch.equal(parent.table, before)
     with pytest.raises(ValueError, match="table_dtype"):
         _registry(table_dtype="fp8")
 
@@ -568,6 +571,16 @@ def test_stopped_server_closes_its_socket(trained):
     ["--telemetry-poll-s", "1"], ["--metrics-port", "9"],
 ], ids=lambda e: e[0][2:])
 def test_unported_serve_flag_names_itself(extra):
+    if extra[0] in ("--fleet-shard", "--fleet-shard-count"):
+        # ported: they parse, and one without the other is refused naming
+        # both (tests/test_torch_fleet.py serves with them)
+        args = t_serve.build_parser().parse_args(
+            ["--model-dir", "m", "--feature-shards", SHARDS] + extra)
+        assert getattr(args, extra[0][2:].replace("-", "_")) == int(extra[1])
+        with pytest.raises(SystemExit, match="--fleet-shard-count"):
+            t_serve.build_server(["--model-dir", "m", "--feature-shards",
+                                  SHARDS, "--device", "cpu"] + extra)
+        return
     if extra[0] in _QUALITY_AND_RANK_FLAGS:
         # ported (tests/test_torch_quality.py serves with them): they
         # parse into the quality and rank configurations

@@ -325,8 +325,18 @@ def test_two_phase_reload_replies_equal_jax(runs):
     assert t[0]["phase"] == "prepared" and t[0]["version"] == 2
     assert t[2][0] == 1  # the incumbent served while 2 was prepared
     assert t[-2] == ("refused", True)
-    with pytest.raises(NotImplementedError, match="shard_map"):
-        services[0].reload({"phase": "prepare", "shard_map": {}})
+    # a reshard's prepare (a shard map, no model dir) on an unsharded
+    # host: both packages refuse it with the same message
+    from photon_ml_tpu.fleet.sharding import ShardMap
+
+    refusals = []
+    for service in services:
+        with pytest.raises(ValueError) as err:
+            service.reload({"phase": "prepare",
+                            "shard_map": ShardMap.default(2).as_dict()})
+        refusals.append(str(err.value))
+    assert refusals[0] == refusals[1]
+    assert "reshard needs a fleet-sharded host" in refusals[0]
 
 
 # --- serve_game: the watcher, the request log, the connection budget -------
