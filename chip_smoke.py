@@ -230,7 +230,35 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    checked); (f) 2 shards x 2 replicas: a stopped
    replica is a retry, a ``fleet.replica`` fault exhausting the group a
    typed 503 ``reason=upstream`` with ``Retry-After``, a spent deadline a
-   429 ``reason=deadline``.
+   429 ``reason=deadline``;
+17. the live telemetry plane: (a) phase 8's ``train_game`` again with
+   ``--telemetry-dir --telemetry-poll-s 0.5 --metrics-port``, ``GET
+   /metrics`` scraped while it trains: the AUC, ``best/``'s coefficient
+   records and kernels 1 and 2's launches equal phase 8's; ``trace.jsonl``
+   has one ``train_game`` root and every span inside its parent, one
+   ``cd.sweep`` and one ``cd.step`` a coordinate; every stage is a span
+   and in ``photon_stage_seconds``;
+   ``photon_bytes_accessed_total{fn="game.fixed_effect"}`` (and the
+   flops) equal kernel 1's count function times its launches; the device
+   memory gauges lie in (0, the card's memory]; ``photon_build_info``;
+   its wall beside phase 8's; (b) phase 9's TRON ``train_glm`` again at
+   its first lambda with ``--profile --debug-nans --telemetry-dir``: its
+   coefficients phase 9's (else its f64 objective within
+   OBJECTIVE_RTOL), the Chrome
+   trace naming the kernels of ``csrc/fused_glm.cu`` and
+   ``csrc/fused_hvp.cu``, the device's busy share of the profiled stage;
+   (c) ``train_game --debug-nans`` at SMALL's 20k rows with a NaN at
+   perUser's step (the ``optimizer.step`` fault site) raises with a
+   ``FloatingPointError`` as the divergence guard's cause and writes no
+   ``best/``; a NaN reaching kernels 1, 2 and 3 on the card raises a
+   ``FloatingPointError`` naming the kernel and its shape; (d)
+   ``serve_game`` on phase 8's ``best/`` with and without
+   ``--telemetry-dir`` under 300 of phase 10's records in a batch and 40
+   single ones: the replies bit-identical, 11 captures counted in
+   ``photon_compiles_total{fn="serving.score"}`` = the engine's
+   ``compile_count``, and a ``serving.request`` / ``serving.score`` span a
+   request. (Phase 3's profiled second fit was cut to make room: the
+   script's limit is 1,200 s.)
 
 ``python3 chip_smoke.py --mp-gap-seeds 0,1,2`` runs phase 15 (b) alone
 over seeds of phase 6's problem and prints its gaps.
@@ -442,23 +470,22 @@ def roofline_ms(nbytes, ops):
 
 
 def bound_ms(n_live, n_rows, d, itemsize, n_out, lanes=1):
-    """Least time for one evaluation: X's live rows and their label and
-    offset read once, every row's weight read once, the n_out coefficient
-    rows read and the outputs written once — over the HBM rate; or ~4 f32
-    operations per element of the live rows plus ~10 per live row for the
-    loss, for each of ``lanes`` coefficient rows sharing X (kernel 4), over
-    the f32 rate — whichever is larger."""
-    nbytes = (n_live * d * itemsize + n_live * 8 + n_rows * 4
-              + n_out * d * 4 + n_out * (d + 1) * 4)
-    return roofline_ms(nbytes, lanes * (4.0 * n_live * d + 10.0 * n_live))
+    """Least time for one evaluation of kernel 1, 2 or 4: the bytes and
+    operations of ``ops/fused_glm.py::work`` (the count the telemetry
+    plane sums per profiled call) over the HBM and f32 rates."""
+    from photon_ml_tpu_torch.ops import fused_glm
+
+    w = fused_glm.work(n_live, n_rows, d, itemsize, n_out, lanes=lanes)
+    return roofline_ms(w.nbytes, w.ops)
 
 
 def hvp_bound_ms(n_live, n_rows, d, itemsize):
-    """Least time for one Hessian-vector product: the rows with nonzero
-    curvature read once, every row's d2w read once, v read and the output
-    written once; 4 f32 operations per element of those rows."""
-    return roofline_ms(n_live * d * itemsize + n_rows * 4 + 2 * d * 4,
-                       4.0 * n_live * d)
+    """Least time for one Hessian-vector product of kernel 3:
+    ``ops/fused_hvp.py::work`` over the HBM and f32 rates."""
+    from photon_ml_tpu_torch.ops import fused_hvp
+
+    w = fused_hvp.work(n_live, n_rows, d, itemsize)
+    return roofline_ms(w.nbytes, w.ops)
 
 
 # --------------------------------------------------------------------------
@@ -658,7 +685,8 @@ def time_re(fused_re, loss, buckets):
                 *args),
             "library_ms": lambda: re_closed_form_library(*args)}, reps=10)
         n_live = int((st.weights > 0).sum())
-        b, by = bound_ms(n_live, e * s, d, x.element_size(), e)
+        work = fused_re.work(n_live, e, s, d, x.element_size())
+        b, by = roofline_ms(work.nbytes, work.ops)
         if by == "operations":
             tot["bound_by"] = by
         plan = fused_re.entity_plan(e, s, d)
@@ -744,71 +772,6 @@ def compare_bucket_solves(tg, data, lam):
     log(f"[4] per-bucket solves, card vs CPU: largest lane gap {worst:.3e}, "
         f"largest bound {reach:.3e}")
     return reach
-
-
-def _is_kernel2(name):
-    """Whether a profiled device kernel of the GAME fit is one of kernel
-    2's: entity_rows_kernel and entity_wide_kernel (csrc/fused_re.cu) and
-    its fold, fold_rows_kernel (csrc/glm_common.cuh, shared with kernel 4,
-    which the fit does not run)."""
-    return ("entity_" in name and "_kernel" in name) \
-        or "fold_rows_kernel" in name
-
-
-def profile_fit(fit, unprofiled_wall):
-    """Run ``fit`` under ``torch.profiler`` and print the device time of the
-    top kernels, the device time inside each profiler range
-    (``cd.step[...]``, ``re.bucket[...]``) and the device's busy share of
-    ``unprofiled_wall`` (the profiler's host overhead inflates its own wall;
-    the device work is the same)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fit()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    ranges = [e for e in on_device if getattr(e, "is_user_annotation", False)]
-    work = sorted((e for e in on_device
-                   if not getattr(e, "is_user_annotation", False)),
-                  key=lambda e: e.time_range.start)
-    busy_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
-    if busy_ms <= 0.0:
-        log("[3] profiled fit: the profiler saw no device time "
-            "(device busy share not measured)")
-        return
-    log(f"[3] profiled fit: wall {wall:.3f} s under the profiler; device "
-        f"busy {busy_ms:.1f} ms = {100.0 * busy_ms / 1e3 / unprofiled_wall:.1f}"
-        f" % of the unprofiled fit wall ({unprofiled_wall:.3f} s)")
-    by_name: dict = {}
-    for e in work:
-        ms, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
-    for name, (ms, count) in sorted(by_name.items(),
-                                    key=lambda kv: -kv[1][0])[:8]:
-        log(f"  kernel {name[:80]}: {ms:.2f} ms over {count} launches")
-    k2 = [v for k, v in by_name.items() if _is_kernel2(k)]
-    log(f"  kernel 2 (csrc/fused_re.cu, all its kernels): "
-        f"{sum(ms for ms, _ in k2):.2f} ms over {sum(c for _, c in k2)} "
-        f"device launches = {100.0 * sum(ms for ms, _ in k2) / busy_ms:.1f}"
-        " % of the device busy time")
-    starts = [e.time_range.start for e in work]
-    import bisect
-
-    for r in sorted(ranges, key=lambda e: e.name):
-        lo = bisect.bisect_left(starts, r.time_range.start)
-        hi = bisect.bisect_left(starts, r.time_range.end)
-        inside = work[lo:hi]
-        ms = sum(e.time_range.elapsed_us() for e in inside) / 1e3
-        ent = sum(e.time_range.elapsed_us() for e in inside
-                  if _is_kernel2(e.name)) / 1e3
-        log(f"  range {r.name}: span {r.time_range.elapsed_us() / 1e3:.2f} "
-            f"ms, device busy {ms:.2f} ms (kernel 2: {ent:.2f} ms) over "
-            f"{len(inside)} device ops")
 
 
 # --------------------------------------------------------------------------
@@ -1413,7 +1376,7 @@ def run_cli_phase(tg, fused_glm, fused_re, auc_phase3, auc_fe, tmp):
     assert abs(reload_auc - auc) <= RELOAD_AUC_TOL, (reload_auc, auc)
     return launches, dict(run=out, train=paths["train"], valid=paths["valid"],
                           valid_parts=paths["valid_parts"], auc=reload_auc,
-                          train_auc=auc, model_bytes=model_bytes)
+                          train_auc=auc, model_bytes=model_bytes, wall=wall)
 
 
 # --------------------------------------------------------------------------
@@ -5205,6 +5168,376 @@ def _fleet_phase(e2e_run, records, tmp, card, device, quantized, watch,
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 17: the live telemetry plane
+# --------------------------------------------------------------------------
+
+#: the memory sampler's period in (a)
+TELEMETRY_POLL_S = 0.5
+#: the scraper's period while (a) trains
+SCRAPE_PERIOD_S = 0.2
+#: (d)'s records: a batch of this many, then single records
+TELEMETRY_SERVE_RECORDS = 300
+TELEMETRY_SERVE_SINGLES = 40
+
+
+def read_telemetry(tel):
+    """A telemetry directory: its span records (annotations dropped) and
+    its parsed ``metrics.prom``."""
+    from photon_ml_tpu_torch.telemetry.prometheus import parse_text
+
+    with open(os.path.join(tel, "trace.jsonl")) as f:
+        spans = [r for r in map(json.loads, f) if "t0" in r]
+    with open(os.path.join(tel, "metrics.prom")) as f:
+        return spans, parse_text(f.read())
+
+
+def series(parsed, name, **labels):
+    """The values of ``name``'s series whose labels include ``labels``."""
+    return [v for lab, v in parsed.get(name, ())
+            if all(lab.get(k) == w for k, w in labels.items())]
+
+
+def check_span_tree(label, spans, root):
+    """One root named ``root``, and every span inside its parent."""
+    by_id = {s["span_id"]: s for s in spans}
+    roots = [s["name"] for s in spans if s["parent_id"] is None]
+    assert roots == [root], (label, roots)
+    for s in spans:
+        p = by_id.get(s["parent_id"])
+        if p is not None:
+            assert p["t0"] <= s["t0"] and s["t1"] <= p["t1"], (label, s, p)
+
+
+def scrape_while(url, fn):
+    """``fn()`` while a thread scrapes ``url`` every SCRAPE_PERIOD_S:
+    (fn's result, the successful scrapes' texts)."""
+    import threading
+    import urllib.request
+
+    texts, stop = [], threading.Event()
+
+    def loop():
+        while not stop.wait(SCRAPE_PERIOD_S):
+            try:
+                with urllib.request.urlopen(url, timeout=5) as resp:
+                    if resp.status == 200:
+                        texts.append(resp.read().decode())
+            except OSError:
+                pass  # not listening yet, or already closed
+
+    th = threading.Thread(target=loop, daemon=True)
+    th.start()
+    try:
+        return fn(), texts
+    finally:
+        stop.set()
+        th.join()
+
+
+def telemetry_train_game(e2e_run, phase8_launches, tmp, device="cuda"):
+    """(a): phase 8's run again with the live plane on. Returns its kernel
+    launches."""
+    from photon_ml_tpu_torch.cli import train_game
+    from photon_ml_tpu_torch.ops import fused_glm
+    from photon_ml_tpu_torch.resilience.supervisor import _free_loopback_port
+
+    out = os.path.join(tmp, "telemetry_game")
+    tel = os.path.join(out, "telemetry")
+    port = _free_loopback_port()
+    args = cli_args(e2e_run["train"], e2e_run["valid"], out) + [
+        "--telemetry-dir", tel, "--telemetry-poll-s", str(TELEMETRY_POLL_S),
+        "--metrics-port", str(port), "--device", device]
+    (result, wall, launches), scrapes = scrape_while(
+        f"http://127.0.0.1:{port}/metrics",
+        lambda: counted_call(train_game.run, args))
+    auc = result["best_evaluation"]["AUC"]
+    log(f"[17] (a) train_game with --telemetry-dir --telemetry-poll-s "
+        f"{TELEMETRY_POLL_S:g} --metrics-port: {wall:.2f} s (phase 8: "
+        f"{e2e_run['wall']:.2f} s, difference {wall - e2e_run['wall']:+.2f} "
+        f"s); launches {launches} (phase 8: {phase8_launches}); AUC "
+        f"{auc!r} (phase 8: {e2e_run['train_auc']!r}); {len(scrapes)} "
+        "scrapes of GET /metrics while it trained")
+    assert scrapes and all("photon_" in t for t in scrapes), len(scrapes)
+    assert auc == e2e_run["train_auc"], (auc, e2e_run["train_auc"])
+    assert launches["fused_glm"] == phase8_launches["fused_glm"]
+    assert launches["fused_re"] == phase8_launches["fused_re"]
+    for kind, cid in (("fixed-effect", "global"),
+                      ("random-effect", "perUser"),
+                      ("random-effect", "perSong")):
+        got = coefficient_records(os.path.join(out, "best"), cid, kind)
+        want = coefficient_records(os.path.join(e2e_run["run"], "best"),
+                                   cid, kind)
+        assert got == want, (cid, "coefficients differ from phase 8's")
+    spans, prom = read_telemetry(tel)
+    check_span_tree("(a)", spans, "train_game")
+    names = [s["name"] for s in spans]
+    steps = sorted((s["sweep"], s["coordinate"]) for s in spans
+                   if s["name"] == "cd.step")
+    assert names.count("cd.sweep") == 1, names.count("cd.sweep")
+    assert steps == [(0, "global"), (0, "perSong"), (0, "perUser")], steps
+    timed_stages = {m["stage"] for m in stages_of(out) if "seconds" in m}
+    span_stages = {s["name"] for s in spans if s.get("kind") == "stage"}
+    histogrammed = {lab["stage"] for lab, _ in
+                    prom.get("photon_stage_seconds_count", ())}
+    assert timed_stages <= span_stages and timed_stages <= histogrammed, (
+        timed_stages, span_stages, histogrammed)
+    # the fixed effect's bytes: kernel 1's count (the same function the
+    # bounds of phase 2 divide) summed over the run's kernel-1 launches,
+    # all of them the fixed effect's: 1M live rows of 33 bf16 columns
+    d = len(coefficient_records(os.path.join(out, "best"), "global",
+                                "fixed-effect")["global"])
+    per = fused_glm.work(E2E["rows"], E2E["rows"], d, 2, 1)
+    (fe_bytes,) = series(prom, "photon_bytes_accessed_total",
+                         fn="game.fixed_effect")
+    (fe_ops,) = series(prom, "photon_flops_total", fn="game.fixed_effect")
+    log(f"  photon_bytes_accessed_total{{fn=game.fixed_effect}} "
+        f"{fe_bytes:.0f} = {launches['fused_glm']} launches x "
+        f"{per.nbytes:.0f} bytes; photon_flops_total {fe_ops:.0f}")
+    assert fe_bytes == launches["fused_glm"] * per.nbytes, (fe_bytes, per)
+    assert fe_ops == launches["fused_glm"] * per.ops, (fe_ops, per)
+    (re_bytes,) = series(prom, "photon_bytes_accessed_total",
+                         fn="game.re.solve_bucket")
+    assert re_bytes > 0
+    in_use = series(prom, "photon_device_bytes_in_use")
+    limit = series(prom, "photon_device_bytes_limit")
+    peak = series(prom, "photon_peak_memory_bytes", fn="game.fixed_effect")
+    log(f"  device bytes in use {in_use}, limit {limit}; peak over the "
+        f"fixed-effect solve {peak}; host RSS "
+        f"{series(prom, 'photon_host_rss_bytes')}; stages "
+        f"{sorted(timed_stages)}")
+    if device == "cuda":
+        total = torch.cuda.get_device_properties(0).total_memory
+        log(f"  card memory {total} bytes")
+        assert in_use and all(0 < v <= total for v in in_use), in_use
+        assert limit and all(0 < v <= total for v in limit), limit
+        assert peak and 0 < peak[0] <= total, peak
+    assert series(prom, "photon_build_info"), "no photon_build_info"
+    return launches
+
+
+def telemetry_train_glm(glm_dir, glm_paths, tmp, device="cuda"):
+    """(b): phase 9's TRON run again under --profile --debug-nans
+    --telemetry-dir, at its first lambda (the largest, solved from zero,
+    so the solve is phase 9's first): over the whole sweep the profiler's
+    host events made "Train" 54.6 s and the trace 846 MB (NVIDIA H100 80GB
+    HBM3, 700 W).
+    Returns its kernel launches."""
+    from photon_ml_tpu_torch.cli import train_glm
+
+    name, data, extra = GLM_CLI_RUNS[0]
+    assert name == "tron"
+    lam = max(GLM_LAMBDAS)
+    out = os.path.join(tmp, "telemetry_glm")
+    tel = os.path.join(out, "telemetry")
+    _, wall, launches = counted_call(train_glm.run, flag_args(glm_cli_args(
+        glm_paths[data], glm_paths[data + "_valid"], out,
+        extra + ["--profile", "--debug-nans", "--telemetry-dir", tel],
+        device=device), regularization_weights=f"{lam:g}"))
+    ref = os.path.join(glm_dir, "tron")
+    _, lams, imap = read_run(out)
+    _, lams9, _ = read_run(ref)
+    same = np.array_equal(lams[lam]["w"], lams9[lam]["w"])
+    log(f"[17] (b) train_glm TRON at lambda={lam:g} with --profile "
+        f"--debug-nans --telemetry-dir: {wall:.2f} s; launches {launches}; "
+        f"coefficients bit-identical to phase 9's: {same}")
+    if not same:
+        c = Contractions(read_glm_data(glm_paths[data], imap, device))
+        mask = cli_mask(imap)
+        f, _, _ = elastic_net_objective(c, lams[lam]["w"], lam, 0.0, mask)
+        f9, _, _ = elastic_net_objective(c, lams9[lam]["w"], lam, 0.0, mask)
+        both = lams[lam]["converged"] and lams9[lam]["converged"]
+        rel = abs(f - f9) / abs(f9)
+        log(f"  f64 f(w) relative |diff| {rel:.3e} (limit "
+            f"{OBJECTIVE_RTOL[both]:g})")
+        assert rel <= OBJECTIVE_RTOL[both], (lam, rel)
+    assert launches["fused_glm"] > 0 and launches["fused_hvp"] > 0, launches
+    spans, prom = read_telemetry(tel)
+    check_span_tree("(b)", spans, "train_glm")
+    assert series(prom, "photon_bytes_accessed_total",
+                  fn="glm.sweep_solve")[0] > 0
+    path = os.path.join(out, "profile", "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    on_device = [e for e in events if e.get("cat") == "kernel"]
+    kernels = [e["name"] for e in on_device]
+    # kernel 1's bodies take x, w, y, off and wt; kernel 3's x, v and d2w
+    k1 = sum(1 for k in kernels if ("_kernel<" in k
+                                    and k.count("const*") == 5))
+    k3 = sum(1 for k in kernels if ("_kernel<" in k
+                                    and k.count("const*") == 3))
+    train_s = next(m["seconds"] for m in stages_of(out)
+                   if m.get("stage") == "Train")
+    busy_s = sum(e.get("dur", 0.0) for e in on_device) / 1e6
+    log(f"  {path}: {os.path.getsize(path)} bytes, {len(kernels)} device "
+        f"kernels, {k1} of csrc/fused_glm.cu (launches {launches['fused_glm']}"
+        f"), {k3} of csrc/fused_hvp.cu (launches {launches['fused_hvp']}); "
+        f"device busy {busy_s:.3f} s of the profiled Train stage's "
+        f"{train_s:.3f} s ({100.0 * busy_s / train_s:.1f} %)")
+    if device == "cuda":
+        # one device event a launch of each kernel
+        assert (k1, k3) == (launches["fused_glm"], launches["fused_hvp"]), (
+            k1, k3, sorted(set(kernels))[:20])
+    return launches
+
+
+def telemetry_debug_nans(tg, tmp, device="cuda"):
+    """(c): ``train_game --debug-nans`` at SMALL's 20k rows with a NaN at
+    perUser's step fails fast and writes no best/; a NaN reaching each
+    kernel's dispatch on the card raises naming the kernel."""
+    from photon_ml_tpu_torch.cli import train_game
+    from photon_ml_tpu_torch.ops import losses as tl
+    from photon_ml_tpu_torch.ops import objective
+    from photon_ml_tpu_torch.ops.design import DenseDesign
+    from photon_ml_tpu_torch.resilience import faults
+
+    train = os.path.join(tmp, "small_train.avro")
+    valid = os.path.join(tmp, "small_valid.avro")
+    if not os.path.exists(train):  # phase 13 writes them
+        train, valid = small_files(tg, tmp)
+    out = os.path.join(tmp, "telemetry_nan")
+    plan = faults.FaultPlan.from_json(json.dumps(NAN_ON_PER_USER))
+    t0 = time.perf_counter()
+    chain = []
+    try:
+        with faults.injected(plan):
+            train_game.run(cli_args(train, valid, out)
+                           + ["--debug-nans", "--device", device])
+    except Exception as e:
+        while e is not None:
+            chain.append(e)
+            e = e.__cause__
+    wall = time.perf_counter() - t0
+    log(f"[17] (c) train_game --debug-nans at {SMALL['rows']} rows with "
+        f"a NaN at perUser's step: {wall:.2f} s, raised "
+        + " <- ".join(f"{type(e).__name__}: {str(e)[:120]}" for e in chain))
+    assert any(isinstance(e, FloatingPointError) for e in chain), chain
+    assert not os.path.exists(os.path.join(out, "best"))
+    assert not objective.debug_nans()
+    gen = torch.Generator(device=device).manual_seed(1717)
+    obj = objective.GLMObjective(tl.LogisticLoss)
+    n, d, e_, s_ = 4_096, 33, 8, 64
+    bad = {"fused_value_and_grad": (
+               torch.zeros(d, device=device), objective.GLMData(
+                   design=DenseDesign(x=torch.randn((n, d), device=device,
+                                                    generator=gen)),
+                   labels=torch.ones(n, device=device),
+                   offsets=torch.full((n,), float("nan"), device=device),
+                   weights=torch.ones(n, device=device))),
+           "fused_entity_value_and_grad": (
+               torch.zeros((e_, 8), device=device), objective.GLMData(
+                   design=DenseDesign(x=torch.randn((e_, s_, 8),
+                                                    device=device,
+                                                    generator=gen)),
+                   labels=torch.ones((e_, s_), device=device),
+                   offsets=torch.full((e_, s_), float("nan"),
+                                      device=device),
+                   weights=torch.ones((e_, s_), device=device)))}
+    # on the card the message names the kernel's wrapper, on the CPU its
+    # plain version
+    plain = "" if device == "cuda" else "_plain"
+    objective.set_debug_nans(True)
+    try:
+        for name, (w, data) in bad.items():
+            try:
+                obj.value_and_grad(w, data)
+            except FloatingPointError as err:
+                log(f"  {err}")
+                assert (f"{name}{plain} at shape "
+                        f"{tuple(data.design.x.shape)}") in str(err), err
+            else:
+                raise AssertionError(f"{name}: no FloatingPointError")
+        w, data = bad["fused_value_and_grad"]
+        ok = dataclasses.replace(data, offsets=torch.zeros(
+            n, device=device))
+        try:
+            obj.hvp_operator(w, ok)(torch.full((d,), float("nan"),
+                                               device=device))
+        except FloatingPointError as err:
+            log(f"  {err}")
+            assert f"fused_hvp{plain} at shape ({n}, {d})" in str(err), err
+        else:
+            raise AssertionError("fused_hvp: no FloatingPointError")
+    finally:
+        objective.set_debug_nans(False)
+
+
+def telemetry_serve_game(e2e_run, records, tmp, device="cuda"):
+    """(d): serve_game on phase 8's best/ with --telemetry-dir: the
+    serving spans, no capture beyond warmup's, and the scores of a server
+    without a trace bit for bit."""
+    import urllib.request
+
+    from photon_ml_tpu_torch.cli import serve_game
+    from photon_ml_tpu_torch.serving.engine import SCORING_FN_LABEL
+    from photon_ml_tpu_torch.telemetry import metrics
+
+    def builds():
+        fam = metrics.default_registry().get("photon_compiles_total")
+        return sum(c.value for lab, c in (fam.children() if fam else ())
+                   if lab == (SCORING_FN_LABEL,))
+
+    def post(url, recs):
+        req = urllib.request.Request(
+            url + "/score", data=json.dumps({"records": recs}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return json.loads(resp.read())["scores"]
+
+    recs = records[:TELEMETRY_SERVE_RECORDS]
+    tel = os.path.join(tmp, "telemetry_serve")
+    base = ["--model-dir", e2e_run["run"], "--feature-shards",
+            "global=g|intercept,item=it|noIntercept", "--port", "0",
+            "--microbatch", "64", "--max-batch", str(ENGINE_MAX_BATCH),
+            "--device", device]
+    got = {}
+    for traced in (False, True):
+        before = builds()
+        t0 = time.perf_counter()
+        server = serve_game.build_server(
+            base + (["--telemetry-dir", tel] if traced else [])).start()
+        load_s = time.perf_counter() - t0
+        try:
+            engine = server.service.registry.active().engine
+            captured = builds() - before
+            batch = post(server.url, recs)
+            singles = [post(server.url, [r])[0]
+                       for r in recs[:TELEMETRY_SERVE_SINGLES]]
+            got[traced] = (batch, singles)
+            after = engine.compile_count
+        finally:
+            server.stop()
+            server.telemetry.close()
+        log(f"[17] (d) serve_game{' --telemetry-dir' if traced else ''}: "
+            f"loaded in {load_s:.2f} s, {captured:.0f} captures counted in "
+            f"photon_compiles_total{{fn={SCORING_FN_LABEL}}}, engine "
+            f"compile_count {after}")
+        assert captured == after == ENGINE_CAPTURES, (captured, after)
+    assert got[True] == got[False], "tracing changed a score"
+    spans, prom = read_telemetry(tel)
+    names = [s["name"] for s in spans]
+    log(f"  spans: " + ", ".join(f"{n} {names.count(n)}"
+                                 for n in sorted(set(names))))
+    assert names.count("serving.score") == 1 + TELEMETRY_SERVE_SINGLES
+    assert names.count("serving.request") == 1 + TELEMETRY_SERVE_SINGLES
+    assert series(prom, "photon_build_info")
+
+
+def run_telemetry_phase(tg, e2e_run, phase8_launches, glm_dir, glm_paths,
+                        records, tmp, device="cuda"):
+    """Phase 17. Returns (a)'s and (b)'s kernel launches."""
+    t0 = time.perf_counter()
+    launches = {"train_game": telemetry_train_game(e2e_run, phase8_launches,
+                                                   tmp, device),
+                "train_glm": telemetry_train_glm(glm_dir, glm_paths, tmp,
+                                                 device)}
+    telemetry_debug_nans(tg, tmp, device)
+    telemetry_serve_game(e2e_run, records, tmp, device)
+    log(f"[17] done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5310,12 +5643,6 @@ def main() -> int:
     auc_fe = fe_only.evaluation.primary[1]
     log(f"  fixed-effect-only AUC {auc_fe:.6f}")
     assert auc > auc_fe + 0.01, (auc, auc_fe)
-
-    # the main path once more under the profiler: device time by kernel and
-    # by coordinate / bucket range, and the device's busy share
-    profile_fit(lambda: est.fit(
-        train, [tg.GameOptimizationConfiguration(E2E_LAMBDAS)],
-        validation=(valid, evaluators), datasets=datasets), fit_s)
 
     # kernel times at the main path's shapes -------------------------------
     ds = datasets["global"]
@@ -5569,6 +5896,11 @@ def main() -> int:
 
         # 16. the entity-sharded serving fleet ------------------------------
         fleet_launches = run_fleet_phase(e2e_run, records, e2e_tmp, card)
+
+        # 17. the live telemetry plane --------------------------------------
+        telemetry_launches = run_telemetry_phase(
+            tg, e2e_run, cli_launches, os.path.join(e2e_tmp, "glm"),
+            glm_paths, records, e2e_tmp)
     finally:
         shutil.rmtree(e2e_tmp, ignore_errors=True)
 
@@ -5582,6 +5914,10 @@ def main() -> int:
         """Phase 15's launches of ``kernel`` by run, one count a rank."""
         return {name: [n[kernel] for n in ranks]
                 for name, ranks in mp_launches.items()}
+
+    def telemetry(kernel):
+        """Phase 17's launches of ``kernel``: (a) and (b)."""
+        return {name: n[kernel] for name, n in telemetry_launches.items()}
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [
@@ -5597,6 +5933,7 @@ def main() -> int:
              quality=dict(launches=quality_launches["fused_glm"]),
              multihost=dict(launches=multihost("fused_glm")),
              fleet=dict(launches=fleet_launches["fused_glm"]),
+             telemetry=dict(launches=telemetry("fused_glm")),
              glm_path=dict(launches=glm_launches["tron"]["fused_glm"],
                            **t1_glm),
              glm_small=dict(launches=runs["cuda"]["tron"][3]["fused_glm"],
@@ -5613,7 +5950,8 @@ def main() -> int:
              options=dict(launches=options("fused_re")),
              quality=dict(launches=quality_launches["fused_re"]),
              multihost=dict(launches=multihost("fused_re")),
-             fleet=dict(launches=fleet_launches["fused_re"])),
+             fleet=dict(launches=fleet_launches["fused_re"]),
+             telemetry=dict(launches=telemetry("fused_re"))),
         dict(name="fused_hvp", route="cuda", status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_hvp.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:447",
@@ -5626,7 +5964,8 @@ def main() -> int:
              options=dict(launches=options("fused_hvp")),
              quality=dict(launches=quality_launches["fused_hvp"]),
              multihost=dict(launches=multihost("fused_hvp")),
-             fleet=dict(launches=fleet_launches["fused_hvp"])),
+             fleet=dict(launches=fleet_launches["fused_hvp"]),
+             telemetry=dict(launches=telemetry("fused_hvp"))),
         dict(name="fused_value_and_grad_multi", route="cuda",
              status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_glm_multi.cu",
@@ -5637,7 +5976,8 @@ def main() -> int:
              locked=dict(launches=locked_launches["fused_glm_multi"]),
              options=dict(launches=options("fused_glm_multi")),
              quality=dict(launches=quality_launches["fused_glm_multi"]),
-             fleet=dict(launches=fleet_launches["fused_glm_multi"])),
+             fleet=dict(launches=fleet_launches["fused_glm_multi"]),
+             telemetry=dict(launches=telemetry("fused_glm_multi"))),
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"):

@@ -11,3 +11,6 @@ Runs on ``cuda`` by default; pass ``device="cpu"`` to run on the CPU (the
 kernels' plain PyTorch versions). The JAX package ``photon_ml_tpu`` stays
 the reference; this package imports nothing of it.
 """
+
+#: the JAX package's version, which this port tracks
+__version__ = "0.1.0"

@@ -29,9 +29,11 @@ flags (:func:`add_quality_flags`, :func:`add_rank_flags`) are ported, and
 the supervision flags live beside the supervisor
 (:func:`~photon_ml_tpu_torch.resilience.supervisor.add_supervision_flags`);
 so is the fleet router's group (:class:`RouterConfig`,
-:func:`add_router_flags`, serve_fleet's). The telemetry and
-retained-telemetry flag groups are not: :func:`add_unported_flags` lets a
-command accept such flags and :func:`refuse_unported` raise naming them.
+:func:`add_router_flags`, serve_fleet's), and the telemetry group
+(:class:`TelemetryConfig`, :func:`add_telemetry_flags`,
+:func:`install_telemetry`). The retained-telemetry and autopilot flags are
+not: :func:`add_unported_flags` lets a command accept such flags and
+:func:`refuse_unported` raise naming them.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import itertools
+import os
 from typing import Mapping, Optional, Sequence
 
 from photon_ml_tpu_torch.game.data import RandomEffectDatasetConfig
@@ -283,6 +286,142 @@ def install_resilience(config: ResilienceConfig):
 
     set_default_policy(config.retry_policy())
     return config.guard()
+
+
+# ---------------------------------------------------------------------------
+# Telemetry configuration (the six training, scoring and serving commands)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TelemetryConfig:
+    """The drivers' telemetry knobs, round-trippable through a JSON config
+    file like :class:`ResilienceConfig`.
+
+    ``telemetry_dir`` (None = disabled) receives ``trace.jsonl`` (the span
+    tree) while the run is live and ``metrics.prom`` (the registry
+    snapshot) at close; ``poll_interval_s`` (0 = disabled) starts the
+    host-RSS/device-memory gauge sampler at that period AND, when a
+    telemetry dir is set, re-snapshots ``metrics.prom`` on the same cadence
+    (push-gateway-style, so batch runs are observable mid-flight);
+    ``metrics_port`` (0 = disabled) serves the live fleet-wide aggregate
+    from ``GET /metrics`` on the chief and, at >1 process, enables the
+    collective registry fold at sweep boundaries.
+    """
+
+    telemetry_dir: Optional[str] = None
+    poll_interval_s: float = 0.0
+    metrics_port: int = 0
+
+    def __post_init__(self):
+        if self.poll_interval_s < 0:
+            raise ValueError(f"poll_interval_s must be >= 0, "
+                             f"got {self.poll_interval_s}")
+        if not 0 <= self.metrics_port < 65536:
+            raise ValueError(f"metrics_port must be in [0, 65535], "
+                             f"got {self.metrics_port}")
+
+    # --- config-file round-trip ------------------------------------------
+    def as_dict(self) -> dict:
+        return {"telemetryDir": self.telemetry_dir,
+                "pollIntervalS": self.poll_interval_s,
+                "metricsPort": self.metrics_port}
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "TelemetryConfig":
+        return cls(telemetry_dir=d.get("telemetryDir"),
+                   poll_interval_s=float(d.get("pollIntervalS", 0.0)),
+                   metrics_port=int(d.get("metricsPort", 0)))
+
+
+def add_telemetry_flags(parser) -> None:
+    """The shared driver flags: train_game, train_glm, score_game,
+    refresh_game, serve_game and serve_fleet."""
+    parser.add_argument(
+        "--telemetry-dir", default=None,
+        help="enable span tracing + metric export into this directory: "
+             "trace.jsonl (nested spans: stages, coordinate-descent sweeps "
+             "and steps, optimizer traces) streamed during the run, "
+             "metrics.prom (Prometheus text snapshot of every counter/"
+             "gauge/histogram) written at exit — plus, on the chief of a "
+             "--metrics-port run, metrics.aggregate.prom (the fleet fold; "
+             "tools/metrics_fold.py reproduces it offline). Default: "
+             "telemetry off (zero per-step device syncs)")
+    parser.add_argument(
+        "--telemetry-poll-s", type=float, default=0.0,
+        help="poll interval for the host-RSS / device-memory gauge "
+             "sampler (seconds; 0 disables — device memory_stats can "
+             "synchronize with the backend, so this is strictly opt-in). "
+             "With --telemetry-dir, also re-snapshots metrics.prom at the "
+             "same period so batch runs are scrapeable mid-flight")
+    parser.add_argument(
+        "--metrics-port", type=int, default=0,
+        help="serve GET /metrics on this port (chief process only; 0 "
+             "disables). In a --multihost run the endpoint returns the "
+             "FLEET aggregate — counters and histogram buckets summed "
+             "across every process, per-host gauges fanned out under a "
+             "process label — refreshed by a collective registry fold at "
+             "each coordinate-descent sweep / GLM lambda boundary")
+
+
+def telemetry_from_args(args, *, subdir: Optional[str] = None,
+                        ) -> TelemetryConfig:
+    """``subdir`` relocates a non-chief process's telemetry under
+    ``workers/proc-N`` — N processes appending to one trace.jsonl would
+    interleave records from different runs of the id counter."""
+    tdir = args.telemetry_dir
+    if tdir and subdir:
+        tdir = os.path.join(tdir, subdir)
+    return TelemetryConfig(telemetry_dir=tdir,
+                           poll_interval_s=args.telemetry_poll_s,
+                           metrics_port=args.metrics_port)
+
+
+def install_telemetry(config: TelemetryConfig):
+    """Start the run's telemetry session (a no-op session when everything
+    is disabled) — the one call every driver makes after parsing flags.
+    Callers own ``session.close()``."""
+    from photon_ml_tpu_torch.telemetry import start_telemetry
+
+    return start_telemetry(telemetry_dir=config.telemetry_dir,
+                           poll_interval_s=config.poll_interval_s,
+                           metrics_port=config.metrics_port)
+
+
+class DriverTelemetry:
+    """A command's telemetry lifecycle, as the JAX mains wire it: the
+    session (:func:`install_telemetry`, before the command's first event,
+    so the bridge sees the whole run), ``photon_build_info``, a root span
+    named after the command and, for the training commands
+    (``started`` given), the ``training_started`` / ``training_finished``
+    events. :meth:`close` belongs in the command's ``finally``: it closes
+    the root span, posts ``training_finished`` and closes the session
+    (whose final fold is skipped on an exception path)."""
+
+    def __init__(self, args, driver: str, *, subdir: Optional[str] = None,
+                 started: Optional[dict] = None):
+        import contextlib
+
+        from photon_ml_tpu_torch.events import GLOBAL_BUS
+        from photon_ml_tpu_torch.telemetry import emit_build_info, tracing
+
+        self.driver = driver
+        self._bus = GLOBAL_BUS
+        self._training = started is not None
+        self.session = install_telemetry(
+            telemetry_from_args(args, subdir=subdir))
+        emit_build_info()
+        self._root = contextlib.ExitStack()
+        self._root.enter_context(tracing.span(driver))
+        if self._training:
+            GLOBAL_BUS.post("training_started", driver=driver, **started)
+
+    def close(self) -> None:
+        self._root.close()
+        if self._training:
+            self._bus.post("training_finished", driver=self.driver)
+            self._training = False
+        self.session.close()
 
 
 # ---------------------------------------------------------------------------

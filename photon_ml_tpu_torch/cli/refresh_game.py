@@ -24,8 +24,10 @@ calling thread, ``quality-baseline.json`` (the refreshed model profiled
 on the validation data, else the training data) among them.
 ``--fleet-shards N`` also publishes the per-host patches of an N-host
 serving fleet (``patch-shard-0`` … ``patch-shard-N-1``), each chained to
-the same merged model. Not ported yet (each raises
-:class:`NotImplementedError` naming the flag): the telemetry flags.
+the same merged model. ``--telemetry-dir``, ``--telemetry-poll-s`` and
+``--metrics-port`` work as in ``train_game``: the span tree is rooted at
+``refresh_game``, with ``refresh.delta``, the ``refresh.sweep`` /
+``refresh.step`` / ``refresh.validate`` spans and ``refresh.publish``.
 """
 
 from __future__ import annotations
@@ -42,13 +44,13 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.cli.config import (
+    DriverTelemetry,
     add_resilience_flags,
-    add_unported_flags,
+    add_telemetry_flags,
     install_resilience,
     parse_coordinate_config,
     parse_feature_shard_config,
     parse_grid,
-    refuse_unported,
     resilience_from_args,
 )
 from photon_ml_tpu_torch.cli.train_game import preset_index_maps
@@ -66,23 +68,20 @@ from photon_ml_tpu_torch.io.model_io import (
     resolve_game_model_dir,
     save_game_model,
 )
-from photon_ml_tpu_torch.io.pipeline import save_model_patch_atomic
+from photon_ml_tpu_torch.io.pipeline import (
+    count_saved,
+    save_model_patch_atomic,
+)
 from photon_ml_tpu_torch.logging_util import RunLogger, timed
 from photon_ml_tpu_torch.quality.baseline import (
     BASELINE_NAME,
     baseline_from_game,
     save_baseline,
 )
+from photon_ml_tpu_torch.telemetry import tracing
 from photon_ml_tpu_torch.types import DataValidationType, TaskType
 
 logger = logging.getLogger(__name__)
-
-#: the reference's flags this command does not run yet (see train_game)
-_UNPORTED_FLAGS = {
-    "--telemetry-dir": {},
-    "--telemetry-poll-s": {"type": float},
-    "--metrics-port": {"type": int},
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -144,7 +143,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where the solves run (default: the GPU; there is "
                         "no fall-back to the CPU)")
     add_resilience_flags(p)
-    add_unported_flags(p, _UNPORTED_FLAGS)
+    add_telemetry_flags(p)
     return p
 
 
@@ -157,11 +156,13 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
 
     args = build_parser().parse_args(
         list(sys.argv[1:] if argv is None else argv))
-    refuse_unported(args, _UNPORTED_FLAGS)
     task = TaskType(args.task)
     install_resilience(resilience_from_args(args))
     device = resolve_device(args.device)
     run_logger = RunLogger(args.output_dir)
+    telemetry = DriverTelemetry(
+        args, "refresh_game",
+        started=dict(task=task.value, output_dir=args.output_dir))
     try:
         shard_configs = tuple(parse_feature_shard_config(s)
                               for s in args.feature_shards.split(","))
@@ -214,7 +215,8 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             cid: (c.dataset.random_effect_type, c.dataset.feature_shard_id)
             for cid, c in coordinate_configs.items()
             if isinstance(c, RandomEffectCoordinateConfig)}
-        with timed("Compute delta", run_logger):
+        with timed("Compute delta", run_logger), \
+                tracing.span("refresh.delta"):
             manifest = delta_mod.build_manifest(data, re_coords, vocabs)
             prior_manifest = delta_mod.load_manifest(
                 delta_mod.manifest_path_for(prior_model_dir))
@@ -278,20 +280,22 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                             sparsity_threshold=args.model_sparsity_threshold,
                             lineage=lineage)
             for shard_id, imap in index_maps.items():
-                imap.save(os.path.join(args.output_dir, "feature-indexes",
-                                       f"{shard_id}.json"))
-            delta_mod.save_manifest(
-                os.path.join(args.output_dir, delta_mod.MANIFEST_NAME),
-                manifest)
+                path = os.path.join(args.output_dir, "feature-indexes",
+                                    f"{shard_id}.json")
+                imap.save(path)
+                count_saved(path)
+            path = os.path.join(args.output_dir, delta_mod.MANIFEST_NAME)
+            delta_mod.save_manifest(path, manifest)
+            count_saved(path)
             # the refreshed model's quality baseline, with the refresh's
             # lineage, at the run root: serving finds it for both best/
             # and the sibling patch/
-            save_baseline(
-                os.path.join(args.output_dir, BASELINE_NAME),
-                baseline_from_game(
-                    result.model,
-                    validation[0] if validation is not None else data,
-                    task=task, lineage=lineage))
+            path = os.path.join(args.output_dir, BASELINE_NAME)
+            save_baseline(path, baseline_from_game(
+                result.model,
+                validation[0] if validation is not None else data,
+                task=task, lineage=lineage))
+            count_saved(path)
 
         # --- publish: the entity-level coefficient patch ----------------
         patch_dir = None
@@ -362,6 +366,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                            else None),
         }
     finally:
+        telemetry.close()
         run_logger.close()
 
 

@@ -17,8 +17,9 @@ load onto ``--device`` (the card unless ``--device cpu``). Under
 ``--multihost`` each process scores its share of the input files into
 ``scores-part-NNNNN.avro`` (concatenated in process order, the parts are
 the single-process ``scores.avro``), and the evaluation runs on every
-process over the gathered scores. Telemetry is not ported: its flags
-raise :class:`NotImplementedError` naming the flag.
+process over the gathered scores. ``--telemetry-dir``,
+``--telemetry-poll-s`` and ``--metrics-port`` work as in the training
+commands (the span tree is rooted at ``score_game``).
 """
 
 from __future__ import annotations
@@ -33,9 +34,9 @@ import numpy as np
 
 from photon_ml_tpu_torch import native
 from photon_ml_tpu_torch.cli.config import (
-    add_unported_flags,
+    DriverTelemetry,
+    add_telemetry_flags,
     parse_feature_shard_config,
-    refuse_unported,
 )
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.evaluation import parse_evaluators
@@ -54,14 +55,6 @@ from photon_ml_tpu_torch.io.model_io import (
 from photon_ml_tpu_torch.io.schemas import SCORING_RESULT_AVRO
 from photon_ml_tpu_torch.logging_util import RunLogger, timed
 from photon_ml_tpu_torch.parallel import multihost
-
-#: the reference's flags this command does not run yet
-_UNPORTED_FLAGS = {
-    "--telemetry-dir": {},
-    "--telemetry-poll-s": {"type": float},
-    "--metrics-port": {"type": int},
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -88,7 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="join the multi-process job of the PHOTON_* "
                         "environment: each process scores its share of "
                         "the input files into a part file")
-    add_unported_flags(p, _UNPORTED_FLAGS)
+    add_telemetry_flags(p)
     return p
 
 
@@ -108,7 +101,6 @@ def write_scores(path: str, scores: np.ndarray, labels: np.ndarray) -> None:
 def run(argv: Optional[Sequence[str]] = None) -> dict:
     args = build_parser().parse_args(
         list(sys.argv[1:] if argv is None else argv))
-    refuse_unported(args, _UNPORTED_FLAGS)
     # fail before the reads when no card is present
     device = resolve_device(args.device)
     multiproc = False
@@ -116,9 +108,15 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         multiproc = multihost.initialize(device=args.device)
         device = multihost.local_device()
     pid = multihost.process_index()
+    worker_dir = os.path.join("workers", f"proc-{pid}")
+    chief = multihost.is_chief()
     run_logger = RunLogger(
-        args.output_dir if multihost.is_chief()
-        else os.path.join(args.output_dir, "workers", f"proc-{pid}"))
+        args.output_dir if chief
+        else os.path.join(args.output_dir, worker_dir))
+    # telemetry before the first stage; a non-chief process traces under
+    # its own workers/ directory
+    telemetry = DriverTelemetry(args, "score_game",
+                                subdir=None if chief else worker_dir)
     try:
         model_dir = resolve_game_model_dir(args.model_dir)
         index_dir = find_feature_index_dir(model_dir)
@@ -213,6 +211,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         return {"n_scored": n_scored, "evaluation": evaluation,
                 "output_dir": args.output_dir}
     finally:
+        telemetry.close()
         run_logger.close()
 
 

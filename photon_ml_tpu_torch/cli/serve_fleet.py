@@ -21,11 +21,13 @@ In-process hosts share the process-global metrics registry and brownout
 state, so their brownout controllers stay off here (a distributed fleet
 keeps them: each machine degrades on its own pressure); the router's
 ``/metrics`` still folds every host's snapshot with host-owned gauges
-fanned out per shard. Flags of the reference that the port does not run
-yet (the autopilot, retained telemetry, telemetry) are accepted by the
-parser and raise :class:`NotImplementedError` naming the flag when given
-away from their default; the router answers ``/history`` and ``/advisor``
-with 501.
+fanned out per shard. ``--telemetry-dir`` writes the router's and the
+hosts' spans (``fleet.*``, ``serving.*``) to one ``trace.jsonl``, and
+``--telemetry-poll-s`` / ``--metrics-port`` work as in the other commands.
+Flags of the reference that the port does not run yet (the autopilot and
+the retained telemetry) are accepted by the parser and raise
+:class:`NotImplementedError` naming the flag when given away from their
+default; the router answers ``/history`` and ``/advisor`` with 501.
 """
 
 from __future__ import annotations
@@ -38,15 +40,18 @@ from typing import Optional, Sequence
 
 from photon_ml_tpu_torch.cli.config import (
     add_router_flags,
+    add_telemetry_flags,
     add_unported_flags,
+    install_telemetry,
     refuse_unported,
     router_from_args,
+    telemetry_from_args,
 )
 
 logger = logging.getLogger(__name__)
 
-#: the reference's flags this command does not run yet (the autopilot, the
-#: retained-telemetry plane and telemetry), with their reference defaults
+#: the reference's flags this command does not run yet (the autopilot and
+#: the retained-telemetry plane), with their reference defaults
 _UNPORTED_FLAGS = {
     "--autopilot-config": {"default": None},
     "--history-capacity": {"type": int, "default": 240},
@@ -54,9 +59,6 @@ _UNPORTED_FLAGS = {
     "--flight-dir": {"default": None},
     "--flight-capacity": {"type": int, "default": 512},
     "--watchdog-timeout-s": {"type": float, "default": 0.0},
-    "--telemetry-dir": {"default": None},
-    "--telemetry-poll-s": {"type": float, "default": 0.0},
-    "--metrics-port": {"type": int, "default": 0},
 }
 
 
@@ -125,16 +127,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "unlimited; serve_game --max-connections)")
     add_router_flags(p)
     add_unported_flags(p, _UNPORTED_FLAGS)
+    add_telemetry_flags(p)
     return p
 
 
 class FleetHandle:
-    """The started fleet: the router server, the N × R host servers and
-    the optional router-side patch watcher, with one :meth:`stop`."""
+    """The started fleet: the router server, the N × R host servers, the
+    optional router-side patch watcher and the telemetry session, with one
+    :meth:`stop`."""
 
-    def __init__(self, router_server, hosts):
+    def __init__(self, router_server, hosts, telemetry):
         self.router_server = router_server
         self.hosts = hosts
+        self.telemetry = telemetry
         self.watcher = None  # FleetPatchWatcher (--router-watch-dir)
 
     @property
@@ -158,6 +163,7 @@ class FleetHandle:
         self.router_server.stop()
         for host in self.hosts:
             host.stop()
+        self.telemetry.close()
 
 
 def build_fleet(argv: Optional[Sequence[str]] = None) -> FleetHandle:
@@ -167,6 +173,7 @@ def build_fleet(argv: Optional[Sequence[str]] = None) -> FleetHandle:
         list(sys.argv[1:] if argv is None else argv))
     refuse_unported(args, _UNPORTED_FLAGS)
     config = router_from_args(args)
+    telemetry = install_telemetry(telemetry_from_args(args))
 
     from photon_ml_tpu_torch.cli import serve_game
     from photon_ml_tpu_torch.fleet.router import FleetRouter, RouterServer
@@ -238,8 +245,9 @@ def build_fleet(argv: Optional[Sequence[str]] = None) -> FleetHandle:
     except BaseException:
         for h in hosts:
             h.stop()
+        telemetry.close()
         raise
-    handle = FleetHandle(server.start(), hosts)
+    handle = FleetHandle(server.start(), hosts, telemetry)
     if args.router_watch_dir:
         from photon_ml_tpu_torch.fleet.watcher import FleetPatchWatcher
 

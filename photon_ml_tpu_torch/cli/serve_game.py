@@ -21,9 +21,12 @@ active version's ``quality-baseline.json``, posting
 ``quality_drift_detected`` past ``--drift-threshold``. ``--fleet-shard I
 --fleet-shard-count N`` serves shard I of an entity-sharded fleet: the
 tables hold only the ids the shard owns, and per-host patches of other
-shards are refused (``serve_fleet`` puts a router in front). Flags of the
-reference that the port does not run yet (the autopilot, retained
-telemetry, telemetry) are accepted by the parser and raise
+shards are refused (``serve_fleet`` puts a router in front).
+``--telemetry-dir`` writes the ``serving.*`` request spans to
+``trace.jsonl`` and ``metrics.prom`` at exit, ``--telemetry-poll-s``
+samples host and device memory (``GET /metrics`` is always live).
+Flags of the reference that the port does not run yet (the autopilot and
+the retained telemetry) are accepted by the parser and raise
 :class:`NotImplementedError` naming the flag when given away from their
 default.
 """
@@ -39,11 +42,14 @@ import numpy as np
 from photon_ml_tpu_torch.cli.config import (
     add_quality_flags,
     add_rank_flags,
+    add_telemetry_flags,
     add_unported_flags,
+    install_telemetry,
     parse_feature_shard_config,
     quality_from_args,
     rank_from_args,
     refuse_unported,
+    telemetry_from_args,
 )
 
 #: the reference's flags this command does not run yet, with their argparse
@@ -55,9 +61,6 @@ _UNPORTED_FLAGS = {
     "--flight-dir": {"default": None},
     "--flight-capacity": {"type": int, "default": 512},
     "--watchdog-timeout-s": {"type": float, "default": 0.0},
-    "--telemetry-dir": {"default": None},
-    "--telemetry-poll-s": {"type": float, "default": 0.0},
-    "--metrics-port": {"type": int, "default": 0},
 }
 
 
@@ -153,12 +156,38 @@ def build_parser() -> argparse.ArgumentParser:
     add_quality_flags(p)
     add_rank_flags(p)
     add_unported_flags(p, _UNPORTED_FLAGS)
+    add_telemetry_flags(p)
     return p
 
 
 def build_server(argv: Optional[Sequence[str]] = None):
     """Parse flags → a started-but-not-serving :class:`GameServer` (the
-    programmatic entry; :func:`run` serves it forever)."""
+    programmatic entry; :func:`run` serves it forever). The server's
+    ``telemetry`` session is the caller's to close after ``stop()``."""
+    args = build_parser().parse_args(
+        list(sys.argv[1:] if argv is None else argv))
+    refuse_unported(args, _UNPORTED_FLAGS)
+    if args.max_connections < 0:
+        raise ValueError(f"max_connections must be >= 0, got "
+                         f"{args.max_connections}")
+    # /metrics is always live (the registry is process-global); the session
+    # adds the trace file and the memory sampler when the flags ask
+    from photon_ml_tpu_torch.telemetry import emit_build_info
+
+    telemetry = install_telemetry(telemetry_from_args(args))
+    emit_build_info()
+    try:
+        server = _build(args)
+    except BaseException:
+        telemetry.close()
+        raise
+    server.telemetry = telemetry
+    return server
+
+
+def _build(args):
+    """The server of parsed ``args``: registry (the model loaded), batchers,
+    service, watcher and drift evaluator."""
     from photon_ml_tpu_torch.serving import (
         GameServer,
         MicroBatcher,
@@ -170,12 +199,6 @@ def build_server(argv: Optional[Sequence[str]] = None):
     from photon_ml_tpu_torch.serving.reqlog import RequestLog
     from photon_ml_tpu_torch.serving.watcher import ModelDirectoryWatcher
 
-    args = build_parser().parse_args(
-        list(sys.argv[1:] if argv is None else argv))
-    refuse_unported(args, _UNPORTED_FLAGS)
-    if args.max_connections < 0:
-        raise ValueError(f"max_connections must be >= 0, got "
-                         f"{args.max_connections}")
     quality = quality_from_args(args)
     rank = rank_from_args(args)
     shard_configs = tuple(parse_feature_shard_config(s)
@@ -264,6 +287,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         pass
     finally:
         server.stop()
+        server.telemetry.close()
     return {"url": server.url, "version": version}
 
 

@@ -46,9 +46,18 @@ N`` runs N such processes under the fleet supervisor
 (:mod:`photon_ml_tpu_torch.resilience.supervisor`), which restarts them
 from the checkpoint on a crash or a stale heartbeat. ``--mesh`` (one
 process over several cards) is not ported: one process drives one card,
-and several cards take ``--multihost``. Not written yet: telemetry. Flags
-of the reference that the port does not run yet are accepted by the parser
-and raise :class:`NotImplementedError` naming the flag.
+and several cards take ``--multihost``.
+
+``--telemetry-dir`` writes the run's span tree (``trace.jsonl``: the
+``train_game`` root, the stages, ``cd.sweep`` / ``cd.step`` /
+``cd.validate``, reads and saves) and ``metrics.prom``;
+``--telemetry-poll-s`` samples host and device memory and re-snapshots
+``metrics.prom`` at that period; ``--metrics-port`` serves ``GET
+/metrics`` from the chief (the fleet fold at each sweep under
+``--multihost``). ``--profile`` writes a ``torch.profiler`` Chrome trace of
+the training stage under ``<output-dir>/profile``; ``--debug-nans`` checks
+every evaluation of the kernel dispatch for NaN/Inf
+(:mod:`photon_ml_tpu_torch.ops.objective`).
 """
 
 from __future__ import annotations
@@ -65,14 +74,16 @@ from typing import Optional, Sequence
 import torch
 
 from photon_ml_tpu_torch.cli.config import (
+    DriverTelemetry,
     add_resilience_flags,
-    add_unported_flags,
+    add_telemetry_flags,
     install_resilience,
+    install_telemetry,
     parse_coordinate_config,
     parse_feature_shard_config,
     parse_grid,
-    refuse_unported,
     resilience_from_args,
+    telemetry_from_args,
 )
 from photon_ml_tpu_torch.data_validation import validate_game_data
 from photon_ml_tpu_torch.device import resolve_device
@@ -92,7 +103,9 @@ from photon_ml_tpu_torch.io.model_io import (
     resolve_game_model_dir,
     save_game_model,
 )
-from photon_ml_tpu_torch.logging_util import RunLogger, timed
+from photon_ml_tpu_torch.io.pipeline import count_saved
+from photon_ml_tpu_torch.logging_util import RunLogger, profiled, timed
+from photon_ml_tpu_torch.ops import objective as _objective
 from photon_ml_tpu_torch.parallel import multihost
 from photon_ml_tpu_torch.quality.baseline import (
     BASELINE_NAME,
@@ -105,17 +118,6 @@ from photon_ml_tpu_torch.resilience.supervisor import (
     write_result_file,
 )
 from photon_ml_tpu_torch.types import DataValidationType, TaskType
-
-#: the reference's flags this command does not run yet, with their argparse
-#: settings: each is accepted and raises NotImplementedError when given
-_UNPORTED_FLAGS = {
-    "--debug-nans": {"action": "store_true"},
-    "--profile": {"action": "store_true"},
-    "--telemetry-dir": {},
-    "--telemetry-poll-s": {"type": float},
-    "--metrics-port": {"type": int},
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -174,6 +176,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in "
                         "<output-dir>/checkpoints")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="fail fast on NaN: every objective evaluation and "
+                        "Hessian-vector product of the kernel dispatch is "
+                        "checked, raising FloatingPointError naming the "
+                        "kernel and shape")
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace (CUDA activity "
+                        "included on the card) of the training stage to "
+                        "<output-dir>/profile/trace.json (view in "
+                        "chrome://tracing or Perfetto)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the solves run (default: the GPU; there is "
                         "no fall-back to the CPU)")
@@ -187,7 +199,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "cards take --multihost")
     add_supervision_flags(p)
     add_resilience_flags(p)
-    add_unported_flags(p, _UNPORTED_FLAGS)
+    add_telemetry_flags(p)
     return p
 
 
@@ -289,8 +301,18 @@ def _run_supervised(raw_argv: Sequence[str], args) -> dict:
     worker_flags = ["--checkpoint", "--resume"]
     if args.supervise > 1:
         worker_flags.append("--multihost")
-    return supervise_from_args("train_game", raw_argv, args,
-                               worker_flags=worker_flags)
+    # the supervisor's own telemetry (its spans and the photon_supervisor_*
+    # bridge metrics) lands under supervisor/telemetry; the workers own the
+    # run's telemetry directories and the metrics port
+    telemetry = install_telemetry(dataclasses.replace(
+        telemetry_from_args(args,
+                            subdir=os.path.join("supervisor", "telemetry")),
+        metrics_port=0))
+    try:
+        return supervise_from_args("train_game", raw_argv, args,
+                                   worker_flags=worker_flags)
+    finally:
+        telemetry.close()
 
 
 def _mp_fit_fn(args, data, task, coordinate_configs, update_sequence,
@@ -331,7 +353,6 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
 
     raw_argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(raw_argv)
-    refuse_unported(args, _UNPORTED_FLAGS)
     if args.supervise:
         return _run_supervised(raw_argv, args)
     if args.mesh and not args.multihost:
@@ -351,8 +372,18 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     chief = multihost.is_chief()
     # a non-chief process logs under its own directory: N processes
     # appending to one photon.log / metrics.jsonl would interleave
+    worker_dir = os.path.join("workers", f"proc-{multihost.process_index()}")
     run_logger = RunLogger(args.output_dir if chief else os.path.join(
-        args.output_dir, "workers", f"proc-{multihost.process_index()}"))
+        args.output_dir, worker_dir))
+    debug_nans = _objective.debug_nans()
+    _objective.set_debug_nans(debug_nans or args.debug_nans)
+    # telemetry before the first event; a non-chief process traces under
+    # its own workers/ directory
+    telemetry = DriverTelemetry(
+        args, "train_game", subdir=None if chief else worker_dir,
+        started=dict(task=task.value, output_dir=args.output_dir))
+    profile_dir = (os.path.join(args.output_dir, "profile")
+                   if args.profile else None)
     try:
         shard_configs = tuple(parse_feature_shard_config(s)
                               for s in args.feature_shards.split(","))
@@ -453,8 +484,10 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                     args.training_data, id_columns=id_columns)
         if chief:
             for shard_id, imap in index_maps.items():
-                imap.save(os.path.join(args.output_dir, "feature-indexes",
-                                       f"{shard_id}.json"))
+                path = os.path.join(args.output_dir, "feature-indexes",
+                                    f"{shard_id}.json")
+                imap.save(path)
+                count_saved(path)
 
         initial_models = None
         parent_lineage = None
@@ -482,9 +515,9 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                 if isinstance(c, RandomEffectCoordinateConfig)}
             with timed("Build data manifest", run_logger):
                 manifest = delta_mod.build_manifest(data, re_coords, vocabs)
-                delta_mod.save_manifest(
-                    os.path.join(args.output_dir, delta_mod.MANIFEST_NAME),
-                    manifest)
+                path = os.path.join(args.output_dir, delta_mod.MANIFEST_NAME)
+                delta_mod.save_manifest(path, manifest)
+                count_saved(path)
             manifest_digest = delta_mod.manifest_digest(manifest)
         lineage = {
             "parentModel": parent_lineage,
@@ -516,7 +549,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                  else f"Train ({args.tuning} tuning)")
         if multiproc:
             stage = stage[:-1] + ", multi-process)"
-        with timed(stage, run_logger):
+        with timed(stage, run_logger), profiled(profile_dir):
             if configurations is not None and multiproc:
                 # grid points in turn, each one collective fit
                 results = [mp_fit(c) for c in configurations]
@@ -572,17 +605,18 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             # the winner's quality baseline at the run root: its score
             # distribution on the validation data (the training data when
             # the run has none), which serving compares live traffic with
-            save_baseline(
-                os.path.join(args.output_dir, BASELINE_NAME),
-                baseline_from_game(
-                    best.model,
-                    validation[0] if validation is not None else data,
-                    task=task, lineage=lineage))
+            path = os.path.join(args.output_dir, BASELINE_NAME)
+            save_baseline(path, baseline_from_game(
+                best.model, validation[0] if validation is not None else data,
+                task=task, lineage=lineage))
+            count_saved(path)
         multihost.barrier()
         # a supervised run hands its result to the supervisor
         write_result_file(result)
         return result
     finally:
+        telemetry.close()
+        _objective.set_debug_nans(debug_nans)
         run_logger.close()
 
 

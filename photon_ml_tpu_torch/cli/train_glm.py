@@ -41,9 +41,16 @@ the others log under ``workers/proc-N``. ``--supervise N`` runs N such
 processes under the fleet supervisor
 (:mod:`photon_ml_tpu_torch.resilience.supervisor`), restarting them on a
 crash or a stale heartbeat (the sweep has no checkpoint: a restart
-re-solves it, bit for bit). Flags of the reference that the port does not
-run yet are accepted by the parser and raise
-:class:`NotImplementedError` naming the flag.
+re-solves it, bit for bit).
+
+``--telemetry-dir`` writes the run's span tree (``trace.jsonl``, rooted at
+``train_glm``) and ``metrics.prom`` (each lambda's solve under
+``glm.sweep_solve``); ``--telemetry-poll-s`` samples host and device
+memory; ``--metrics-port`` serves ``GET /metrics`` from the chief (the
+fleet fold at each lambda under ``--multihost``). ``--profile`` writes a
+``torch.profiler`` Chrome trace of the "Train" stage under
+``<output-dir>/profile``; ``--debug-nans`` checks every evaluation and
+Hessian-vector product of the kernel dispatch for NaN/Inf.
 """
 
 from __future__ import annotations
@@ -57,11 +64,13 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.cli.config import (
+    DriverTelemetry,
     add_resilience_flags,
-    add_unported_flags,
+    add_telemetry_flags,
     install_resilience,
-    refuse_unported,
+    install_telemetry,
     resilience_from_args,
+    telemetry_from_args,
 )
 from photon_ml_tpu_torch.data_validation import validate_game_data
 from photon_ml_tpu_torch.device import resolve_device
@@ -98,12 +107,15 @@ from photon_ml_tpu_torch.io.model_io import (
     save_glm_model,
     save_glm_model_text,
 )
+from photon_ml_tpu_torch.io.pipeline import count_saved
 from photon_ml_tpu_torch.io.schemas import FEATURE_SUMMARIZATION_RESULT_AVRO
 from photon_ml_tpu_torch.logging_util import (
     RunLogger,
     log_optimizer_trace,
+    profiled,
     timed,
 )
+from photon_ml_tpu_torch.ops import objective as _objective
 from photon_ml_tpu_torch.ops.design import ChunkedSparseDesign, DenseDesign
 from photon_ml_tpu_torch.ops.normalization import (
     NoNormalization,
@@ -132,17 +144,6 @@ from photon_ml_tpu_torch.types import (
 
 #: the widest shard trained on a dense design
 DENSE_MAX_DIM = 4096
-
-#: the reference's flags this command does not run yet, with their argparse
-#: settings: each is accepted and raises NotImplementedError when given
-_UNPORTED_FLAGS = {
-    "--profile": {"action": "store_true"},
-    "--debug-nans": {"action": "store_true"},
-    "--telemetry-dir": {},
-    "--telemetry-poll-s": {"type": float},
-    "--metrics-port": {"type": int},
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -196,6 +197,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sequential: warm-started descending lambda sweep "
                         "(the reference's semantics); batched: one solve "
                         "with a lane per lambda, each from zero")
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace (CUDA activity "
+                        "included on the card) of the training stage to "
+                        "<output-dir>/profile/trace.json (view in "
+                        "chrome://tracing or Perfetto)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="fail fast on NaN: every objective evaluation and "
+                        "Hessian-vector product of the kernel dispatch is "
+                        "checked, raising FloatingPointError naming the "
+                        "kernel and shape. Strict debugging mode: also "
+                        "flags a line search's non-finite probe on an "
+                        "overflowing trial step, which a normal run "
+                        "backtracks from")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the solves run (default: the GPU; there is "
                         "no fall-back to the CPU)")
@@ -206,7 +220,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "only process 0 writes outputs")
     add_supervision_flags(p)
     add_resilience_flags(p)
-    add_unported_flags(p, _UNPORTED_FLAGS)
+    add_telemetry_flags(p)
     return p
 
 
@@ -294,12 +308,22 @@ def _run_diagnostics(args, task, best, glm_train, glm_val, shard, stats, imap,
 def run(argv: Optional[Sequence[str]] = None) -> dict:
     raw_argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(raw_argv)
-    refuse_unported(args, _UNPORTED_FLAGS)
     if args.supervise:
-        # the sweep has no checkpoint: a restarted fleet re-solves it
-        return supervise_from_args(
-            "train_glm", raw_argv, args,
-            worker_flags=("--multihost",) if args.supervise > 1 else ())
+        # the sweep has no checkpoint: a restarted fleet re-solves it. The
+        # supervisor's own telemetry lands under supervisor/telemetry; the
+        # workers own the run's telemetry and the metrics port
+        import dataclasses
+
+        telemetry = install_telemetry(dataclasses.replace(
+            telemetry_from_args(
+                args, subdir=os.path.join("supervisor", "telemetry")),
+            metrics_port=0))
+        try:
+            return supervise_from_args(
+                "train_glm", raw_argv, args,
+                worker_flags=("--multihost",) if args.supervise > 1 else ())
+        finally:
+            telemetry.close()
     task = TaskType(args.task)
     if args.warm_start and args.sweep_mode == "batched":
         raise SystemExit(
@@ -323,8 +347,18 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             raise SystemExit("multi-process --multihost training does not "
                              "support: " + ", ".join(bad))
     chief = multihost.is_chief()
+    worker_dir = os.path.join("workers", f"proc-{multihost.process_index()}")
     run_logger = RunLogger(args.output_dir if chief else os.path.join(
-        args.output_dir, "workers", f"proc-{multihost.process_index()}"))
+        args.output_dir, worker_dir))
+    debug_nans = _objective.debug_nans()
+    _objective.set_debug_nans(debug_nans or args.debug_nans)
+    # telemetry before the first event; a non-chief process traces under
+    # its own workers/ directory
+    telemetry = DriverTelemetry(
+        args, "train_glm", subdir=None if chief else worker_dir,
+        started=dict(task=task.value, output_dir=args.output_dir))
+    profile_dir = (os.path.join(args.output_dir, "profile")
+                   if args.profile else None)
     try:
         evaluators = parse_evaluators(
             [e for e in args.evaluators.split(",") if e])
@@ -423,7 +457,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             initial = (w_orig if normalization.is_identity
                        else normalization.original_to_model(w_orig))
 
-        with timed("Train", run_logger):
+        with timed("Train", run_logger), profiled(profile_dir):
             if args.sweep_mode == "batched":
                 trained = train_glm_sweep_batched(
                     task, glm_train, lambdas, config,
@@ -505,8 +539,9 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
 
         if chief:
             with timed("Save models", run_logger):
-                imap.save(os.path.join(args.output_dir,
-                                       "feature-index.json"))
+                path = os.path.join(args.output_dir, "feature-index.json")
+                imap.save(path)
+                count_saved(path)
                 for tm in trained:
                     model_id = f"lambda-{tm.regularization_weight:g}"
                     save(tm.model, os.path.join(args.output_dir, "all",
@@ -535,6 +570,8 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             write_result_file(result)
         return result
     finally:
+        telemetry.close()
+        _objective.set_debug_nans(debug_nans)
         run_logger.close()
 
 

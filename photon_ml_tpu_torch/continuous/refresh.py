@@ -24,8 +24,9 @@ untouched, so they come back bit for bit.
 Observability: the ``photon_refresh_*`` counters (touched / carried /
 solved entities per coordinate, patch bytes at publish).
 :func:`partition_patch_by_shard` splits a refresh's patch into the
-per-host patches of an entity-sharded serving fleet. Not ported yet: the
-``refresh.*`` tracing spans.
+per-host patches of an entity-sharded serving fleet. Each sweep is a
+``refresh.sweep`` span, each coordinate step a ``refresh.step`` span and
+each validation a ``refresh.validate`` span, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from photon_ml_tpu_torch.game.estimator import (
 from photon_ml_tpu_torch.fleet.sharding import shard_of_id
 from photon_ml_tpu_torch.game.model import GameModel, RandomEffectModel
 from photon_ml_tpu_torch.telemetry import metrics as tmetrics
+from photon_ml_tpu_torch.telemetry import tracing
 from photon_ml_tpu_torch.types import TaskType
 
 logger = logging.getLogger(__name__)
@@ -262,38 +264,45 @@ def refresh_game_model(
     history: list[dict] = []
     final_evaluation = None
     for sweep in range(n_sweeps):
-        for cid in seq:
-            coord = coords.get(cid)
-            if coord is None:
-                continue  # carried random-effect coordinate
-            residual = total - scores[cid]
-            with torch.profiler.record_function(f"refresh.step[{cid}]"):
-                model, new_scores = coord.train(residual, models.get(cid),
-                                                sweep=sweep)
-            if isinstance(coord, RandomEffectCoordinate):
-                _solved_counter().labels(coordinate=cid).inc(
-                    model.n_entities)
-                stats[cid].solved += model.n_entities
-                new_scores = torch.where(touched_masks[cid], new_scores,
-                                         scores[cid])
-                patch[cid] = model
-                model = models[cid].merge(
-                    model, drop_entities=touched_entities.get(cid, ()))
-            else:
-                patch[cid] = model
-            models[cid] = model
-            scores[cid] = new_scores
-            total = residual + new_scores
-        if validation is not None:
-            vdata, evaluators = validation
-            gm = GameModel(coordinates={c: models[c] for c in seq},
-                           task=task)
-            results = evaluate_all(
-                evaluators, gm.score(vdata), vdata.labels,
-                weights=vdata.weights, id_tags=vdata.id_columns)
-            history.append(results.as_dict())
-            final_evaluation = results
-            logger.info("refresh sweep %d validation: %s", sweep, results)
+        with tracing.span("refresh.sweep", sweep=sweep):
+            for cid in seq:
+                coord = coords.get(cid)
+                if coord is None:
+                    continue  # carried random-effect coordinate
+                with tracing.span("refresh.step", coordinate=cid,
+                                  sweep=sweep):
+                    residual = total - scores[cid]
+                    with torch.profiler.record_function(
+                            f"refresh.step[{cid}]"):
+                        model, new_scores = coord.train(
+                            residual, models.get(cid), sweep=sweep)
+                    if isinstance(coord, RandomEffectCoordinate):
+                        _solved_counter().labels(coordinate=cid).inc(
+                            model.n_entities)
+                        stats[cid].solved += model.n_entities
+                        new_scores = torch.where(touched_masks[cid],
+                                                 new_scores, scores[cid])
+                        patch[cid] = model
+                        model = models[cid].merge(
+                            model,
+                            drop_entities=touched_entities.get(cid, ()))
+                    else:
+                        patch[cid] = model
+                    models[cid] = model
+                    scores[cid] = new_scores
+                    total = residual + new_scores
+            if validation is not None:
+                vdata, evaluators = validation
+                with tracing.span("refresh.validate", sweep=sweep):
+                    gm = GameModel(coordinates={c: models[c] for c in seq},
+                                   task=task)
+                    results = evaluate_all(
+                        evaluators, gm.score(vdata), vdata.labels,
+                        weights=vdata.weights, id_tags=vdata.id_columns)
+                history.append(results.as_dict())
+                final_evaluation = results
+                logger.info("refresh sweep %d validation: %s", sweep,
+                            results)
 
     # carried accounting + removals (touched entities that fell below the
     # active-data bounds: merge dropped their prior rows, and the patch

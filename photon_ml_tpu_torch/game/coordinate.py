@@ -5,7 +5,10 @@ dataset and optimization problem; ``train(offsets, warm_start)`` fits
 against the residual offsets coordinate descent supplies and returns
 ``(model, scores)``, ``scores`` being this coordinate's margin per global
 sample as a device vector. ``sweep`` is the coordinate-descent sweep, which
-keys the fixed effect's down-sampling draw.
+keys the fixed effect's down-sampling draw. The fixed-effect solve is
+profiled as ``game.fixed_effect``
+(:mod:`~photon_ml_tpu_torch.telemetry.profiling`), and under a trace its
+optimizer trace is folded into telemetry.
 """
 
 from __future__ import annotations
@@ -32,9 +35,23 @@ from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.ops.objective import GLMObjective
 from photon_ml_tpu_torch.sampling import DownSampler
+from photon_ml_tpu_torch.telemetry import profiling, tracing
 from photon_ml_tpu_torch.types import TaskType
 
 CoordinateModel = Union[FixedEffectModel, RandomEffectModel]
+
+
+def _fixed_effect_solve(problem: OptimizationProblem, data, w0, lam):
+    """The fixed-effect train step: the solve, its variances and the
+    offset-free margins."""
+    result = problem.run(data, w0, lam)
+    w = result.w[0]
+    return (result, w, problem.compute_variances(w, data, lam),
+            data.design.matvec(w))
+
+
+_fixed_effect_solve_profiled = profiling.profile_fn(
+    _fixed_effect_solve, "game.fixed_effect")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,9 +95,16 @@ class FixedEffectCoordinate:
               else warm_start.model.coefficients.means.to(device))
         problem = OptimizationProblem(
             GLMObjective(loss=loss_for_task(self.task)), self.config)
-        w = problem.run(data, w0, self.lam).w[0]
-        variances = problem.compute_variances(w, data, self.lam)
-        scores = data.design.matvec(w)
+        result, w, variances, scores = _fixed_effect_solve_profiled(
+            problem, data, w0, self.lam)
+        if tracing.enabled():
+            # the optimizer's (loss, |grad|) table into trace.jsonl and the
+            # registry; gated, since reading it syncs the device
+            from photon_ml_tpu_torch.glm.training import lane_result
+            from photon_ml_tpu_torch.telemetry import record_optimizer_trace
+
+            record_optimizer_trace(self.coordinate_id,
+                                   lane_result(result, 0), sweep=sweep)
         model = FixedEffectModel(
             model=GeneralizedLinearModel(
                 coefficients=Coefficients(means=w, variances=variances),

@@ -8,6 +8,18 @@ Warm starts flow from each coordinate's previous-sweep model (and, with
 ``initial_models``, from a saved model). The score decomposition stays on
 the device for the whole run; the invariant is
 ``total = data.offsets + Σ_c scores[c]``.
+
+Telemetry, as in the JAX package: each sweep is a ``cd.sweep`` span, each
+coordinate step a ``cd.step`` span (with the block objective's ``loss``
+and ``grad_norm`` after the step) and each validation a ``cd.validate``
+span; the ``photon_game_coordinate_{loss,grad_norm,steps_total}`` families
+and ``photon_game_step_dispatch_seconds``; and the fleet-metrics fold
+point after every sweep. The per-step loss reads sync the device, so they
+run only while a trace is being written (``tracing.enabled()``). Under
+``--debug-nans`` (``ops/objective.py::debug_nans``) a step whose scores
+are not finite raises :class:`FloatingPointError` inside the step, where
+the divergence guard sees it as the step's error, as a NaN that JAX's
+``jax_debug_nans`` catches there does.
 """
 
 from __future__ import annotations
@@ -24,10 +36,21 @@ from photon_ml_tpu_torch.evaluation import evaluate_all
 from photon_ml_tpu_torch.game.coordinate import Coordinate, CoordinateModel
 from photon_ml_tpu_torch.game.data import GameData
 from photon_ml_tpu_torch.game.model import GameModel
+from photon_ml_tpu_torch.ops.objective import check_finite, debug_nans
 from photon_ml_tpu_torch.resilience import fault_point, fault_value, heartbeat
+from photon_ml_tpu_torch.telemetry import aggregate as fleet
+from photon_ml_tpu_torch.telemetry import metrics as _tmetrics
+from photon_ml_tpu_torch.telemetry import profiling, tracing
 from photon_ml_tpu_torch.types import TaskType
 
 logger = logging.getLogger(__name__)
+
+#: host-side dispatch wall per coordinate step (the device may still be
+#: busy when it ends; ``step_seconds`` of the result ends in a sync)
+_STEP_DISPATCH = _tmetrics.histogram(
+    "photon_game_step_dispatch_seconds",
+    "Host-side dispatch wall per committed coordinate-descent step "
+    "(async: device work may continue past it)", labels=("coordinate",))
 
 
 @dataclasses.dataclass
@@ -123,101 +146,169 @@ class CoordinateDescent:
         offsets = torch.as_tensor(data.offsets, device=device)
         total = offsets + sum(scores.values())
 
+        # telemetry: live only while a trace is written, since the per-step
+        # loss and grad-norm reads sync the device
+        telemetry_on = tracing.enabled()
+        if telemetry_on:
+            from photon_ml_tpu_torch.ops.losses import loss_for_task
+
+            _loss = loss_for_task(task)
+            _labels_d = torch.as_tensor(data.labels, dtype=torch.float32,
+                                        device=device)
+            _weights_d = torch.as_tensor(data.weights, dtype=torch.float32,
+                                         device=device)
+            _loss_gauge = _tmetrics.gauge(
+                "photon_game_coordinate_loss",
+                "Weighted data objective (no regularizer) after the "
+                "coordinate's step", labels=("coordinate",))
+            _gnorm_gauge = _tmetrics.gauge(
+                "photon_game_coordinate_grad_norm",
+                "Norm of the weighted margin gradient after the "
+                "coordinate's step", labels=("coordinate",))
+            _steps_total = _tmetrics.counter(
+                "photon_game_coordinate_steps_total",
+                "Committed coordinate-descent steps",
+                labels=("coordinate",))
+
         history: list[dict[str, float]] = []
         final_evaluation = None
         step_seconds = []
         for sweep in range(start_sweep, self.n_iterations):
             heartbeat("cd.sweep")
             fault_point("worker.stall", sweep=sweep)
-            for ci, cid in enumerate(self.update_sequence):
-                if sweep == start_sweep and ci < start_coord:
-                    continue
-                heartbeat("cd.step")
-                if cid in locked:
-                    continue  # frozen: scores stay as seeded
-                if (guard is not None and cid in guard.frozen
-                        and cid in models):
-                    # diverged earlier in this fit: kept at its last good
-                    # model (a fresh configuration with no model retrains)
-                    continue
-                t0 = time.perf_counter()
-                while True:
-                    residual = total - scores[cid]
-                    try:
-                        with torch.profiler.record_function(
-                                f"cd.step[{cid}]"):
-                            model, new_scores = coordinates[cid].train(
-                                residual, models.get(cid), sweep=sweep)
-                        new_scores = fault_value(
-                            "optimizer.step", new_scores, coordinate=cid,
-                            sweep=sweep)
-                        step_error = None
-                    except Exception as e:
-                        if guard is None:
-                            raise
-                        model, new_scores, step_error = None, None, e
-                    if guard is None or (step_error is None and guard.healthy(
-                            model, new_scores)):
-                        break  # healthy: commit below
-                    action = guard.on_divergence(
-                        cid, sweep=sweep, has_good_model=cid in models,
-                        error=step_error)
-                    if action == "freeze":
-                        new_scores = None  # keep the last good state
-                        break
-                    # roll back to the last durable state: nothing was
-                    # committed in-process, and with a checkpoint the state
-                    # is re-read from disk, as a restart would
-                    if (checkpoint is not None
-                            and checkpoint.latest_step() is not None):
-                        models = dict(restore().model.coordinates)
-                        total = offsets + sum(scores.values())
-                    # regularization backoff: stronger curvature is the
-                    # standard fix for a diverged GLM solve
-                    coord = coordinates[cid]
-                    coordinates[cid] = dataclasses.replace(
-                        coord, lam=guard.next_lam(coord.lam))
-                    logger.warning(
-                        "coordinate %s: retrying with regularization %g "
-                        "(was %g)", cid, coordinates[cid].lam, coord.lam)
-                if new_scores is None:
-                    continue  # frozen mid-sweep: nothing to commit
-                models[cid] = model
-                total = residual + new_scores
-                scores[cid] = new_scores
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                step_seconds.append((sweep, cid, time.perf_counter() - t0))
-                logger.info("sweep %d coordinate %s trained in %.2fs", sweep,
-                            cid, step_seconds[-1][2])
-                if checkpoint is not None:
-                    from photon_ml_tpu_torch.io.checkpoint import (
-                        CoordinateDescentState,
-                    )
+            with tracing.span("cd.sweep", sweep=sweep) as sweep_span:
+                if telemetry_on:
+                    compiles_at_start = profiling.total_compiles()
+                for ci, cid in enumerate(self.update_sequence):
+                    if sweep == start_sweep and ci < start_coord:
+                        continue
+                    heartbeat("cd.step")
+                    if cid in locked:
+                        continue  # frozen: scores stay as seeded
+                    if (guard is not None and cid in guard.frozen
+                            and cid in models):
+                        # diverged earlier in this fit: kept at its last
+                        # good model (a fresh configuration with no model
+                        # retrains)
+                        continue
+                    t0 = time.perf_counter()
+                    with tracing.span("cd.step", coordinate=cid,
+                                      sweep=sweep) as step_span:
+                        with _STEP_DISPATCH.labels(coordinate=cid).time():
+                            while True:
+                                residual = total - scores[cid]
+                                try:
+                                    with torch.profiler.record_function(
+                                            f"cd.step[{cid}]"):
+                                        model, new_scores = coordinates[
+                                            cid].train(residual,
+                                                       models.get(cid),
+                                                       sweep=sweep)
+                                    new_scores = fault_value(
+                                        "optimizer.step", new_scores,
+                                        coordinate=cid, sweep=sweep)
+                                    if debug_nans():
+                                        check_finite(
+                                            f"cd.step[{cid}] scores",
+                                            new_scores.shape, new_scores)
+                                    step_error = None
+                                except Exception as e:
+                                    if guard is None:
+                                        raise
+                                    model, new_scores, step_error = \
+                                        None, None, e
+                                if guard is None or (
+                                        step_error is None
+                                        and guard.healthy(model,
+                                                          new_scores)):
+                                    break  # healthy: commit below
+                                action = guard.on_divergence(
+                                    cid, sweep=sweep,
+                                    has_good_model=cid in models,
+                                    error=step_error)
+                                if action == "freeze":
+                                    new_scores = None  # keep last good
+                                    break
+                                # roll back to the last durable state:
+                                # nothing was committed in-process, and
+                                # with a checkpoint the state is re-read
+                                # from disk, as a restart would
+                                if (checkpoint is not None
+                                        and checkpoint.latest_step()
+                                        is not None):
+                                    models = dict(
+                                        restore().model.coordinates)
+                                    total = offsets + sum(scores.values())
+                                # regularization backoff: stronger
+                                # curvature is the standard fix for a
+                                # diverged GLM solve
+                                coord = coordinates[cid]
+                                coordinates[cid] = dataclasses.replace(
+                                    coord, lam=guard.next_lam(coord.lam))
+                                logger.warning(
+                                    "coordinate %s: retrying with "
+                                    "regularization %g (was %g)", cid,
+                                    coordinates[cid].lam, coord.lam)
+                        if new_scores is None:
+                            continue  # frozen mid-sweep: nothing to commit
+                        models[cid] = model
+                        total = residual + new_scores
+                        scores[cid] = new_scores
+                        if telemetry_on:
+                            # progress of the block objective CD
+                            # minimizes: the loss of the committed total
+                            # margin and the norm of its margin gradient
+                            margins = total.to(torch.float32)
+                            obj = float(torch.sum(
+                                _weights_d * _loss.loss(margins, _labels_d)))
+                            gnorm = float(torch.linalg.norm(
+                                _weights_d * _loss.d1(margins, _labels_d)))
+                            step_span.set(loss=obj, grad_norm=gnorm)
+                            _loss_gauge.labels(coordinate=cid).set(obj)
+                            _gnorm_gauge.labels(coordinate=cid).set(gnorm)
+                            _steps_total.labels(coordinate=cid).inc()
+                        if device.type == "cuda":
+                            torch.cuda.synchronize(device)
+                        step_seconds.append(
+                            (sweep, cid, time.perf_counter() - t0))
+                        logger.info("sweep %d coordinate %s trained in "
+                                    "%.2fs", sweep, cid, step_seconds[-1][2])
+                        if checkpoint is not None:
+                            from photon_ml_tpu_torch.io.checkpoint import (
+                                CoordinateDescentState,
+                            )
 
-                    host_scores[cid] = new_scores.cpu().numpy()
-                    next_ci = (ci + 1) % len(self.update_sequence)
-                    checkpoint.save(
-                        sweep * len(self.update_sequence) + ci + 1,
-                        CoordinateDescentState(
-                            sweep=sweep + (next_ci == 0),
-                            coordinate_index=next_ci,
-                            model=GameModel(coordinates=dict(models),
-                                            task=task),
-                            scores=dict(host_scores)),
-                        fingerprint=config_fingerprint)
-            if validation is not None:
-                if callable(validation):
-                    # a deferred validation set: its first use joins it
-                    validation = validation()
-                vdata, evaluators = validation
-                gm = GameModel(coordinates=dict(models), task=task)
-                results = evaluate_all(evaluators, gm.score(vdata),
-                                       vdata.labels, weights=vdata.weights,
-                                       id_tags=vdata.id_columns)
-                history.append(results.as_dict())
-                final_evaluation = results
-                logger.info("sweep %d validation: %s", sweep, results)
+                            host_scores[cid] = new_scores.cpu().numpy()
+                            next_ci = (ci + 1) % len(self.update_sequence)
+                            checkpoint.save(
+                                sweep * len(self.update_sequence) + ci + 1,
+                                CoordinateDescentState(
+                                    sweep=sweep + (next_ci == 0),
+                                    coordinate_index=next_ci,
+                                    model=GameModel(
+                                        coordinates=dict(models), task=task),
+                                    scores=dict(host_scores)),
+                                fingerprint=config_fingerprint)
+                if validation is not None:
+                    if callable(validation):
+                        # a deferred validation set: its first use joins it
+                        validation = validation()
+                    vdata, evaluators = validation
+                    with tracing.span("cd.validate", sweep=sweep):
+                        gm = GameModel(coordinates=dict(models), task=task)
+                        results = evaluate_all(
+                            evaluators, gm.score(vdata), vdata.labels,
+                            weights=vdata.weights, id_tags=vdata.id_columns)
+                    history.append(results.as_dict())
+                    final_evaluation = results
+                    logger.info("sweep %d validation: %s", sweep, results)
+                if telemetry_on:
+                    sweep_span.set(compiles=profiling.total_compiles()
+                                   - compiles_at_start)
+            # the fleet-metrics fold point (a no-op unless --metrics-port
+            # installed a hook), outside the sweep span so the fold's own
+            # wall never counts as the sweep's
+            fleet.sweep_boundary(sweep=sweep)
 
         model = GameModel(
             coordinates={cid: models[cid] for cid in self.update_sequence},

@@ -65,6 +65,8 @@ from photon_ml_tpu_torch.ops.objective import GLMData
 from photon_ml_tpu_torch.parallel import multihost
 from photon_ml_tpu_torch.parallel.distributed import _pad_rows
 from photon_ml_tpu_torch.resilience import fault_point, fault_value, heartbeat
+from photon_ml_tpu_torch.telemetry import profiling
+from photon_ml_tpu_torch.telemetry.aggregate import sweep_boundary
 from photon_ml_tpu_torch.types import TaskType
 
 logger = logging.getLogger(__name__)
@@ -346,7 +348,8 @@ class MultiProcessFixedEffectDataset:
 
 def _fixed_train_dist(task: TaskType, config: GLMOptimizationConfiguration):
     """The distributed fixed-effect solve: ``train(data, w0, lam) ->
-    (w, variances, offset-free margins of this rank's block)``."""
+    (w, variances, offset-free margins of this rank's block)``, profiled as
+    ``game.fixed_effect.dist``."""
     problem = build_problem(task, config, distributed=True)
 
     def train(data: GLMData, w0: torch.Tensor, lam: float):
@@ -354,7 +357,7 @@ def _fixed_train_dist(task: TaskType, config: GLMOptimizationConfiguration):
         variances = problem.compute_variances(w, data, lam)
         return w, variances, data.design.matvec(w)
 
-    return train
+    return profiling.profile_fn(train, "game.fixed_effect.dist")
 
 
 # ---------------------------------------------------------------------------
@@ -516,6 +519,14 @@ class _REPlan:
     primary: bool  # rows coincide with the primary partition
 
 
+def _solve(problem, data, w0, lam):
+    return problem.run(data, w0, lam)
+
+
+#: the factored coordinate's distributed projection solve
+_projection_solve = profiling.profile_fn(_solve, "game.factored_projection")
+
+
 def _train_factored_mp(coord, global_rows: np.ndarray, offsets: np.ndarray,
                        warm, device):
     """A factored coordinate across processes: the per-entity latent solves
@@ -564,8 +575,9 @@ def _train_factored_mp(coord, global_rows: np.ndarray, offsets: np.ndarray,
                 x=fed.design.x,
                 v=_feed_rows(v, int(fed.labels.shape[0]), device),
                 latent_dim=coord.latent_dim))
-        w = problem.run(fed, torch.as_tensor(p.reshape(-1), device=device),
-                        coord.lam_projection).w[0]
+        w = _projection_solve(
+            problem, fed, torch.as_tensor(p.reshape(-1), device=device),
+            coord.lam_projection).w[0]
         p = w.cpu().numpy().astype(np.float32).reshape(coord.latent_dim,
                                                        shard.dim)
     dataset = RandomEffectDataset.build(
@@ -959,6 +971,9 @@ def train_game_multiprocess(
                           trained_projection_cids=frozenset(
                               cid for cid, p in re_plans.items()
                               if p.dataset is None))
+        # the fleet-metrics fold point: a collective when --metrics-port
+        # installed the hook; every process reaches it once a sweep
+        sweep_boundary(sweep=sweep)
     return MultiProcessGameResult(
         model=assemble(), global_rows=primary_rows, scores=scores,
         validation_history=validation_history)

@@ -11,7 +11,10 @@ configured, are computed per bucket at the solution and kept on the real
 ``(entity, feature)`` slots. The sweep is a plain loop over buckets — the
 JAX package's fused whole-sweep program (``_sweep_fused``) has no
 counterpart yet. A streaming dataset (``cache_device_buckets=False``)
-uploads each bucket for its solve and drops it.
+uploads each bucket for its solve and drops it. Each bucket solve is
+profiled as ``game.re.solve_bucket``
+(:mod:`~photon_ml_tpu_torch.telemetry.profiling`); the JAX package's
+``game.re.sweep_fused`` label has no counterpart.
 
 Padding is inert: padded sample rows carry weight 0, padded feature columns
 are all-zero, so with a zero start their coefficients stay exactly 0 (under
@@ -39,8 +42,26 @@ from photon_ml_tpu_torch.glm.problem import (
 )
 from photon_ml_tpu_torch.ops.design import DenseDesign
 from photon_ml_tpu_torch.ops.losses import loss_for_task
-from photon_ml_tpu_torch.ops.objective import GLMData, GLMObjective
+from photon_ml_tpu_torch.ops.objective import (
+    GLMData,
+    GLMObjective,
+    seed_live_rows,
+)
+from photon_ml_tpu_torch.telemetry import profiling
 from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
+
+
+def _bucket_solve(problem: OptimizationProblem, data: GLMData, w0, lam,
+                  want_var: bool):
+    """One bucket's batched solve, and its variances when configured."""
+    w = problem.run(data, w0, lam).w
+    var = (problem.compute_variances(w, data, lam).to(torch.float32)
+           .reshape(-1) if want_var else None)
+    return w, var
+
+
+_bucket_solve_profiled = profiling.profile_fn(_bucket_solve,
+                                              "game.re.solve_bucket")
 
 
 def _bucket_keys(bucket: REBucket, shard_dim: int) -> np.ndarray:
@@ -105,6 +126,8 @@ class RandomEffectSolver:
                 gather_idx=torch.as_tensor(np.maximum(si, 0), device=dev),
                 slots=torch.as_tensor(np.flatnonzero(live), device=dev),
                 rows=torch.as_tensor(si[live], device=dev))
+            # the live rows the kernel dispatch counts, from the host copy
+            seed_live_rows(st.weights, bucket.weights)
             if dataset.config.cache_device_buckets:
                 dataset._device_cache[key] = st
         return st
@@ -141,10 +164,10 @@ class RandomEffectSolver:
             e, s, d = bucket.tensor_shape
             # a profiler range per bucket solve: device time by bucket shape
             with torch.profiler.record_function(f"re.bucket[{e}x{s}x{d}]"):
-                w = problem.run(data, w0, lam).w
-                if want_var:
-                    solved_var.append(problem.compute_variances(
-                        w, data, lam).to(torch.float32).reshape(-1))
+                w, var = _bucket_solve_profiled(problem, data, w0, lam,
+                                                want_var)
+            if want_var:
+                solved_var.append(var)
             margins = DenseDesign(x=st.x).matvec(w)  # (E, S) f32
             scores[st.rows] = margins.reshape(-1)[st.slots]
             solved.append(w.reshape(-1))

@@ -21,8 +21,10 @@ objective is :class:`~photon_ml_tpu_torch.parallel.distributed.
 DistributedGLMObjective`: each rank solves on its own rows and one
 ``all_reduce`` a evaluation sums them, every rank running the same sweep in
 lockstep. Each lambda beats the supervisor's heartbeat and passes the
-``worker.stall`` fault point. The JAX package's telemetry is not ported.
-Grouped evaluators read their groups from ``id_tags``. Host arrays
+``worker.stall`` fault point, and ends at the fleet-metrics fold point
+(``telemetry/aggregate.py::sweep_boundary``); each solve is profiled as
+``glm.sweep_solve`` (``glm.sweep_solve_batched`` for the batched sweep,
+:mod:`~photon_ml_tpu_torch.telemetry.profiling`). Grouped evaluators read their groups from ``id_tags``. Host arrays
 become a :class:`GLMData` on the device through
 :func:`photon_ml_tpu_torch.convert.glm_data_from_arrays` (the dense branch
 of the JAX package's ``cli/train_glm.py::_to_glm_data``).
@@ -53,7 +55,17 @@ from photon_ml_tpu_torch.ops.normalization import (
 )
 from photon_ml_tpu_torch.ops.objective import GLMData, GLMObjective
 from photon_ml_tpu_torch.optimize import OptimizerResult
+from photon_ml_tpu_torch.telemetry import profiling
+from photon_ml_tpu_torch.telemetry.aggregate import sweep_boundary
 from photon_ml_tpu_torch.types import TaskType
+
+
+def _solve(problem: OptimizationProblem, data: GLMData, w0, lam):
+    return problem.run(data, w0, lam)
+
+
+_sweep_solve = profiling.profile_fn(_solve, "glm.sweep_solve")
+_sweep_solve_batched = profiling.profile_fn(_solve, "glm.sweep_solve_batched")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +100,8 @@ def build_problem(task: TaskType, config: GLMOptimizationConfiguration,
     return OptimizationProblem(objective, config)
 
 
-def _lane(result: OptimizerResult, i: int) -> OptimizerResult:
+def lane_result(result: OptimizerResult, i: int) -> OptimizerResult:
+    """Lane ``i`` of a batched :class:`OptimizerResult`."""
     return OptimizerResult(**{f.name: getattr(result, f.name)[i]
                               for f in dataclasses.fields(result)})
 
@@ -134,9 +147,12 @@ def train_glm_sweep(
     for lam in sorted(regularization_weights, reverse=True):
         heartbeat("glm.sweep")
         fault_point("worker.stall", regularization_weight=float(lam))
-        result = _lane(problem.run(data, w, lam), 0)
+        result = lane_result(_sweep_solve(problem, data, w, lam), 0)
         out.append(_trained(problem, task, normalization, data, lam, result))
         w = result.w
+        # the lambda loop is the GLM driver's sweep boundary, in lockstep
+        # on every rank of a distributed sweep
+        sweep_boundary(regularization_weight=float(lam))
     return out
 
 
@@ -161,10 +177,11 @@ def train_glm_sweep_batched(
     design = data.design
     dt = accumulation_dtype(design.dtype)
     w0 = torch.zeros((len(lams), design.dim), dtype=dt, device=design.device)
-    batched = problem.run(
-        data, w0, torch.tensor(lams, dtype=torch.float32).to(design.device))
+    batched = _sweep_solve_batched(
+        problem, data, w0,
+        torch.tensor(lams, dtype=torch.float32).to(design.device))
     return [_trained(problem, task, normalization, data, lam,
-                     _lane(batched, i))
+                     lane_result(batched, i))
             for i, lam in enumerate(lams)]
 
 

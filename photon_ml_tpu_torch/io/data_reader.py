@@ -11,8 +11,11 @@ Both decoders of the reference are here: the native C++ decoder
 TrainingExampleAvro's layout, else the pure-Python codec. They give the
 same arrays, index maps and vocabularies. Each file is read under the
 resilience retry policy (``io.read:<basename>``), with the ``io.read``
-fault site and a supervisor heartbeat in every attempt. Not ported: the
-ingest's telemetry spans and counters.
+fault site and a supervisor heartbeat in every attempt. The native path
+carries the JAX package's ingest telemetry: an ``io.read.file`` span per
+file decode (feeding ``photon_ingest_decode_seconds_total`` and
+``photon_ingest_files_total``) and an ``io.read.assemble`` span per
+decoded file merged.
 """
 
 from __future__ import annotations
@@ -248,12 +251,17 @@ class AvroDataReader:
         known up front, splits it into the shards' CSR arrays.
         """
         from photon_ml_tpu_torch import native
-        from photon_ml_tpu_torch.io.pipeline import DecodePrefetcher
+        from photon_ml_tpu_torch.io.pipeline import (
+            DecodePrefetcher,
+            _ingest_decode_seconds,
+            _ingest_files,
+        )
         from photon_ml_tpu_torch.resilience import (
             fault_point,
             heartbeat,
             retry,
         )
+        from photon_ml_tpu_torch.telemetry import tracing
 
         if not native.available():
             return None
@@ -265,7 +273,11 @@ class AvroDataReader:
                 return native.decode_training_file(p,
                                                    id_keys=tuple(id_columns))
 
-            return retry(attempt, name=f"io.read:{os.path.basename(p)}")
+            with tracing.span("io.read.file", path=p) as sp:
+                d = retry(attempt, name=f"io.read:{os.path.basename(p)}")
+            _ingest_decode_seconds().inc(sp.seconds)
+            _ingest_files().inc()
+            return d
 
         # each decode in flight holds its whole file
         workers = min(len(files), os.cpu_count() or 4, 8)
@@ -303,32 +315,34 @@ class AvroDataReader:
         for d in DecodePrefetcher(decode, files, workers=workers):
             if d is None:  # incompatible schema: fall back
                 return None
-            labels_p.append(d.response)
-            offsets_p.append(d.offset)
-            weights_p.append(d.weight)
-            if preset_maps is None:
-                for k in d.feature_keys:
-                    all_keys.setdefault(k, len(all_keys))
-            for c in id_columns:
-                local = d.id_cols[c]
-                local_vocab = d.id_vocabs[c]
-                vocab = vocabs.setdefault(c, {})
-                id_remap = np.full(len(local_vocab) + 1, -1, np.int64)
-                for i, raw in enumerate(local_vocab):
-                    if raw not in vocab:
-                        if frozen:
-                            continue
-                        vocab[raw] = len(vocab)
-                    id_remap[i] = vocab[raw]
-                # a missing id is -1 locally, which indexes the trailing -1
-                ids_p[c].append(id_remap[local])
-            if preset_maps is not None:
-                if not split_file(d):
-                    return None
-            else:
-                # column ids depend on the whole key universe: split after
-                # the last file
-                pending_splits.append(d)
+            with tracing.span("io.read.assemble",
+                              n_records=int(d.n_records)):
+                labels_p.append(d.response)
+                offsets_p.append(d.offset)
+                weights_p.append(d.weight)
+                if preset_maps is None:
+                    for k in d.feature_keys:
+                        all_keys.setdefault(k, len(all_keys))
+                for c in id_columns:
+                    local = d.id_cols[c]
+                    local_vocab = d.id_vocabs[c]
+                    vocab = vocabs.setdefault(c, {})
+                    id_remap = np.full(len(local_vocab) + 1, -1, np.int64)
+                    for i, raw in enumerate(local_vocab):
+                        if raw not in vocab:
+                            if frozen:
+                                continue
+                            vocab[raw] = len(vocab)
+                        id_remap[i] = vocab[raw]
+                    # a missing id is -1 locally, which indexes the trailing -1
+                    ids_p[c].append(id_remap[local])
+                if preset_maps is not None:
+                    if not split_file(d):
+                        return None
+                else:
+                    # column ids depend on the whole key universe: split after
+                    # the last file
+                    pending_splits.append(d)
 
         n = int(sum(len(p) for p in labels_p))
         labels = (np.concatenate(labels_p) if labels_p

@@ -159,24 +159,42 @@ def _write_coordinate_part(output_dir: str, cid: str, cm,
                            imap: IndexMap,
                            entity_vocabs: dict[str, dict[str, int]],
                            sparsity_threshold: float) -> str:
-    """One coordinate's ``coefficients/part-00000.avro``."""
+    """One coordinate's ``coefficients/part-00000.avro``, under an
+    ``io.save.part`` span with the ``photon_save_*`` accounting."""
+    from photon_ml_tpu_torch.io.pipeline import _save_bytes, _save_seconds
+    from photon_ml_tpu_torch.telemetry import tracing
+
     kind, _ = _coordinate_kind(cm)
     part = os.path.join(output_dir, kind, cid, "coefficients",
                         "part-00000.avro")
     os.makedirs(os.path.dirname(part), exist_ok=True)
-    if isinstance(cm, FixedEffectModel):
-        save_glm_model(part, cm.model, imap, model_id=cid,
-                       sparsity_threshold=sparsity_threshold)
-    else:
-        vocab = entity_vocabs[cm.random_effect_type]
-        reverse = {v: k for k, v in vocab.items()}
-        if not _save_re_model_native(part, cm, reverse, imap,
-                                     sparsity_threshold):
-            # the null codec, as the native writer uses
-            write_avro_file(
-                part, _re_records(cm, imap, reverse, sparsity_threshold),
-                BAYESIAN_LINEAR_MODEL_AVRO, codec="null")
+    with tracing.span("io.save.part", coordinate=cid) as sp:
+        if isinstance(cm, FixedEffectModel):
+            save_glm_model(part, cm.model, imap, model_id=cid,
+                           sparsity_threshold=sparsity_threshold)
+        else:
+            vocab = entity_vocabs[cm.random_effect_type]
+            reverse = {v: k for k, v in vocab.items()}
+            if not _save_re_model_native(part, cm, reverse, imap,
+                                         sparsity_threshold):
+                # the null codec, as the native writer uses
+                write_avro_file(
+                    part, _re_records(cm, imap, reverse, sparsity_threshold),
+                    BAYESIAN_LINEAR_MODEL_AVRO, codec="null")
+    _save_seconds().labels(coordinate=cid).inc(sp.seconds)
+    _save_bytes().inc(os.path.getsize(part))
     return part
+
+
+def _write_metadata(output_dir: str, metadata: dict) -> None:
+    """``model-metadata.json``, its bytes counted in
+    ``photon_save_bytes_total``."""
+    from photon_ml_tpu_torch.io.pipeline import _save_bytes
+
+    path = os.path.join(output_dir, "model-metadata.json")
+    with open(path, "w") as f:
+        json.dump(metadata, f, indent=2)
+    _save_bytes().inc(os.path.getsize(path))
 
 
 #: the lineage fields every ``model-metadata.json`` carries (null when the
@@ -212,8 +230,7 @@ def save_game_model(
         _write_coordinate_part(output_dir, cid, cm,
                                index_maps[cm.feature_shard_id], entity_vocabs,
                                sparsity_threshold)
-    with open(os.path.join(output_dir, "model-metadata.json"), "w") as f:
-        json.dump(metadata, f, indent=2)
+    _write_metadata(output_dir, metadata)
 
 
 def _save_re_model_native(path: str, model: RandomEffectModel,
@@ -359,8 +376,7 @@ def save_game_model_patch(
         _write_coordinate_part(output_dir, cid, cm,
                                index_maps[cm.feature_shard_id],
                                entity_vocabs, sparsity_threshold)
-    with open(os.path.join(output_dir, "model-metadata.json"), "w") as f:
-        json.dump(metadata, f, indent=2)
+    _write_metadata(output_dir, metadata)
 
 
 def model_kind(model_dir: str) -> str:

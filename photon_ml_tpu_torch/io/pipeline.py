@@ -1,19 +1,63 @@
 """Overlapped ingest and atomic publication.
 
 Counterpart of ``photon_ml_tpu/io/pipeline.py``'s ``DecodePrefetcher``,
-``publish_dir`` and ``save_model_patch_atomic``. The background saver and
+``publish_dir`` and ``save_model_patch_atomic`` (its patch write a
+``refresh.publish`` span), and of its four I/O metric families:
+``photon_save_{seconds,bytes}_total`` (fed by ``io/model_io.py``'s part
+and metadata writes and the commands' other artifacts, :func:`count_saved`) and ``photon_ingest_{decode_seconds,files}_total``
+(fed by ``io/data_reader.py``'s file decodes). The background saver and
 the validation read in the background are not ported: the port's drivers
 save and read in the calling thread (the bytes are the same).
 """
 
 from __future__ import annotations
 
+import contextvars
 import os
 import shutil
 import tempfile
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Iterator, Optional, Sequence
+
+from photon_ml_tpu_torch.telemetry import metrics as tmetrics
+from photon_ml_tpu_torch.telemetry import tracing
+
+
+def _save_seconds():
+    return tmetrics.counter(
+        "photon_save_seconds_total",
+        "Wall seconds spent writing model part-files, per coordinate "
+        "(background writers included — compare with the driver's "
+        "'Save models' join wall to see the hidden fraction)",
+        labels=("coordinate",))
+
+
+def _save_bytes():
+    return tmetrics.counter(
+        "photon_save_bytes_total",
+        "Bytes of model/index artifacts written (part-files, metadata, "
+        "feature indexes)")
+
+
+def count_saved(path: str) -> None:
+    """Add a written artifact's bytes (a feature index, the data manifest,
+    the quality baseline) to ``photon_save_bytes_total``, as the JAX
+    package's background saver counts each file it writes."""
+    _save_bytes().inc(os.path.getsize(path))
+
+
+def _ingest_decode_seconds():
+    return tmetrics.counter(
+        "photon_ingest_decode_seconds_total",
+        "Wall seconds spent decoding input Avro files (prefetcher worker "
+        "side; overlaps assembly on the consumer side)")
+
+
+def _ingest_files():
+    return tmetrics.counter(
+        "photon_ingest_files_total",
+        "Input Avro files decoded through the ingest prefetcher")
 
 
 def publish_dir(staging: str, final: str) -> None:
@@ -71,14 +115,15 @@ def save_model_patch_atomic(output_dir: str, patch_models, index_maps,
         staging = tempfile.mkdtemp(prefix=f".{base}-stage-", suffix=".tmp",
                                    dir=parent)
         try:
-            save_game_model_patch(
-                staging, patch_models, index_maps, entity_vocabs,
-                task=task, parent_model=parent_model, model_id=model_id,
-                removed=removed, lineage=lineage,
-                sparsity_threshold=sparsity_threshold,
-                fleet_shard=fleet_shard)
-            fault_point("io.delta_publish", path=output_dir)
-            publish_dir(staging, output_dir)
+            with tracing.span("refresh.publish", path=output_dir):
+                save_game_model_patch(
+                    staging, patch_models, index_maps, entity_vocabs,
+                    task=task, parent_model=parent_model, model_id=model_id,
+                    removed=removed, lineage=lineage,
+                    sparsity_threshold=sparsity_threshold,
+                    fleet_shard=fleet_shard)
+                fault_point("io.delta_publish", path=output_dir)
+                publish_dir(staging, output_dir)
         except BaseException:
             shutil.rmtree(staging, ignore_errors=True)
             raise
@@ -97,7 +142,9 @@ class DecodePrefetcher:
     Up to ``window`` calls run on a pool of threads while the consumer
     iterates the results strictly in submission order. An error in any call
     cancels everything still queued and re-raises on the consumer's side;
-    leaving the iteration early cancels the remainder too."""
+    leaving the iteration early cancels the remainder too. Each call runs
+    in a copy of the consumer's context, so its spans parent under the
+    consumer's current span."""
 
     def __init__(self, fn: Callable[[Any], Any], items: Sequence[Any], *,
                  workers: int = 2, window: Optional[int] = None):
@@ -115,7 +162,8 @@ class DecodePrefetcher:
         it = iter(self._items)
         try:
             for item in it:
-                queue.append(pool.submit(self._fn, item))
+                queue.append(pool.submit(contextvars.copy_context().run,
+                                         self._fn, item))
                 if len(queue) >= self._window:
                     break
             while queue:
@@ -127,7 +175,8 @@ class DecodePrefetcher:
                         f.cancel()
                     raise
                 for item in it:
-                    queue.append(pool.submit(self._fn, item))
+                    queue.append(pool.submit(contextvars.copy_context().run,
+                                             self._fn, item))
                     break
                 yield result
         finally:

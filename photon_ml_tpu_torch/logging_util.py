@@ -1,10 +1,11 @@
 """Run logging and stage timing (counterpart of
 ``photon_ml_tpu/logging_util.py``): a run logger that tees log lines to the
 console and ``photon.log`` in the run directory and appends structured
-metrics to ``metrics.jsonl``, ``timed`` stage sections logged at start
-and end, and optimizer traces. The stage clock is ``time.perf_counter``;
-the reference's telemetry spans, event bus and profiler hook are not
-ported."""
+metrics to ``metrics.jsonl``; ``timed`` stage sections, each a telemetry
+span of ``kind="stage"`` that posts ``stage_started`` / ``stage_finished``
+on the event bus; ``profiled``, a ``torch.profiler`` trace of a stage
+(the CUDA activity included on the card) exported as a Chrome trace; and
+optimizer traces."""
 
 from __future__ import annotations
 
@@ -111,16 +112,54 @@ def log_optimizer_trace(result, label: str,
 
 
 @contextlib.contextmanager
-def timed(stage: str, run_logger: Optional[RunLogger] = None) -> Iterator[None]:
-    """``with timed("Read training data", run_logger): ...`` logs the stage's
-    start and its wall seconds, and records ``{"stage": ..., "seconds":
-    ...}`` in ``metrics.jsonl``."""
-    logger.info("%s: start", stage)
-    t0 = time.perf_counter()
-    try:
+def profiled(output_dir: Optional[str]) -> Iterator[None]:
+    """A ``torch.profiler`` trace of a stage (CPU activity, and the CUDA
+    activity when a card is present), exported as a Chrome trace
+    (``trace.json``, open in ``chrome://tracing`` or Perfetto) under
+    ``output_dir``; a no-op when ``output_dir`` is None. The trace is
+    written even when the body raises."""
+    if not output_dir:
         yield
+        return
+    import torch
+
+    os.makedirs(output_dir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    path = os.path.join(output_dir, "trace.json")
+    prof = torch.profiler.profile(activities=activities)
+    try:
+        with prof:
+            yield
     finally:
-        dt = time.perf_counter() - t0
+        # exported once the profiler has stopped (and flushed the device's
+        # activity), in a finally, so a failing run still leaves its trace
+        prof.export_chrome_trace(path)
+        logger.info("profiler trace written to %s", path)
+
+
+@contextlib.contextmanager
+def timed(stage: str, run_logger: Optional[RunLogger] = None) -> Iterator[None]:
+    """``with timed("Read training data", run_logger): ...`` — a telemetry
+    span of ``kind="stage"`` (in the run's ``trace.jsonl`` when
+    ``--telemetry-dir`` is configured) whose seconds are the stage's: it
+    logs the stage's start and wall seconds, posts ``stage_started`` /
+    ``stage_finished`` on the global event bus, and records ``{"stage":
+    ..., "seconds": ...}`` in ``metrics.jsonl``."""
+    from photon_ml_tpu_torch.events import GLOBAL_BUS
+    from photon_ml_tpu_torch.telemetry.tracing import span
+
+    logger.info("%s: start", stage)
+    GLOBAL_BUS.post("stage_started", stage=stage)
+    sp = None
+    try:
+        with span(stage, kind="stage") as sp:
+            yield
+    finally:
+        # the span is the stage clock: one timing source
+        dt = sp.seconds if sp is not None else 0.0
         logger.info("%s: done in %.2fs", stage, dt)
+        GLOBAL_BUS.post("stage_finished", stage=stage, seconds=dt)
         if run_logger is not None:
             run_logger.metric(stage=stage, seconds=round(dt, 3))

@@ -131,7 +131,11 @@ def library_path(name: str) -> Path:
 def build(names) -> dict[str, dict]:
     """Build the libraries of ``names`` that are not built yet, one ``nvcc``
     per source, all started together. Returns ``{name: {"seconds", "log",
-    "cached"}}``; raises with the compiler's output if any build fails."""
+    "cached"}}``; raises with the compiler's output if any build fails.
+    Each nvcc build counts in ``photon_compiles_total{fn="cuda.<name>"}``
+    with its wall (a cached library counts nothing)."""
+    from photon_ml_tpu_torch.telemetry.profiling import record_compile
+
     started = {}
     report = {}
     t0 = time.perf_counter()
@@ -156,6 +160,7 @@ def build(names) -> dict[str, dict]:
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
         (out.parent / "build.log").write_text(log)
+        record_compile(f"cuda.{name}", report[name]["seconds"])
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return report

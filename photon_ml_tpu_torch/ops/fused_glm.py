@@ -53,6 +53,33 @@ _MULTI_SIGNATURE = {"photon_fused_glm_value_and_grad_multi": (
     ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P)}
 
 
+class Work(NamedTuple):
+    """A kernel launch's analytic work: the f32 operations it does and the
+    bytes it must move (each input read once, each output written once).
+    ``chip_smoke.py`` divides them by the card's rates for the launch's
+    least time; the telemetry plane sums them per profiled call
+    (``photon_flops_total`` / ``photon_bytes_accessed_total``)."""
+
+    ops: float
+    nbytes: float
+
+
+def work(n_live: int, n_rows: int, d: int, itemsize: int, n_out: int,
+         lanes: int = 1) -> Work:
+    """One evaluation of kernel 1 (``n_out`` = ``lanes`` = 1), kernel 4
+    (``n_out`` = ``lanes`` = M coefficient rows sharing X) or kernel 2
+    (``n_out`` = E entities, through ``fused_re.work``): X's ``n_live``
+    live rows (weight > 0) and their label and offset read once, every
+    row's weight read once, the ``n_out`` coefficient rows read and the
+    outputs (a gradient row and a value each) written once; ~4 f32
+    operations per element of the live rows plus ~10 per live row for the
+    loss, for each of the ``lanes`` coefficient rows."""
+    nbytes = (n_live * d * itemsize + n_live * 8 + n_rows * 4
+              + n_out * d * 4 + n_out * (d + 1) * 4)
+    return Work(float(lanes * (4.0 * n_live * d + 10.0 * n_live)),
+                float(nbytes))
+
+
 def fused_value_and_grad_plain(loss: PointwiseLoss, x, w, labels, offsets,
                                weights):
     """``(value, grad)`` of ``Σ_i weights_i·loss(x_i·w + offsets_i, y_i)``

@@ -23,6 +23,7 @@ from photon_ml_tpu_torch.ops.fused_glm import (
     GLM_THREADS,
     GLM_TILE_ROWS,
     GlmPlan,
+    Work,
     body_plan,
     tile_slot_bytes,
 )
@@ -31,6 +32,15 @@ _P = cuda_build.PTR
 _SIGNATURE = {"photon_fused_hvp": (
     ctypes.c_int, _P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P,
     _P, _P)}
+
+
+def work(n_live: int, n_rows: int, d: int, itemsize: int) -> Work:
+    """One product of kernel 3: the ``n_live`` rows it reads (those of
+    nonzero curvature; rows of d2w = 0 are skipped) read once, every row's
+    d2w read once, v read and the output written once; 4 f32 operations
+    per element of those rows."""
+    return Work(4.0 * n_live * d,
+                float(n_live * d * itemsize + n_rows * 4 + 2 * d * 4))
 
 
 def fused_hvp_plain(x, v, d2w):

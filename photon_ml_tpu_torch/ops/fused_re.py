@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from photon_ml_tpu_torch.ops import cuda_build
+from photon_ml_tpu_torch.ops import cuda_build, fused_glm
 from photon_ml_tpu_torch.ops.design import accumulation_dtype
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 
@@ -71,6 +71,13 @@ def entity_plan(e: int, s: int, d: int) -> EntityPlan:
     units = e * chunks
     return EntityPlan(chunks, chunk_rows, unit_threads,
                       -(-units // (BLOCK_THREADS // unit_threads)))
+
+
+def work(n_live: int, e: int, s: int, d: int, itemsize: int):
+    """One evaluation of kernel 2 over an (E, S, D) bucket with ``n_live``
+    live rows in all: kernel 1's count (``fused_glm.work``) over the
+    bucket's E·S rows with E coefficient rows and outputs."""
+    return fused_glm.work(n_live, e * s, d, itemsize, e)
 
 
 def fused_entity_value_and_grad_plain(loss: PointwiseLoss, x, ws, labels,

@@ -35,6 +35,22 @@ lane). Weight-0 rows are padding: they are evaluated at margin 0 and
 zero-weighted (the double-where guard), so they contribute exactly nothing
 and cannot overflow. Normalization is a coefficient-space
 reparameterization (:mod:`~photon_ml_tpu_torch.ops.normalization`).
+
+The dispatch also carries two process-wide instruments:
+
+- the analytic work of each kernel launch (``fused_glm.work``,
+  ``fused_re.work``, ``fused_hvp.work``), added to the open profiled
+  calls of :mod:`~photon_ml_tpu_torch.telemetry.profiling` while a
+  telemetry session is live. The CPU's plain versions count the work the
+  kernels do on the card. The live rows are counted once per weights
+  tensor and kept on it (:func:`live_rows`); a random-effect bucket's
+  count comes from its host weights, so it costs no device read;
+- ``--debug-nans`` (:func:`set_debug_nans`): each evaluation's value and
+  gradient, and each Hessian-vector product, is checked with
+  ``torch.isfinite``, and a non-finite one raises
+  :class:`FloatingPointError` naming the kernel (on the card), its plain
+  version (on the CPU) or the closed form, and the shape. Off, the check
+  costs nothing: no host read.
 """
 
 from __future__ import annotations
@@ -44,6 +60,9 @@ from typing import Optional
 
 import torch
 
+from photon_ml_tpu_torch.ops import fused_glm as _fused_glm
+from photon_ml_tpu_torch.ops import fused_hvp as _fused_hvp
+from photon_ml_tpu_torch.ops import fused_re as _fused_re
 from photon_ml_tpu_torch.ops.design import (
     ChunkedSparseDesign,
     CsrDesign,
@@ -62,8 +81,64 @@ from photon_ml_tpu_torch.ops.normalization import (
     NoNormalization,
     NormalizationContext,
 )
+from photon_ml_tpu_torch.telemetry import profiling
 
 Tensor = torch.Tensor
+
+#: --debug-nans, a process setting (:func:`set_debug_nans`)
+_DEBUG_NANS = False
+
+
+def set_debug_nans(on: bool) -> None:
+    """Check every evaluation and Hessian-vector product of the dispatch
+    for NaN/Inf (the port's ``--debug-nans``)."""
+    global _DEBUG_NANS
+    _DEBUG_NANS = bool(on)
+
+
+def debug_nans() -> bool:
+    return _DEBUG_NANS
+
+
+def check_finite(op: str, shape, *tensors: Tensor) -> None:
+    """Raise :class:`FloatingPointError` naming ``op`` and ``shape`` when
+    one of ``tensors`` holds a NaN or an Inf (a host read: callers check
+    under :func:`debug_nans` only)."""
+    for t in tensors:
+        if not bool(torch.isfinite(t).all()):
+            raise FloatingPointError(
+                f"debug-nans: {op} at shape {tuple(shape)} returned a "
+                f"non-finite value")
+
+
+def _op_name(kernel, x: Tensor) -> str:
+    """The wrapper's name on the card, its plain version's on the CPU."""
+    return kernel.__name__ + ("" if x.is_cuda else "_plain")
+
+
+_LIVE_ATTR = "_photon_live_rows"
+
+
+def _keep_live(weights: Tensor, counts):
+    value = int(counts) if weights.dim() == 1 else counts.tolist()
+    setattr(weights, _LIVE_ATTR, (weights._version, value))
+    return value
+
+
+def live_rows(weights: Tensor):
+    """Rows of weight > 0: an int for ``(n,)`` weights, a list of per-row
+    counts for ``(M, n)`` or ``(E, S)`` ones. Counted once per weights
+    tensor (one host read) and kept on it, keyed by its version."""
+    cached = getattr(weights, _LIVE_ATTR, None)
+    if cached is not None and cached[0] == weights._version:
+        return cached[1]
+    return _keep_live(weights, (weights > 0).sum(-1))
+
+
+def seed_live_rows(weights: Tensor, host_weights) -> None:
+    """Record :func:`live_rows` of a device tensor from its host (numpy)
+    copy, so counting it takes no device read."""
+    _keep_live(weights, (host_weights > 0).sum(-1))
 
 
 def _per_lane(l2):
@@ -148,12 +223,24 @@ class GLMObjective:
     def value_and_grad(self, w: Tensor, data: GLMData, l2=0.0):
         if self.uses_kernel(data):
             x = data.design.x
+            counting = profiling.accounting()
             if x.dim() == 3:
-                value, grad = fused_entity_value_and_grad(
+                kernel = fused_entity_value_and_grad
+                value, grad = kernel(
                     self.loss, x, w, data.labels, data.offsets, data.weights)
+                if counting:
+                    e, s, d = x.shape
+                    profiling.count(*_fused_re.work(
+                        sum(live_rows(data.weights)), e, s, d,
+                        x.element_size()))
             elif w.dim() == 1:
-                value, grad = fused_value_and_grad(
+                kernel = fused_value_and_grad
+                value, grad = kernel(
                     self.loss, x, w, data.labels, data.offsets, data.weights)
+                if counting:
+                    profiling.count(*_fused_glm.work(
+                        live_rows(data.weights), x.shape[0], x.shape[1],
+                        x.element_size(), 1))
             elif max(data.labels.dim(), data.offsets.dim(),
                      data.weights.dim()) > 1:
                 # lanes with data vectors of their own (bootstrap
@@ -164,18 +251,37 @@ class GLMObjective:
                 def lane(v, m):
                     return v[m] if v.dim() > 1 else v
 
-                pairs = [fused_value_and_grad(
+                kernel = fused_value_and_grad
+                pairs = [kernel(
                     self.loss, x, w[m], lane(data.labels, m),
                     lane(data.offsets, m), lane(data.weights, m))
                     for m in range(w.shape[0])]
                 value = torch.stack([v for v, _ in pairs])
                 grad = torch.stack([g for _, g in pairs])
+                if counting:
+                    live = live_rows(data.weights)
+                    for m in range(w.shape[0]):
+                        profiling.count(*_fused_glm.work(
+                            live[m] if isinstance(live, list) else live,
+                            x.shape[0], x.shape[1], x.element_size(), 1))
             else:
-                value, grad = fused_value_and_grad_multi(
+                kernel = fused_value_and_grad_multi
+                value, grad = kernel(
                     self.loss, x, w, data.labels, data.offsets, data.weights)
+                if counting:
+                    lanes = w.shape[0]
+                    profiling.count(*_fused_glm.work(
+                        live_rows(data.weights), x.shape[0], x.shape[1],
+                        x.element_size(), lanes, lanes=lanes))
+            if _DEBUG_NANS:
+                check_finite(_op_name(kernel, x), x.shape, value, grad)
             return (value + self._l2_term(w, l2),
                     grad.to(w.dtype) + _per_lane(l2) * self._reg_w(w))
-        return self._closed_value_and_grad(w, data, l2)
+        value, grad = self._closed_value_and_grad(w, data, l2)
+        if _DEBUG_NANS:
+            check_finite("closed-form value_and_grad",
+                         (data.n_samples, data.dim), value, grad)
+        return value, grad
 
     def _closed_value_and_grad(self, w: Tensor, data: GLMData, l2):
         """Closed-form (value, grad): margins computed once, two passes over
@@ -218,6 +324,7 @@ class GLMObjective:
 
         if self.uses_kernel(data) and data.design.x.dim() == 2:
             x = data.design.x
+            name = _op_name(fused_hvp, x)
 
             def apply_fused(v: Tensor) -> Tensor:
                 if v.dim() == 1:
@@ -225,6 +332,16 @@ class GLMObjective:
                 else:
                     hv = torch.stack([fused_hvp(x, v[m], d2w[m])
                                       for m in range(v.shape[0])])
+                if profiling.accounting():
+                    # the rows of weight > 0: rows of zero curvature among
+                    # them are counted too, so no read of d2w is taken
+                    live = live_rows(data.weights)
+                    for m in range(1 if v.dim() == 1 else v.shape[0]):
+                        profiling.count(*_fused_hvp.work(
+                            live[m] if isinstance(live, list) else live,
+                            x.shape[0], x.shape[1], x.element_size()))
+                if _DEBUG_NANS:
+                    check_finite(name, x.shape, hv)
                 return hv.to(w.dtype) + reg * v
 
             return apply_fused
@@ -240,6 +357,9 @@ class GLMObjective:
                 hv = hv - norm.shifts * d2t.sum(-1, keepdim=True)
             if norm.factors is not None:
                 hv = hv * norm.factors
+            if _DEBUG_NANS:
+                check_finite("closed-form hvp", (data.n_samples, data.dim),
+                             hv)
             return hv.to(w.dtype) + reg * v
 
         return apply

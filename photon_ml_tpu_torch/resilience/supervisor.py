@@ -154,6 +154,7 @@ class FleetSupervisor:
         """Supervise to completion: returns on an all-zero exit, raises
         :class:`FleetExhaustedError` past the budget or deadline."""
         from photon_ml_tpu_torch.resilience.retry import _sleep
+        from photon_ml_tpu_torch.telemetry import tracing
 
         os.makedirs(self.run_dir, exist_ok=True)
         result_path = os.path.join(self.run_dir, "result.json")
@@ -162,54 +163,63 @@ class FleetSupervisor:
         self.bus.post("supervisor_started", processes=self.n_processes,
                       max_restarts=self.policy.max_restarts,
                       command=" ".join(self.command))
-        while True:
-            self._spawn(attempt, result_path)
-            try:
-                fault = self._watch(t0)
-            except BaseException:
-                self._kill_fleet()
-                raise
-            if fault is None:
-                self.bus.post("supervisor_completed", attempts=attempt + 1,
-                              restarts=self.restarts,
-                              elapsed_s=time.monotonic() - t0)
-                return FleetResult(restarts=self.restarts,
-                                   attempts=attempt + 1,
-                                   result=self._read_result(result_path))
-            self.bus.post("supervisor_fault_detected", attempt=attempt,
-                          reason=fault.reason, process=fault.process,
-                          returncode=fault.returncode,
-                          heartbeat_age_s=fault.heartbeat_age_s)
-            logger.warning("fleet fault (attempt %d): %s on process %d "
-                           "(rc=%s, heartbeat age %s)", attempt,
-                           fault.reason, fault.process, fault.returncode,
-                           fault.heartbeat_age_s)
-            self._kill_fleet()
-            backoff = min(self.policy.base_backoff_s
-                          * self.policy.backoff_multiplier ** attempt,
-                          self.policy.max_backoff_s)
-            elapsed = time.monotonic() - t0
-            over_deadline = (self.policy.deadline_s is not None
-                             and elapsed + backoff >= self.policy.deadline_s)
-            if attempt >= self.policy.max_restarts or over_deadline:
-                self.bus.post("supervisor_exhausted", attempts=attempt + 1,
-                              restarts=self.restarts,
-                              deadline_hit=over_deadline, elapsed_s=elapsed)
-                raise FleetExhaustedError(
-                    f"fleet failed {attempt + 1} time(s) over "
-                    f"{elapsed:.1f}s ({fault.reason} on process "
-                    f"{fault.process}"
-                    + (f", rc={fault.returncode}"
-                       if fault.returncode is not None else "")
-                    + (f"; deadline {self.policy.deadline_s}s hit"
-                       if over_deadline else
-                       f"; restart budget {self.policy.max_restarts} spent")
-                    + "); last logs:\n" + self._log_tails(attempt))
-            self.restarts += 1
-            self.bus.post("supervisor_restart", attempt=attempt + 1,
-                          backoff_s=backoff, reason=fault.reason)
-            _sleep(backoff)
-            attempt += 1
+        with tracing.span("supervisor.run", processes=self.n_processes):
+            while True:
+                with tracing.span("supervisor.attempt", attempt=attempt):
+                    self._spawn(attempt, result_path)
+                    try:
+                        fault = self._watch(t0)
+                    except BaseException:
+                        self._kill_fleet()
+                        raise
+                    if fault is None:
+                        self.bus.post("supervisor_completed",
+                                      attempts=attempt + 1,
+                                      restarts=self.restarts,
+                                      elapsed_s=time.monotonic() - t0)
+                        return FleetResult(
+                            restarts=self.restarts, attempts=attempt + 1,
+                            result=self._read_result(result_path))
+                    self.bus.post("supervisor_fault_detected",
+                                  attempt=attempt, reason=fault.reason,
+                                  process=fault.process,
+                                  returncode=fault.returncode,
+                                  heartbeat_age_s=fault.heartbeat_age_s)
+                    logger.warning(
+                        "fleet fault (attempt %d): %s on process %d (rc=%s, "
+                        "heartbeat age %s)", attempt, fault.reason,
+                        fault.process, fault.returncode,
+                        fault.heartbeat_age_s)
+                    self._kill_fleet()
+                backoff = min(self.policy.base_backoff_s
+                              * self.policy.backoff_multiplier ** attempt,
+                              self.policy.max_backoff_s)
+                elapsed = time.monotonic() - t0
+                over_deadline = (
+                    self.policy.deadline_s is not None
+                    and elapsed + backoff >= self.policy.deadline_s)
+                if attempt >= self.policy.max_restarts or over_deadline:
+                    self.bus.post("supervisor_exhausted",
+                                  attempts=attempt + 1,
+                                  restarts=self.restarts,
+                                  deadline_hit=over_deadline,
+                                  elapsed_s=elapsed)
+                    raise FleetExhaustedError(
+                        f"fleet failed {attempt + 1} time(s) over "
+                        f"{elapsed:.1f}s ({fault.reason} on process "
+                        f"{fault.process}"
+                        + (f", rc={fault.returncode}"
+                           if fault.returncode is not None else "")
+                        + (f"; deadline {self.policy.deadline_s}s hit"
+                           if over_deadline else
+                           f"; restart budget {self.policy.max_restarts} "
+                           f"spent")
+                        + "); last logs:\n" + self._log_tails(attempt))
+                self.restarts += 1
+                self.bus.post("supervisor_restart", attempt=attempt + 1,
+                              backoff_s=backoff, reason=fault.reason)
+                _sleep(backoff)
+                attempt += 1
 
     def _spawn(self, attempt: int, result_path: str) -> None:
         port = _free_loopback_port() if self.n_processes > 1 else None

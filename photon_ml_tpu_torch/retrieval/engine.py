@@ -42,6 +42,7 @@ built on the CPU) of the shared cache.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -62,6 +63,12 @@ from photon_ml_tpu_torch.serving.engine import (
     next_bucket,
 )
 from photon_ml_tpu_torch.telemetry import metrics as _metrics
+from photon_ml_tpu_torch.telemetry import profiling as _profiling
+
+#: the ``fn`` label of this engine's program builds in
+#: ``photon_compiles_total`` (the JAX package's label): one per bucket
+#: program built, a CUDA graph capture on the card
+RANKING_FN_LABEL = "serving.rank"
 
 #: engine-side ranking latency per (user-bucket, k-bucket) dispatch
 _RANK_LATENCY = _metrics.histogram(
@@ -232,7 +239,10 @@ class RankingEngine:
             with root._build_lock:
                 prog = root._programs.get(key)
                 if prog is None:
+                    t0 = time.perf_counter()
                     prog = self._build(b, k_b)
+                    _profiling.record_compile(RANKING_FN_LABEL,
+                                              time.perf_counter() - t0)
                     root._programs[key] = prog
                     root._compiles += 1
         return prog

@@ -29,7 +29,9 @@ its activation (:mod:`photon_ml_tpu_torch.quality`), and ``/rank`` ranks
 an item coordinate (:mod:`photon_ml_tpu_torch.retrieval`). A host can be
 one shard of an entity-sharded fleet (``fleet_shard=``, per-host patches,
 the live reshard's prepare) behind the router of
-:mod:`photon_ml_tpu_torch.fleet`. Not ported: request spans.
+:mod:`photon_ml_tpu_torch.fleet`. Requests are ``serving.*`` spans of the
+telemetry plane, and the registry binds the EventBus bridge, so its
+lifecycle events reach ``/metrics``.
 """
 
 from photon_ml_tpu_torch.serving.overload import (  # noqa: F401

@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -81,6 +82,7 @@ from photon_ml_tpu_torch.serving import stages as _stages
 from photon_ml_tpu_torch.serving import store as _store
 from photon_ml_tpu_torch.serving.store import EntityCoefficientStore
 from photon_ml_tpu_torch.telemetry import metrics as _metrics
+from photon_ml_tpu_torch.telemetry import profiling as _profiling
 from photon_ml_tpu_torch.types import INTERCEPT_KEY
 
 #: engine-side scoring time per padded bucket (copy-in, replay, copy-out)
@@ -97,6 +99,11 @@ _STAGE_SECONDS = _metrics.histogram(
     "(parse | queue_wait | batch_assemble | execute | respond)",
     labels=("stage",))
 
+
+#: the ``fn`` label of this engine's program builds in
+#: ``photon_compiles_total`` (the JAX package's label): one per bucket
+#: program built, a CUDA graph capture on the card
+SCORING_FN_LABEL = "serving.score"
 
 #: one CUDA graph build at a time in the process: a capture that names no
 #: stream records on torch's one default capture stream, and the side
@@ -293,7 +300,10 @@ class ScoringEngine:
             with root._build_lock:
                 prog = root._programs.get(b)
                 if prog is None:
+                    t0 = time.perf_counter()
                     prog = self._build(b)
+                    _profiling.record_compile(SCORING_FN_LABEL,
+                                              time.perf_counter() - t0)
                     root._programs[b] = prog
                     root._compiles += 1
         return prog

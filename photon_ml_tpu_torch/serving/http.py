@@ -57,11 +57,17 @@ On a fleet host (``serve_game --fleet-shard``) ``/score`` and ``/rank``
 replies carry the active shard map's hash beside the lineage, a request
 stamped by the router with another map's hash (``X-Photon-Shard-Map``) is
 refused with 503 ``reason=shard_map_mismatch``, and ``/healthz`` names the
-host's shard and map. Not ported: request spans.
+host's shard and map.
+
+Each request is a ``serving.request`` span over ``serving.parse``,
+``serving.score`` or ``serving.rank``, and ``serving.respond`` (written to
+the run's trace when ``--telemetry-dir`` configures one), unless brownout
+sheds span tracing (``overload.is_shed("tracing")``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 import time
@@ -76,6 +82,7 @@ from photon_ml_tpu_torch.serving.batcher import BatcherClosed, MicroBatcher
 from photon_ml_tpu_torch.serving.registry import ModelRegistry
 from photon_ml_tpu_torch.serving.reqlog import RequestLog
 from photon_ml_tpu_torch.telemetry import metrics as _metrics
+from photon_ml_tpu_torch.telemetry import tracing as _tracing
 
 #: end-to-end /score handling time (pack + engine + marshaling)
 _REQUEST_LATENCY = _metrics.histogram(
@@ -307,6 +314,27 @@ def shed_status(e: "_overload.Shed") -> int:
     return 503 if e.reason in ("upstream", "connections") else 429
 
 
+class _NullSpan:
+    """Span stand-in while brownout sheds tracing."""
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+_NULL_SPAN = _NullSpan()
+
+
+@contextlib.contextmanager
+def _maybe_span(name: str, **attrs):
+    """A ``serving.*`` span, unless brownout has shed span tracing
+    (optional work goes before traffic)."""
+    if _overload.is_shed("tracing"):
+        yield _NULL_SPAN
+        return
+    with _tracing.span(name, **attrs) as sp:
+        yield sp
+
+
 class ServingService:
     """Endpoint logic, HTTP-free (testable directly; the handler is thin)."""
 
@@ -417,7 +445,10 @@ class ServingService:
                 retry_after_s=2.0)
         margins = offsets = None
         sink = stage_sink if stage_sink is not None else {}
-        with _REQUEST_LATENCY.time() as timer, _stages.collect(sink):
+        with _REQUEST_LATENCY.time() as timer, \
+                _maybe_span("serving.score", request_id=request_id,
+                            batch=len(records)) as sp, \
+                _stages.collect(sink):
             try:
                 if with_margins:
                     # margin responses bypass the batcher: per-request
@@ -436,6 +467,9 @@ class ServingService:
                 # a refusal is not a serving latency
                 timer.discard()
                 raise
+            served = sink.get(_stages.SERVED_BY)
+            sp.set(version=self.registry.active_version if served is None
+                   else served[0])
         latency_ms = timer.seconds * 1e3
         # the version that scored this request: ServingModel.score notes
         # it, through the batcher's worker too; a batcher score function
@@ -523,7 +557,10 @@ class ServingService:
                         f"traffic",
                 retry_after_s=2.0)
         sink = stage_sink if stage_sink is not None else {}
-        with _RANK_REQUEST_LATENCY.time() as timer, _stages.collect(sink):
+        with _RANK_REQUEST_LATENCY.time() as timer, \
+                _maybe_span("serving.rank", request_id=request_id,
+                            k=k) as sp, \
+                _stages.collect(sink):
             try:
                 if self.rank_batcher is not None:
                     ids, scores = self.rank_batcher.score(
@@ -533,6 +570,7 @@ class ServingService:
             except _overload.Shed:
                 timer.discard()
                 raise
+            sp.set(version=active.version, n=len(ids))
         _RANK_K.observe(k)
         latency_ms = timer.seconds * 1e3
         served = sink.get(_stages.SERVED_BY)
@@ -775,7 +813,9 @@ def _make_handler(service: ServingService):
                                 parse_s: float) -> None:
             """Reply, with the leg-summary header on 200 replies
             (``respond`` in it is the JSON serialization share)."""
-            with _STAGE_SECONDS.labels(stage="respond").time():
+            with _maybe_span("serving.respond",
+                             request_id=getattr(self, "request_id", None)), \
+                    _STAGE_SECONDS.labels(stage="respond").time():
                 if status == 200 and leg_stages:
                     leg_stages["parse"] = parse_s
                     t_ser = time.monotonic()
@@ -837,9 +877,11 @@ def _make_handler(service: ServingService):
                     # ?user=<raw id>&k=<int>; the deadline is stamped in
                     # the parse stage of the shared tail
                     qs = parse_qs(parsed.query)
-                    self._handle_rank(rid, {key: values[0]
-                                            for key, values in qs.items()
-                                            if values})
+                    with _maybe_span("serving.request", request_id=rid,
+                                     path="/rank"):
+                        self._handle_rank(rid, {key: values[0]
+                                                for key, values in qs.items()
+                                                if values})
                 elif path == "/healthz":
                     self._reply(200, service.healthz())
                 elif path == "/readyz":
@@ -868,7 +910,8 @@ def _make_handler(service: ServingService):
             leg_stages: dict = {}
             try:
                 if parse_s is None:
-                    with _STAGE_SECONDS.labels(stage="parse").time() as t:
+                    with _maybe_span("serving.parse", request_id=rid), \
+                            _STAGE_SECONDS.labels(stage="parse").time() as t:
                         self.deadline = service.resolve_deadline(
                             self.headers.get(DEADLINE_HEADER))
                     parse_s = t.seconds
@@ -905,12 +948,16 @@ def _make_handler(service: ServingService):
             self._conn_requests += 1
             service.connections.request_begin()
             try:
-                self._post(self._request_id())
+                rid = self._request_id()
+                with _maybe_span("serving.request", request_id=rid,
+                                 path=self.path):
+                    self._post(rid)
             finally:
                 service.connections.request_end()
 
         def _post(self, rid: str) -> None:
-            with _STAGE_SECONDS.labels(stage="parse").time() as parse_t:
+            with _maybe_span("serving.parse", request_id=rid), \
+                    _STAGE_SECONDS.labels(stage="parse").time() as parse_t:
                 try:
                     payload = self._payload()
                     # the deadline budget is stamped at parse: queueing and

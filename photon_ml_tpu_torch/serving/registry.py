@@ -237,6 +237,12 @@ class ModelRegistry:
         self.rank_coordinate = rank_coordinate
         self.rank_max_k = int(rank_max_k)
         self.bus = bus if bus is not None else GLOBAL_BUS
+        # lifecycle events (model_loaded / activated / rejected) become
+        # metrics through the telemetry bridge; binding is idempotent per
+        # (bus, registry), so every registry's bus feeds /metrics
+        from photon_ml_tpu_torch.telemetry import bridge
+
+        bridge.bind(bus=self.bus)
         self._lock = threading.Lock()
         self._versions: dict[int, ServingModel] = {}  # guarded-by: _lock
         self._active: Optional[ServingModel] = None  # guarded-by: _lock

@@ -1,8 +1,8 @@
-"""Metric aggregation: fold N registry snapshots into one.
+"""Fleet-wide metric aggregation: fold N registry snapshots into one.
 
-Counterpart of the fold half of ``photon_ml_tpu/telemetry/aggregate.py``,
-on the :mod:`~photon_ml_tpu_torch.telemetry.prometheus` render/parse round
-trip, so every transport shares one merge:
+Counterpart of ``photon_ml_tpu/telemetry/aggregate.py``, on the
+:mod:`~photon_ml_tpu_torch.telemetry.prometheus` render/parse round trip,
+so every transport shares one merge:
 
 - :func:`merge_parsed` / :func:`aggregate_text`: counters and histogram
   ``_bucket`` / ``_sum`` / ``_count`` series sum per label set; gauges
@@ -14,23 +14,46 @@ trip, so every transport shares one merge:
 - :func:`process_tag` / :func:`is_chief`: this process's identity in a
   multi-process job, read from
   :mod:`photon_ml_tpu_torch.parallel.multihost`.
+- :class:`FleetMetricsAggregator`: the in-training collective transport.
+  Every process renders its registry and the texts ride
+  :func:`~photon_ml_tpu_torch.parallel.multihost.allgather_text` (one
+  symmetric host collective); process 0 keeps the aggregate. Training
+  calls :func:`sweep_boundary` at coordinate-descent sweep (and GLM
+  lambda) boundaries; the fold hook is installed only under
+  ``--metrics-port``, on every process of the job, so bare runs pay
+  nothing.
+- :class:`MetricsHTTPServer`: the chief's live ``GET /metrics`` listener
+  (``--metrics-port``), serving the latest fleet aggregate.
+- :func:`merge_trace_files`: per-process ``trace.jsonl`` files folded into
+  one wall-clock-ordered timeline, each record tagged with its
+  ``process``; the unique span key there is ``(process, span_id)``.
 
-Not ported: the in-training collective aggregator, the chief's
-``--metrics-port`` server and the trace-file merge (the telemetry flags
-stay refused).
+The offline transport over the same fold is the repo's
+``tools/metrics_fold.py``: both feed the same snapshot texts in process
+order through :func:`aggregate_text`, so their outputs are byte-identical.
 """
-
 from __future__ import annotations
 
+import json
+import logging
 import sys
-from typing import Optional, Sequence
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, Iterable, Optional, Sequence
 
+from photon_ml_tpu_torch.telemetry.metrics import (
+    MetricsRegistry,
+    default_registry,
+)
 from photon_ml_tpu_torch.telemetry.prometheus import (
+    CONTENT_TYPE,
     ParsedSnapshot,
     histogram_series_names,
     parse_text,
     render,
 )
+
+logger = logging.getLogger(__name__)
 
 
 # ---------------------------------------------------------------------------
@@ -130,3 +153,197 @@ def process_tag() -> Optional[str]:
 def is_chief() -> bool:
     mh = _multihost()
     return True if mh is None else mh.is_chief()
+
+
+# ---------------------------------------------------------------------------
+# in-training collective fold + sweep-boundary hooks
+# ---------------------------------------------------------------------------
+
+
+class FleetMetricsAggregator:
+    """Collective registry fold with a thread-safe "latest aggregate" slot.
+
+    :meth:`fold` is a COLLECTIVE: every process of the job must call it at
+    the same point (the sweep-boundary hook guarantees this — the hook is
+    installed by the same ``--metrics-port`` flag on every process).
+    Single-process jobs degrade to the identity fold and :meth:`latest`
+    renders live instead of serving the last fold's snapshot.
+    """
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self.registry = registry if registry is not None \
+            else default_registry()
+        self._lock = threading.Lock()
+        self._latest: Optional[str] = None  # guarded-by: _lock
+
+    def local_text(self) -> str:
+        """This process's registry rendered for the fold (host-owned gauges
+        tagged with this process's index on multi-process jobs)."""
+        tag = process_tag()
+        return render(self.registry,
+                      host_tag=None if tag is None else ("process", tag))
+
+    def fold(self, local_text: Optional[str] = None) -> Optional[str]:
+        """Gather every process's rendered registry and materialize the
+        aggregate on process 0 (returned there; None on workers). Pass
+        ``local_text`` to fold an already-rendered snapshot — the close
+        path does, so the dumped ``metrics.prom`` and the folded text are
+        the same bytes."""
+        text = local_text if local_text is not None else self.local_text()
+        from photon_ml_tpu_torch.parallel.multihost import allgather_text
+
+        texts = allgather_text(text)
+        if not is_chief():
+            return None
+        agg = aggregate_text(texts)
+        with self._lock:
+            self._latest = agg
+        return agg
+
+    def latest(self) -> str:
+        """The most recent aggregate (as fresh as the last sweep
+        boundary); before the first fold — or on single-process jobs,
+        where there is nothing to wait for — a live local render."""
+        if process_tag() is not None:
+            with self._lock:
+                if self._latest is not None:
+                    return self._latest
+        return self.local_text()
+
+
+#: sweep-boundary hooks; empty (the common case) costs one truthiness check
+_SWEEP_HOOKS: list = []
+
+
+def install_sweep_hook(fn: Callable) -> Callable[[], None]:
+    """Register ``fn(**info)`` to run at every coordinate-descent sweep /
+    GLM lambda boundary; returns the uninstaller. The telemetry session
+    owns install/uninstall — a hook left behind after its run would turn
+    the next single-process fit into a hung collective."""
+    _SWEEP_HOOKS.append(fn)
+
+    def uninstall() -> None:
+        try:
+            _SWEEP_HOOKS.remove(fn)
+        except ValueError:
+            pass
+
+    return uninstall
+
+
+def sweep_boundary(**info) -> None:
+    """Training's fold point (called by ``game/coordinate_descent.py``,
+    ``game/multiprocess.py`` and ``glm/training.py`` once per sweep or
+    lambda, at a collective-symmetric position). No hooks installed — the default — is
+    a no-op; hook failures are logged, never raised (telemetry must not
+    kill a run)."""
+    if not _SWEEP_HOOKS:
+        return
+    for fn in list(_SWEEP_HOOKS):
+        try:
+            fn(**info)
+        except Exception:
+            logger.warning("sweep-boundary telemetry hook failed",
+                           exc_info=True)
+
+
+# ---------------------------------------------------------------------------
+# the chief's live scrape endpoint
+# ---------------------------------------------------------------------------
+
+
+def _make_handler(provider: Callable[[], str]):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):  # noqa: D102
+            pass
+
+        def _reply(self, status: int, data: bytes, content_type: str) -> None:
+            self.send_response(status)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def do_GET(self):  # noqa: N802
+            if self.path == "/metrics":
+                try:
+                    body = provider().encode("utf-8")
+                except Exception as e:  # provider must not kill the server
+                    self._reply(500, json.dumps(
+                        {"error": repr(e)}).encode(), "application/json")
+                    return
+                self._reply(200, body, CONTENT_TYPE)
+            elif self.path == "/healthz":
+                self._reply(200, json.dumps({"status": "ok"}).encode(),
+                            "application/json")
+            else:
+                self._reply(404, json.dumps(
+                    {"error": f"unknown path {self.path}"}).encode(),
+                    "application/json")
+
+    return Handler
+
+
+class MetricsHTTPServer:
+    """Threaded ``GET /metrics`` listener serving ``provider()`` — the
+    training-side sibling of ``serving/http.py::GameServer`` (same
+    start/stop lifecycle, same exposition content type)."""
+
+    def __init__(self, provider: Callable[[], str], *,
+                 host: str = "127.0.0.1", port: int = 0):
+        self._httpd = ThreadingHTTPServer((host, port),
+                                          _make_handler(provider))
+        #: start/stop are operator-lifecycle calls from one control thread
+        self._thread: Optional[threading.Thread] = None  # guarded-by: caller
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    @property
+    def url(self) -> str:
+        host, port = self._httpd.server_address[:2]
+        return f"http://{host}:{port}"
+
+    def start(self) -> "MetricsHTTPServer":
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True,
+                                        name="photon-metrics-http")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+
+# ---------------------------------------------------------------------------
+# span-trace merge
+# ---------------------------------------------------------------------------
+
+
+def merge_trace_files(paths: Iterable[tuple[int, str]]) -> list[dict]:
+    """Fold per-process ``trace.jsonl`` files into one timeline.
+
+    ``paths`` yields ``(process_index, path)``. Every record gains a
+    ``process`` attribute; the result is sorted by wall-clock ``ts``
+    (stable, so same-timestamp records keep per-process file order) —
+    cross-host sweep skew reads directly off adjacent ``cd.sweep`` spans.
+    Span/parent ids keep their per-process scope: the unique span key in a
+    merged trace is ``(process, span_id)``.
+    """
+    records: list[dict] = []
+    for pid, path in paths:
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                rec = json.loads(line)
+                rec["process"] = pid
+                records.append(rec)
+    records.sort(key=lambda r: r.get("ts", 0.0))
+    return records

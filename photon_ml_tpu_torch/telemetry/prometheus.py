@@ -20,13 +20,14 @@ Histograms expand to cumulative ``name_bucket{le="..."}`` series (including
 from __future__ import annotations
 
 import math
-from typing import Mapping
+from typing import Mapping, Optional
 
 from photon_ml_tpu_torch.telemetry.metrics import (
     Counter,
     Gauge,
     Histogram,
     default_registry,
+    host_owned_gauges,
 )
 
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
@@ -73,22 +74,29 @@ def _unescape(s: str) -> str:
     return "".join(out)
 
 
-def render(registry=None) -> str:
+def render(registry=None,
+           host_tag: Optional[tuple[str, str]] = None) -> str:
     """The registry's current state as exposition text (ends with ``\\n``);
     the process-global registry when ``registry`` is None. A
-    :class:`ParsedSnapshot` is re-emitted byte-identically."""
+    :class:`ParsedSnapshot` is re-emitted byte-identically. ``host_tag``
+    (e.g. ``("process", "1")``) is appended to every series of a
+    host-owned gauge family (``metrics.mark_host_owned``), so a
+    multi-process fold never collapses one host's gauge into another's."""
     if isinstance(registry, ParsedSnapshot):
         return render_parsed(registry)
     registry = registry if registry is not None else default_registry()
+    host_owned = host_owned_gauges() if host_tag is not None else ()
     lines: list[str] = []
     for fam in registry.collect():
+        tag = (host_tag if fam.type == "gauge" and fam.name in host_owned
+               else None)
         if fam.help:
             lines.append(f"# HELP {fam.name} {_escape_help(fam.help)}")
         lines.append(f"# TYPE {fam.name} {fam.type}")
         for values, child in fam.children():
             if isinstance(child, (Counter, Gauge)):
                 lines.append(
-                    f"{fam.name}{_labels_text(fam.label_names, values)} "
+                    f"{fam.name}{_labels_text(fam.label_names, values, tag)} "
                     f"{format_value(child.value)}")
             elif isinstance(child, Histogram):
                 cum, total, count = child.snapshot()

@@ -1,7 +1,5 @@
 """Span tracing: nested ``span(name)`` contexts → ``trace.jsonl`` (a copy
-of ``photon_ml_tpu/telemetry/tracing.py``: it is pure Python). In the port
-the canary's ``quality.canary`` span is the one opened so far, and no
-command configures a trace file yet (the telemetry flags stay refused).
+of ``photon_ml_tpu/telemetry/tracing.py``: it is pure Python).
 
 ``util/Timed.scala`` gave the reference *flat* stage timings in a log file;
 a run that interleaves coordinate descent, retries, checkpointing and
@@ -18,8 +16,8 @@ serving requests each get their own stack), and arbitrary JSON attributes.
   ``<run_dir>/trace.jsonl`` and, when a bus is given, posts a
   ``span_finished`` event so the EventBus→metrics bridge folds span
   durations into the registry;
-- in the JAX package, ``timed()`` is a thin wrapper over a span (stage
-  sections appear in the trace tree); the port's ``timed()`` is not yet.
+- ``timed()`` (:mod:`photon_ml_tpu_torch.logging_util`) is a thin wrapper
+  over a span — stage sections appear in the trace tree for free.
 
 Record layout (one JSON object per line)::
 

@@ -382,6 +382,10 @@ _REQUIRED = ["--training-data", "x.avro", "--output-dir", "out",
 #: tests/test_torch_multihost_cli.py)
 _MULTI_PROCESS_FLAGS = ("--multihost", "--supervise", "--max-restarts",
                         "--heartbeat-timeout-s", "--restart-deadline-s")
+#: the telemetry plane's flags, ported (tests/test_torch_telemetry.py runs
+#: them): they parse
+_TELEMETRY_FLAGS = ("--profile", "--debug-nans", "--telemetry-dir",
+                    "--telemetry-poll-s", "--metrics-port")
 
 
 @pytest.mark.parametrize("extra", [
@@ -403,8 +407,9 @@ def test_unported_flag_names_itself(tmp_path, extra):
             t_cli.run(_REQUIRED + tuning + ["--device", "cpu",
                                             "--output-dir", str(tmp_path)])
         return
-    if extra[0] in _MULTI_PROCESS_FLAGS:
-        # ported (tests/test_torch_multihost_cli.py runs them): they parse
+    if extra[0] in _MULTI_PROCESS_FLAGS + _TELEMETRY_FLAGS:
+        # ported (tests/test_torch_multihost_cli.py and
+        # tests/test_torch_telemetry.py run them): they parse
         args = t_cli.build_parser().parse_args(_REQUIRED + extra)
         dest = extra[0][2:].replace("-", "_")
         assert getattr(args, dest) == (

@@ -429,9 +429,17 @@ def test_fault_mid_patch_save_retries_and_publishes(loop, tmp_path):
     (["--telemetry-dir", "t"], "--telemetry-dir"),
 ], ids=["metrics-port", "telemetry-dir"])
 def test_refresh_unported_flags_name_themselves(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        t_refresh.run(["--prior-dir", "p", "--training-data", "x",
-                       "--output-dir", str(tmp_path)] + COMMON + extra)
+    # the telemetry flags are ported (tests/test_torch_telemetry.py runs
+    # the plane): they parse into the telemetry configuration
+    from photon_ml_tpu_torch.cli.config import telemetry_from_args
+
+    args = t_refresh.build_parser().parse_args(
+        ["--prior-dir", "p", "--training-data", "x",
+         "--output-dir", str(tmp_path)] + COMMON + extra)
+    config = telemetry_from_args(args)
+    dest = match[2:].replace("-", "_")
+    assert str(getattr(args, dest)) == extra[1]
+    assert extra[1] in (str(config.telemetry_dir), str(config.metrics_port))
 
 
 def test_refresh_needs_a_card_unless_told(tmp_path):

@@ -330,8 +330,25 @@ def test_one_refusal_aborts_the_epoch_fleet_wide(env2, site):
     assert after["lineage"] == before["lineage"]
 
 
-@pytest.mark.parametrize("flag", sorted(t_fleet._UNPORTED_FLAGS))
+#: the telemetry plane's flags, ported since the fleet took them
+_TELEMETRY_FLAGS = ("--metrics-port", "--telemetry-dir", "--telemetry-poll-s")
+
+
+@pytest.mark.parametrize("flag", sorted(list(t_fleet._UNPORTED_FLAGS)
+                                        + list(_TELEMETRY_FLAGS)))
 def test_unported_fleet_flag_names_itself(flag):
+    if flag in _TELEMETRY_FLAGS:
+        # ported (tests/test_torch_telemetry.py runs the plane): they parse
+        # into the telemetry configuration
+        from photon_ml_tpu_torch.cli.config import telemetry_from_args
+
+        value = "x" if flag == "--telemetry-dir" else "1"
+        config = telemetry_from_args(t_fleet.build_parser().parse_args(
+            ["--model-dir", "m", "--feature-shards", SHARDS, flag, value]))
+        assert value in (str(config.telemetry_dir),
+                         f"{config.poll_interval_s:g}",
+                         str(config.metrics_port))
+        return
     value = "1" if t_fleet._UNPORTED_FLAGS[flag].get("type") else "x"
     with pytest.raises(NotImplementedError, match=flag):
         t_fleet.build_fleet(["--model-dir", "m", "--feature-shards", SHARDS,

@@ -1,8 +1,10 @@
 """The port's ``--multihost`` and ``--supervise`` drivers on the CPU.
 
 One 2-rank gloo job runs ``train_glm --multihost`` (L-BFGS and TRON),
-``train_game --multihost`` and ``score_game --multihost`` on multi-file
-Avro inputs, and the refusals of the multi-process paths. Held against
+``train_game --multihost`` (with ``--telemetry-dir`` and
+``--metrics-port``: the fleet fold of the two ranks' registries) and
+``score_game --multihost`` on multi-file Avro inputs, and the refusals of
+the multi-process paths. Held against
 the single-process port and the JAX package's single-process drivers at
 the JAX package's multi-process tolerances (coefficients atol 2e-3 / rtol
 2e-2, AUC 5e-3, scores equal), with the ranks' models bit-identical.
@@ -161,8 +163,14 @@ def _cli_rank(rank, root):
     seen = []
     _capture(multiprocess, "train_game_multiprocess", seen)
     game_out = os.path.join(root, "mp-game")
+    # the fold hook is installed on every rank; only the chief listens
+    from photon_ml_tpu_torch.resilience.supervisor import _free_loopback_port
+
+    port = _free_loopback_port()
     res = train_game.run(_game_args(root) + [
-        "--output-dir", game_out, "--multihost", "--device", "cpu"])
+        "--output-dir", game_out, "--multihost", "--device", "cpu",
+        "--telemetry-dir", os.path.join(game_out, "telemetry"),
+        "--metrics-port", str(port)])
     m = seen[0].model.coordinates
     out["game"] = (res, m["global"].model.coefficients.means.numpy(),
                    m["perUser"].keys, m["perUser"].coeffs)
@@ -356,6 +364,70 @@ def test_train_game_equals_jax_single_process(ranks, files, tmp_path):
                - j_res["best_evaluation"]["AUC"]) < 5e-3
     _records_close(_coefficient_records(os.path.join(files, "mp-game")),
                    _coefficient_records(j_dir, "jax"))
+
+
+def test_train_game_fleet_fold_equals_both_folds(ranks, files):
+    """The chief's ``metrics.aggregate.prom`` (the final collective fold at
+    close) is byte for byte the port's and the JAX package's
+    ``aggregate_text`` of the two ranks' ``metrics.prom``, and what
+    ``tools/metrics_fold.py`` folds offline."""
+    from photon_ml_tpu.telemetry.aggregate import aggregate_text as j_fold
+    from photon_ml_tpu_torch.telemetry.aggregate import aggregate_text
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import metrics_fold
+
+    tel = os.path.join(files, "mp-game", "telemetry")
+    texts = []
+    for d in (tel, os.path.join(tel, "workers", "proc-1")):
+        with open(os.path.join(d, "metrics.prom")) as f:
+            texts.append(f.read())
+    with open(os.path.join(tel, "metrics.aggregate.prom")) as f:
+        live = f.read()
+    assert live == aggregate_text(texts) == j_fold(texts)
+    offline = metrics_fold.fold_metrics(tel, os.path.join(
+        tel, "offline.prom"))
+    with open(offline) as f:
+        assert f.read() == live
+    # each rank's build info and its own RSS series, both in the fold
+    assert 'process="1"' in texts[1]
+    assert live.count("photon_build_info{") == 2
+    assert not os.path.exists(os.path.join(tel, "workers", "proc-1",
+                                           "metrics.aggregate.prom"))
+
+
+def test_train_game_merged_trace_nests(ranks, files):
+    """``trace.merged.jsonl`` (tools/metrics_fold.py over the ranks'
+    traces) is the port's ``merge_trace_files`` of them; each rank's spans
+    have one ``train_game`` root and nest inside their parents."""
+    from photon_ml_tpu_torch.telemetry.aggregate import merge_trace_files
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import metrics_fold
+
+    tel = os.path.join(files, "mp-game", "telemetry")
+    path = metrics_fold.fold_traces(tel)
+    with open(path) as f:
+        merged = [json.loads(line) for line in f]
+    assert merged == merge_trace_files(
+        [(0, os.path.join(tel, "trace.jsonl")),
+         (1, os.path.join(tel, "workers", "proc-1", "trace.jsonl"))])
+    spans = [r for r in merged if "t0" in r]
+    by_key = {(s["process"], s["span_id"]): s for s in spans}
+    for pid in (0, 1):
+        roots = [s["name"] for s in spans
+                 if s["process"] == pid and s["parent_id"] is None]
+        assert roots == ["train_game"], (pid, roots)
+    for s in spans:
+        parent = by_key.get((s["process"], s["parent_id"]))
+        if parent is not None:
+            assert parent["t0"] <= s["t0"] and s["t1"] <= parent["t1"]
+    stages = [{s["name"] for s in spans
+               if s["process"] == pid and s.get("kind") == "stage"}
+              for pid in (0, 1)]
+    assert "Train (grid, multi-process)" in stages[0] & stages[1]
 
 
 def test_train_game_chief_outputs(ranks, files):

@@ -335,12 +335,23 @@ def test_cold_users_score_their_fixed_effect(trained, tmp_path):
     ["--multihost"], ["--telemetry-dir", "t"], ["--telemetry-poll-s", "1"],
     ["--metrics-port", "9"]], ids=lambda e: e[0][2:])
 def test_score_game_unported_flag_names_itself(extra):
+    args = t_score.build_parser().parse_args(
+        ["--data", "d", "--model-dir", "m", "--output-dir", "o",
+         "--feature-shards", SHARDS] + extra)
     if extra[0] == "--multihost":
         # ported (tests/test_torch_multihost_cli.py runs it): it parses
-        assert t_score.build_parser().parse_args(
-            ["--data", "d", "--model-dir", "m", "--output-dir", "o",
-             "--feature-shards", SHARDS] + extra).multihost
+        assert args.multihost
         return
+    # the telemetry flags are ported (tests/test_torch_telemetry.py and
+    # tests/test_torch_multihost_cli.py run them): they parse into the
+    # telemetry configuration
+    from photon_ml_tpu_torch.cli.config import telemetry_from_args
+
+    config = telemetry_from_args(args)
+    assert extra[1] in (str(config.telemetry_dir),
+                        f"{config.poll_interval_s:g}",
+                        str(config.metrics_port))
+    return
     with pytest.raises(NotImplementedError, match=extra[0]):
         t_score.run(["--data", "d", "--model-dir", "m", "--output-dir", "o",
                      "--feature-shards", SHARDS] + extra)

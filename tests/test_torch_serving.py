@@ -596,6 +596,18 @@ def test_unported_serve_flag_names_itself(extra):
         assert [getattr(c, key) for c in configs if hasattr(c, key)] == \
             [want]
         return
+    if extra[0] in ("--telemetry-dir", "--telemetry-poll-s",
+                    "--metrics-port"):
+        # ported (tests/test_torch_telemetry.py serves with them): they
+        # parse into the telemetry configuration
+        from photon_ml_tpu_torch.cli.config import telemetry_from_args
+
+        config = telemetry_from_args(t_serve.build_parser().parse_args(
+            ["--model-dir", "m", "--feature-shards", SHARDS] + extra))
+        assert extra[1] in (str(config.telemetry_dir),
+                            f"{config.poll_interval_s:g}",
+                            str(config.metrics_port))
+        return
     with pytest.raises(NotImplementedError, match=extra[0]):
         t_serve.build_server(["--model-dir", "m", "--feature-shards", SHARDS,
                               "--device", "cpu"] + extra)
