@@ -259,6 +259,28 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    ``compile_count``, and a ``serving.request`` / ``serving.score`` span a
    request. (Phase 3's profiled second fit was cut to make room: the
    script's limit is 1,200 s.)
+18. the retained telemetry plane on phase 8's ``best/``, with seven
+   ``serve_game`` processes started first: (a) a manual flight dump of an
+   in-process ``serve_game --flight-dir``; one process with
+   ``--history-capacity --history-period-s 0.25 --flight-dir
+   --watchdog-timeout-s`` against one without, under batches and single
+   records from 4 threads while ``/history`` and ``/metrics`` are
+   scraped: the replies bit-identical, 11 captures before and after, the
+   ring's ``requests`` summing to the requests sent and its
+   ``duty_cycle`` in [0, 1]; a ``/reload`` its fault plan trips
+   (``serving.reload``) and SIGTERM each leave one whole dump, no
+   ``.tmp``, each rendered by ``tools/postmortem.py``; (b) a router with
+   the plane (``cli/serve_fleet.py::arm_router_plane``) over 4
+   ``serve_game --fleet-shard`` processes: its scores those of the host
+   without the plane, its newest ``/history?raw=1`` row the
+   ``tools/metrics_fold.py`` fold of its own newest snapshot and the
+   rings it scraped, a cool ``/advisor``; then over the same with shard 0
+   served by a host whose scoring calls a fault plan stalls 0.05 s:
+   shard 0 latched at exactly the third hand tick, and ``/advisor``'s
+   move list ``ShardMap.rebalanced``'s. The host's and the router's
+   p50/p99 with the plane print beside phase 16's. Phase 9 writes its
+   Avro with an encoder of its one record shape, held byte for byte
+   against the port's writer.
 
 ``python3 chip_smoke.py --mp-gap-seeds 0,1,2`` runs phase 15 (b) alone
 over seeds of phase 6's problem and prints its gaps.
@@ -1442,10 +1464,90 @@ def dense_csr(x, y):
     return indptr, c.astype(np.int32), x[r, c], y
 
 
-def write_glm_part(path, indptr, cols, vals, labels, first_uid):
+def _avro_long(n):
+    """Avro's zigzag varint of a non-negative ``n``."""
+    n <<= 1
+    out = bytearray()
+    while n > 0x7F:
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def write_glm_part(path, indptr, cols, vals, labels, first_uid, sync=None):
     """One TrainingExampleAvro file (null codec) of CSR rows: features
-    ``x{col}``, no offsets, weights or metadata. Runs in a worker
-    process."""
+    ``x{col}``, no offsets, weights or metadata. It encodes this one record
+    shape itself, byte for byte as ``data_reader.write_training_examples``
+    does (blocks of 4,096 records; :func:`write_glm_files` holds a part
+    against it): each block's features are gathered into one buffer with
+    numpy, and only the rows' heads are encoded in Python. Runs in a
+    worker process."""
+    import struct
+
+    from photon_ml_tpu_torch.io import avro
+    from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_AVRO
+
+    sync = os.urandom(avro.SYNC_SIZE) if sync is None else sync
+    cols = np.asarray(cols, np.int64)
+    indptr = np.asarray(indptr, np.int64)
+    # every column's encoded name and empty term, laid end to end
+    dim = int(cols.max()) + 1 if cols.size else 0
+    encoded = [_avro_long(len(raw)) + raw + b"\x00"
+               for raw in (f"x{c}".encode() for c in range(dim))]
+    name_len = np.fromiter(map(len, encoded), np.int64, dim)
+    name_off = np.cumsum(name_len) - name_len
+    table = np.frombuffer(b"".join(encoded), np.uint8)
+    value_bytes = np.ascontiguousarray(vals, "<f8").view(np.uint8).reshape(
+        -1, 8)
+    labels = labels.tolist()
+    with open(path, "wb") as f:
+        f.write(avro.MAGIC)
+        f.write(_avro_long(2))
+        for key, value in (
+                ("avro.schema",
+                 json.dumps(TRAINING_EXAMPLE_AVRO).encode()),
+                ("avro.codec", b"null")):
+            f.write(_avro_long(len(key)) + key.encode())
+            f.write(_avro_long(len(value)) + value)
+        f.write(b"\x00" + sync)
+        for lo in range(0, len(labels), 4096):
+            hi = min(lo + 4096, len(labels))
+            a0, b0 = int(indptr[lo]), int(indptr[hi])
+            c = cols[a0:b0]
+            lens = name_len[c]
+            width = lens + 8
+            ends = np.cumsum(width)
+            starts = ends - width
+            buf = np.empty(int(ends[-1]) if c.size else 0, np.uint8)
+            # each feature's name and term, then its value
+            within = np.arange(int(lens.sum())) - np.repeat(
+                np.cumsum(lens) - lens, lens)
+            buf[np.repeat(starts, lens) + within] = table[
+                np.repeat(name_off[c], lens) + within]
+            buf[(starts + lens)[:, None] + np.arange(8)] = value_bytes[a0:b0]
+            feats = buf.tobytes()
+            row_at = np.concatenate([[0], ends])[indptr[lo:hi + 1] - a0]
+            parts = []
+            for j in range(lo, hi):
+                uid = str(first_uid + j).encode()
+                n = int(indptr[j + 1] - indptr[j])
+                # uid (union branch 1), response, null offset and weight,
+                # the features, their end and an empty metadata map
+                parts.append(b"\x02" + _avro_long(len(uid)) + uid
+                             + struct.pack("<d", labels[j]) + b"\x00\x00"
+                             + (_avro_long(n) if n else b"")
+                             + feats[row_at[j - lo]:row_at[j - lo + 1]]
+                             + b"\x00\x02\x00")
+            payload = b"".join(parts)
+            f.write(_avro_long(hi - lo) + _avro_long(len(payload)))
+            f.write(payload + sync)
+    return os.path.getsize(path)
+
+
+def write_glm_part_plain(path, indptr, cols, vals, labels, first_uid,
+                         sync=None):
+    """:func:`write_glm_part` through the port's generic Avro writer."""
     from photon_ml_tpu_torch.io import data_reader
 
     cols, vals = cols.tolist(), vals.tolist()
@@ -1460,8 +1562,13 @@ def write_glm_part(path, indptr, cols, vals, labels, first_uid):
                                 for c, v in zip(cols[a:b], vals[a:b])],
                    "metadataMap": {}}
 
-    data_reader.write_training_examples(path, records(), codec="null")
+    data_reader.write_training_examples(path, records(), codec="null",
+                                        sync=sync)
     return os.path.getsize(path)
+
+
+#: rows of each set that write_glm_files encodes with both writers
+GLM_WRITE_CHECK_ROWS = 100
 
 
 def write_glm_files(root, sets, parts=4):
@@ -1488,6 +1595,21 @@ def write_glm_files(root, sets, parts=4):
             max_workers=workers,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         sizes = list(pool.map(write_glm_part, *zip(*jobs)))
+    # the encoder against the port's generic writer: each set's first
+    # GLM_WRITE_CHECK_ROWS rows, one sync marker, the same bytes
+    sync = bytes(range(16))
+    check = os.path.join(root, "write_check.avro")
+    for name, (indptr, cols, vals, labels) in sets.items():
+        n = min(GLM_WRITE_CHECK_ROWS, len(labels))
+        cut = (indptr[:n + 1], cols[:indptr[n]], vals[:indptr[n]],
+               labels[:n], 0)
+        encoded = []
+        for writer in (write_glm_part, write_glm_part_plain):
+            writer(check, *cut, sync=sync)
+            with open(check, "rb") as f:
+                encoded.append(f.read())
+        assert encoded[0] == encoded[1], f"{name}: the encoder's bytes differ"
+    os.remove(check)
     return paths, sum(sizes), sum(len(s[3]) for s in sets.values())
 
 
@@ -4711,9 +4833,10 @@ def fleet_latency(url, records):
     return float(p50), float(p99), len(lat)
 
 
-def spawn_servers(commands):
+def spawn_servers(commands, envs=None):
     """Start one ``python -m photon_ml_tpu_torch`` server process for each
-    argument list in ``commands`` (each binding port 0). Returns the
+    argument list in ``commands`` (each binding port 0; ``envs``, where
+    given, adds variables to each one's environment). Returns the
     processes and a function that waits for their URLs, read from the line
     each prints once it serves, and the seconds each took to get there.
     The caller stops the processes."""
@@ -4726,8 +4849,9 @@ def spawn_servers(commands):
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen(
         [sys.executable, "-m", "photon_ml_tpu_torch", *argv], cwd=root,
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
-        text=True) for argv in commands]
+        env={**env, **(envs[i] if envs else {})}, stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+        for i, argv in enumerate(commands)]
     urls, ready = [None] * len(procs), [None] * len(procs)
 
     def read_url(i):
@@ -4900,7 +5024,7 @@ def reshard_phase(fleet, records):
 def run_fleet_phase(e2e_run, records, tmp, card, device="cuda"):
     """Phase 16 on phase 8's run, phase 10's records and phase 11's day-2
     data; returns the kernels' launches of ``refresh_game --fleet-shards``
-    (d). The processes of (g) (``serve_game --fleet-shard``) and of the
+    (d) and (g)'s latencies {setup: (p50, p99, requests)}. The processes of (g) (``serve_game --fleet-shard``) and of the
     quantized fleets (``serve_fleet --table-dtype``) start first and load
     while the in-process fleets run."""
     t_start = time.perf_counter()
@@ -4922,15 +5046,15 @@ def run_fleet_phase(e2e_run, records, tmp, card, device="cuda"):
             "--rank-item-coordinate", "perSong", "--rank-max-k", "8"]
            for dtype in quantized])
     try:
-        launches = _fleet_phase(e2e_run, records, tmp, card, device,
-                                quantized, watch, wait_urls)
+        launches, lat = _fleet_phase(e2e_run, records, tmp, card, device,
+                                     quantized, watch, wait_urls)
     finally:
         for p in procs:
             p.terminate()
         for p in procs:
             p.wait(timeout=60)
     log(f"[16] done in {time.perf_counter() - t_start:.1f} s")
-    return launches
+    return launches, lat
 
 
 def _fleet_phase(e2e_run, records, tmp, card, device, quantized, watch,
@@ -5165,7 +5289,7 @@ def _fleet_phase(e2e_run, records, tmp, card, device, quantized, watch,
 
     # (f) replica groups ---------------------------------------------------
     replica_phase(rank_run, records, device)
-    return launches
+    return launches, lat
 
 
 # --------------------------------------------------------------------------
@@ -5209,18 +5333,21 @@ def check_span_tree(label, spans, root):
             assert p["t0"] <= s["t0"] and s["t1"] <= p["t1"], (label, s, p)
 
 
-def scrape_while(url, fn):
-    """``fn()`` while a thread scrapes ``url`` every SCRAPE_PERIOD_S:
-    (fn's result, the successful scrapes' texts)."""
+def scrape_while(url, fn, also=(), period_s=None):
+    """``fn()`` while a thread scrapes ``url`` (then each URL of ``also``,
+    in turns) every ``period_s`` (SCRAPE_PERIOD_S): (fn's result, the
+    successful scrapes' texts)."""
+    import itertools
     import threading
     import urllib.request
 
     texts, stop = [], threading.Event()
+    urls = itertools.cycle((url, *also))
 
     def loop():
-        while not stop.wait(SCRAPE_PERIOD_S):
+        while not stop.wait(period_s or SCRAPE_PERIOD_S):
             try:
-                with urllib.request.urlopen(url, timeout=5) as resp:
+                with urllib.request.urlopen(next(urls), timeout=5) as resp:
                     if resp.status == 200:
                         texts.append(resp.read().decode())
             except OSError:
@@ -5536,6 +5663,400 @@ def run_telemetry_phase(tg, e2e_run, phase8_launches, glm_dir, glm_paths,
     log(f"[17] done in {time.perf_counter() - t0:.1f} s")
     return launches
 
+
+
+# --------------------------------------------------------------------------
+# phase 18: the retained telemetry plane
+# --------------------------------------------------------------------------
+
+#: (a) the plane's host: the ring's period and capacity (the ring holds the
+#: host's whole life at this period, so its requests series sums to every
+#: request the host answered) and the stall watchdog's timeout
+RETAINED_PERIOD_S = 0.25
+RETAINED_CAPACITY = 4_096
+RETAINED_WATCHDOG_S = 120.0
+#: (a) the requests: batches of these sizes, then single records sent by
+#: RETAINED_CLIENTS threads
+RETAINED_BATCHES = (1, 3, 17, 64, 250, 900)
+RETAINED_SINGLES = 120
+RETAINED_CLIENTS = 4
+#: (a) the period of the /history and /metrics scrapes during the requests
+RETAINED_SCRAPE_S = 0.05
+#: (b) the stall a fault plan adds to every scoring call of one shard-0 host
+HOT_STALL_S = 0.05
+#: (b) requests through the router between two hand ticks, records each
+HOT_REQUESTS = 6
+HOT_RECORDS = 64
+
+
+def fault_plan_env(*specs):
+    """The environment that arms a fault plan in a server process."""
+    return {"PHOTON_FAULT_PLAN": json.dumps({"seed": 0,
+                                             "specs": list(specs)})}
+
+
+def flight_dumps(d):
+    """The published dumps in ``d``: {name: (header, records)}. Each must
+    be whole: every line JSON, the header's ``retained`` = its records."""
+    out = {}
+    for name in sorted(os.listdir(d)) if os.path.isdir(d) else ():
+        if not name.endswith(".jsonl"):
+            continue
+        with open(os.path.join(d, name)) as f:
+            lines = [json.loads(line) for line in f]
+        header, records = lines[0], lines[1:]
+        assert header["kind"] == "flight_header", (name, header)
+        assert header["retained"] == len(records), (name, header)
+        out[name] = (header, records)
+    return out
+
+
+def wait_dump(d, known, timeout_s=60):
+    """The name and header of the first dump in ``d`` not in ``known``."""
+    limit = time.perf_counter() + timeout_s
+    while True:
+        dumps = flight_dumps(d)
+        new = sorted(set(dumps) - set(known))
+        if new:
+            return new[0], dumps[new[0]][0]
+        if time.perf_counter() > limit:
+            raise TimeoutError(f"no new flight dump in {d}: {sorted(dumps)}")
+        time.sleep(0.05)
+
+
+def postmortem_page(path):
+    """``tools/postmortem.py`` on one dump, as an operator runs it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", "postmortem.py"), path],
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("== photon flight postmortem =="), \
+        out.stdout[:200]
+    return out.stdout
+
+
+def retained_manual_dump(run, records, tmp, device):
+    """(a) in this process: serve_game with --flight-dir, a few requests
+    and a ring tick, then a manual dump, rendered by tools/postmortem.py."""
+    from photon_ml_tpu_torch.cli import serve_game
+
+    d = os.path.join(tmp, "flight_manual")
+    t0 = time.perf_counter()
+    server = serve_game.build_server(
+        ["--model-dir", run, "--feature-shards", E2E_SHARDS, "--port", "0",
+         "--device", device, "--no-warmup", "--flight-dir", d]).start()
+    try:
+        for k in range(4):
+            status, body, _ = fleet_request(
+                server.url, "POST", "/score",
+                {"records": records[8 * k:8 * k + 8]})
+            assert status == 200, body
+        server.history.sample()
+        path = server.flight.dump("manual")
+    finally:
+        server.stop()
+        server.telemetry.close()
+    dumps = flight_dumps(d)
+    assert sorted(os.listdir(d)) == [os.path.basename(path)]
+    header, recs = dumps[os.path.basename(path)]
+    assert header["reason"] == "manual" and header["source"] == "host"
+    kinds = {r["kind"] for r in recs}
+    assert {"span", "history"} <= kinds, kinds
+    page = postmortem_page(path)
+    assert "reason: manual" in page and "serving.score" in page, page[:800]
+    log(f"[18a] in-process serve_game --flight-dir: a manual dump of "
+        f"{len(recs)} records ({', '.join(sorted(kinds))}), rendered by "
+        f"tools/postmortem.py ({time.perf_counter() - t0:.2f} s)")
+
+
+def retained_host(proc, url, bare_url, records, run, flight_dir):
+    """(a) against the plane's host process (its fault plan trips
+    ``serving.reload``) and a host without the plane. Returns the plane
+    host's latency (p50, p99, requests)."""
+    import threading
+    import urllib.request
+
+    from photon_ml_tpu_torch.serving.engine import SCORING_FN_LABEL
+    from photon_ml_tpu_torch.telemetry.prometheus import parse_text
+
+    def builds():
+        _, health, _ = fleet_request(url, "GET", "/healthz")
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as resp:
+            text = resp.read().decode()
+        return (health["compiles"],
+                sum(series(parse_text(text), "photon_compiles_total",
+                           fn=SCORING_FN_LABEL)))
+
+    batches, lo = [], 0
+    for n in RETAINED_BATCHES:
+        batches.append(records[lo:lo + n])
+        lo += n
+    singles = records[lo:lo + RETAINED_SINGLES]
+
+    def send(u):
+        replies = [None] * (len(batches) + len(singles))
+        for i, b in enumerate(batches):
+            status, body, _ = fleet_request(u, "POST", "/score",
+                                            {"records": b})
+            assert status == 200, body
+            replies[i] = body["scores"]
+
+        def client(t):
+            for j in range(t, len(singles), RETAINED_CLIENTS):
+                status, body, _ = fleet_request(
+                    u, "POST", "/score", {"record": singles[j]})
+                if status == 200:
+                    replies[len(batches) + j] = body["scores"]
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(RETAINED_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        assert None not in replies, "a single-record request failed"
+        return replies
+
+    before = builds()
+    assert before == (ENGINE_CAPTURES, ENGINE_CAPTURES), before
+    t0 = time.perf_counter()
+    replies, scrapes = scrape_while(url + "/history", lambda: send(url),
+                                    also=(url + "/metrics",),
+                                    period_s=RETAINED_SCRAPE_S)
+    traffic_s = time.perf_counter() - t0
+    bare = send(bare_url)
+    sent = len(replies)
+    differ = sum(a != b for a, b in zip(replies, bare))
+    after = builds()
+    log(f"[18a] serve_game --history-capacity {RETAINED_CAPACITY} "
+        f"--history-period-s {RETAINED_PERIOD_S:g} --flight-dir "
+        f"--watchdog-timeout-s {RETAINED_WATCHDOG_S:g} (a process): {sent} "
+        f"requests ({sum(map(len, batches))} records in "
+        f"{len(batches)} batches, {len(singles)} singles from "
+        f"{RETAINED_CLIENTS} threads) in {traffic_s:.2f} s under "
+        f"{len(scrapes)} interleaved /history and /metrics scrapes; "
+        f"{differ} replies differ from a host without the plane; captures "
+        f"(/healthz, photon_compiles_total) {before} before, {after} after")
+    kinds = {"history" if t.startswith("{") else "metrics" for t in scrapes}
+    assert kinds == {"history", "metrics"}, (len(scrapes), kinds)
+    assert differ == 0, differ
+    assert after == before, (before, after)
+
+    # the ring: every request it saw, in ticks on its own thread
+    limit = time.perf_counter() + 30
+    while True:
+        _, hist, _ = fleet_request(url, "GET",
+                                   "/history?series=requests,duty_cycle")
+        rows = hist["snapshots"]
+        total = sum(r["series"]["requests"] for r in rows)
+        if total >= sent or time.perf_counter() > limit:
+            break
+        time.sleep(RETAINED_PERIOD_S)
+    duty = [r["series"]["duty_cycle"] for r in rows]
+    log(f"  the ring: {len(rows)} ticks (first {rows[0]['tick']}), "
+        f"requests summed {total:g} of {sent}; duty_cycle max "
+        f"{max(duty):.4f}, mean {sum(duty) / len(duty):.4f}")
+    assert rows[0]["tick"] == 1, "the ring wrapped"
+    assert total == sent, (total, sent)
+    assert all(0.0 <= v <= 1.0 for v in duty), (min(duty), max(duty))
+    assert max(duty) > 0.0, "the execute stage never showed in the ring"
+    lat = fleet_latency(url, records)
+
+    # the fault-site trip and SIGTERM: one whole dump each
+    status, body, _ = fleet_request(url, "POST", "/reload",
+                                    {"model_dir": run})
+    assert status == 409 and "InjectedFault" in body["error"], body
+    name, header = wait_dump(flight_dir, ())
+    assert header["reason"] == "fault_site", header
+    proc.terminate()
+    rc = proc.wait(timeout=60)
+    name2, header2 = wait_dump(flight_dir, (name,))
+    assert header2["reason"] == "sigterm", header2
+    assert rc == 128 + 15, rc
+    left = sorted(os.listdir(flight_dir))
+    assert left == sorted([name, name2]), left  # no .tmp, nothing else
+    pages = [postmortem_page(os.path.join(flight_dir, n))
+             for n in (name, name2)]
+    assert "reason: fault_site" in pages[0], pages[0][:400]
+    assert "reason: sigterm" in pages[1], pages[1][:400]
+    log(f"  a faulted /reload (serving.reload): {status}, dump "
+        f"{header['retained']} records; SIGTERM: exit {rc}, dump "
+        f"{header2['retained']} records; both whole, no .tmp, both "
+        "rendered by tools/postmortem.py")
+    return lat
+
+
+def retained_fleet(host_urls, hot_url, bare_url, records, tmp, card,
+                   fleet_walls, host_lat):
+    """(b) routers in this process, with the plane, over the shard host
+    processes: the fold of the rings, the hot shard, the scores."""
+    from photon_ml_tpu_torch.cli.config import RetainedConfig
+    from photon_ml_tpu_torch.cli.serve_fleet import arm_router_plane
+    from photon_ml_tpu_torch.fleet.observe import fold_fleet_snapshots
+    from photon_ml_tpu_torch.fleet.router import FleetRouter, RouterServer
+    from photon_ml_tpu_torch.telemetry.aggregate import aggregate_text
+
+    check = records[:FLEET_CHECK_RECORDS]
+    want, _ = fleet_scores(bare_url, check)
+    flight = os.path.join(tmp, "flight_fleet")
+    router = FleetRouter(host_urls)
+    plane = arm_router_plane(router, RetainedConfig(
+        history_capacity=64, flight_dir=flight))
+    server = RouterServer(router).start()
+    try:
+        got, merged = fleet_scores(server.url, check)
+        mismatch = int(np.count_nonzero(got != want))
+        for k in range(plane.advisor.sustain_ticks):
+            fleet_scores(server.url, records[k * 500:(k + 1) * 500])
+            plane.history.sample()
+        _, cool, _ = fleet_request(server.url, "GET", "/advisor")
+        # the router's newest /history row against the metrics_fold
+        # layout of the rings it folded: the router's ring as the root
+        # metrics.prom, each host's newest snapshot under hosts/
+        seen = {}
+        scrape = router.observer.scrape_history
+
+        def recorded():
+            seen["rings"] = scrape()
+            return seen["rings"]
+
+        router.observer.scrape_history = recorded
+        status, body, _ = fleet_request(server.url, "GET",
+                                        "/history?raw=1&window=1")
+        assert status == 200, body
+        newest = body["snapshots"][-1]
+        rings = seen["rings"]
+        root = plane.history.snapshots()[-1]
+        folded = fold_fleet_snapshots(
+            aggregate_text([root["prom"]]),
+            [(s, r, ring[-1]["prom"]) for s, r, ring in rings])
+        lat = fleet_latency(server.url, records)
+        dump = plane.flight.dump("manual")
+        page = postmortem_page(dump)
+    finally:
+        plane.close()
+        server.stop()
+    log(f"[18b] a router with the plane over the {FLEET_SHARDS} shard "
+        f"processes: {len(check)} scores, {merged} crossing shards, "
+        f"{mismatch} off a host without the plane; after "
+        f"{plane.advisor.sustain_ticks} cool hand ticks /advisor hot "
+        f"{cool['hot']}, recommendation {cool['recommendation']}; newest "
+        f"/history?raw=1 row (tick {newest['tick']}, "
+        f"{len(newest['prom'])} bytes) "
+        + ("equals" if newest["prom"] == folded else "DIFFERS from")
+        + f" the metrics_fold layout of the {len(rings)} rings "
+        f"(host ring lengths {[len(ring) for _, _, ring in rings]}); the "
+        f"fleet's manual dump rendered ({len(page)} bytes)")
+    assert mismatch == 0, mismatch
+    assert cool["hot"] == [] and cool["recommendation"] is None, cool
+    assert cool["ticks"] == plane.advisor.sustain_ticks, cool
+    assert [(s, r) for s, r, _ in rings] == [
+        (s, 0) for s in range(FLEET_SHARDS)], rings
+    assert newest["tick"] == root["tick"], (newest["tick"], root["tick"])
+    assert newest["prom"] == folded, "the fold differs from metrics_fold's"
+    assert "source: fleet" in page and "fleet.request" in page, page[:800]
+
+    # the hot shard: shard 0 served by the host whose scoring calls stall
+    hot = FleetRouter([hot_url] + list(host_urls[1:]))
+    hot_plane = arm_router_plane(hot, RetainedConfig(history_capacity=64))
+    hot_server = RouterServer(hot).start()
+    try:
+        ticks = []
+        for k in range(hot_plane.advisor.sustain_ticks):
+            for j in range(HOT_REQUESTS):
+                lo = (k * HOT_REQUESTS + j) * HOT_RECORDS
+                status, body, _ = fleet_request(
+                    hot_server.url, "POST", "/score",
+                    {"records": records[lo:lo + HOT_RECORDS]})
+                assert status == 200, body
+            snap = hot_plane.history.sample()
+            state = hot_plane.advisor.status()
+            ticks.append((state["hot"], {
+                s: v["skew"] for s, v in state["shards"].items()},
+                snap["series"]["shard_p99"]))
+        _, advice, _ = fleet_request(hot_server.url, "GET", "/advisor")
+        smap = hot.shard_map
+        target = smap.rebalanced(FLEET_SHARDS + 1)
+        moves = {str(b): target.buckets[b]
+                 for b in sorted(smap.moved_buckets(target))}
+        got_hot, _ = fleet_scores(hot_server.url, check[:1_000])
+    finally:
+        hot_plane.close()
+        hot_server.stop()
+    rec = advice["recommendation"]
+    log(f"[18b] shard 0 served by a host that stalls {HOT_STALL_S:g} s a "
+        f"scoring call (a fault plan): {HOT_REQUESTS} requests of "
+        f"{HOT_RECORDS} records between hand ticks; hot set, skew and "
+        "shard p99 (s) by tick: "
+        + "; ".join(f"{h} {sk} {p99}" for h, sk, p99 in ticks)
+        + f"; /advisor recommends {rec and rec['n_moves']} bucket moves to "
+        f"{rec and rec['n_shards']} shards, ShardMap.rebalanced "
+        f"{len(moves)}")
+    for k, (hot_set, _, _) in enumerate(ticks[:-1]):
+        assert 0 not in hot_set, (k + 1, ticks)
+    assert 0 in ticks[-1][0], ticks
+    assert 0 in advice["hot"] and advice["detections"] >= 1, advice
+    assert rec["n_shards"] == FLEET_SHARDS + 1, rec
+    assert rec["moves"] == moves and rec["n_moves"] == len(moves), rec
+    assert np.array_equal(got_hot, want[:len(got_hot)]), "hot fleet scores"
+    log(f"[18] walls ({card}), {FLEET_CLIENTS} clients x {FLEET_RATE} "
+        f"single-record /score a second for {FLEET_LOAD_S:g} s: with the "
+        f"plane, one host p50 {host_lat[0]:.2f} ms, p99 {host_lat[1]:.2f} "
+        f"ms; the router over host processes p50 {lat[0]:.2f} ms, p99 "
+        f"{lat[1]:.2f} ms; phase 16 (no plane): "
+        + "; ".join(f"{k} p50 {v[0]:.2f} ms, p99 {v[1]:.2f} ms"
+                    for k, v in fleet_walls.items()))
+
+
+def run_retained_phase(e2e_run, records, tmp, card, fleet_walls,
+                       device="cuda"):
+    """Phase 18 on phase 8's run and phase 10's records. Its server
+    processes start first and load while (a)'s in-process server makes a
+    manual dump: the plane's host (its fault plan trips
+    ``serving.reload``), a host without the plane, the 4 shard hosts of
+    (b) and one more shard-0 host whose scoring calls stall."""
+    t_start = time.perf_counter()
+    run = e2e_run["run"]
+    base = ["--model-dir", run, "--feature-shards", E2E_SHARDS, "--port",
+            "0", "--device", device]
+    flight_dir = os.path.join(tmp, "flight_host")
+    plane = ["--history-capacity", str(RETAINED_CAPACITY),
+             "--history-period-s", str(RETAINED_PERIOD_S),
+             "--flight-dir", flight_dir,
+             "--watchdog-timeout-s", str(RETAINED_WATCHDOG_S)]
+
+    def shard(i):
+        return ["--fleet-shard", str(i), "--fleet-shard-count",
+                str(FLEET_SHARDS), "--history-period-s",
+                str(RETAINED_PERIOD_S)]
+
+    commands = ([["serve_game", *base, *plane], ["serve_game", *base]]
+                + [["serve_game", *base, *shard(i)]
+                   for i in range(FLEET_SHARDS)]
+                + [["serve_game", *base, *shard(0)]])
+    envs = ([fault_plan_env({"site": "serving.reload", "at": [0]}), {}]
+            + [{}] * FLEET_SHARDS
+            + [fault_plan_env({"site": "serving.execute", "rate": 1.0,
+                               "mode": "stall",
+                               "stall_seconds": HOT_STALL_S})])
+    procs, wait_urls = spawn_servers(commands, envs)
+    try:
+        retained_manual_dump(run, records, tmp, device)
+        urls, ready = wait_urls()
+        log(f"[18] {len(procs)} serve_game processes up in "
+            f"{max(ready):.2f} s (in the background)")
+        host_lat = retained_host(procs[0], urls[0], urls[1], records, run,
+                                 flight_dir)
+        retained_fleet(urls[2:2 + FLEET_SHARDS], urls[-1], urls[1],
+                       records, tmp, card, fleet_walls, host_lat)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            p.wait(timeout=60)
+    log(f"[18] done in {time.perf_counter() - t_start:.1f} s")
 
 
 def main() -> int:
@@ -5895,12 +6416,19 @@ def main() -> int:
             e2e_tmp)
 
         # 16. the entity-sharded serving fleet ------------------------------
-        fleet_launches = run_fleet_phase(e2e_run, records, e2e_tmp, card)
+        fleet_launches, fleet_walls = run_fleet_phase(e2e_run, records,
+                                                      e2e_tmp, card)
 
         # 17. the live telemetry plane --------------------------------------
         telemetry_launches = run_telemetry_phase(
             tg, e2e_run, cli_launches, os.path.join(e2e_tmp, "glm"),
             glm_paths, records, e2e_tmp)
+
+        # 18. the retained telemetry plane ----------------------------------
+        _, _, retained_launches = counted_call(
+            run_retained_phase, e2e_run, records, e2e_tmp, card, fleet_walls)
+        log(f"[18] kernel launches {retained_launches}")
+        assert not any(retained_launches.values()), retained_launches
     finally:
         shutil.rmtree(e2e_tmp, ignore_errors=True)
 
@@ -5934,6 +6462,7 @@ def main() -> int:
              multihost=dict(launches=multihost("fused_glm")),
              fleet=dict(launches=fleet_launches["fused_glm"]),
              telemetry=dict(launches=telemetry("fused_glm")),
+             retained=dict(launches=retained_launches["fused_glm"]),
              glm_path=dict(launches=glm_launches["tron"]["fused_glm"],
                            **t1_glm),
              glm_small=dict(launches=runs["cuda"]["tron"][3]["fused_glm"],
@@ -5951,7 +6480,8 @@ def main() -> int:
              quality=dict(launches=quality_launches["fused_re"]),
              multihost=dict(launches=multihost("fused_re")),
              fleet=dict(launches=fleet_launches["fused_re"]),
-             telemetry=dict(launches=telemetry("fused_re"))),
+             telemetry=dict(launches=telemetry("fused_re")),
+             retained=dict(launches=retained_launches["fused_re"])),
         dict(name="fused_hvp", route="cuda", status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_hvp.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:447",
@@ -5965,7 +6495,8 @@ def main() -> int:
              quality=dict(launches=quality_launches["fused_hvp"]),
              multihost=dict(launches=multihost("fused_hvp")),
              fleet=dict(launches=fleet_launches["fused_hvp"]),
-             telemetry=dict(launches=telemetry("fused_hvp"))),
+             telemetry=dict(launches=telemetry("fused_hvp")),
+             retained=dict(launches=retained_launches["fused_hvp"])),
         dict(name="fused_value_and_grad_multi", route="cuda",
              status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_glm_multi.cu",
@@ -5977,7 +6508,8 @@ def main() -> int:
              options=dict(launches=options("fused_glm_multi")),
              quality=dict(launches=quality_launches["fused_glm_multi"]),
              fleet=dict(launches=fleet_launches["fused_glm_multi"]),
-             telemetry=dict(launches=telemetry("fused_glm_multi"))),
+             telemetry=dict(launches=telemetry("fused_glm_multi")),
+             retained=dict(launches=retained_launches["fused_glm_multi"])),
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"):

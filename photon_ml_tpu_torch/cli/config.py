@@ -31,9 +31,10 @@ the supervision flags live beside the supervisor
 so is the fleet router's group (:class:`RouterConfig`,
 :func:`add_router_flags`, serve_fleet's), and the telemetry group
 (:class:`TelemetryConfig`, :func:`add_telemetry_flags`,
-:func:`install_telemetry`). The retained-telemetry and autopilot flags are
-not: :func:`add_unported_flags` lets a command accept such flags and
-:func:`refuse_unported` raise naming them.
+:func:`install_telemetry`) with serve_game's and serve_fleet's retained
+group (:class:`RetainedConfig`, :func:`add_retained_flags`). The autopilot
+flag is not: :func:`add_unported_flags` lets a command accept such flags
+and :func:`refuse_unported` raise naming them.
 """
 
 from __future__ import annotations
@@ -422,6 +423,110 @@ class DriverTelemetry:
             self._bus.post("training_finished", driver=self.driver)
             self._training = False
         self.session.close()
+
+
+# ---------------------------------------------------------------------------
+# Retained-telemetry configuration (serve_game and serve_fleet)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RetainedConfig:
+    """The serving mains' retained-telemetry knobs (history ring +
+    black-box flight recorder), round-trippable through a JSON config
+    file like :class:`TelemetryConfig`.
+
+    The history sampler is ALWAYS armed on a serving host (a ring of
+    ``history_capacity`` snapshots behind ``GET /history``);
+    ``history_period_s`` (0 = manual ticks only, what tests drive)
+    starts the periodic sampler thread. ``flight_dir`` (None = disabled)
+    arms the flight recorder: the last ``flight_capacity`` spans/events/
+    logs/history snapshots, dumped atomically to ``flight-<ts>.jsonl``
+    on fault-site trip, unhandled exception, SIGTERM and watchdog stall
+    (``watchdog_timeout_s`` > 0 arms the in-process stall watchdog,
+    petted by history samples).
+    """
+
+    history_capacity: int = 240
+    history_period_s: float = 0.0
+    flight_dir: Optional[str] = None
+    flight_capacity: int = 512
+    watchdog_timeout_s: float = 0.0
+
+    def __post_init__(self):
+        if self.history_capacity <= 0:
+            raise ValueError(f"history_capacity must be > 0, "
+                             f"got {self.history_capacity}")
+        if self.history_period_s < 0:
+            raise ValueError(f"history_period_s must be >= 0, "
+                             f"got {self.history_period_s}")
+        if self.flight_capacity <= 0:
+            raise ValueError(f"flight_capacity must be > 0, "
+                             f"got {self.flight_capacity}")
+        if self.watchdog_timeout_s < 0:
+            raise ValueError(f"watchdog_timeout_s must be >= 0, "
+                             f"got {self.watchdog_timeout_s}")
+
+    # --- config-file round-trip ------------------------------------------
+    def as_dict(self) -> dict:
+        return {"historyCapacity": self.history_capacity,
+                "historyPeriodS": self.history_period_s,
+                "flightDir": self.flight_dir,
+                "flightCapacity": self.flight_capacity,
+                "watchdogTimeoutS": self.watchdog_timeout_s}
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "RetainedConfig":
+        return cls(
+            history_capacity=int(d.get("historyCapacity", 240)),
+            history_period_s=float(d.get("historyPeriodS", 0.0)),
+            flight_dir=d.get("flightDir"),
+            flight_capacity=int(d.get("flightCapacity", 512)),
+            watchdog_timeout_s=float(d.get("watchdogTimeoutS", 0.0)))
+
+
+def add_retained_flags(parser) -> None:
+    """The retained-telemetry flags (serve_game, serve_fleet)."""
+    parser.add_argument(
+        "--history-capacity", type=int, default=240,
+        help="snapshots retained by the on-host telemetry history ring "
+             "served from GET /history (closed series vocabulary: "
+             "requests, shed_rate, hedge_rate, shard p50/p99, compiles, "
+             "...). The ring is always armed; this bounds its memory")
+    parser.add_argument(
+        "--history-period-s", type=float, default=0.0,
+        help="period of the history sampler thread (seconds; 0 = no "
+             "thread, snapshots only on demand — tests drive the "
+             "injectable tick directly). Each snapshot derives the "
+             "interval's series from the watched registry subset")
+    parser.add_argument(
+        "--flight-dir", default=None,
+        help="arm the black-box flight recorder: keep the last "
+             "--flight-capacity span/event/log/history records in a "
+             "preallocated ring and dump them ATOMICALLY to "
+             "flight-<ts>.jsonl in this directory on fault-site trip, "
+             "unhandled exception, SIGTERM, or watchdog stall "
+             "(tools/postmortem.py renders the incident report). "
+             "Default: off")
+    parser.add_argument(
+        "--flight-capacity", type=int, default=512,
+        help="flight-recorder ring capacity (records)")
+    parser.add_argument(
+        "--watchdog-timeout-s", type=float, default=0.0,
+        help="with --flight-dir and --history-period-s > 0: dump a "
+             "watchdog_stall flight record when history sampling stops "
+             "making progress for this long (seconds; 0 disables). The "
+             "fleet supervisor's heartbeat-stall detection triggers the "
+             "same dump class out-of-process")
+
+
+def retained_from_args(args) -> RetainedConfig:
+    return RetainedConfig(
+        history_capacity=args.history_capacity,
+        history_period_s=args.history_period_s,
+        flight_dir=args.flight_dir,
+        flight_capacity=args.flight_capacity,
+        watchdog_timeout_s=args.watchdog_timeout_s)
 
 
 # ---------------------------------------------------------------------------

@@ -24,41 +24,45 @@ keeps them: each machine degrades on its own pressure); the router's
 fanned out per shard. ``--telemetry-dir`` writes the router's and the
 hosts' spans (``fleet.*``, ``serving.*``) to one ``trace.jsonl``, and
 ``--telemetry-poll-s`` / ``--metrics-port`` work as in the other commands.
-Flags of the reference that the port does not run yet (the autopilot and
-the retained telemetry) are accepted by the parser and raise
-:class:`NotImplementedError` naming the flag when given away from their
-default; the router answers ``/history`` and ``/advisor`` with 501.
+The retained plane (:func:`arm_router_plane`): every host keeps its own
+``/history`` ring (``--history-capacity``, ``--history-period-s``); the
+router keeps one more, whose snapshots carry the shard heat and the USE
+gauges of its two executors, folds the hosts' rings into the fleet
+timeline behind its ``/history``, and ticks the read-only hot-shard
+advisor behind ``/advisor`` off each snapshot. ``--flight-dir`` arms one
+black box for the fleet's process. The reference's ``--autopilot-config``
+is accepted by the parser and raises :class:`NotImplementedError` naming
+itself when given.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import sys
 from typing import Optional, Sequence
 
 from photon_ml_tpu_torch.cli.config import (
+    RetainedConfig,
+    add_retained_flags,
     add_router_flags,
     add_telemetry_flags,
     add_unported_flags,
     install_telemetry,
     refuse_unported,
+    retained_from_args,
     router_from_args,
     telemetry_from_args,
 )
 
 logger = logging.getLogger(__name__)
 
-#: the reference's flags this command does not run yet (the autopilot and
-#: the retained-telemetry plane), with their reference defaults
+#: the reference's flags this command does not run yet (the autopilot),
+#: with their reference defaults
 _UNPORTED_FLAGS = {
     "--autopilot-config": {"default": None},
-    "--history-capacity": {"type": int, "default": 240},
-    "--history-period-s": {"type": float, "default": 0.0},
-    "--flight-dir": {"default": None},
-    "--flight-capacity": {"type": int, "default": 512},
-    "--watchdog-timeout-s": {"type": float, "default": 0.0},
 }
 
 
@@ -125,22 +129,111 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-connections", type=int, default=0, metavar="N",
                    help="connection budget of each serving host (0 = "
                         "unlimited; serve_game --max-connections)")
+    add_retained_flags(p)
     add_router_flags(p)
     add_unported_flags(p, _UNPORTED_FLAGS)
     add_telemetry_flags(p)
     return p
 
 
+@dataclasses.dataclass
+class RouterPlane:
+    """The router's retained plane (:func:`arm_router_plane`)."""
+
+    history: object  # HistorySampler, source "router"
+    saturation: object  # SaturationSampler over the two executors
+    advisor: object  # HotShardAdvisor (GET /advisor)
+    flight: object = None  # FlightRecorder (--flight-dir)
+    watchdog: object = None  # Watchdog (--watchdog-timeout-s)
+
+    def close(self) -> None:
+        for piece in (self.watchdog, self.history, self.flight):
+            if piece is not None:
+                piece.close()
+
+
+def arm_router_plane(router, retained: RetainedConfig) -> RouterPlane:
+    """Arm ``router``'s retained plane: a history ring whose every snapshot
+    carries fresh shard heat and the USE gauges of the fan-out and hedge
+    executors (``pre_sample``), attached to the observer for the fleet
+    timeline; the hot-shard advisor ticking off each snapshot; and, with
+    ``retained.flight_dir``, the fleet's flight recorder and its stall
+    watchdog. The ring ticks every ``retained.history_period_s`` (0: by
+    hand, ``plane.history.sample()``)."""
+    from photon_ml_tpu_torch.events import GLOBAL_BUS
+    from photon_ml_tpu_torch.fleet.advisor import HotShardAdvisor
+    from photon_ml_tpu_torch.telemetry.history import HistorySampler
+    from photon_ml_tpu_torch.telemetry.saturation import (
+        SaturationSampler,
+        executor_probe,
+    )
+    from photon_ml_tpu_torch.telemetry.tracing import GLOBAL_TRACER
+
+    saturation = SaturationSampler()
+    saturation.add_probe("router_pool", executor_probe(router.fanout_pool))
+    saturation.add_probe("hedge_pool", executor_probe(router.hedge_pool))
+
+    def pre_sample() -> None:
+        # heat first, so the snapshot's shard series and the USE gauges
+        # describe the same instant
+        router.observer.refresh_heat()
+        saturation.sample()
+
+    sampler = HistorySampler(capacity=retained.history_capacity,
+                             source="router", pre_sample=pre_sample)
+    router.observer.attach_history(sampler)
+    advisor = HotShardAdvisor(history=sampler,
+                              shard_map_fn=lambda: router.shard_map,
+                              bus=GLOBAL_BUS)
+    router.advisor = advisor
+    sampler.add_listener(lambda _snap: advisor.tick())
+    plane = RouterPlane(history=sampler, saturation=saturation,
+                        advisor=advisor)
+    if retained.flight_dir:
+        from photon_ml_tpu_torch.telemetry.flightrec import (
+            FlightRecorder,
+            Watchdog,
+        )
+
+        # the dump's context header is the fleet's /statusz: the shard
+        # map, each host's lineage, the SLO state
+        plane.flight = FlightRecorder(
+            retained.flight_dir, capacity=retained.flight_capacity,
+            source="fleet", context_fn=router.observer.statusz,
+            tracer=GLOBAL_TRACER)
+        plane.flight.install(bus=GLOBAL_BUS, tracer=GLOBAL_TRACER,
+                             sampler=sampler,
+                             logger=logging.getLogger("photon_ml_tpu_torch"))
+        if retained.watchdog_timeout_s > 0 and retained.history_period_s > 0:
+            watchdog = Watchdog(plane.flight,
+                                timeout_s=retained.watchdog_timeout_s)
+            sampler.add_listener(lambda _snap: watchdog.pet())
+            watchdog.start(retained.history_period_s)
+            plane.watchdog = watchdog
+    sampler.start(retained.history_period_s)
+    return plane
+
+
 class FleetHandle:
     """The started fleet: the router server, the N × R host servers, the
-    optional router-side patch watcher and the telemetry session, with one
-    :meth:`stop`."""
+    optional router-side patch watcher, the router's retained plane and
+    the telemetry session, with one :meth:`stop`."""
 
     def __init__(self, router_server, hosts, telemetry):
         self.router_server = router_server
         self.hosts = hosts
         self.telemetry = telemetry
         self.watcher = None  # FleetPatchWatcher (--router-watch-dir)
+        self.history = None  # the router's HistorySampler
+        self.saturation = None  # the router's SaturationSampler
+        self.advisor = None  # HotShardAdvisor (GET /advisor)
+        self.flight = None  # FlightRecorder (--flight-dir)
+        self.watchdog = None  # flight Watchdog (--watchdog-timeout-s)
+
+    def attach_plane(self, plane: RouterPlane) -> None:
+        self.history, self.saturation = plane.history, plane.saturation
+        self.advisor, self.flight = plane.advisor, plane.flight
+        self.watchdog = plane.watchdog
 
     @property
     def url(self) -> str:
@@ -160,6 +253,9 @@ class FleetHandle:
         # the watcher first: no epoch against a fleet tearing down
         if self.watcher is not None:
             self.watcher.stop()
+        for piece in (self.watchdog, self.history, self.flight):
+            if piece is not None:
+                piece.close()
         self.router_server.stop()
         for host in self.hosts:
             host.stop()
@@ -195,6 +291,11 @@ def build_fleet(argv: Optional[Sequence[str]] = None) -> FleetHandle:
         # would shed each other's work
         "--brownout-poll-s", "0",
         "--fleet-shard-count", str(n),
+        # every host keeps its own /history ring (the router's timeline
+        # folds them); the flight recorder stays one for the process (a
+        # distributed fleet passes --flight-dir to each serve_game)
+        "--history-capacity", str(args.history_capacity),
+        "--history-period-s", str(args.history_period_s),
     ]
     if args.no_warmup:
         host_argv_common.append("--no-warmup")
@@ -241,13 +342,19 @@ def build_fleet(argv: Optional[Sequence[str]] = None) -> FleetHandle:
                                objective_s=config.slo_objective_ms / 1e3,
                                target=config.slo_target),
                 tick_s=config.slo_tick_s)
-        server = RouterServer(router, host=args.host, port=args.port)
+        plane = arm_router_plane(router, retained_from_args(args))
+        try:
+            server = RouterServer(router, host=args.host, port=args.port)
+        except BaseException:
+            plane.close()
+            raise
     except BaseException:
         for h in hosts:
             h.stop()
         telemetry.close()
         raise
     handle = FleetHandle(server.start(), hosts, telemetry)
+    handle.attach_plane(plane)
     if args.router_watch_dir:
         from photon_ml_tpu_torch.fleet.watcher import FleetPatchWatcher
 
@@ -268,9 +375,15 @@ def build_fleet(argv: Optional[Sequence[str]] = None) -> FleetHandle:
 
 def run(argv: Optional[Sequence[str]] = None) -> dict:
     fleet = build_fleet(argv)
+    if fleet.flight is not None:
+        # the process-level triggers belong to the main (a signal handler
+        # installs only from the main thread)
+        fleet.flight.install_sigterm()
+        fleet.flight.install_excepthook()
     rank_on = bool(fleet.hosts[0].service.registry.rank_coordinate)
     endpoints = ("/score" + (" /rank" if rank_on else "")
-                 + " /healthz /readyz /metrics /statusz /reload /reshard")
+                 + " /healthz /readyz /metrics /statusz /reload /reshard"
+                 + " /history /advisor")
     router = fleet.router
     print(f"serving GAME fleet ({router.n_shards} shards x "
           f"{router.replicas} replicas) on {fleet.url} ({endpoints}); "

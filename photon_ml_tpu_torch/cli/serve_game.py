@@ -25,10 +25,15 @@ shards are refused (``serve_fleet`` puts a router in front).
 ``--telemetry-dir`` writes the ``serving.*`` request spans to
 ``trace.jsonl`` and ``metrics.prom`` at exit, ``--telemetry-poll-s``
 samples host and device memory (``GET /metrics`` is always live).
-Flags of the reference that the port does not run yet (the autopilot and
-the retained telemetry) are accepted by the parser and raise
-:class:`NotImplementedError` naming the flag when given away from their
-default.
+The retained plane is always armed: a history ring of
+``--history-capacity`` snapshots behind ``GET /history`` (ticked every
+``--history-period-s``; 0 ticks only by hand), each carrying the USE
+gauges of the host's resources (``telemetry/saturation.py``).
+``--flight-dir`` adds the black box (the last ``--flight-capacity``
+records, dumped to ``flight-<ts>.jsonl`` on a fault-site trip, an
+unhandled exception, SIGTERM or a stall of ``--watchdog-timeout-s``).
+The reference's ``--autopilot-config`` is accepted by the parser and
+raises :class:`NotImplementedError` naming itself when given.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import numpy as np
 from photon_ml_tpu_torch.cli.config import (
     add_quality_flags,
     add_rank_flags,
+    add_retained_flags,
     add_telemetry_flags,
     add_unported_flags,
     install_telemetry,
@@ -49,6 +55,7 @@ from photon_ml_tpu_torch.cli.config import (
     quality_from_args,
     rank_from_args,
     refuse_unported,
+    retained_from_args,
     telemetry_from_args,
 )
 
@@ -56,11 +63,6 @@ from photon_ml_tpu_torch.cli.config import (
 #: settings and the reference defaults (which are accepted)
 _UNPORTED_FLAGS = {
     "--autopilot-config": {"default": None},
-    "--history-capacity": {"type": int, "default": 240},
-    "--history-period-s": {"type": float, "default": 0.0},
-    "--flight-dir": {"default": None},
-    "--flight-capacity": {"type": int, "default": 512},
-    "--watchdog-timeout-s": {"type": float, "default": 0.0},
 }
 
 
@@ -156,6 +158,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_quality_flags(p)
     add_rank_flags(p)
     add_unported_flags(p, _UNPORTED_FLAGS)
+    add_retained_flags(p)
     add_telemetry_flags(p)
     return p
 
@@ -269,16 +272,120 @@ def _build(args):
 
         drift = DriftEvaluator(registry, threshold=quality.drift_threshold,
                                poll_s=quality.quality_poll_s)
-    return GameServer(service, host=args.host, port=args.port,
-                      watcher=watcher, drift_evaluator=drift)
+    server = GameServer(service, host=args.host, port=args.port,
+                        watcher=watcher, drift_evaluator=drift)
+    try:
+        _arm_retained(args, server, connections, reqlog)
+    except BaseException:
+        server.stop()
+        raise
+    return server
+
+
+def _arm_retained(args, server, connections, reqlog) -> None:
+    """The retained plane on ``server``: the USE probes of the host's
+    resources (sampled as the history ring's ``pre_sample``, so every
+    snapshot carries them), the always-armed ring behind ``/history``,
+    and with ``--flight-dir`` the flight recorder and its stall
+    watchdog. The probes are built here: telemetry imports no serving
+    module."""
+    import logging
+
+    from photon_ml_tpu_torch.events import GLOBAL_BUS
+    from photon_ml_tpu_torch.serving import overload as serving_overload
+    from photon_ml_tpu_torch.telemetry.history import HistorySampler
+    from photon_ml_tpu_torch.telemetry.saturation import (
+        SaturationSampler,
+        busy_probe,
+        device_busy_seconds,
+        executor_probe,
+        queue_probe,
+    )
+    from photon_ml_tpu_torch.telemetry.tracing import GLOBAL_TRACER
+
+    retained = retained_from_args(args)
+    service = server.service
+    batcher, rank_batcher = service.batcher, service.rank_batcher
+    saturation = SaturationSampler()
+    saturation.add_probe("device", busy_probe(device_busy_seconds))
+    if batcher is not None:
+        saturation.add_probe("batcher_queue", queue_probe(
+            batcher.queue_depth, lambda: batcher.max_queue,
+            lambda: serving_overload.shed_counts()["queue_full"]))
+    if rank_batcher is not None:
+        saturation.add_probe("rank_batcher_queue", queue_probe(
+            rank_batcher.queue_depth, lambda: rank_batcher.max_queue))
+
+    def connections_probe() -> dict:
+        stats = connections.stats()
+        return {"utilization": connections.utilization(),
+                "saturation": float(stats["open"]),
+                "errors": float(stats["refused"])}
+
+    def handler_threads_probe() -> dict:
+        # the threading server spawns a thread a connection (no fixed
+        # pool): active request threads against the connection budget
+        stats = connections.stats()
+        budget = connections.max_connections
+        return {"utilization": (stats["active"] / budget if budget
+                                else 0.0),
+                "saturation": float(stats["active"])}
+
+    saturation.add_probe("http_connections", connections_probe)
+    saturation.add_probe("handler_threads", handler_threads_probe)
+    if reqlog is not None:
+        def reqlog_probe() -> dict:
+            stats = reqlog.stats()
+            return {"utilization": (min(1.0, stats["bytes"]
+                                        / reqlog.max_bytes)
+                                    if reqlog.max_bytes else 0.0),
+                    "saturation": float(stats["buffered"]),
+                    "errors": float(stats["dropped"])}
+
+        saturation.add_probe("reqlog", reqlog_probe)
+        saturation.add_probe("saver_pool", executor_probe(reqlog.writer))
+    sampler = HistorySampler(capacity=retained.history_capacity,
+                             source="host", pre_sample=saturation.sample)
+    server.saturation = saturation
+    service.history = server.history = sampler
+    if retained.flight_dir:
+        from photon_ml_tpu_torch.telemetry.flightrec import (
+            FlightRecorder,
+            Watchdog,
+        )
+
+        # the dump's context header is the host's live /healthz (active
+        # version and lineage, captures): what the postmortem
+        # reconstructs the final epoch from
+        recorder = FlightRecorder(
+            retained.flight_dir, capacity=retained.flight_capacity,
+            source="host", context_fn=service.healthz,
+            tracer=GLOBAL_TRACER)
+        recorder.install(bus=GLOBAL_BUS, tracer=GLOBAL_TRACER,
+                         sampler=sampler,
+                         logger=logging.getLogger("photon_ml_tpu_torch"))
+        server.flight = recorder
+        if retained.watchdog_timeout_s > 0 and retained.history_period_s > 0:
+            watchdog = Watchdog(recorder,
+                                timeout_s=retained.watchdog_timeout_s)
+            sampler.add_listener(lambda _snap: watchdog.pet())
+            watchdog.start(retained.history_period_s)
+            server.watchdog = watchdog
+    sampler.start(retained.history_period_s)
 
 
 def run(argv: Optional[Sequence[str]] = None) -> dict:
     server = build_server(argv)
+    if server.flight is not None:
+        # the process-level triggers belong to the main: a signal handler
+        # installs only from the main thread, and build_server may run
+        # anywhere
+        server.flight.install_sigterm()
+        server.flight.install_excepthook()
     version = server.service.registry.active_version
     rank_on = server.service.registry.rank_coordinate is not None
     endpoints = ("/score" + (" /rank" if rank_on else "")
-                 + " /healthz /readyz /metrics /reload")
+                 + " /healthz /readyz /metrics /reload /history")
     print(f"serving GAME model version {version} on {server.url} "
           f"({endpoints})", flush=True)
     try:

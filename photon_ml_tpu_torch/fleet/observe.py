@@ -21,10 +21,11 @@ Counterpart of ``photon_ml_tpu/fleet/observe.py``:
 - **Topology**: :meth:`FleetObserver.statusz` (the router's ``GET
   /statusz``): the shard map, per-host lineage, health and last scrape,
   per-shard replica coverage and heat, the SLO state.
-
-Not ported: the retained history behind the router's ``/history``
-(``attach_history`` / ``scrape_history`` / ``history`` raise
-:class:`NotImplementedError`); it comes with the rest of ``telemetry/``.
+- **Retained history**: :meth:`FleetObserver.history` (the router's ``GET
+  /history``) folds every host's ``/history?raw=1`` ring against the
+  router's own ring (:meth:`FleetObserver.attach_history`) with the same
+  merge, then derives the closed series vocabulary from the folded text
+  (:func:`photon_ml_tpu_torch.telemetry.history.fold_history`).
 """
 
 from __future__ import annotations
@@ -35,11 +36,6 @@ import time
 from typing import Optional, Sequence
 
 from photon_ml_tpu_torch.telemetry import metrics as _metrics
-
-#: what the router's retained-history surface answers: it belongs to the
-#: telemetry slice
-_HISTORY_UNPORTED = ("the fleet's retained history (/history, the "
-                     "telemetry slice) is not ported")
 
 #: host scrapes that failed during a fleet /metrics fold — the partial
 #: fold is served with this annotation instead of a 500
@@ -235,6 +231,9 @@ class FleetObserver:
         #: attach_slo/close are operator-lifecycle calls from one
         #: control thread (like RouterServer start/stop)
         self.slo: Optional[SloBurnTracker] = None  # guarded-by: caller
+        #: the router-side history ring (serve_fleet arms it): the fleet
+        #: timeline folds the hosts' rings against its snapshots
+        self.history_sampler = None  # guarded-by: caller
         self._lock = threading.Lock()
         #: (shard, replica) -> {"t": monotonic stamp, "ok", "error"}
         self._last_scrape: dict = {}  # guarded-by: _lock
@@ -303,14 +302,57 @@ class FleetObserver:
 
     # --- retained history -------------------------------------------------
     def attach_history(self, sampler) -> "FleetObserver":
-        raise NotImplementedError(_HISTORY_UNPORTED)
+        """Arm the router-side history ring (a
+        :class:`~photon_ml_tpu_torch.telemetry.history.HistorySampler` whose
+        ``pre_sample`` refreshes the heat gauges, so every snapshot
+        carries shard p50/p99/load)."""
+        self.history_sampler = sampler
+        return self
 
     def scrape_history(self) -> "list[tuple[int, int, list]]":
-        raise NotImplementedError(_HISTORY_UNPORTED)
+        """Every live host's retained ring (``GET /history?raw=1`` over
+        the pooled connections), shard-major ``(shard, replica,
+        snapshots)``. Failure semantics mirror :meth:`scrape`: a dead
+        host is annotated and skipped, the fold stays partial."""
+        import json as _json
+
+        rings = []
+        for s, group in enumerate(self.router.clients):
+            for r, client in enumerate(group):
+                try:
+                    status, text = client.request(
+                        "GET", "/history?raw=1", raw=True)
+                    if status != 200:
+                        raise RuntimeError(f"/history -> {status}")
+                    rings.append((s, r, _json.loads(text)["snapshots"]))
+                    self._note(s, r, ok=True)
+                except Exception as e:
+                    _SCRAPE_ERRORS.labels(shard=str(s),
+                                          replica=str(r)).inc()
+                    self._note(s, r, ok=False, error=repr(e))
+        return rings
 
     def history(self, *, window: int = 0, series=(),
                 include_prom: bool = False) -> dict:
-        raise NotImplementedError(_HISTORY_UNPORTED)
+        """The fleet timeline (router ``GET /history``): per-host rings
+        folded against the router's own ring through
+        :func:`fold_fleet_snapshots` — the EXACT merge semantics
+        ``tools/metrics_fold.py`` applies offline — then re-derived into
+        the closed series vocabulary
+        (:func:`photon_ml_tpu_torch.telemetry.history.fold_history`)."""
+        from photon_ml_tpu_torch.telemetry.history import (
+            fold_history,
+            history_payload,
+        )
+
+        sampler = self.history_sampler
+        if sampler is None:
+            raise RuntimeError("history sampler not armed on the router")
+        folded = fold_history(fold_fleet_snapshots, sampler.snapshots(),
+                              self.scrape_history())
+        return history_payload(folded, source="fleet",
+                               capacity=sampler.capacity, window=window,
+                               series=series, include_prom=include_prom)
 
     # --- heat -------------------------------------------------------------
     @staticmethod

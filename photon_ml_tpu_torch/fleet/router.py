@@ -41,8 +41,10 @@ piece that makes the fleet look like ONE server:
   and histogram series sum; host-owned gauges — queue depth, brownout
   level, rank items — are tagged ``shard="I"``, ``replica="J"`` and fan
   out). ``GET /statusz`` is the human topology page (``fleet/observe.py``).
-  ``GET /history`` and ``GET /advisor`` (the retained-telemetry plane)
-  answer 501: not ported.
+  ``GET /history`` is the fleet timeline: the hosts' retained rings folded
+  against the router's own (``FleetObserver.history``), and ``GET
+  /advisor`` the hot-shard advisor's status (``fleet/advisor.py``), both
+  armed by ``serve_fleet`` (404 when not).
 
 **Elastic fleet**: each shard can run a REPLICA GROUP of R hosts
 (``serve_fleet --replicas R``; the host list is shard-major). A failed
@@ -116,14 +118,6 @@ from photon_ml_tpu_torch.serving.http import (
 )
 from photon_ml_tpu_torch.telemetry import metrics as _metrics
 from photon_ml_tpu_torch.telemetry import tracing as _tracing
-
-#: the router endpoints of the JAX fleet that the port does not serve yet
-_UNPORTED_PATHS = {
-    "/history": "the fleet's retained history (/history, the telemetry "
-                "slice) is not ported",
-    "/advisor": "the hot-shard advisor (/advisor, the telemetry slice) is "
-                "not ported",
-}
 
 #: requests the router answered, by endpoint (score | rank | reload)
 _FLEET_REQUESTS = _metrics.counter(
@@ -391,6 +385,9 @@ class FleetRouter:
         #: clients, owns /statusz and the optional SLO tracker (no
         #: threads until attach_slo asks for a tick loop)
         self.observer = FleetObserver(self)
+        #: the read-only hot-shard advisor behind GET /advisor (serve_fleet
+        #: arms it over the observer's history ring)
+        self.advisor = None
         _FLEET_HOSTS.set(len(host_urls))
         _SHARDMAP_VERSION.set(self.shard_map.version)
 
@@ -1412,8 +1409,31 @@ def _make_handler(router: FleetRouter):
                 self.wfile.write(data)
             elif parsed.path == "/statusz":
                 self._reply(200, router.statusz())
-            elif parsed.path in _UNPORTED_PATHS:
-                self._reply(501, {"error": _UNPORTED_PATHS[parsed.path]})
+            elif parsed.path == "/history":
+                # the fleet timeline: the hosts' rings folded against the
+                # router's own with the metrics_fold merge
+                qs = urllib.parse.parse_qs(parsed.query)
+                try:
+                    window = int((qs.get("window") or ["0"])[0])
+                    series = tuple(
+                        s for s in (qs.get("series") or [""])[0].split(",")
+                        if s)
+                    raw = (qs.get("raw") or ["0"])[0] not in ("", "0")
+                    body = router.observer.history(
+                        window=window, series=series, include_prom=raw)
+                except ValueError as e:
+                    self._reply(400, {"error": str(e)})
+                    return
+                except RuntimeError as e:
+                    self._reply(404, {"error": str(e)})
+                    return
+                self._reply(200, body)
+            elif parsed.path == "/advisor":
+                if router.advisor is None:
+                    self._reply(404, {"error": "hot-shard advisor "
+                                               "not armed"})
+                    return
+                self._reply(200, router.advisor.status())
             else:
                 self._reply(404, {"error": f"unknown path {self.path}"})
 

@@ -77,6 +77,7 @@ from photon_ml_tpu_torch.io.data_reader import (
     _record_features,
 )
 from photon_ml_tpu_torch.io.index import IndexMap
+from photon_ml_tpu_torch.resilience.faults import fault_point
 from photon_ml_tpu_torch.serving import overload as _overload
 from photon_ml_tpu_torch.serving import stages as _stages
 from photon_ml_tpu_torch.serving import store as _store
@@ -362,6 +363,10 @@ class ScoringEngine:
     # --- scoring ------------------------------------------------------------
     def score(self, records: Sequence[dict]) -> np.ndarray:
         """Total GAME score per record (float32, batch-path parity)."""
+        # the serving chaos site, once a scoring call and before any stage
+        # work: an injected fault fails this batch (its futures get the
+        # error; the batcher's worker lives on)
+        fault_point("serving.execute", n=len(records))
         with _STAGE_SECONDS.labels(stage="batch_assemble").time() as t:
             batch = self.pack(records)
         _stages.record("batch_assemble", t.seconds)
@@ -371,6 +376,7 @@ class ScoringEngine:
         """Scores plus the per-coordinate f32 margins and offsets:
         ``(scores (n,) f32, offsets (n,) f32, [(cid, (n,) f32), ...])`` in
         the model's coordinate order."""
+        fault_point("serving.execute", n=len(records))
         with _STAGE_SECONDS.labels(stage="batch_assemble").time() as t:
             batch = self.pack(records)
         _stages.record("batch_assemble", t.seconds)

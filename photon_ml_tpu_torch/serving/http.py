@@ -35,8 +35,10 @@ Counterpart of ``photon_ml_tpu/serving/http.py``, JSON endpoints over
   the admission control, deadline and brownout of ``/score``; a bad k, a
   payload without ``user`` or ``record``, or ranking off is a 400. Ranked
   requests land in the request log as ``kind="rank"`` with their top-k.
-- ``GET /history`` answers **501**: the retained-telemetry ring is not
-  ported.
+- ``GET /history?series=&window=[&raw=1]``: the host's retained-telemetry
+  ring (``telemetry/history.py``, armed by ``serve_game``); an unknown
+  series or a bad window is a 400, an unarmed ring a 404, and ``raw=1``
+  adds each snapshot's exposition text, which the fleet router folds.
 
 Every request gets an id here (an inbound ``X-Photon-Request-Id`` is
 honoured, else one is minted), echoed as a header and in the ``/score``
@@ -76,6 +78,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Mapping, Optional
 from urllib.parse import parse_qs, urlsplit
 
+from photon_ml_tpu_torch.resilience.faults import fault_point
 from photon_ml_tpu_torch.serving import overload as _overload
 from photon_ml_tpu_torch.serving import stages as _stages
 from photon_ml_tpu_torch.serving.batcher import BatcherClosed, MicroBatcher
@@ -252,12 +255,6 @@ _RANK_K = _metrics.histogram(
     "Requested k per admitted /rank request",
     buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024))
 
-#: the endpoints of the JAX front end that the port does not serve, with
-#: what is missing
-_UNPORTED_PATHS = {
-    "/history": "the retained-telemetry ring (/history) is not ported",
-}
-
 
 def format_leg_summary(stages: Mapping[str, float]) -> str:
     """Encode a stage-seconds mapping (plus optional ``span`` id) as the
@@ -362,6 +359,9 @@ class ServingService:
             else ConnectionTracker()
         #: the request log (closed with the service), None when off
         self.reqlog = reqlog
+        #: the retained ring behind GET /history, armed by serve_game
+        #: (None: /history answers 404)
+        self.history = None
         self._lock = threading.Lock()
         self.n_requests = 0  # guarded-by: _lock
         self.n_scored = 0  # guarded-by: _lock
@@ -894,12 +894,36 @@ def _make_handler(service: ServingService):
                     )
 
                     self._reply_raw(200, render().encode(), CONTENT_TYPE)
-                elif path in _UNPORTED_PATHS:
-                    self._reply(501, {"error": _UNPORTED_PATHS[path]})
+                elif path == "/history":
+                    self._handle_history(parsed.query)
                 else:
                     self._reply(404, {"error": f"unknown path {self.path}"})
             finally:
                 service.connections.request_end()
+
+        def _handle_history(self, query: str) -> None:
+            """``GET /history?series=&window=[&raw=1]``: the host's
+            retained ring (an unknown series or a bad window is a 400, an
+            unarmed sampler a 404); ``raw=1`` includes each snapshot's
+            watched-subset exposition text, what the router's fold
+            scrapes."""
+            sampler = service.history
+            if sampler is None:
+                self._reply(404, {"error": "history sampler not armed"})
+                return
+            qs = parse_qs(query)
+            try:
+                window = int((qs.get("window") or ["0"])[0])
+                series = tuple(
+                    s for s in (qs.get("series") or [""])[0].split(",")
+                    if s)
+                raw = (qs.get("raw") or ["0"])[0] not in ("", "0")
+                data = sampler.payload_json(window=window, series=series,
+                                            include_prom=raw)
+            except ValueError as e:
+                self._reply(400, {"error": str(e)})
+                return
+            self._reply_raw(200, data, "application/json")
 
         def _handle_rank(self, rid: str, payload: dict,
                          parse_s: Optional[float] = None) -> None:
@@ -912,6 +936,7 @@ def _make_handler(service: ServingService):
                 if parse_s is None:
                     with _maybe_span("serving.parse", request_id=rid), \
                             _STAGE_SECONDS.labels(stage="parse").time() as t:
+                        fault_point("serving.parse", path="/rank")
                         self.deadline = service.resolve_deadline(
                             self.headers.get(DEADLINE_HEADER))
                     parse_s = t.seconds
@@ -959,6 +984,7 @@ def _make_handler(service: ServingService):
             with _maybe_span("serving.parse", request_id=rid), \
                     _STAGE_SECONDS.labels(stage="parse").time() as parse_t:
                 try:
+                    fault_point("serving.parse", path=self.path)
                     payload = self._payload()
                     # the deadline budget is stamped at parse: queueing and
                     # scoring spend the budget the caller measures
@@ -966,9 +992,14 @@ def _make_handler(service: ServingService):
                         self.headers.get(DEADLINE_HEADER))
                     parse_error = None
                 except (ValueError, json.JSONDecodeError) as e:
-                    parse_error = f"bad request: {e}"
+                    parse_error = (400, f"bad request: {e}")
+                except Exception as e:
+                    # an injected serving.parse fault (or a bug of the
+                    # parse path) is the server's error, not the client's
+                    parse_error = (500, repr(e))
             if parse_error is not None:
-                self._reply(400, {"error": parse_error})
+                status, message = parse_error
+                self._reply(status, {"error": message})
                 return
             path = urlsplit(self.path).path
             if path == "/score":
@@ -1016,8 +1047,6 @@ def _make_handler(service: ServingService):
                     self._reply(409, {
                         "error": repr(e),
                         "version": service.registry.active_version})
-            elif path in _UNPORTED_PATHS:
-                self._reply(501, {"error": _UNPORTED_PATHS[path]})
             else:
                 self._reply(404, {"error": f"unknown path {self.path}"})
 
@@ -1029,13 +1058,20 @@ class GameServer:
     ``watcher`` (:class:`~photon_ml_tpu_torch.serving.watcher.
     ModelDirectoryWatcher`) and a ``drift_evaluator``
     (:class:`~photon_ml_tpu_torch.quality.monitor.DriftEvaluator`) start
-    and stop with the server."""
+    and stop with the server. ``serve_game`` arms the retained plane on
+    the attributes ``history``, ``saturation``, ``flight`` and
+    ``watchdog``; :meth:`stop` closes the ring, the recorder and the
+    watchdog."""
 
     def __init__(self, service: ServingService, *, host: str = "127.0.0.1",
                  port: int = 0, watcher=None, drift_evaluator=None):
         self.service = service
         self.watcher = watcher
         self.drift_evaluator = drift_evaluator
+        self.history = None  # HistorySampler
+        self.saturation = None  # SaturationSampler
+        self.flight = None  # FlightRecorder (--flight-dir)
+        self.watchdog = None  # Watchdog (--watchdog-timeout-s)
         self._httpd = ThreadingHTTPServer((host, port),
                                           _make_handler(service))
         self._thread: Optional[threading.Thread] = None  # guarded-by: caller
@@ -1079,4 +1115,8 @@ class GameServer:
         self._httpd.server_close()
         if self._thread is not None:
             self._thread.join()
+        # every close is idempotent: the command's own finally may repeat it
+        for piece in (self.watchdog, self.history, self.flight):
+            if piece is not None:
+                piece.close()
         self.service.close()

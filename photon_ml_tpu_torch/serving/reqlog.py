@@ -246,6 +246,12 @@ class RequestLog:
                 pass
 
     # --- introspection ----------------------------------------------------
+    @property
+    def writer(self):
+        """The segment writer's pool: what the capacity plane's
+        ``saver_pool`` probe watches (the JAX log's background saver)."""
+        return self._writer
+
     def stats(self) -> dict:
         """The ``/healthz`` block: the budget counters and the config."""
         with self._lock:

@@ -18,7 +18,14 @@ Counterpart of ``photon_ml_tpu/telemetry/__init__.py``:
 - :mod:`~photon_ml_tpu_torch.telemetry.aggregate` — the fleet fold (at
   sweep boundaries over ``parallel/multihost.py``, and offline through
   ``tools/metrics_fold.py``), the chief's ``--metrics-port`` listener and
-  the trace merge.
+  the trace merge;
+- the retained plane of the serving commands:
+  :mod:`~photon_ml_tpu_torch.telemetry.history` (the ring behind ``GET
+  /history`` and its fleet fold),
+  :mod:`~photon_ml_tpu_torch.telemetry.saturation` (USE gauges over a
+  closed set of resources) and
+  :mod:`~photon_ml_tpu_torch.telemetry.flightrec` (the black box and its
+  stall watchdog).
 
 :class:`TelemetrySession` is the drivers' one-call lifecycle: configure the
 global tracer into ``--telemetry-dir``, bind the bridge, turn on the
@@ -27,8 +34,7 @@ periodic ``metrics.prom`` snapshot writer, stand up the fleet aggregator
 under ``--metrics-port``, and on close dump a final ``metrics.prom`` next
 to the trace — with, on the chief of a folding run, the matching
 ``metrics.aggregate.prom``. ``photon_build_info`` carries ``torch_version``
-where the JAX package's carries ``jax_version``. The retained plane
-(history ring, flight recorder, saturation gauges) is not ported yet.
+where the JAX package's carries ``jax_version``.
 """
 
 from __future__ import annotations

@@ -260,11 +260,21 @@ def test_metrics_fold_equals_the_jax_fold(env2):
 
 
 def test_unported_router_paths_answer_501(env2):
-    for path in ("/history", "/advisor"):
-        with pytest.raises(urllib.error.HTTPError) as err:
-            _get(env2["fleet"].url + path)
-        assert err.value.code == 501
-        assert "not ported" in json.loads(err.value.read())["error"]
+    # both paths are ported (tests/test_torch_retained.py holds them to the
+    # JAX router): serve_fleet arms the ring and the advisor, so they answer
+    # 200, and an unknown series is a 400
+    fleet = env2["fleet"]
+    for host in fleet.hosts:  # the hosts' rings first, then the router's
+        host.history.sample()
+    fleet.history.sample()
+    body = _get(fleet.url + "/history?series=requests")
+    assert body["source"] == "fleet" and body["series"] == ["requests"]
+    assert len(body["snapshots"]) >= 1
+    status = _get(fleet.url + "/advisor")
+    assert status["hot"] == [] and status["recommendation"] is None
+    with pytest.raises(urllib.error.HTTPError) as err:
+        _get(fleet.url + "/history?series=nope")
+    assert err.value.code == 400
 
 
 def test_request_id_deadline_and_typed_sheds(env2):
@@ -332,11 +342,31 @@ def test_one_refusal_aborts_the_epoch_fleet_wide(env2, site):
 
 #: the telemetry plane's flags, ported since the fleet took them
 _TELEMETRY_FLAGS = ("--metrics-port", "--telemetry-dir", "--telemetry-poll-s")
+#: the retained plane's flags, with the RetainedConfig field each sets
+_RETAINED_FLAGS = {
+    "--flight-capacity": "flight_capacity",
+    "--flight-dir": "flight_dir",
+    "--history-capacity": "history_capacity",
+    "--history-period-s": "history_period_s",
+    "--watchdog-timeout-s": "watchdog_timeout_s",
+}
 
 
 @pytest.mark.parametrize("flag", sorted(list(t_fleet._UNPORTED_FLAGS)
-                                        + list(_TELEMETRY_FLAGS)))
+                                        + list(_TELEMETRY_FLAGS)
+                                        + list(_RETAINED_FLAGS)))
 def test_unported_fleet_flag_names_itself(flag):
+    if flag in _RETAINED_FLAGS:
+        # ported (tests/test_torch_retained.py runs the plane): they parse
+        # into the retained-telemetry configuration
+        from photon_ml_tpu_torch.cli.config import retained_from_args
+
+        value = "x" if flag == "--flight-dir" else "3"
+        config = retained_from_args(t_fleet.build_parser().parse_args(
+            ["--model-dir", "m", "--feature-shards", SHARDS, flag, value]))
+        got = getattr(config, _RETAINED_FLAGS[flag])
+        assert got == type(got)(value)
+        return
     if flag in _TELEMETRY_FLAGS:
         # ported (tests/test_torch_telemetry.py runs the plane): they parse
         # into the telemetry configuration

@@ -524,8 +524,12 @@ def test_http_scores_reload_and_endpoints(trained):
         # /rank is ported: without --rank-item-coordinate it is a 400
         status, text = _get(f"{url}/rank?user=u1")
         assert status == 400 and b"ranking is not enabled" in text
+        # /history is ported: serve_game arms the ring (empty until its
+        # first tick), and an unknown series is a 400
         status, text = _get(f"{url}/history")
-        assert status == 501 and b"not ported" in text
+        assert status == 200
+        assert json.loads(text)["source"] == "host"
+        assert _get(f"{url}/history?series=nope")[0] == 400
         assert _get(f"{url}/nope")[0] == 404
     finally:
         server.stop()
@@ -596,6 +600,16 @@ def test_unported_serve_flag_names_itself(extra):
         assert [getattr(c, key) for c in configs if hasattr(c, key)] == \
             [want]
         return
+    if extra[0] in _RETAINED_FLAGS:
+        # ported (tests/test_torch_retained.py serves with them): they
+        # parse into the retained-telemetry configuration
+        from photon_ml_tpu_torch.cli.config import retained_from_args
+
+        config = retained_from_args(t_serve.build_parser().parse_args(
+            ["--model-dir", "m", "--feature-shards", SHARDS] + extra))
+        assert getattr(config, _RETAINED_FLAGS[extra[0]]) == \
+            type(getattr(config, _RETAINED_FLAGS[extra[0]]))(extra[1])
+        return
     if extra[0] in ("--telemetry-dir", "--telemetry-poll-s",
                     "--metrics-port"):
         # ported (tests/test_torch_telemetry.py serves with them): they
@@ -612,6 +626,16 @@ def test_unported_serve_flag_names_itself(extra):
         t_serve.build_server(["--model-dir", "m", "--feature-shards", SHARDS,
                               "--device", "cpu"] + extra)
 
+
+#: the ported retained-telemetry flags of the list above, with the
+#: RetainedConfig field each sets
+_RETAINED_FLAGS = {
+    "--history-capacity": "history_capacity",
+    "--history-period-s": "history_period_s",
+    "--flight-dir": "flight_dir",
+    "--flight-capacity": "flight_capacity",
+    "--watchdog-timeout-s": "watchdog_timeout_s",
+}
 
 #: the ported quality and rank flags of the list above, with the config
 #: key each sets and its value there
