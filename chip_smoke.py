@@ -278,9 +278,35 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    served by a host whose scoring calls a fault plan stalls 0.05 s:
    shard 0 latched at exactly the third hand tick, and ``/advisor``'s
    move list ``ShardMap.rebalanced``'s. The host's and the router's
-   p50/p99 with the plane print beside phase 16's. Phase 9 writes its
-   Avro with an encoder of its one record shape, held byte for byte
-   against the port's writer.
+   p50/p99 with the plane print beside phase 16's. Phases 8 and 9 write
+   their Avro with an encoder of their record shapes, held byte for byte
+   against the port's writer;
+19. background publication and the closed feedback loop: (a) phase 8's
+   ``best/``, published by the background saver, equal to a synchronous
+   ``save_game_model`` of the same in-memory model (part files byte for
+   byte but for their sync markers, the metadata, the lineage id; checked
+   at the end of phase 8, where the model is at hand), with "Save models"
+   (now the saver's join) beside the synchronous save's wall; phase 17
+   (a)'s trace of phase 8's run: ``io.save.model``, ``io.save.part``,
+   ``io.read.validation`` and the other background spans under their
+   stages, and their async I/O overlap as ``tools/perf_report.py``'s
+   section defines it (computed here, held equal to the tool's on the
+   CPU); ``train_game`` at SMALL's 20k rows under a
+   ``PHOTON_FAULT_PLAN`` on ``io.model_save`` at visit 0: the fault fired
+   once, ``best/`` loads, no ``.tmp``; (b) ``serve_fleet --fleet-shards 2
+   --reqlog-dir --autopilot-config --router-watch-dir`` (poll 0.2 s,
+   warmup on) in this process on phase 8's run: 64 client-stamped
+   one-record requests of shard 0's users and songs, a label CSV with a
+   late row, ``quality_drift_detected`` for ``perUser``: one refresh, no
+   abort; joined 64, late 1, unjoined 0; ``solved`` perUser = the users
+   sent, perSong 0, perSong carried bit for bit; the refresh's launches of
+   kernels 1 and 2 counted; the watcher activating the per-shard set on
+   both hosts, host 1 (an empty patch) capturing no graph; the router's
+   scores of the 64 records = ``score_game`` of the published run, bit for
+   bit; a partial ``patch-shard-0`` refused with versions and a probe's
+   score unchanged; ``join_feedback`` over both hosts' logs with
+   ``--prior-dir``: the autopilot's counts and a ``delta``; the freshness
+   lag (drift event to both hosts active) printed.
 
 ``python3 chip_smoke.py --mp-gap-seeds 0,1,2`` runs phase 15 (b) alone
 over seeds of phase 6's problem and prints its gaps.
@@ -1247,14 +1273,135 @@ E2E_TRAIN_PARTS = 8
 E2E_VALID_PARTS = 2
 
 
-def write_e2e_part(path, data, first_uid):
-    """One TrainingExampleAvro file (null codec) of make_e2e rows. Runs in
-    a worker process."""
+def _avro_long(n):
+    """Avro's zigzag varint of a non-negative ``n``."""
+    n <<= 1
+    out = bytearray()
+    while n > 0x7F:
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def _avro_string(text):
+    raw = text.encode()
+    return _avro_long(len(raw)) + raw
+
+
+def write_examples_part(path, indptr, cols, vals, labels, first_uid, names,
+                        tails=None, sync=None):
+    """One TrainingExampleAvro file (null codec) of CSR rows: row ``j``'s
+    features are ``names[cols[k]]`` (each an encoded name and term) with
+    value ``vals[k]``, no offset or weight, and ``tails[j]`` its encoded
+    metadata map (an empty map without ``tails``). It encodes this record
+    shape itself, byte for byte as ``data_reader.write_training_examples``
+    does (blocks of 4,096 records; :func:`write_glm_files` and
+    :func:`write_e2e_files` hold parts against it): each block's features
+    are gathered into one buffer with numpy, and only the rows' heads are
+    encoded in Python."""
+    import struct
+
+    from photon_ml_tpu_torch.io import avro
+    from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_AVRO
+
+    sync = os.urandom(avro.SYNC_SIZE) if sync is None else sync
+    cols = np.asarray(cols, np.int64)
+    indptr = np.asarray(indptr, np.int64)
+    # every column's encoded name and term, laid end to end
+    name_len = np.fromiter(map(len, names), np.int64, len(names))
+    name_off = np.cumsum(name_len) - name_len
+    table = np.frombuffer(b"".join(names), np.uint8)
+    value_bytes = np.ascontiguousarray(vals, "<f8").view(np.uint8).reshape(
+        -1, 8)
+    labels = labels.tolist()
+    with open(path, "wb") as f:
+        f.write(avro.MAGIC)
+        f.write(_avro_long(2))
+        for key, value in (
+                ("avro.schema",
+                 json.dumps(TRAINING_EXAMPLE_AVRO).encode()),
+                ("avro.codec", b"null")):
+            f.write(_avro_long(len(key)) + key.encode())
+            f.write(_avro_long(len(value)) + value)
+        f.write(b"\x00" + sync)
+        for lo in range(0, len(labels), 4096):
+            hi = min(lo + 4096, len(labels))
+            a0, b0 = int(indptr[lo]), int(indptr[hi])
+            c = cols[a0:b0]
+            lens = name_len[c]
+            width = lens + 8
+            ends = np.cumsum(width)
+            starts = ends - width
+            buf = np.empty(int(ends[-1]) if c.size else 0, np.uint8)
+            # each feature's name and term, then its value
+            within = np.arange(int(lens.sum())) - np.repeat(
+                np.cumsum(lens) - lens, lens)
+            buf[np.repeat(starts, lens) + within] = table[
+                np.repeat(name_off[c], lens) + within]
+            buf[(starts + lens)[:, None] + np.arange(8)] = value_bytes[a0:b0]
+            feats = buf.tobytes()
+            row_at = np.concatenate([[0], ends])[indptr[lo:hi + 1] - a0]
+            parts = []
+            for j in range(lo, hi):
+                uid = str(first_uid + j).encode()
+                n = int(indptr[j + 1] - indptr[j])
+                # uid (union branch 1), response, null offset and weight,
+                # the features and their end, the metadata map
+                parts.append(b"\x02" + _avro_long(len(uid)) + uid
+                             + struct.pack("<d", labels[j]) + b"\x00\x00"
+                             + (_avro_long(n) if n else b"")
+                             + feats[row_at[j - lo]:row_at[j - lo + 1]]
+                             + b"\x00"
+                             + (b"\x02\x00" if tails is None else tails[j]))
+            payload = b"".join(parts)
+            f.write(_avro_long(hi - lo) + _avro_long(len(payload)))
+            f.write(payload + sync)
+    return os.path.getsize(path)
+
+
+def write_e2e_part(path, data, first_uid, sync=None):
+    """One TrainingExampleAvro file (null codec) of make_e2e rows, the
+    records :func:`e2e_records` makes, through :func:`write_examples_part`.
+    Runs in a worker process."""
+    n = data.n_samples
+    g, it = data.shards["global"], data.shards["item"]
+    g_cols = g.cols.reshape(n, 7)
+    keep = g_cols != g.dim - 1  # the intercept column stays the reader's
+    assert (keep.sum(axis=1) == 6).all()
+    cols = np.concatenate([g_cols[keep].reshape(n, 6),
+                           it.cols.reshape(n, 4).astype(np.int64) + g.dim],
+                          axis=1).reshape(-1)
+    vals = np.concatenate([g.vals.reshape(n, 7)[keep].reshape(n, 6),
+                           it.vals.reshape(n, 4)], axis=1).reshape(-1)
+    names = ([_avro_string(f"g.x{k}") + b"\x00" for k in range(g.dim)]
+             + [_avro_string(f"it.x{k}") + b"\x00" for k in range(it.dim)])
+    user_key, song_key = _avro_string("userId"), _avro_string("songId")
+    users = {u: _avro_string(f"u{u}")
+             for u in np.unique(data.id_columns["userId"]).tolist()}
+    songs = {v: _avro_string(f"s{v}")
+             for v in np.unique(data.id_columns["songId"]).tolist()}
+    # the map's branch, one block of two entries, its end
+    tails = [b"\x02\x04" + user_key + users[u] + song_key + songs[v] + b"\x00"
+             for u, v in zip(data.id_columns["userId"].tolist(),
+                             data.id_columns["songId"].tolist())]
+    return write_examples_part(path, np.arange(0, 10 * n + 1, 10), cols,
+                               vals, data.labels, first_uid, names, tails,
+                               sync=sync)
+
+
+def write_e2e_part_plain(path, data, first_uid, sync=None):
+    """:func:`write_e2e_part` through the port's generic Avro writer."""
     from photon_ml_tpu_torch.io import data_reader
 
     data_reader.write_training_examples(path, e2e_records(data, first_uid),
-                                        codec="null")
+                                        codec="null", sync=sync)
     return os.path.getsize(path)
+
+
+#: rows of phase 8's training set that write_e2e_files encodes with both
+#: writers (two blocks of records)
+E2E_WRITE_CHECK_ROWS = 4_200
 
 
 def _rows_of(data, lo, hi):
@@ -1264,13 +1411,21 @@ def _rows_of(data, lo, hi):
     return _take_rows(data, np.arange(lo, hi))
 
 
+def writer_context():
+    """The Avro writers' process context: children forked from one server
+    process, which imports this script once (a spawned child imports it,
+    and torch, again), and which never touches the card."""
+    import multiprocessing
+
+    return multiprocessing.get_context("forkserver")
+
+
 def write_e2e_files(root, train, valid):
     """Phase 8's files under ``root``: ``train/part-NNNNN.avro``
     (:data:`E2E_TRAIN_PARTS` contiguous parts), ``valid.avro`` and ``valid_parts/``
-    (:data:`E2E_VALID_PARTS`), all at once over a pool of spawned writer
-    processes. Returns (paths, {set: bytes})."""
+    (:data:`E2E_VALID_PARTS`), all at once over a pool of
+    :func:`writer_context` processes. Returns (paths, {set: bytes})."""
     import concurrent.futures
-    import multiprocessing
 
     paths = {"train": os.path.join(root, "train"),
              "valid": os.path.join(root, "valid.avro"),
@@ -1285,8 +1440,19 @@ def write_e2e_files(root, train, valid):
                          _rows_of(data, int(lo), int(hi)), int(lo)))
     with concurrent.futures.ProcessPoolExecutor(
             max_workers=min(len(jobs), os.cpu_count() or 1, 8),
-            mp_context=multiprocessing.get_context("spawn")) as pool:
+            mp_context=writer_context()) as pool:
         sizes = list(pool.map(write_e2e_part, *zip(*jobs)))
+    # the encoder against the port's generic writer: the training set's
+    # first rows, one sync marker, the same bytes
+    check = os.path.join(root, "write_check.avro")
+    cut = _rows_of(train, 0, min(E2E_WRITE_CHECK_ROWS, train.n_samples))
+    encoded = []
+    for writer in (write_e2e_part, write_e2e_part_plain):
+        writer(check, cut, 0, sync=bytes(range(16)))
+        with open(check, "rb") as f:
+            encoded.append(f.read())
+    assert encoded[0] == encoded[1], "the e2e encoder's bytes differ"
+    os.remove(check)
     return paths, {"valid": sizes[0],
                    "train": sum(sizes[1:1 + E2E_TRAIN_PARTS])}
 
@@ -1312,14 +1478,16 @@ class Counted:
 
 
 def run_cli_phase(tg, fused_glm, fused_re, auc_phase3, auc_fe, tmp):
-    """Phase 8, in the directory ``tmp``; returns the kernels' launch
-    counts of the CLI run and what phase 10 scores: the run directory, the
-    validation file and ``best/``'s rescored AUC."""
+    """Phase 8, in the directory ``tmp``, and phase 19 (a)'s check of the
+    background saver's ``best/`` against a synchronous save of the model it
+    published (held only until then); returns the kernels' launch counts of
+    the CLI run and what phase 10 scores: the run directory, the validation
+    file and ``best/``'s rescored AUC."""
     from photon_ml_tpu_torch import native
     from photon_ml_tpu_torch.cli import train_game
     from photon_ml_tpu_torch.cli.config import parse_feature_shard_config
     from photon_ml_tpu_torch.evaluation import parse_evaluators
-    from photon_ml_tpu_torch.io import data_reader, model_io
+    from photon_ml_tpu_torch.io import data_reader, model_io, pipeline
     from photon_ml_tpu_torch.io.index import IndexMap
 
     train, valid = make_e2e(tg, **E2E)
@@ -1329,7 +1497,9 @@ def run_cli_phase(tg, fused_glm, fused_re, auc_phase3, auc_fe, tmp):
         f"{E2E_TRAIN_PARTS} part files, {E2E['valid_rows']} in one file "
         f"and again in {E2E_VALID_PARTS} parts; null codec, {size['train']}"
         f" + {size['valid']} bytes) in {time.perf_counter() - t0:.2f} s "
-        "(spawned writer processes, not in the wall below)")
+        "(writer processes, not in the wall below; the record "
+        f"shape's encoder, its first {E2E_WRITE_CHECK_ROWS} rows "
+        "byte-identical to the generic writer's)")
     del train, valid
     # the native library's g++ build happens once a checkout, outside
     # the wall
@@ -1340,8 +1510,11 @@ def run_cli_phase(tg, fused_glm, fused_re, auc_phase3, auc_fe, tmp):
     out = os.path.join(tmp, "run")
     fused_glm.fused_value_and_grad.launches = 0
     fused_re.fused_entity_value_and_grad.launches = 0
+    saved = []
     with Counted(native, "decode_training_file") as nat, \
-            Counted(data_reader, "iter_avro_file") as py:
+            Counted(data_reader, "iter_avro_file") as py, \
+            Patched(pipeline, "save_game_model_atomic",
+                    recorded_saves(saved)):
         t0 = time.perf_counter()
         result = train_game.run(cli_args(paths["train"], paths["valid"],
                                          out))
@@ -1386,9 +1559,9 @@ def run_cli_phase(tg, fused_glm, fused_re, auc_phase3, auc_fe, tmp):
     _, _, vocabs = reader.read(paths["train"], id_columns=ids)
     vdata, _, _ = reader.read(paths["valid"], id_columns=ids,
                               entity_vocabs=vocabs)
-    model = model_io.load_game_model(
-        model_io.resolve_game_model_dir(out), maps, vocabs,
-        device="cuda")
+    # (the lineage id from the same decode of best/'s records)
+    model, lineage = model_io.load_warm_start_model(
+        model_io.resolve_game_model_dir(out), maps, vocabs, device="cuda")
     reload_auc = parse_evaluators(["AUC"])[0].evaluate(
         model.score(vdata), vdata.labels, vdata.weights)
     log(f"  best/ reloaded and rescored in "
@@ -1396,6 +1569,11 @@ def run_cli_phase(tg, fused_glm, fused_re, auc_phase3, auc_fe, tmp):
         f"(|diff| {abs(reload_auc - auc):.2e}, limit "
         f"{RELOAD_AUC_TOL:g})")
     assert abs(reload_auc - auc) <= RELOAD_AUC_TOL, (reload_auc, auc)
+    del model, vdata
+    (save,) = saved  # one configuration: best/ saved once, in the background
+    assert os.path.normpath(save["path"]) == os.path.normpath(best), save
+    check_background_save(save, best, lineage, tmp)
+    del save, saved
     return launches, dict(run=out, train=paths["train"], valid=paths["valid"],
                           valid_parts=paths["valid_parts"], auc=reload_auc,
                           train_auc=auc, model_bytes=model_bytes, wall=wall)
@@ -1464,85 +1642,15 @@ def dense_csr(x, y):
     return indptr, c.astype(np.int32), x[r, c], y
 
 
-def _avro_long(n):
-    """Avro's zigzag varint of a non-negative ``n``."""
-    n <<= 1
-    out = bytearray()
-    while n > 0x7F:
-        out.append((n & 0x7F) | 0x80)
-        n >>= 7
-    out.append(n)
-    return bytes(out)
-
-
 def write_glm_part(path, indptr, cols, vals, labels, first_uid, sync=None):
     """One TrainingExampleAvro file (null codec) of CSR rows: features
-    ``x{col}``, no offsets, weights or metadata. It encodes this one record
-    shape itself, byte for byte as ``data_reader.write_training_examples``
-    does (blocks of 4,096 records; :func:`write_glm_files` holds a part
-    against it): each block's features are gathered into one buffer with
-    numpy, and only the rows' heads are encoded in Python. Runs in a
-    worker process."""
-    import struct
-
-    from photon_ml_tpu_torch.io import avro
-    from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_AVRO
-
-    sync = os.urandom(avro.SYNC_SIZE) if sync is None else sync
+    ``x{col}``, no offsets, weights or metadata, through
+    :func:`write_examples_part`. Runs in a worker process."""
     cols = np.asarray(cols, np.int64)
-    indptr = np.asarray(indptr, np.int64)
-    # every column's encoded name and empty term, laid end to end
     dim = int(cols.max()) + 1 if cols.size else 0
-    encoded = [_avro_long(len(raw)) + raw + b"\x00"
-               for raw in (f"x{c}".encode() for c in range(dim))]
-    name_len = np.fromiter(map(len, encoded), np.int64, dim)
-    name_off = np.cumsum(name_len) - name_len
-    table = np.frombuffer(b"".join(encoded), np.uint8)
-    value_bytes = np.ascontiguousarray(vals, "<f8").view(np.uint8).reshape(
-        -1, 8)
-    labels = labels.tolist()
-    with open(path, "wb") as f:
-        f.write(avro.MAGIC)
-        f.write(_avro_long(2))
-        for key, value in (
-                ("avro.schema",
-                 json.dumps(TRAINING_EXAMPLE_AVRO).encode()),
-                ("avro.codec", b"null")):
-            f.write(_avro_long(len(key)) + key.encode())
-            f.write(_avro_long(len(value)) + value)
-        f.write(b"\x00" + sync)
-        for lo in range(0, len(labels), 4096):
-            hi = min(lo + 4096, len(labels))
-            a0, b0 = int(indptr[lo]), int(indptr[hi])
-            c = cols[a0:b0]
-            lens = name_len[c]
-            width = lens + 8
-            ends = np.cumsum(width)
-            starts = ends - width
-            buf = np.empty(int(ends[-1]) if c.size else 0, np.uint8)
-            # each feature's name and term, then its value
-            within = np.arange(int(lens.sum())) - np.repeat(
-                np.cumsum(lens) - lens, lens)
-            buf[np.repeat(starts, lens) + within] = table[
-                np.repeat(name_off[c], lens) + within]
-            buf[(starts + lens)[:, None] + np.arange(8)] = value_bytes[a0:b0]
-            feats = buf.tobytes()
-            row_at = np.concatenate([[0], ends])[indptr[lo:hi + 1] - a0]
-            parts = []
-            for j in range(lo, hi):
-                uid = str(first_uid + j).encode()
-                n = int(indptr[j + 1] - indptr[j])
-                # uid (union branch 1), response, null offset and weight,
-                # the features, their end and an empty metadata map
-                parts.append(b"\x02" + _avro_long(len(uid)) + uid
-                             + struct.pack("<d", labels[j]) + b"\x00\x00"
-                             + (_avro_long(n) if n else b"")
-                             + feats[row_at[j - lo]:row_at[j - lo + 1]]
-                             + b"\x00\x02\x00")
-            payload = b"".join(parts)
-            f.write(_avro_long(hi - lo) + _avro_long(len(payload)))
-            f.write(payload + sync)
-    return os.path.getsize(path)
+    names = [_avro_string(f"x{c}") + b"\x00" for c in range(dim)]
+    return write_examples_part(path, indptr, cols, vals, labels, first_uid,
+                               names, sync=sync)
 
 
 def write_glm_part_plain(path, indptr, cols, vals, labels, first_uid,
@@ -1573,10 +1681,10 @@ GLM_WRITE_CHECK_ROWS = 100
 
 def write_glm_files(root, sets, parts=4):
     """Write each CSR set of ``sets`` ({name: csr}) under ``root``: a
-    directory of ``parts`` files, all sets at once over a pool of spawned
-    worker processes. Returns ({name: path}, total bytes, records)."""
+    directory of ``parts`` files, all sets at once over a pool of
+    :func:`writer_context` processes. Returns ({name: path}, total bytes,
+    records)."""
     import concurrent.futures
-    import multiprocessing
 
     jobs, paths = [], {}
     for name, (indptr, cols, vals, labels) in sets.items():
@@ -1592,8 +1700,7 @@ def write_glm_files(root, sets, parts=4):
                          labels[lo:hi], int(lo)))
     workers = min(len(jobs), os.cpu_count() or 1, 8)
     with concurrent.futures.ProcessPoolExecutor(
-            max_workers=workers,
-            mp_context=multiprocessing.get_context("spawn")) as pool:
+            max_workers=workers, mp_context=writer_context()) as pool:
         sizes = list(pool.map(write_glm_part, *zip(*jobs)))
     # the encoder against the port's generic writer: each set's first
     # GLM_WRITE_CHECK_ROWS rows, one sync marker, the same bytes
@@ -1776,7 +1883,7 @@ def run_glm_cli_phase(fused_glm, fused_hvp, fused_re, phase6,
         paths, nbytes, nrec = write_glm_files(tmp, sets)
         log(f"[9] generated the GLM rows in {gen_s:.1f} s and wrote them to "
             f"Avro ({nrec} records in {len(sets)} sets, null codec, {nbytes} "
-            f"bytes) in {time.perf_counter() - t0:.2f} s (spawned writer "
+            f"bytes) in {time.perf_counter() - t0:.2f} s (writer "
             "processes, not in the walls below)")
         del sets
 
@@ -2327,6 +2434,12 @@ def refresh_args(prior, train, valid, out):
                      prior_dir=prior)
 
 
+#: the (kind, coordinate id) of each coordinate of phase 8's model
+MODEL_COORDINATES = (("fixed-effect", "global"),
+                     ("random-effect", "perUser"),
+                     ("random-effect", "perSong"))
+
+
 def coefficient_records(model_dir, cid, kind="random-effect"):
     """raw model id -> the ``means`` of its coefficient record, of one
     coordinate of a model directory."""
@@ -2334,6 +2447,46 @@ def coefficient_records(model_dir, cid, kind="random-effect"):
 
     return {r["modelId"]: r["means"] for r in iter_avro_file(os.path.join(
         model_dir, kind, cid, "coefficients", "part-00000.avro"))}
+
+
+def same_records(a, b, coordinates=MODEL_COORDINATES):
+    """Whether the model directories ``a`` and ``b`` hold the same
+    coefficient records of each (kind, coordinate id) of ``coordinates``
+    (by model id, as :func:`coefficient_records` compares them): a part
+    file equal to the other's but for its sync markers holds the same
+    records and decodes neither; any other pair is decoded and compared."""
+    for kind, cid in coordinates:
+        paths = [os.path.join(d, kind, cid, "coefficients", "part-00000.avro")
+                 for d in (a, b)]
+        if not (same_avro_content(*paths)
+                or coefficient_records(a, cid, kind)
+                == coefficient_records(b, cid, kind)):
+            return False
+    return True
+
+
+def same_lineage(a, b):
+    """``model_lineage_id(a) == model_lineage_id(b)`` for two model
+    directories, decoding neither where their metadata agree but for the
+    lineage fields and every part file equals the other's but for its sync
+    markers (the same records in the same order)."""
+    from photon_ml_tpu_torch.io import model_io
+
+    metas = []
+    for d in (a, b):
+        with open(os.path.join(d, "model-metadata.json")) as f:
+            meta = json.load(f)
+        for field in model_io.LINEAGE_FIELDS:
+            meta.pop(field, None)
+        metas.append(meta)
+    if metas[0] == metas[1] and all(
+            same_avro_content(*(os.path.join(d, info["type"], cid,
+                                              "coefficients",
+                                              "part-00000.avro")
+                                for d in (a, b)))
+            for cid, info in metas[0]["coordinates"].items()):
+        return True
+    return model_io.model_lineage_id(a) == model_io.model_lineage_id(b)
 
 
 def stages_of(out):
@@ -3036,18 +3189,25 @@ class Patched:
         setattr(self.owner, self.name, self.fn)
 
 
+def recorded_saves(saved):
+    """A :class:`Patched` wrap of ``io/pipeline.py::save_game_model_atomic``
+    (every GAME model directory the commands publish, the background
+    saver's included) appending each save's arguments to ``saved``."""
+    def record(save):
+        def wrapper(path, model, *a, **kw):
+            saved.append(dict(path=path, model=model, args=a, kwargs=kw))
+            return save(path, model, *a, **kw)
+        return wrapper
+    return record
+
+
 def options_run(train_game, label, args):
     """``train_game.run(args)`` with the kernels' launches counted around
     it; returns (result, launches, the saved in-memory model, AUC)."""
+    from photon_ml_tpu_torch.io import pipeline
+
     saved = []
-
-    def record(save):
-        def wrapper(path, model, *a, **kw):
-            saved.append(model)
-            return save(path, model, *a, **kw)
-        return wrapper
-
-    with Patched(train_game, "save_game_model", record):
+    with Patched(pipeline, "save_game_model_atomic", recorded_saves(saved)):
         res, wall, launches = counted_call(train_game.run, args)
     auc = res["best_evaluation"]["AUC"]
     out = args[args.index("--output-dir") + 1]
@@ -3055,7 +3215,7 @@ def options_run(train_game, label, args):
                        for m in stages_of(out) if "seconds" in m)
     log(f"[13] {label}: {wall:.2f} s; launches {launches}; AUC {auc:.7f}; "
         + stages)
-    return res, launches, (saved[-1] if saved else None), auc
+    return res, launches, (saved[-1]["model"] if saved else None), auc
 
 
 def bf16_rounded(a):
@@ -3204,7 +3364,6 @@ def run_options_phase(tg, e2e_run, auc_fe, tmp, device="cuda",
     launches."""
     from photon_ml_tpu_torch import sampling
     from photon_ml_tpu_torch.cli import score_game, train_game
-    from photon_ml_tpu_torch.io import model_io
     from photon_ml_tpu_torch.io.avro import iter_avro_file
     from photon_ml_tpu_torch.ops import objective
 
@@ -3352,9 +3511,8 @@ def run_options_phase(tg, e2e_run, auc_fe, tmp, device="cuda",
         flag_args(args_e, device=device))
     auc8 = next(m["AUC"] for m in stages_of(e2e_run["run"])
                 if m.get("stage") == "best")
-    same = (model_io.model_lineage_id(os.path.join(out_e, "best"))
-            == model_io.model_lineage_id(os.path.join(e2e_run["run"],
-                                                      "best")))
+    same = same_lineage(os.path.join(out_e, "best"),
+                        os.path.join(e2e_run["run"], "best"))
     log(f"  model records equal phase 8's: {same}; AUC {auc_e!r} vs phase "
         f"8's {auc8!r}")
     assert same and auc_e == auc8, (same, auc_e, auc8)
@@ -4623,11 +4781,7 @@ def run_multiprocess_phase(e2e_run, glm_paths, phase9_dir, phase6, tmp,
     restart_s = done[-1] - fault[0] if fault else float("nan")
     kill_best, clean_best = (os.path.join(walls[k][2], "best")
                              for k in ("kill", "clean"))
-    all_same = all(coefficient_records(kill_best, cid, k)
-                   == coefficient_records(clean_best, cid, k)
-                   for cid, k in (("global", "fixed-effect"),
-                                  ("perUser", "random-effect"),
-                                  ("perSong", "random-effect")))
+    all_same = same_records(kill_best, clean_best)
     log(f"  (e) fault detected to fleet done {restart_s:.2f} s; the killed "
         f"run's wall - the clean run's {walls['kill'][0] - walls['clean'][0]:.2f}"
         f" s; best model records equal the uninterrupted run's: {all_same}")
@@ -5389,13 +5543,9 @@ def telemetry_train_game(e2e_run, phase8_launches, tmp, device="cuda"):
     assert auc == e2e_run["train_auc"], (auc, e2e_run["train_auc"])
     assert launches["fused_glm"] == phase8_launches["fused_glm"]
     assert launches["fused_re"] == phase8_launches["fused_re"]
-    for kind, cid in (("fixed-effect", "global"),
-                      ("random-effect", "perUser"),
-                      ("random-effect", "perSong")):
-        got = coefficient_records(os.path.join(out, "best"), cid, kind)
-        want = coefficient_records(os.path.join(e2e_run["run"], "best"),
-                                   cid, kind)
-        assert got == want, (cid, "coefficients differ from phase 8's")
+    assert same_records(os.path.join(out, "best"),
+                        os.path.join(e2e_run["run"], "best")), \
+        "coefficients differ from phase 8's"
     spans, prom = read_telemetry(tel)
     check_span_tree("(a)", spans, "train_game")
     names = [s["name"] for s in spans]
@@ -6059,6 +6209,426 @@ def run_retained_phase(e2e_run, records, tmp, card, fleet_walls,
     log(f"[18] done in {time.perf_counter() - t_start:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# phase 19: background publication and the closed feedback loop
+# --------------------------------------------------------------------------
+
+#: (b)'s client-stamped one-record requests, every user and song of them on
+#: shard 0 of 2
+LOOP_REQUESTS = 64
+#: (b)'s router watch-dir poll
+LOOP_WATCH_POLL_S = 0.2
+#: (b)'s limits: the refresh, the watcher's activation, the refusal
+LOOP_REFRESH_TIMEOUT_S = 300
+LOOP_ACTIVATE_TIMEOUT_S = 120
+#: the spans a background span of phase 17 (a)'s trace may have as its
+#: parent: the one it was submitted under, or (the tracer re-parents a span
+#: that outlives its parent) the nearest ancestor still open at its end
+BACKGROUND_PARENTS = {"io.save.model": {"Train (grid)", "train_game"},
+                      "io.save.index": {"train_game"},
+                      "io.save.manifest": {"train_game"},
+                      "quality.baseline": {"train_game"},
+                      "io.read.validation": {"train_game"}}
+
+
+def same_avro_content(a, b):
+    """Two Avro container files equal byte for byte but for their sync
+    markers (each file's last 16 bytes)."""
+    with open(a, "rb") as f:
+        x = f.read()
+    with open(b, "rb") as f:
+        y = f.read()
+    return x.split(x[-16:]) == y.split(y[-16:])
+
+
+def stray_tmp(root):
+    """The ``.tmp`` files and directories anywhere under ``root``."""
+    return [os.path.join(d, n) for d, dirs, files in os.walk(root)
+            for n in dirs + files if n.endswith(".tmp")]
+
+
+def check_background_save(save, best, lineage, tmp):
+    """(a)'s first check, made at the end of phase 8 while the model the
+    background saver published is in memory: ``best/`` against a
+    synchronous ``save_game_model`` of that model (``save``, the recorded
+    arguments of its ``save_game_model_atomic``). The part files equal
+    byte for byte but for their sync markers (the same records in the same
+    blocks) and the metadata byte for byte, so the synchronous copy has
+    ``lineage``, the id phase 8's reload computed from ``best/``'s
+    records."""
+    from photon_ml_tpu_torch.io import model_io
+
+    sync_dir = os.path.join(tmp, "sync_best")
+    kwargs = {k: v for k, v in save["kwargs"].items() if k != "executor"}
+    t0 = time.perf_counter()
+    model_io.save_game_model(sync_dir, save["model"], *save["args"],
+                             **kwargs)
+    sync_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(os.path.join(best, "model-metadata.json"), "rb") as f:
+        meta_bytes = f.read()
+    with open(os.path.join(sync_dir, "model-metadata.json"), "rb") as f:
+        assert f.read() == meta_bytes
+    metadata = json.loads(meta_bytes)
+    assert set(metadata["coordinates"]) == {"global", "perUser", "perSong"}
+    sizes = {}
+    for cid, info in metadata["coordinates"].items():
+        paths = [os.path.join(d, info["type"], cid, "coefficients",
+                              "part-00000.avro") for d in (best, sync_dir)]
+        assert same_avro_content(*paths), cid
+        sizes[cid] = os.path.getsize(paths[0])
+    compare_s = time.perf_counter() - t0
+    save_s = next(m["seconds"] for m in stages_of(os.path.dirname(best))
+                  if m.get("stage") == "Save models")
+    log(f"[19a] phase 8's best/ (background saver) = a synchronous "
+        f"save_game_model of the same model: part files ("
+        f"{', '.join(f'{c} {n} bytes' for c, n in sizes.items())}) equal "
+        f"but for their sync markers, metadata byte for byte, lineage "
+        f"{lineage} on both ({compare_s:.2f} s to compare); walls: phase "
+        f"8's \"Save models\" (the join) {save_s:.3f} s, the synchronous "
+        f"save of best/ alone {sync_s:.3f} s")
+    shutil.rmtree(sync_dir)
+
+
+def _merged(intervals):
+    out = []
+    for lo, hi in sorted(intervals):
+        if out and lo <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], hi))
+        else:
+            out.append((lo, hi))
+    return out
+
+
+def io_overlap(spans):
+    """The async I/O overlap of a trace, as ``tools/perf_report.py``'s
+    section of that name defines it (a CPU test holds the two equal):
+    per class (``save``: ``io.save.*``, ``read``: ``io.read.*``), the
+    seconds of the I/O spans whose parent is not itself an I/O span, and
+    the share of them inside the union of the train intervals (``cd.sweep``
+    spans and ``Train*`` stages) of their process (0 where a span names
+    none)."""
+    spans = [{"process": 0, **s} for s in spans]
+    by_id = {(s["process"], s["span_id"]): s for s in spans}
+    train = {}
+    for s in spans:
+        if s["name"] == "cd.sweep" or (s.get("kind") == "stage"
+                                       and str(s["name"]).startswith("Train")):
+            train.setdefault(s["process"], []).append(
+                (float(s["t0"]), float(s["t1"])))
+    merged = {p: _merged(iv) for p, iv in train.items()}
+    out = {}
+    for cls in ("save", "read"):
+        total = hidden = 0.0
+        count = 0
+        for s in spans:
+            if not str(s["name"]).startswith(f"io.{cls}"):
+                continue
+            parent = by_id.get((s["process"], s.get("parent_id")))
+            if parent is not None and str(parent["name"]).startswith("io."):
+                continue
+            lo, hi = float(s["t0"]), float(s["t1"])
+            total += float(s["seconds"])
+            hidden += sum(max(0.0, min(hi, b) - max(lo, a))
+                          for a, b in merged.get(s["process"], []))
+            count += 1
+        if count:
+            out[cls] = {"seconds": total, "hidden_seconds": hidden,
+                        "spans": count,
+                        "hidden_pct": (100.0 * hidden / total
+                                       if total > 0 else 0.0)}
+    if not out:
+        return None
+    out["train_wall_s"] = sum(hi - lo for iv in merged.values()
+                              for lo, hi in iv)
+    return out
+
+
+def publication_phase(tg, tel, tmp, device="cuda"):
+    """(a), past its first check (made in phase 8): the background spans
+    of phase 17 (a)'s trace (phase 8's run with ``--telemetry-dir``) and
+    their async I/O overlap; a ``train_game`` at SMALL's size under a
+    ``PHOTON_FAULT_PLAN`` on ``io.model_save``."""
+    from photon_ml_tpu_torch.cli import train_game
+    from photon_ml_tpu_torch.io import model_io
+    from photon_ml_tpu_torch.io.index import IndexMap
+    from photon_ml_tpu_torch.resilience import faults
+
+    # the background spans of phase 8's run traced (phase 17 (a))
+    spans, _ = read_telemetry(tel)
+    by_id = {s["span_id"]: s for s in spans}
+    for name, parent in BACKGROUND_PARENTS.items():
+        got = [by_id[s["parent_id"]]["name"] for s in spans
+               if s["name"] == name]
+        assert got and set(got) <= parent, (name, got)
+    parts = [by_id[s["parent_id"]]["name"] for s in spans
+             if s["name"] == "io.save.part"]
+    assert parts and set(parts) == {"io.save.model"}, parts
+    assert any(s["name"] == "Read validation data" for s in spans)
+    overlap = io_overlap(spans)
+    assert overlap is not None and {"save", "read"} <= set(overlap), overlap
+    (model_span,) = [s for s in spans if s["name"] == "io.save.model"]
+    log(f"[19a] phase 17 (a)'s trace: io.save.model "
+        f"({model_span['seconds']:.3f} s) under "
+        f"\"{by_id[model_span['parent_id']]['name']}\", io.save.part under "
+        "it, io.read.validation, io.save.index, io.save.manifest and "
+        "quality.baseline under the train_game root; async I/O overlap "
+        f"(tools/perf_report.py's section): train wall "
+        f"{overlap['train_wall_s']:.3f} s; "
+        + "; ".join(f"{c}: {overlap[c]['seconds']:.3f} s across "
+                    f"{overlap[c]['spans']} span(s), "
+                    f"{overlap[c]['hidden_pct']:.1f}% hidden"
+                    for c in ("save", "read")))
+
+    # a train_game under a fault on io.model_save at its first visit
+    train = os.path.join(tmp, "small_train.avro")
+    valid = os.path.join(tmp, "small_valid.avro")
+    if not (os.path.exists(train) and os.path.exists(valid)):
+        train, valid = small_files(tg, tmp)
+    out = os.path.join(tmp, "model_save_fault")
+    plan_json = json.dumps({"seed": 0, "specs": [
+        {"site": "io.model_save", "at": [0]}]})
+    os.environ["PHOTON_FAULT_PLAN"] = plan_json
+    try:
+        faults._activate_from_env()
+        plan = faults.active_plan()
+        res, wall, launches = counted_call(train_game.run, flag_args(
+            cli_args(train, valid, out), device=device))
+    finally:
+        faults.deactivate()
+        del os.environ["PHOTON_FAULT_PLAN"]
+    fired = [r.site for r in plan.fired()]
+    model = model_io.load_game_model(
+        os.path.join(out, "best"),
+        {c: IndexMap.load(os.path.join(out, "feature-indexes", f"{c}.json"))
+         for c in ("global", "item")},
+        model_io.game_model_entity_vocabs(os.path.join(out, "best")),
+        device=device)
+    log(f"[19a] train_game at {SMALL['rows']} rows under PHOTON_FAULT_PLAN "
+        f"{plan_json}: {wall:.2f} s, fired {fired}, visits "
+        f"{plan.visits('io.model_save')}, AUC "
+        f"{res['best_evaluation']['AUC']:.7f}, best/ loaded "
+        f"({sorted(model.coordinates)}), .tmp left: {stray_tmp(out)}")
+    assert fired == ["io.model_save"], fired
+    assert plan.visits("io.model_save") == 2
+    assert sorted(model.coordinates) == ["global", "perSong", "perUser"]
+    assert stray_tmp(out) == []
+    return launches
+
+
+def loop_records(records, n):
+    """The first ``n`` of ``records`` whose user and song both live on
+    shard 0 of a 2-shard fleet."""
+    from photon_ml_tpu_torch.fleet.sharding import shard_of_id
+
+    out = [r for r in records
+           if shard_of_id(r["metadataMap"]["userId"], 2) == 0
+           and shard_of_id(r["metadataMap"]["songId"], 2) == 0]
+    assert len(out) >= n, len(out)
+    return out[:n]
+
+
+def wait_until(pred, timeout_s, what):
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        assert time.monotonic() < deadline, f"timed out: {what}"
+        time.sleep(0.05)
+
+
+def loop_phase(e2e_run, records, tmp, device="cuda"):
+    """(b): the closed loop on phase 8's run: ``serve_fleet --fleet-shards
+    2 --reqlog-dir --autopilot-config --router-watch-dir`` in this process,
+    shard 0's traffic, a label CSV, a drift event on ``perUser``; then the
+    ``join_feedback`` command over both hosts' logs. Returns the refresh's
+    kernel launches and the freshness lag."""
+    from photon_ml_tpu_torch.cli import join_feedback, score_game
+    from photon_ml_tpu_torch.events import GLOBAL_BUS
+    from photon_ml_tpu_torch.feedback import AutopilotConfig
+    from photon_ml_tpu_torch.io import data_reader, model_io
+    from photon_ml_tpu_torch.io.avro import iter_avro_file
+
+    run = e2e_run["run"]
+    sent = loop_records(records, LOOP_REQUESTS)
+    users = sorted({r["metadataMap"]["userId"] for r in sent})
+    labels = os.path.join(tmp, "loop_labels.csv")
+    with open(labels, "w") as f:
+        f.write("request_id,label\n")
+        for i, r in enumerate(sent):
+            f.write(f"loop-{i:04d},{r['response']!r}\n")
+        f.write("ghost,0,1.0\n")  # a label the log never saw: late
+    publish = os.path.join(tmp, "loop_publish")
+    args = cli_args(e2e_run["train"], e2e_run["valid"], "-")
+    coords = args[args.index("--coordinates") + 1:
+                  args.index("--update-sequence")]
+    config = AutopilotConfig(
+        prior_dir=run, publish_dir=publish, feature_shards=E2E_SHARDS,
+        coordinates=tuple(coords),
+        update_sequence=args[args.index("--update-sequence") + 1],
+        grid=tuple(f"{c}={v}" for c, v in E2E_LAMBDAS.items()),
+        labels=labels, evaluators="", data_validation="VALIDATE_DISABLED",
+        min_rows=1, debounce_s=0.0, min_interval_s=0.0)
+    config_path = os.path.join(tmp, "loop_autopilot.json")
+    with open(config_path, "w") as f:
+        json.dump(config.as_dict(), f)
+    reqlog = os.path.join(tmp, "loop_reqlog")
+    t0 = time.perf_counter()
+    fleet, up_s = start_fleet(
+        run, device, "--fleet-shards", "2", "--reqlog-dir", reqlog,
+        "--reqlog-segment-records", "8", "--autopilot-config", config_path,
+        "--router-watch-dir", publish,
+        "--router-watch-poll-s", str(LOOP_WATCH_POLL_S))
+    try:
+        ap, watcher = fleet.autopilot, fleet.watcher
+        assert ap.config.fleet_shards == 2 and ap.device == device
+        t1 = time.perf_counter()
+        for i, r in enumerate(sent):
+            status, body, _ = fleet_request(
+                fleet.url, "POST", "/score", {"records": [r]},
+                {"X-Photon-Request-Id": f"loop-{i:04d}"})
+            assert status == 200, (status, body)
+        traffic_s = time.perf_counter() - t1
+        health0 = [fleet_request(u, "GET", "/healthz")[1]
+                   for u in fleet.host_urls()]
+        incumbents = [h.service.registry.active() for h in fleet.hosts]
+
+        # the drift event, the refresh, the activation fleet-wide
+        counters = kernel_counters()
+        for c in counters.values():
+            c.launches = 0
+        t_drift = time.perf_counter()
+        GLOBAL_BUS.post("quality_drift_detected", version=1, kind="psi",
+                        coordinate="perUser", drift=1.0, threshold=0.25,
+                        rows=len(sent))
+        wait_until(lambda: (ap.stats()["refreshes"] + ap.stats()["aborts"]
+                            >= 1 and not ap.stats()["busy"]),
+                   LOOP_REFRESH_TIMEOUT_S, "the autopilot's refresh")
+        refresh_s = time.perf_counter() - t_drift
+        launches = {k: c.launches for k, c in counters.items()}
+        stats = ap.stats()
+        last = stats["last"] or {}
+        join = last.get("join")
+        log(f"[19b] serve_fleet --fleet-shards 2 --reqlog-dir "
+            f"--autopilot-config --router-watch-dir up in {up_s:.2f} s; "
+            f"{len(sent)} one-record requests of {len(users)} users in "
+            f"{traffic_s:.2f} s; drift -> refresh published in "
+            f"{refresh_s:.2f} s; {stats['refreshes']} refresh, "
+            f"{stats['aborts']} abort; join {join}; solved "
+            f"{last.get('solved')}; the refresh's launches {launches}")
+        assert (stats["refreshes"], stats["aborts"]) == (1, 0), stats
+        assert (join["joined"], join["late"], join["unjoined"]) == \
+            (len(sent), 1, 0), join
+        assert last["solved"]["perUser"] == len(users), last["solved"]
+        assert last["solved"]["perSong"] == 0, last["solved"]
+        assert launches["fused_glm"] > 0 and launches["fused_re"] > 0, \
+            launches
+
+        # the operator's join over both hosts' logs, before more traffic
+        t1 = time.perf_counter()
+        report = join_feedback.run(
+            [a for i in range(2)
+             for a in ("--reqlog-dir", os.path.join(reqlog, f"host-{i}"))]
+            + ["--labels", labels, "--output",
+               os.path.join(tmp, "loop_joined.avro"),
+               "--prior-dir", run, "--feature-shards", E2E_SHARDS,
+               "--coordinates", *coords])
+        log(f"[19b] join_feedback over both hosts' logs with --prior-dir "
+            f"in {time.perf_counter() - t1:.2f} s: joined "
+            f"{report['joined']}, late {report['late']}, unjoined "
+            f"{report['unjoined']}, duplicates {report['duplicates']}; "
+            f"delta {report['delta']}")
+        for key in ("joined", "unjoined", "late", "duplicates", "requests"):
+            assert report[key] == join[key], (key, report, join)
+        assert report["delta"]["perUser"]["touched"] == len(users)
+
+        wait_until(lambda: watcher.n_applied >= 1 or watcher.n_rejected,
+                   LOOP_ACTIVATE_TIMEOUT_S, "the watcher's activation")
+        versions0 = [h["version"] for h in health0]
+        wait_until(lambda: all(
+            fleet_request(u, "GET", "/healthz")[1]["version"] > v
+            for u, v in zip(fleet.host_urls(), versions0)),
+            LOOP_ACTIVATE_TIMEOUT_S, "both hosts active")
+        lag_s = time.perf_counter() - t_drift
+        health1 = [fleet_request(u, "GET", "/healthz")[1]
+                   for u in fleet.host_urls()]
+        assert (watcher.n_applied, watcher.n_rejected) == (1, 0), (
+            watcher.n_applied, watcher.n_rejected)
+        # a version whose tables are its parent's replays the parent's
+        # graphs: it captured none
+        active = [h.service.registry.active() for h in fleet.hosts]
+        captured = [0 if a.engine._root is b.engine._root
+                    else a.engine.compile_count
+                    for a, b in zip(active, incumbents)]
+        log(f"[19b] the watcher activated {last['entry']} fleet-wide: "
+            f"versions {versions0} -> {[h['version'] for h in health1]}, "
+            f"graphs captured by the new versions {captured} (host 1, "
+            f"whose patch has no rows: none); freshness lag, drift event "
+            f"-> both hosts active: {lag_s:.2f} s")
+        assert captured[1] == 0, captured
+        assert active[1].stores["perUser"].table is \
+            incumbents[1].stores["perUser"].table
+
+        # perSong carried bit for bit; the router's scores of the sent
+        # records = score_game of the published run's model
+        entry = last["entry"]
+        for cid in ("perSong",):
+            assert coefficient_records(os.path.join(entry, "best"), cid) \
+                == coefficient_records(os.path.join(run, "best"), cid), cid
+        status, body, _ = fleet_request(fleet.url, "POST", "/score",
+                                        {"records": sent})
+        assert status == 200, (status, body)
+        routed = np.asarray(body["scores"], np.float64)
+        data = os.path.join(tmp, "loop_sent.avro")
+        data_reader.write_training_examples(data, sent, codec="null")
+        scored = os.path.join(tmp, "loop_scores")
+        score_game.run(["--data", data, "--model-dir", entry,
+                        "--output-dir", scored, "--feature-shards",
+                        E2E_SHARDS, "--device", device])
+        batch = np.array([r["predictionScore"] for r in iter_avro_file(
+            os.path.join(scored, "scores.avro"))])
+        assert np.array_equal(routed, batch), float(
+            np.abs(routed - batch).max())
+        log(f"[19b] perSong carried bit for bit; the router's {len(sent)} "
+            f"scores after activation = score_game of {entry} (f32, bit "
+            f"for bit)")
+
+        # a partial per-shard set is refused; the incumbent serves on
+        probe = {"records": sent[:1]}
+        probe0 = fleet_request(fleet.url, "POST", "/score", probe)[1]
+        bad = os.path.join(publish, "zz-partial", "patch-shard-0")
+        os.makedirs(bad)
+        with open(os.path.join(bad, "model-metadata.json"), "w") as f:
+            json.dump({"kind": model_io.PATCH_KIND, "fleetShard": 0,
+                       "fleetShardCount": 2, "modelId": "m1",
+                       "parentModel": "p0"}, f)
+        wait_until(lambda: watcher.n_rejected >= 1,
+                   LOOP_ACTIVATE_TIMEOUT_S, "the partial set refused")
+        health2 = [fleet_request(u, "GET", "/healthz")[1]
+                   for u in fleet.host_urls()]
+        probe1 = fleet_request(fleet.url, "POST", "/score", probe)[1]
+        log(f"[19b] a partial patch-shard-0 refused ({watcher.n_rejected}); "
+            f"versions {[h['version'] for h in health2]}, probe "
+            f"{probe1['scores']} (before {probe0['scores']})")
+        assert [h["version"] for h in health2] == \
+            [h["version"] for h in health1]
+        assert probe1["scores"] == probe0["scores"]
+        assert watcher.n_applied == 1
+    finally:
+        fleet.stop()
+    log(f"[19b] done in {time.perf_counter() - t0:.1f} s")
+    return launches, lag_s
+
+
+def run_loop_phase(tg, e2e_run, records, tmp, device="cuda"):
+    """Phase 19 on phase 8's run and files, phase 10's records and phase
+    17 (a)'s trace; returns (a)'s and (b)'s kernel launches."""
+    t_start = time.perf_counter()
+    tel = os.path.join(tmp, "telemetry_game", "telemetry")
+    fault_launches = publication_phase(tg, tel, tmp, device)
+    launches, _ = loop_phase(e2e_run, records, tmp, device)
+    log(f"[19] done in {time.perf_counter() - t_start:.1f} s")
+    return {"fault": fault_launches, "loop": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6374,8 +6944,8 @@ def main() -> int:
     e2e_tmp = tempfile.mkdtemp(prefix="chip_smoke_e2e_")
     try:
         # 8. the e2e CLI, Avro in and model directory out -------------------
-        cli_launches, e2e_run = run_cli_phase(tg, fused_glm, fused_re, auc,
-                                              auc_fe, e2e_tmp)
+        cli_launches, e2e_run = run_cli_phase(
+            tg, fused_glm, fused_re, auc, auc_fe, e2e_tmp)
 
         # 9. the GLM command, Avro in and model directory out ---------------
         t0 = time.perf_counter()
@@ -6429,6 +6999,12 @@ def main() -> int:
             run_retained_phase, e2e_run, records, e2e_tmp, card, fleet_walls)
         log(f"[18] kernel launches {retained_launches}")
         assert not any(retained_launches.values()), retained_launches
+
+        # 19. background publication and the closed feedback loop ----------
+        loop_launches = run_loop_phase(tg, e2e_run, records, e2e_tmp)
+        log(f"[19] kernel launches {loop_launches}")
+        assert loop_launches["loop"]["fused_hvp"] == 0
+        assert loop_launches["loop"]["fused_glm_multi"] == 0
     finally:
         shutil.rmtree(e2e_tmp, ignore_errors=True)
 
@@ -6447,6 +7023,11 @@ def main() -> int:
         """Phase 17's launches of ``kernel``: (a) and (b)."""
         return {name: n[kernel] for name, n in telemetry_launches.items()}
 
+    def loop(kernel):
+        """Phase 19's launches of ``kernel``: the faulted train_game of (a)
+        and the autopilot's refresh of (b)."""
+        return {name: n[kernel] for name, n in loop_launches.items()}
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [
         dict(name="fused_value_and_grad", route="cuda", status="redesigned",
@@ -6463,6 +7044,7 @@ def main() -> int:
              fleet=dict(launches=fleet_launches["fused_glm"]),
              telemetry=dict(launches=telemetry("fused_glm")),
              retained=dict(launches=retained_launches["fused_glm"]),
+             loop=dict(launches=loop("fused_glm")),
              glm_path=dict(launches=glm_launches["tron"]["fused_glm"],
                            **t1_glm),
              glm_small=dict(launches=runs["cuda"]["tron"][3]["fused_glm"],
@@ -6481,7 +7063,8 @@ def main() -> int:
              multihost=dict(launches=multihost("fused_re")),
              fleet=dict(launches=fleet_launches["fused_re"]),
              telemetry=dict(launches=telemetry("fused_re")),
-             retained=dict(launches=retained_launches["fused_re"])),
+             retained=dict(launches=retained_launches["fused_re"]),
+             loop=dict(launches=loop("fused_re"))),
         dict(name="fused_hvp", route="cuda", status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_hvp.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:447",
@@ -6496,7 +7079,8 @@ def main() -> int:
              multihost=dict(launches=multihost("fused_hvp")),
              fleet=dict(launches=fleet_launches["fused_hvp"]),
              telemetry=dict(launches=telemetry("fused_hvp")),
-             retained=dict(launches=retained_launches["fused_hvp"])),
+             retained=dict(launches=retained_launches["fused_hvp"]),
+             loop=dict(launches=loop("fused_hvp"))),
         dict(name="fused_value_and_grad_multi", route="cuda",
              status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_glm_multi.cu",
@@ -6509,7 +7093,8 @@ def main() -> int:
              quality=dict(launches=quality_launches["fused_glm_multi"]),
              fleet=dict(launches=fleet_launches["fused_glm_multi"]),
              telemetry=dict(launches=telemetry("fused_glm_multi")),
-             retained=dict(launches=retained_launches["fused_glm_multi"])),
+             retained=dict(launches=retained_launches["fused_glm_multi"]),
+             loop=dict(launches=loop("fused_glm_multi"))),
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"):

@@ -1,7 +1,8 @@
 """Subcommand dispatch: ``python -m photon_ml_tpu_torch <command> [args...]``
 (counterpart of ``photon_ml_tpu/__main__.py``). ``train_game``,
 ``refresh_game``, ``train_glm``, ``score_game``, ``serve_game``,
-``serve_fleet`` and ``build_index`` are the commands ported so far."""
+``serve_fleet``, ``build_index`` and ``join_feedback`` are the commands
+ported so far."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ _COMMANDS = {
     "serve_game": "photon_ml_tpu_torch.cli.serve_game",
     "serve_fleet": "photon_ml_tpu_torch.cli.serve_fleet",
     "build_index": "photon_ml_tpu_torch.cli.build_index",
+    "join_feedback": "photon_ml_tpu_torch.cli.join_feedback",
 }
 
 

@@ -32,14 +32,11 @@ so is the fleet router's group (:class:`RouterConfig`,
 :func:`add_router_flags`, serve_fleet's), and the telemetry group
 (:class:`TelemetryConfig`, :func:`add_telemetry_flags`,
 :func:`install_telemetry`) with serve_game's and serve_fleet's retained
-group (:class:`RetainedConfig`, :func:`add_retained_flags`). The autopilot
-flag is not: :func:`add_unported_flags` lets a command accept such flags
-and :func:`refuse_unported` raise naming them.
+group (:class:`RetainedConfig`, :func:`add_retained_flags`).
 """
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import itertools
 import os
@@ -786,27 +783,3 @@ def router_from_args(args) -> RouterConfig:
                         slo_target=args.slo_target,
                         slo_tick_s=args.slo_tick_s)
 
-
-def add_unported_flags(parser: argparse.ArgumentParser,
-                       flags: Mapping[str, dict]) -> None:
-    """Accept each of the reference's ``flags`` (name → argparse settings)
-    that a command does not run yet; :func:`refuse_unported` raises for the
-    ones given. A ``default`` among the settings is the reference's
-    default: giving the flag that value is accepted."""
-    for flag, kwargs in flags.items():
-        kwargs = {k: v for k, v in kwargs.items() if k != "default"}
-        parser.add_argument(flag, default=argparse.SUPPRESS,
-                            help="not ported: raises NotImplementedError",
-                            **kwargs)
-
-
-def refuse_unported(args: argparse.Namespace,
-                    flags: Mapping[str, dict]) -> None:
-    """Raise :class:`NotImplementedError` naming the first of ``flags``
-    given on the command line away from its reference default."""
-    for flag, kwargs in flags.items():
-        dest = flag[2:].replace("-", "_")
-        if not hasattr(args, dest):
-            continue
-        if "default" not in kwargs or getattr(args, dest) != kwargs["default"]:
-            raise NotImplementedError(f"{flag} is not ported")

@@ -19,9 +19,12 @@ Feature indexes are preset from the prior run (a refresh lives in its
 parent's feature space), while entity vocabularies extend: new entities
 train and patch in as new rows. It runs on the card unless ``--device
 cpu`` asks for the CPU; ``--design-dtype`` (port-only, default float32 as
-in the reference) sets the dense designs' storage dtype. Saves run in the
-calling thread, ``quality-baseline.json`` (the refreshed model profiled
-on the validation data, else the training data) among them.
+in the reference) sets the dense designs' storage dtype. The merged model
+(``best/``, staged and published by a rename with the ``io.model_save``
+fault site in the crash window), the feature indexes, the manifest and
+``quality-baseline.json`` (the refreshed model profiled on the validation
+data, else the training data) are written by a background saver and
+joined in "Save models"; the patch is published after them.
 ``--fleet-shards N`` also publishes the per-host patches of an N-host
 serving fleet (``patch-shard-0`` … ``patch-shard-N-1``), each chained to
 the same merged model. ``--telemetry-dir``, ``--telemetry-poll-s`` and
@@ -66,10 +69,9 @@ from photon_ml_tpu_torch.io.model_io import (
     load_warm_start_model,
     model_lineage_id,
     resolve_game_model_dir,
-    save_game_model,
 )
 from photon_ml_tpu_torch.io.pipeline import (
-    count_saved,
+    BackgroundSaver,
     save_model_patch_atomic,
 )
 from photon_ml_tpu_torch.logging_util import RunLogger, timed
@@ -163,6 +165,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     telemetry = DriverTelemetry(
         args, "refresh_game",
         started=dict(task=task.value, output_dir=args.output_dir))
+    saver = None
     try:
         shard_configs = tuple(parse_feature_shard_config(s)
                               for s in args.feature_shards.split(","))
@@ -275,27 +278,31 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         lineage = {"parentModel": prior_lineage, "trainedAt": trained_at,
                    "dataManifest": manifest_dig}
         best_dir = os.path.join(args.output_dir, "best")
+        saver = BackgroundSaver()
+        saver.submit_game_save(
+            best_dir, result.model, index_maps, vocabs,
+            sparsity_threshold=args.model_sparsity_threshold,
+            lineage=lineage)
+        for shard_id, imap in index_maps.items():
+            saver.submit_file_write(
+                imap.save, os.path.join(args.output_dir, "feature-indexes",
+                                        f"{shard_id}.json"),
+                label="io.save.index", shard=shard_id)
+        saver.submit_file_write(
+            lambda path: delta_mod.save_manifest(path, manifest),
+            os.path.join(args.output_dir, delta_mod.MANIFEST_NAME),
+            label="io.save.manifest")
+        # the refreshed model's quality baseline, with the refresh's
+        # lineage, at the run root: serving finds it for both best/ and the
+        # sibling patch/
+        bdata = validation[0] if validation is not None else data
+        saver.submit_file_write(
+            lambda path: save_baseline(path, baseline_from_game(
+                result.model, bdata, task=task, lineage=lineage)),
+            os.path.join(args.output_dir, BASELINE_NAME),
+            label="quality.baseline")
         with timed("Save models", run_logger):
-            save_game_model(best_dir, result.model, index_maps, vocabs,
-                            sparsity_threshold=args.model_sparsity_threshold,
-                            lineage=lineage)
-            for shard_id, imap in index_maps.items():
-                path = os.path.join(args.output_dir, "feature-indexes",
-                                    f"{shard_id}.json")
-                imap.save(path)
-                count_saved(path)
-            path = os.path.join(args.output_dir, delta_mod.MANIFEST_NAME)
-            delta_mod.save_manifest(path, manifest)
-            count_saved(path)
-            # the refreshed model's quality baseline, with the refresh's
-            # lineage, at the run root: serving finds it for both best/
-            # and the sibling patch/
-            path = os.path.join(args.output_dir, BASELINE_NAME)
-            save_baseline(path, baseline_from_game(
-                result.model,
-                validation[0] if validation is not None else data,
-                task=task, lineage=lineage))
-            count_saved(path)
+            saver.join()
 
         # --- publish: the entity-level coefficient patch ----------------
         patch_dir = None
@@ -366,6 +373,8 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                            else None),
         }
     finally:
+        if saver is not None:
+            saver.close()
         telemetry.close()
         run_logger.close()
 

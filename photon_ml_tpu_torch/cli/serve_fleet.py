@@ -30,9 +30,14 @@ router keeps one more, whose snapshots carry the shard heat and the USE
 gauges of its two executors, folds the hosts' rings into the fleet
 timeline behind its ``/history``, and ticks the read-only hot-shard
 advisor behind ``/advisor`` off each snapshot. ``--flight-dir`` arms one
-black box for the fleet's process. The reference's ``--autopilot-config``
-is accepted by the parser and raises :class:`NotImplementedError` naming
-itself when given.
+black box for the fleet's process. ``--autopilot-config`` closes the
+freshness loop fleet-wide: one
+:class:`~photon_ml_tpu_torch.feedback.autopilot.FeedbackAutopilot` on the
+shared bus joins every host's request log (``--reqlog-dir`` required),
+refreshes the drifted coordinate on ``--device`` with ``--fleet-shards``
+= this fleet's shard count, and publishes the per-shard patch set where
+``--router-watch-dir`` finds it; a host the refresh did not touch
+activates its empty patch without a capture.
 """
 
 from __future__ import annotations
@@ -49,21 +54,13 @@ from photon_ml_tpu_torch.cli.config import (
     add_retained_flags,
     add_router_flags,
     add_telemetry_flags,
-    add_unported_flags,
     install_telemetry,
-    refuse_unported,
     retained_from_args,
     router_from_args,
     telemetry_from_args,
 )
 
 logger = logging.getLogger(__name__)
-
-#: the reference's flags this command does not run yet (the autopilot),
-#: with their reference defaults
-_UNPORTED_FLAGS = {
-    "--autopilot-config": {"default": None},
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -113,13 +110,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--reqlog-segment-records", type=int, default=256)
     p.add_argument("--quality-poll-s", type=float, default=0.0,
                    help="per-host drift evaluator period (serve_game "
-                        "--quality-poll-s)")
+                        "--quality-poll-s); in-process hosts share one "
+                        "event bus, so any host's drift event reaches "
+                        "the fleet autopilot")
     p.add_argument("--drift-threshold", type=float, default=0.25)
     p.add_argument("--canary-gate", action="store_true",
                    help="per-host canary gate on reload candidates; under "
                         "the router's two-phase epoch one host's refusal "
                         "aborts the activation fleet-wide")
     p.add_argument("--canary-bound", type=float, default=None)
+    p.add_argument("--autopilot-config", metavar="JSON",
+                   help="close the freshness loop fleet-wide: a "
+                        "feedback.AutopilotConfig JSON file. One "
+                        "autopilot (subscribed to the shared bus) joins "
+                        "every host's request log (--reqlog-dir "
+                        "required), refreshes the drifted coordinate on "
+                        "--device with --fleet-shards = this fleet's "
+                        "shard count, and publishes the per-shard patch "
+                        "set where --router-watch-dir discovers it")
     p.add_argument("--router-watch-dir", metavar="DIR",
                    help="poll DIR on the router for published per-shard "
                         "patch sets (patch-shard-0..N-1, stamps verified) "
@@ -131,7 +139,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "unlimited; serve_game --max-connections)")
     add_retained_flags(p)
     add_router_flags(p)
-    add_unported_flags(p, _UNPORTED_FLAGS)
     add_telemetry_flags(p)
     return p
 
@@ -216,14 +223,16 @@ def arm_router_plane(router, retained: RetainedConfig) -> RouterPlane:
 
 class FleetHandle:
     """The started fleet: the router server, the N × R host servers, the
-    optional router-side patch watcher, the router's retained plane and
-    the telemetry session, with one :meth:`stop`."""
+    optional loop pieces (the router-side patch watcher, the autopilot),
+    the router's retained plane and the telemetry session, with one
+    :meth:`stop`."""
 
     def __init__(self, router_server, hosts, telemetry):
         self.router_server = router_server
         self.hosts = hosts
         self.telemetry = telemetry
         self.watcher = None  # FleetPatchWatcher (--router-watch-dir)
+        self.autopilot = None  # FeedbackAutopilot (--autopilot-config)
         self.history = None  # the router's HistorySampler
         self.saturation = None  # the router's SaturationSampler
         self.advisor = None  # HotShardAdvisor (GET /advisor)
@@ -250,7 +259,10 @@ class FleetHandle:
         self.router_server.serve_forever()
 
     def stop(self) -> None:
-        # the watcher first: no epoch against a fleet tearing down
+        # the loop first: no refresh launch or epoch against a fleet
+        # tearing down
+        if self.autopilot is not None:
+            self.autopilot.stop()
         if self.watcher is not None:
             self.watcher.stop()
         for piece in (self.watchdog, self.history, self.flight):
@@ -267,7 +279,9 @@ def build_fleet(argv: Optional[Sequence[str]] = None) -> FleetHandle:
     yet serving forever (the programmatic entry)."""
     args = build_parser().parse_args(
         list(sys.argv[1:] if argv is None else argv))
-    refuse_unported(args, _UNPORTED_FLAGS)
+    if args.autopilot_config and not args.reqlog_dir:
+        raise SystemExit("--autopilot-config needs --reqlog-dir (the "
+                         "autopilot joins the hosts' request logs)")
     config = router_from_args(args)
     telemetry = install_telemetry(telemetry_from_args(args))
 
@@ -311,7 +325,7 @@ def build_fleet(argv: Optional[Sequence[str]] = None) -> FleetHandle:
         host_argv_common.append("--canary-gate")
     if args.canary_bound is not None:
         host_argv_common += ["--canary-bound", str(args.canary_bound)]
-    hosts = []
+    hosts, reqlog_dirs = [], []
     try:
         # shard-major host order ([s0r0, s0r1, s1r0, ...]): every replica
         # of a group serves the same shard view of the same model
@@ -320,9 +334,10 @@ def build_fleet(argv: Optional[Sequence[str]] = None) -> FleetHandle:
                 host_argv = host_argv_common + ["--fleet-shard", str(i)]
                 if args.reqlog_dir:
                     # one log a host (a real fleet has one a machine)
+                    reqlog_dirs.append(os.path.join(args.reqlog_dir,
+                                                    f"host-{len(hosts)}"))
                     host_argv += [
-                        "--reqlog-dir",
-                        os.path.join(args.reqlog_dir, f"host-{len(hosts)}"),
+                        "--reqlog-dir", reqlog_dirs[-1],
                         "--reqlog-sample", str(args.reqlog_sample),
                         "--reqlog-segment-records",
                         str(args.reqlog_segment_records)]
@@ -361,6 +376,24 @@ def build_fleet(argv: Optional[Sequence[str]] = None) -> FleetHandle:
         handle.watcher = FleetPatchWatcher(
             router, args.router_watch_dir,
             poll_s=args.router_watch_poll_s).start()
+    if args.autopilot_config:
+        from photon_ml_tpu_torch.events import GLOBAL_BUS
+        from photon_ml_tpu_torch.feedback import (
+            AutopilotConfig,
+            FeedbackAutopilot,
+        )
+
+        # in-process hosts share GLOBAL_BUS (each registry's default bus),
+        # so one subscription hears every host's drift evaluator; the
+        # autopilot joins all the logs and cuts per-shard patches
+        ap_config = AutopilotConfig.load(args.autopilot_config)
+        if ap_config.fleet_shards == 0:
+            ap_config.fleet_shards = n
+        handle.autopilot = FeedbackAutopilot(
+            GLOBAL_BUS, ap_config, reqlog_dirs=reqlog_dirs,
+            reqlogs=[h.service.reqlog for h in hosts
+                     if h.service.reqlog is not None],
+            device=args.device).start()
     # startup balance check: heavy skew means constant or duplicated ids,
     # not bad luck; logged, never fatal
     all_ids = set()

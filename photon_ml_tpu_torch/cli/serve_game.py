@@ -32,8 +32,12 @@ gauges of the host's resources (``telemetry/saturation.py``).
 ``--flight-dir`` adds the black box (the last ``--flight-capacity``
 records, dumped to ``flight-<ts>.jsonl`` on a fault-site trip, an
 unhandled exception, SIGTERM or a stall of ``--watchdog-timeout-s``).
-The reference's ``--autopilot-config`` is accepted by the parser and
-raises :class:`NotImplementedError` naming itself when given.
+``--autopilot-config`` closes the freshness loop in-process
+(:class:`~photon_ml_tpu_torch.feedback.autopilot.FeedbackAutopilot`, on
+the registry's bus): on ``quality_drift_detected`` it joins this server's
+request log (``--reqlog-dir`` required) to the configured labels, runs
+``refresh_game`` for the drifted coordinate on this server's
+``--device``, and publishes the run where ``--watch-dir`` finds it.
 """
 
 from __future__ import annotations
@@ -49,21 +53,13 @@ from photon_ml_tpu_torch.cli.config import (
     add_rank_flags,
     add_retained_flags,
     add_telemetry_flags,
-    add_unported_flags,
     install_telemetry,
     parse_feature_shard_config,
     quality_from_args,
     rank_from_args,
-    refuse_unported,
     retained_from_args,
     telemetry_from_args,
 )
-
-#: the reference's flags this command does not run yet, with their argparse
-#: settings and the reference defaults (which are accepted)
-_UNPORTED_FLAGS = {
-    "--autopilot-config": {"default": None},
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -155,9 +151,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "with Connection: close, counted in "
                         "photon_connections_refused_total and shown by "
                         "/readyz as connections_exhausted")
+    p.add_argument("--autopilot-config", metavar="JSON",
+                   help="close the freshness loop in-process: a "
+                        "feedback.AutopilotConfig JSON file (prior_dir, "
+                        "publish_dir, labels, the training-time specs, "
+                        "debounce/min-interval guards). On "
+                        "quality_drift_detected the autopilot joins this "
+                        "host's request log (--reqlog-dir required) to "
+                        "the labels, refreshes ONLY the drifted "
+                        "coordinate on --device, and publishes into "
+                        "publish_dir — point --watch-dir there and the "
+                        "loop closes")
     add_quality_flags(p)
     add_rank_flags(p)
-    add_unported_flags(p, _UNPORTED_FLAGS)
     add_retained_flags(p)
     add_telemetry_flags(p)
     return p
@@ -169,7 +175,9 @@ def build_server(argv: Optional[Sequence[str]] = None):
     ``telemetry`` session is the caller's to close after ``stop()``."""
     args = build_parser().parse_args(
         list(sys.argv[1:] if argv is None else argv))
-    refuse_unported(args, _UNPORTED_FLAGS)
+    if args.autopilot_config and not args.reqlog_dir:
+        raise SystemExit("--autopilot-config needs --reqlog-dir "
+                         "(the autopilot joins the request log)")
     if args.max_connections < 0:
         raise ValueError(f"max_connections must be >= 0, got "
                          f"{args.max_connections}")
@@ -272,8 +280,20 @@ def _build(args):
 
         drift = DriftEvaluator(registry, threshold=quality.drift_threshold,
                                poll_s=quality.quality_poll_s)
+    autopilot = None
+    if args.autopilot_config:
+        from photon_ml_tpu_torch.feedback import (
+            AutopilotConfig,
+            FeedbackAutopilot,
+        )
+
+        autopilot = FeedbackAutopilot(
+            registry.bus, AutopilotConfig.load(args.autopilot_config),
+            reqlog_dirs=[args.reqlog_dir], reqlogs=[reqlog],
+            device=args.device)
     server = GameServer(service, host=args.host, port=args.port,
-                        watcher=watcher, drift_evaluator=drift)
+                        watcher=watcher, drift_evaluator=drift,
+                        autopilot=autopilot)
     try:
         _arm_retained(args, server, connections, reqlog)
     except BaseException:

@@ -12,11 +12,18 @@ the reference's directory layout, with the index maps under
         --coordinates 'global=fixed,shard=global,reg=L2' \\
         --update-sequence global
 
-It runs on the card unless ``--device cpu`` asks for the CPU. Saves run in
-the calling thread (the reference's background saver only overlaps them:
-the bytes are the same), and under ``--output-all-models`` ``best/`` is a
-copy of the winner's directory whose metadata names it in ``aliasOf``, as
-the reference's hardlinked alias does. The run root holds the
+It runs on the card unless ``--device cpu`` asks for the CPU. Outputs are
+written by a background saver (:class:`~photon_ml_tpu_torch.io.pipeline.
+BackgroundSaver`, on the chief only): the feature indexes and the data
+manifest as soon as they exist, each model as soon as its configuration
+ends, and the stage "Save models" is the join of what is left. Every GAME
+model directory is staged and published by a rename, with the
+``io.model_save`` fault site in the crash window, so a kill mid-save
+never leaves a partial ``best/``; under ``--output-all-models`` ``best/``
+is a hardlinked alias of the winner's ``all/config-i`` whose metadata
+names it in ``aliasOf``. The validation data is read on a background
+thread while training starts, and joined at its first use ("Read
+validation data" records the join). The run root holds the
 ``data-manifest.json`` of the training data (``continuous/delta.py``), and
 the models' metadata its lineage (``parentModel``, ``trainedAt``,
 ``dataManifest``), so ``refresh_game`` can warm-start from the run.
@@ -67,7 +74,6 @@ import dataclasses
 import datetime
 import json
 import os
-import shutil
 import sys
 from typing import Optional, Sequence
 
@@ -101,9 +107,12 @@ from photon_ml_tpu_torch.io.model_io import (
     find_feature_index_dir,
     load_warm_start_model,
     resolve_game_model_dir,
-    save_game_model,
 )
-from photon_ml_tpu_torch.io.pipeline import count_saved
+from photon_ml_tpu_torch.io.pipeline import (
+    BackgroundSaver,
+    publish_model_alias,
+    read_in_background,
+)
 from photon_ml_tpu_torch.logging_util import RunLogger, profiled, timed
 from photon_ml_tpu_torch.ops import objective as _objective
 from photon_ml_tpu_torch.parallel import multihost
@@ -203,23 +212,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _publish_copy(src_dir: str, dst_dir: str) -> None:
-    """``dst_dir`` as a copy of the model at ``src_dir`` whose metadata
-    names its source in ``aliasOf``: the file tree and metadata of the
-    reference's hardlinked alias."""
-    if os.path.exists(dst_dir):
-        shutil.rmtree(dst_dir)
-    shutil.copytree(src_dir, dst_dir)
-    path = os.path.join(dst_dir, "model-metadata.json")
-    with open(path) as f:
-        metadata = json.load(f)
-    metadata["aliasOf"] = os.path.relpath(
-        os.path.normpath(src_dir),
-        os.path.dirname(os.path.abspath(os.path.normpath(dst_dir))))
-    with open(path, "w") as f:
-        json.dump(metadata, f, indent=2)
-
-
 def preset_index_maps(model_dir: str, shard_configs) -> dict[str, IndexMap]:
     """The feature index maps of the run that wrote ``model_dir``, one per
     configured shard: a warm start lives in its parent's feature space."""
@@ -231,13 +223,14 @@ def preset_index_maps(model_dir: str, shard_configs) -> dict[str, IndexMap]:
 
 def _tune(args, est: GameEstimator, data, validation, evaluators,
           update_sequence, initial_models, locked, guard,
-          mp_fit=None) -> list:
+          mp_fit=None, on_result=None) -> list:
     """``--tuning RANDOM|BAYESIAN``: ``--tuning-iterations`` fits at the
     points the search picks (every trained coordinate's lambda in
     ``--tuning-range``, log-scaled), the coordinate datasets built once and
     their device images released after the search. With ``mp_fit`` (the
     multi-process path) every process runs the same seeded search, each
-    point one collective fit whose metric every process computes alike."""
+    point one collective fit whose metric every process computes alike.
+    ``on_result(index, result)`` fires as each fit ends."""
     from photon_ml_tpu_torch.hyperparameter.search import (
         GaussianProcessSearch,
         ParamRange,
@@ -260,6 +253,8 @@ def _tune(args, est: GameEstimator, data, validation, evaluators,
                         initial_models=initial_models, locked=locked,
                         guard=guard)[0]
         results.append(r)
+        if on_result is not None:
+            on_result(len(results) - 1, r)
         return r.evaluation.primary[1]
 
     if args.tuning == "BAYESIAN":
@@ -347,6 +342,23 @@ def _mp_fit_fn(args, data, task, coordinate_configs, update_sequence,
     return fit
 
 
+def _joined_at_first_use(future, evaluators, run_logger):
+    """The validation argument of a fit whose data is read in the
+    background: a callable joining ``future`` at its first call, under the
+    "Read validation data" stage, and returning ``(data, evaluators)``
+    from then on."""
+    cell = []
+
+    def validation():
+        if not cell:
+            with timed("Read validation data", run_logger):
+                vdata, _, _ = future.result()
+            cell.append((vdata, evaluators))
+        return cell[0]
+
+    return validation
+
+
 def run(argv: Optional[Sequence[str]] = None) -> dict:
     from photon_ml_tpu_torch.continuous import delta as delta_mod
     from photon_ml_tpu_torch.io.checkpoint import CheckpointManager
@@ -384,6 +396,9 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         started=dict(task=task.value, output_dir=args.output_dir))
     profile_dir = (os.path.join(args.output_dir, "profile")
                    if args.profile else None)
+    # the chief's writer service: indexes, manifest, models and baseline
+    # are written on background threads and joined in "Save models"
+    saver = BackgroundSaver() if chief else None
     try:
         shard_configs = tuple(parse_feature_shard_config(s)
                               for s in args.feature_shards.split(","))
@@ -483,11 +498,13 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                 data, index_maps, vocabs = reader.read(
                     args.training_data, id_columns=id_columns)
         if chief:
+            # the index maps are final from here on
             for shard_id, imap in index_maps.items():
-                path = os.path.join(args.output_dir, "feature-indexes",
-                                    f"{shard_id}.json")
-                imap.save(path)
-                count_saved(path)
+                saver.submit_file_write(
+                    imap.save, os.path.join(args.output_dir,
+                                            "feature-indexes",
+                                            f"{shard_id}.json"),
+                    label="io.save.index", shard=shard_id)
 
         initial_models = None
         parent_lineage = None
@@ -515,10 +532,12 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                 if isinstance(c, RandomEffectCoordinateConfig)}
             with timed("Build data manifest", run_logger):
                 manifest = delta_mod.build_manifest(data, re_coords, vocabs)
-                path = os.path.join(args.output_dir, delta_mod.MANIFEST_NAME)
-                delta_mod.save_manifest(path, manifest)
-                count_saved(path)
             manifest_digest = delta_mod.manifest_digest(manifest)
+            if chief:
+                saver.submit_file_write(
+                    lambda path, m=manifest: delta_mod.save_manifest(path, m),
+                    os.path.join(args.output_dir, delta_mod.MANIFEST_NAME),
+                    label="io.save.manifest")
         lineage = {
             "parentModel": parent_lineage,
             "trainedAt": datetime.datetime.now(
@@ -534,11 +553,47 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             reader_v = AvroDataReader(shard_configs=shard_configs,
                                       index_maps=index_maps,
                                       input_columns=reader.input_columns)
-            with timed("Read validation data", run_logger):
-                vdata, _, _ = reader_v.read(
-                    args.validation_data, id_columns=id_columns,
-                    entity_vocabs=vocabs)
-            validation = (vdata, evaluators)
+            if multiproc:
+                # every process holds the data before the collective
+                # training starts
+                with timed("Read validation data", run_logger):
+                    vdata, _, _ = reader_v.read(
+                        args.validation_data, id_columns=id_columns,
+                        entity_vocabs=vocabs)
+                validation = (vdata, evaluators)
+            else:
+                # read in the background while the first sweep trains;
+                # joined at its first use, where "Read validation data"
+                # records the join (the part of the read left visible)
+                validation = _joined_at_first_use(
+                    read_in_background(
+                        reader_v.read, args.validation_data,
+                        id_columns=id_columns, entity_vocabs=vocabs,
+                        label="io.read.validation"),
+                    evaluators, run_logger)
+
+        # each model is submitted to the saver the moment its configuration
+        # ends: under --output-all-models every one to all/config-i (best/
+        # is published later as an alias of the winner), and a
+        # single-configuration grid's one result straight to best/
+        single_config = (configurations is not None and not multiproc
+                         and len(configurations) == 1)
+
+        def note_result(i, r):
+            if saver is None:
+                return
+            if args.output_all_models:
+                saver.submit_game_save(
+                    os.path.join(args.output_dir, "all", f"config-{i}"),
+                    r.model, index_maps, vocabs,
+                    sparsity_threshold=args.model_sparsity_threshold,
+                    lineage=lineage)
+            elif single_config:
+                saver.submit_game_save(
+                    os.path.join(args.output_dir, "best"), r.model,
+                    index_maps, vocabs,
+                    sparsity_threshold=args.model_sparsity_threshold,
+                    lineage=lineage)
 
         mp_fit = None
         if multiproc:
@@ -552,16 +607,20 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         with timed(stage, run_logger), profiled(profile_dir):
             if configurations is not None and multiproc:
                 # grid points in turn, each one collective fit
-                results = [mp_fit(c) for c in configurations]
+                results = []
+                for c in configurations:
+                    results.append(mp_fit(c))
+                    note_result(len(results) - 1, results[-1])
             elif configurations is not None:
                 results = est.fit(
                     data, configurations, validation=validation,
                     initial_models=initial_models, locked=locked,
-                    checkpoint=checkpoint, resume=args.resume, guard=guard)
+                    checkpoint=checkpoint, resume=args.resume, guard=guard,
+                    on_result=note_result)
             else:
                 results = _tune(args, est, data, validation, evaluators,
                                 update_sequence, initial_models, locked,
-                                guard, mp_fit=mp_fit)
+                                guard, mp_fit=mp_fit, on_result=note_result)
             # the last solves finish inside this stage, not in "Save models"
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -577,8 +636,6 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                               config=dict(best.configuration.regularization_weights))
 
         best_dir = os.path.join(args.output_dir, "best")
-        save = dict(sparsity_threshold=args.model_sparsity_threshold,
-                    lineage=lineage)
         result = {
             "best_config": dict(best.configuration.regularization_weights),
             "best_evaluation": (best.evaluation.as_dict()
@@ -590,31 +647,40 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             # returns once the chief's outputs are complete
             multihost.barrier()
             return result
+        # the winner's quality baseline at the run root: its score
+        # distribution on the validation data (the training data when the
+        # run has none), which serving compares live traffic with; computed
+        # and written on the writer pool
+        bdata = (data if validation is None else
+                 (validation() if callable(validation) else validation)[0])
+        saver.submit_file_write(
+            lambda path: save_baseline(path, baseline_from_game(
+                best.model, bdata, task=task, lineage=lineage)),
+            os.path.join(args.output_dir, BASELINE_NAME),
+            label="quality.baseline")
+        if not (args.output_all_models or single_config):
+            # the winner of several configurations is known only now
+            saver.submit_game_save(
+                best_dir, best.model, index_maps, vocabs,
+                sparsity_threshold=args.model_sparsity_threshold,
+                lineage=lineage)
+        # the join of what the writers have not finished under training
+        # and selection, and under --output-all-models the alias publish
         with timed("Save models", run_logger):
+            saver.join()
             if args.output_all_models:
-                for i, r in enumerate(results):
-                    save_game_model(
-                        os.path.join(args.output_dir, "all", f"config-{i}"),
-                        r.model, index_maps, vocabs, **save)
                 best_i = next(i for i, r in enumerate(results) if r is best)
-                _publish_copy(os.path.join(args.output_dir, "all",
-                                           f"config-{best_i}"), best_dir)
-            else:
-                save_game_model(best_dir, best.model, index_maps, vocabs,
-                                **save)
-            # the winner's quality baseline at the run root: its score
-            # distribution on the validation data (the training data when
-            # the run has none), which serving compares live traffic with
-            path = os.path.join(args.output_dir, BASELINE_NAME)
-            save_baseline(path, baseline_from_game(
-                best.model, validation[0] if validation is not None else data,
-                task=task, lineage=lineage))
-            count_saved(path)
+                publish_model_alias(os.path.join(
+                    args.output_dir, "all", f"config-{best_i}"), best_dir)
         multihost.barrier()
         # a supervised run hands its result to the supervisor
         write_result_file(result)
         return result
     finally:
+        if saver is not None:
+            # the happy path joined already; this waits out the writes a
+            # failing run left in flight
+            saver.close()
         telemetry.close()
         _objective.set_debug_nans(debug_nans)
         run_logger.close()

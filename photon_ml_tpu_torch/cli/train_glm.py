@@ -26,8 +26,11 @@ on the card unless ``--device cpu`` asks for the CPU. Reads run under the
 retry policy of ``--max-retries`` and ``--retry-deadline-s``; a lambda
 whose coefficients are not finite fails the run under ``--on-divergence
 fail`` and is dropped from selection under ``rollback`` or ``freeze``.
-Saves run in the calling thread (the reference's background saver only
-overlaps them: the bytes are the same).
+Outputs are written by a background saver on the chief
+(:class:`~photon_ml_tpu_torch.io.pipeline.BackgroundSaver`): the feature
+index and every lambda's model as soon as the sweep ends, overlapping the
+validation read and selection, then ``best/`` once validation picks it;
+"Save models" is the join.
 
 ``--multihost`` runs one process per card (the job from the
 ``PHOTON_COORDINATOR_ADDRESS`` / ``PHOTON_NUM_PROCESSES`` /
@@ -107,7 +110,7 @@ from photon_ml_tpu_torch.io.model_io import (
     save_glm_model,
     save_glm_model_text,
 )
-from photon_ml_tpu_torch.io.pipeline import count_saved
+from photon_ml_tpu_torch.io.pipeline import BackgroundSaver
 from photon_ml_tpu_torch.io.schemas import FEATURE_SUMMARIZATION_RESULT_AVRO
 from photon_ml_tpu_torch.logging_util import (
     RunLogger,
@@ -359,6 +362,8 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         started=dict(task=task.value, output_dir=args.output_dir))
     profile_dir = (os.path.join(args.output_dir, "profile")
                    if args.profile else None)
+    # the chief's writer service; "Save models" is its join
+    saver = BackgroundSaver() if chief else None
     try:
         evaluators = parse_evaluators(
             [e for e in args.evaluators.split(",") if e])
@@ -506,6 +511,28 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                                 regularization_weight=w)
             trained = [tm for tm in trained if tm not in diverged]
 
+        # every lambda's model is final here: its writes overlap the
+        # validation read, scoring and selection below (the evaluation is
+        # not part of the written files)
+        def save(model, out_dir, model_id):
+            save_glm_model(os.path.join(out_dir, "model.avro"), model, imap,
+                           model_id=model_id)
+            save_glm_model_text(os.path.join(out_dir, "model.txt"), model,
+                                imap)
+
+        if chief:
+            saver.submit_file_write(
+                imap.save, os.path.join(args.output_dir,
+                                        "feature-index.json"),
+                label="io.save.index")
+            for tm in trained:
+                model_id = f"lambda-{tm.regularization_weight:g}"
+                out_dir = os.path.join(args.output_dir, "all", model_id)
+                saver.submit(
+                    lambda tm=tm, out_dir=out_dir, model_id=model_id:
+                        save(tm.model, out_dir, model_id),
+                    label="io.save.model", path=out_dir)
+
         best_idx = 0
         glm_val = None
         # the diagnostics read the validation data too (the fitting curve,
@@ -530,24 +557,14 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                     regularization_weight=tm.regularization_weight,
                     **tm.evaluation.as_dict())
         best = trained[best_idx]
-
-        def save(model, out_dir, model_id):
-            save_glm_model(os.path.join(out_dir, "model.avro"), model, imap,
-                           model_id=model_id)
-            save_glm_model_text(os.path.join(out_dir, "model.txt"), model,
-                                imap)
-
         if chief:
+            # the winner is known only now; the rest has been writing since
+            # the sweep ended
+            best_dir = os.path.join(args.output_dir, "best")
+            saver.submit(lambda: save(best.model, best_dir, "best"),
+                         label="io.save.model", path=best_dir)
             with timed("Save models", run_logger):
-                path = os.path.join(args.output_dir, "feature-index.json")
-                imap.save(path)
-                count_saved(path)
-                for tm in trained:
-                    model_id = f"lambda-{tm.regularization_weight:g}"
-                    save(tm.model, os.path.join(args.output_dir, "all",
-                                                model_id), model_id)
-                save(best.model, os.path.join(args.output_dir, "best"),
-                     "best")
+                saver.join()
         report_path = None
         if args.training_diagnostics:
             with timed("Diagnostics", run_logger):
@@ -570,6 +587,8 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             write_result_file(result)
         return result
     finally:
+        if saver is not None:
+            saver.close()
         telemetry.close()
         _objective.set_debug_nans(debug_nans)
         run_logger.close()

@@ -217,19 +217,33 @@ def save_game_model(
     entity_vocabs: dict[str, dict[str, int]],
     *,
     sparsity_threshold: float = 0.0,
+    executor=None,
     lineage: Optional[dict] = None,
 ) -> None:
-    """Write the reference's fixed-effect/random-effect directory tree, one
-    coordinate after another. ``lineage`` fills :data:`LINEAGE_FIELDS`."""
+    """Write the reference's fixed-effect/random-effect directory tree.
+    ``executor`` (a ``ThreadPoolExecutor``, the background saver's part
+    pool) writes the coordinates' part files concurrently, each in a copy
+    of the caller's context; the bytes are the same either way, and the
+    first writer error propagates. ``lineage`` fills
+    :data:`LINEAGE_FIELDS`."""
+    import contextvars
+
     os.makedirs(output_dir, exist_ok=True)
     metadata = {"task": model.task.value, "coordinates": {}}
     _apply_lineage(metadata, lineage)
+    jobs = []
     for cid, cm in model.coordinates.items():
         kind, extra = _coordinate_kind(cm)
         metadata["coordinates"][cid] = {"type": kind, **extra}
-        _write_coordinate_part(output_dir, cid, cm,
-                               index_maps[cm.feature_shard_id], entity_vocabs,
-                               sparsity_threshold)
+        part = (output_dir, cid, cm, index_maps[cm.feature_shard_id],
+                entity_vocabs, sparsity_threshold)
+        if executor is None:
+            _write_coordinate_part(*part)
+        else:
+            jobs.append(executor.submit(contextvars.copy_context().run,
+                                        _write_coordinate_part, *part))
+    for job in jobs:
+        job.result()
     _write_metadata(output_dir, metadata)
 
 

@@ -2,8 +2,8 @@
 
 Counterpart of ``photon_ml_tpu/quality/baseline.py``: the same host numpy,
 the same ``quality-baseline.json`` (each package's registry reads the
-other's). The port's drivers write it in the calling thread, after
-``best/``; the Hosmer–Lemeshow bins come from
+other's). The port's drivers compute and write it on the background
+saver's writer pool, beside ``best/``; the Hosmer–Lemeshow bins come from
 :mod:`photon_ml_tpu_torch.diagnostics.hl` and the AUC from
 :mod:`photon_ml_tpu_torch.evaluation.metrics`.
 

@@ -1056,18 +1056,22 @@ def _make_handler(service: ServingService):
 class GameServer:
     """Threaded HTTP server wrapper with a test-friendly lifecycle. A
     ``watcher`` (:class:`~photon_ml_tpu_torch.serving.watcher.
-    ModelDirectoryWatcher`) and a ``drift_evaluator``
-    (:class:`~photon_ml_tpu_torch.quality.monitor.DriftEvaluator`) start
-    and stop with the server. ``serve_game`` arms the retained plane on
+    ModelDirectoryWatcher`), a ``drift_evaluator``
+    (:class:`~photon_ml_tpu_torch.quality.monitor.DriftEvaluator`) and an
+    ``autopilot`` (:class:`~photon_ml_tpu_torch.feedback.autopilot.
+    FeedbackAutopilot`, stopped first) start and stop with the server.
+    ``serve_game`` arms the retained plane on
     the attributes ``history``, ``saturation``, ``flight`` and
     ``watchdog``; :meth:`stop` closes the ring, the recorder and the
     watchdog."""
 
     def __init__(self, service: ServingService, *, host: str = "127.0.0.1",
-                 port: int = 0, watcher=None, drift_evaluator=None):
+                 port: int = 0, watcher=None, drift_evaluator=None,
+                 autopilot=None):
         self.service = service
         self.watcher = watcher
         self.drift_evaluator = drift_evaluator
+        self.autopilot = autopilot
         self.history = None  # HistorySampler
         self.saturation = None  # SaturationSampler
         self.flight = None  # FlightRecorder (--flight-dir)
@@ -1090,6 +1094,8 @@ class GameServer:
             self.watcher.start()
         if self.drift_evaluator is not None:
             self.drift_evaluator.start()
+        if self.autopilot is not None:
+            self.autopilot.start()
 
     def start(self) -> "GameServer":
         self._start_background()
@@ -1107,6 +1113,9 @@ class GameServer:
         # flip the refuse flag before teardown: keep-alive handler threads
         # outlive shutdown() and must answer 503 reason=stopping from here
         self._httpd.photon_stopping = True
+        # the loop first: no refresh launches against a server tearing down
+        if self.autopilot is not None:
+            self.autopilot.stop()
         if self.watcher is not None:
             self.watcher.stop()
         if self.drift_evaluator is not None:

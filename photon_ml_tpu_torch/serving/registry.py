@@ -671,7 +671,7 @@ class ModelRegistry:
         # the patch rides its parent's feature space by contract (the
         # refresh presets the parent's index maps): the parent's maps are
         # the patch's, not read again
-        _, patch_model, patch_vocabs, _ = decode_game_model(
+        _, patch_model, patch_vocabs, decoded = decode_game_model(
             model_dir, parent.index_maps, metadata=metadata,
             device=self.device)
         # everything validated, nothing registered: a fault here must
@@ -685,8 +685,13 @@ class ModelRegistry:
             tgt = vocabs.setdefault(t, {})
             for raw in pv:
                 tgt.setdefault(raw, len(tgt))
+        # an entity re-solved to an all-zero row carries no coefficient in
+        # its record (nor a key in the decoded model): its row is zeroed,
+        # as a removal's is, so the patched version scores as the merged
+        # model does
         removed_by_cid = {
-            cid: info.get("removedEntities") or []
+            cid: list(info.get("removedEntities") or []) + [
+                r["modelId"] for r in decoded.get(cid, ()) if not r["means"]]
             for cid, info in metadata["coordinates"].items()}
         coordinates = dict(parent.model.coordinates)
         stores: dict[str, EntityCoefficientStore] = {}

@@ -352,7 +352,11 @@ _RETAINED_FLAGS = {
 }
 
 
-@pytest.mark.parametrize("flag", sorted(list(t_fleet._UNPORTED_FLAGS)
+#: the closed loop's flag, ported since the autopilot took it
+_AUTOPILOT_FLAGS = ("--autopilot-config",)
+
+
+@pytest.mark.parametrize("flag", sorted(list(_AUTOPILOT_FLAGS)
                                         + list(_TELEMETRY_FLAGS)
                                         + list(_RETAINED_FLAGS)))
 def test_unported_fleet_flag_names_itself(flag):
@@ -379,10 +383,16 @@ def test_unported_fleet_flag_names_itself(flag):
                          f"{config.poll_interval_s:g}",
                          str(config.metrics_port))
         return
-    value = "1" if t_fleet._UNPORTED_FLAGS[flag].get("type") else "x"
-    with pytest.raises(NotImplementedError, match=flag):
+    # the autopilot's flag (tests/test_torch_feedback.py closes the loop
+    # with it): without --reqlog-dir it is refused, naming the flag the
+    # autopilot needs
+    assert flag in _AUTOPILOT_FLAGS
+    args = t_fleet.build_parser().parse_args(
+        ["--model-dir", "m", "--feature-shards", SHARDS, flag, "x"])
+    assert args.autopilot_config == "x"
+    with pytest.raises(SystemExit, match="--reqlog-dir"):
         t_fleet.build_fleet(["--model-dir", "m", "--feature-shards", SHARDS,
-                             flag, value] + CPU)
+                             flag, "x"] + CPU)
 
 
 # --- per-host patches --------------------------------------------------------

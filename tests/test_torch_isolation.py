@@ -62,6 +62,44 @@ def test_source_imports_neither_jax_nor_the_jax_package(path):
     assert _forbidden_imports(path) == []
 
 
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add((node.module or "").split(".")[0])
+    return roots
+
+
+def test_chip_smoke_imports_no_other_module_of_the_repo():
+    """Not even one it puts on ``sys.path`` itself, inside a function: the
+    repo's tools and scripts may import the JAX package (``tools/
+    perf_report.py`` does), which the card's run must not load."""
+    repo = ({p.stem for d in (ROOT, ROOT / "tools", ROOT / "examples")
+             for p in d.glob("*.py")}
+            | {p.name for p in ROOT.iterdir() if (p / "__init__.py").exists()})
+    repo -= {"photon_ml_tpu_torch", "chip_smoke"}
+    assert sorted(_imported_roots(ROOT / "chip_smoke.py") & repo) == []
+
+
+_IMPORT_SMOKE = r"""
+import importlib.util, sys
+for name in ("jax", "jaxlib", "photon_ml_tpu"):
+    sys.modules[name] = None
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+assert smoke.main is not None
+"""
+
+
+def test_chip_smoke_loads_with_the_jax_package_blocked():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_SMOKE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_pyproject_lists_every_subpackage_of_the_port():
     # ``[tool.setuptools] packages`` is an explicit list: a subpackage left
     # out of it is missing from a non-editable install

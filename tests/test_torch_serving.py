@@ -622,7 +622,14 @@ def test_unported_serve_flag_names_itself(extra):
                             f"{config.poll_interval_s:g}",
                             str(config.metrics_port))
         return
-    with pytest.raises(NotImplementedError, match=extra[0]):
+    # --autopilot-config (ported; tests/test_torch_feedback.py closes the
+    # loop with it): without --reqlog-dir it is refused, naming the flag
+    # the autopilot needs
+    assert extra[0] == "--autopilot-config"
+    args = t_serve.build_parser().parse_args(
+        ["--model-dir", "m", "--feature-shards", SHARDS] + extra)
+    assert args.autopilot_config == extra[1]
+    with pytest.raises(SystemExit, match="--reqlog-dir"):
         t_serve.build_server(["--model-dir", "m", "--feature-shards", SHARDS,
                               "--device", "cpu"] + extra)
 

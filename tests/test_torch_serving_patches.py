@@ -220,6 +220,56 @@ def test_port_registry_applies_the_port_patch(runs, dtype):
     assert np.array_equal(got, jsm.score(requests))
 
 
+def _zero_entity(model_dir, raw):
+    """Rewrite ``raw``'s perUser record with no coefficient, as the writers
+    emit an entity re-solved to an all-zero row."""
+    from photon_ml_tpu_torch.io.avro import read_avro_file, write_avro_file
+    from photon_ml_tpu_torch.io.schemas import BAYESIAN_LINEAR_MODEL_AVRO
+
+    part = os.path.join(model_dir, "random-effect", "perUser",
+                        "coefficients", "part-00000.avro")
+    records = read_avro_file(part)
+    assert raw in {r["modelId"] for r in records}
+    write_avro_file(part, ({**r, "means": []} if r["modelId"] == raw
+                           else r for r in records),
+                    BAYESIAN_LINEAR_MODEL_AVRO, codec="null")
+
+
+def test_an_entity_re_solved_to_zero_is_zeroed_by_the_patch(runs,
+                                                            tmp_path):
+    """A refresh can re-solve an entity to an all-zero row (a label its
+    margin already explains, under the L2 pull), which the writers emit as
+    a record with no coefficient and so with no key in the decoded patch.
+    The port's patched version zeroes that entity's row and scores as the
+    merged model does; the JAX registry keeps the parent's row (a
+    difference of the reference, ROADMAP.md Queue 3)."""
+    r, requests = runs["r"], runs["requests"]
+    raw = f"u{MUTATED[0]}"
+    merged = str(tmp_path / "r1")
+    shutil.copytree(r[1], merged)
+    for d in (os.path.join(merged, "best"), os.path.join(merged, "patch")):
+        _zero_entity(d, raw)
+    registry = _registry()
+    v1 = registry.load(r[0])
+    sm = registry.reload(os.path.join(merged, "patch"))
+    full = _registry().load(merged)
+    _assert_same_rows(sm.stores["perUser"], full.stores["perUser"],
+                      sorted(full.stores["perUser"].row_of_id))
+    assert not _bits(sm.stores["perUser"].table)[
+        sm.stores["perUser"].rows_for([raw])].any()
+    assert _bits(v1.stores["perUser"].table)[
+        v1.stores["perUser"].rows_for([raw])].any()
+    mine = [q for q in requests
+            if (q.get("metadataMap") or {}).get("userId") == raw]
+    assert mine
+    assert np.array_equal(sm.score(requests), full.score(requests))
+    jax_registry = JRegistry(J_SHARD_CONFIGS)
+    jax_registry.load(r[0])
+    jsm = jax_registry.reload(os.path.join(merged, "patch"))
+    assert not np.array_equal(np.asarray(jsm.score(mine)),
+                              np.asarray(full.score(mine)))
+
+
 def test_a_second_patch_chains(runs):
     r, patch, requests = runs["r"], runs["patch"], runs["requests"]
     registry = _registry()

@@ -27,6 +27,7 @@
   bit-identical to serving without a trace, and no new build.
 """
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -82,14 +83,8 @@ PORT_ONLY_LABELS = {"photon_build_info": ({"torch_version"},
 #: port's label for the same work: the whole-sweep program of the random
 #: effects (the port runs a per-bucket loop, each bucket's solve profiled)
 FN_IN_PORT = {"game.re.sweep_fused": "game.re.solve_bucket"}
-#: spans of the JAX package's background saver and background validation
-#: read, which the port does not have (it saves and reads in the calling
-#: thread: ROADMAP.md Queue 1 item 4)
-JAX_BACKGROUND_SPANS = {"io.save.model", "io.save.index", "io.save.manifest",
-                        "io.save.file", "io.save.task", "io.read.validation",
-                        "quality.baseline"}
-#: the port's stage around its in-thread manifest build and save, which
-#: the JAX package hands to its background saver
+#: the port's stage around its manifest build, which the JAX package
+#: builds outside a stage (both hand the write to the background saver)
 PORT_ONLY_STAGES = {"Build data manifest"}
 #: families the port declares but fills with no series on the CPU: it
 #: builds no kernel there, captures no CUDA graph and has no caching
@@ -469,9 +464,10 @@ def test_span_tree_and_stages_match(cli_runs, command):
     for spans in (t, j):
         roots = [s for s in spans if s["parent_id"] is None]
         assert [s["name"] for s in roots] == [root]
-    # the same span names, up to the documented differences
+    # the same span names, up to the documented difference: the
+    # background saver's and the background read's spans among them
     assert ({s["name"] for s in t} - PORT_ONLY_STAGES
-            == {s["name"] for s in j} - JAX_BACKGROUND_SPANS)
+            == {s["name"] for s in j})
     stages = [{s["name"] for s in spans if s.get("kind") == "stage"}
               for spans in (t, j)]
     assert stages[0] - PORT_ONLY_STAGES == stages[1] and stages[1]
@@ -564,6 +560,26 @@ def test_perf_report_reads_the_port_directory(cli_runs, capsys):
     assert "-- coordinate descent: per-coordinate --" in out
     for cid in ("global", "perUser", "perSong"):
         assert cid in out.split("-- coordinate descent")[1]
+    # the background saver's and the background read's spans: the async
+    # I/O overlap section has both classes
+    overlap = out.split("-- async I/O overlap (hidden under train) --")[1]
+    assert "\nsave: " in overlap and "\nread: " in overlap
+
+
+def test_chip_smoke_overlap_is_perf_reports(cli_runs):
+    """``chip_smoke.py`` computes the overlap on the card with the port's
+    own code (the tool imports the JAX package): the same numbers as the
+    tool's on the port's trace."""
+    tel = os.path.join(cli_runs["photon_ml_tpu_torch"]["game"], "telemetry")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    spans, _ = smoke.read_telemetry(tel)
+    want = perf_report.io_overlap(perf_report.load_spans(
+        os.path.join(tel, "trace.jsonl")))
+    assert want is not None and {"save", "read"} <= set(want)
+    assert smoke.io_overlap(spans) == want
 
 
 def _coefficients(run):
