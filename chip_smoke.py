@@ -307,6 +307,25 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    score unchanged; ``join_feedback`` over both hosts' logs with
    ``--prior-dir``: the autopilot's counts and a ``delta``; the freshness
    lag (drift event to both hosts active) printed.
+20. one process over several slots (``--mesh``), every slot on ``cuda:0``
+   (this machine has one card; copies between cards are no-ops here): (a)
+   phase 3's fit on ``make_mesh({"data": 2, "entity": 2})``, held after
+   phase 3 to its unsharded fit (fixed-effect coefficients, its and the
+   model's validation scores within MESH_FIT_ATOL, the gaps printed, the
+   AUC beside phase 3's), kernel 1's launches = 2 blocks x the fixed
+   effect's evaluations; (b) ``{"entity": 4}`` solves of phase 3's widest
+   and head ``perUser`` buckets equal to the unsharded solves bit for bit,
+   coefficients and scores; (c) in phase 6, on 4 slots at 200k x 1024
+   f32, at phase 15 (a)'s coefficients and direction: the data-axis
+   and the feature-axis objectives' value, gradient and Hvp against the
+   unsharded kernels within KERNEL_RTOL, and one sharded L-BFGS solve at
+   lambda 1 against the unsharded one (the f64 objectives within
+   OBJECTIVE_RTOL); (d) after phase 13, ``train_game --mesh
+   data=1,entity=1`` at SMALL's 20k rows: records and AUC equal the run
+   without ``--mesh``, and ``--mesh data=2`` refused ("needs 2 devices,
+   have 1"); (e) in phase 14 (c), phase 8's ``perSong`` index spread over
+   ``{"entity": 4}`` ranks the 32 users with ids and scores equal to the
+   unsharded index's. Each part's launches are counted around it.
 
 ``python3 chip_smoke.py --mp-gap-seeds 0,1,2`` runs phase 15 (b) alone
 over seeds of phase 6's problem and prints its gaps.
@@ -422,7 +441,7 @@ def make_e2e(tg, rows, users, songs, valid_rows, seed=99, draw_seeds=None):
 
 
 def e2e_estimator(tg, device, max_iter, sequence=("global", "perUser",
-                                                  "perSong")):
+                                                  "perSong"), mesh=None):
     from photon_ml_tpu_torch.game.estimator import (
         FixedEffectCoordinateConfig,
         RandomEffectCoordinateConfig,
@@ -449,7 +468,8 @@ def e2e_estimator(tg, device, max_iter, sequence=("global", "perUser",
     return tg.GameEstimator(
         task=TaskType.LOGISTIC_REGRESSION,
         coordinate_configs={k: coords[k] for k in sequence},
-        update_sequence=list(sequence), n_cd_iterations=1, device=device)
+        update_sequence=list(sequence), n_cd_iterations=1, device=device,
+        mesh=mesh)
 
 
 E2E_LAMBDAS = {"global": 0.001, "perUser": 1.0, "perSong": 1.0}
@@ -4251,6 +4271,8 @@ def run_quality_phase(e2e_run, refresh_run, records, glm_paths, lam, tmp,
     diagnostics_phase(glm_paths, lam, device, small_devices)
     baseline_phase(run, e2e_run["valid"])
     f32, parent, users, http_ms = rank_phase(run, patch, records, device)
+    # phase 20 (e): phase 8's index spread over entity slots
+    mesh_e = mesh_index(parent, users, device)
     # (e) on phase 8's version of the f32 registry (the patch left it
     # registered, not active): activate it again
     f32.activate(parent.version)
@@ -4259,7 +4281,7 @@ def run_quality_phase(e2e_run, refresh_run, records, glm_paths, lam, tmp,
     torch.cuda.empty_cache()
     canary_phase(run, patch, records, tmp, device)
     log(f"[14] done in {time.perf_counter() - t_start:.1f} s")
-    return http_ms
+    return http_ms, mesh_e
 
 
 # --------------------------------------------------------------------------
@@ -4742,9 +4764,14 @@ def run_multiprocess_phase(e2e_run, glm_paths, phase9_dir, phase6, tmp,
     assert len(got) == len(want) == same, (len(got), len(want), same)
     launches["score"] = [o["score"]["launches"] for o in outs]
 
-    # (e) train_game --supervise 2 on phase 8's part files and validation
-    # file, two sweeps, rank 1 killed at the start of sweep 1; the restart
-    # re-reads the rows and resumes from the sweep-0 checkpoints
+    # (e) train_game --supervise 2 on SMALL's rows (phase 4's draw) in
+    # phase 8's file layout, two sweeps, rank 1 killed at the start of
+    # sweep 1; the restart re-reads the rows and resumes from the sweep-0
+    # checkpoints
+    import photon_ml_tpu_torch.game as tg
+
+    small_paths, _ = write_e2e_files(os.path.join(root, "small"),
+                                     *make_e2e(tg, **SMALL))
     events = []
     unsub = GLOBAL_BUS.subscribe(
         lambda e: events.append((time.perf_counter(), e.name, e.payload))
@@ -4758,7 +4785,7 @@ def run_multiprocess_phase(e2e_run, glm_paths, phase9_dir, phase6, tmp,
             out = os.path.join(root, f"supervised_{name}")
             t0 = time.perf_counter()
             res = train_game.run(flag_args(
-                cli_args(e2e_run["train"], e2e_run["valid"], out),
+                cli_args(small_paths["train"], small_paths["valid"], out),
                 cd_iterations="2", supervise=str(MP_RANKS),
                 max_restarts="2", device=device))
             walls[name] = (time.perf_counter() - t0, res, out)
@@ -6629,6 +6656,302 @@ def run_loop_phase(tg, e2e_run, records, tmp, device="cuda"):
     return {"fault": fault_launches, "loop": launches}
 
 
+# --------------------------------------------------------------------------
+# phase 20: one process over several slots (--mesh)
+# --------------------------------------------------------------------------
+
+#: (a): the mesh fit vs phase 3's unsharded fit, the fixed effect's
+#: coefficients and the fixed effect's and the model's validation scores
+#: (tests/test_game.py's mesh-fit atol). The random effects' part of the
+#: gap is the fixed effect's: its two blocks' sums move its coefficients by
+#: ~5e-8, and the random effects' lanes, stopped unconverged after 25
+#: L-BFGS iterations, carry that into their residual offsets.
+MESH_FIT_ATOL = 2e-3
+#: (a): the mesh (data, entity); (b), (e): the entity slots; (c): slots
+MESH_FIT_AXES = {"data": 2, "entity": 2}
+MESH_SLOTS = 4
+
+
+def slots(n, device="cuda"):
+    """``n`` mesh slots, every one the card this script runs on (the CPU
+    in a rehearsal)."""
+    return [torch.device("cuda", 0) if device == "cuda"
+            else torch.device("cpu")] * n
+
+
+def mesh_fit(tg, est, datasets, train, valid, result3, evaluators,
+             device="cuda"):
+    """Phase 20 (a) and (b) on phase 3's data, datasets and fit. Returns
+    {part: launches}."""
+    from photon_ml_tpu_torch.game.random_effect import RandomEffectSolver
+    from photon_ml_tpu_torch.ops.fused_re import entity_plan
+    from photon_ml_tpu_torch.parallel import distributed
+    from photon_ml_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
+    mesh = make_mesh(MESH_FIT_AXES, devices=slots(MESH_SLOTS, device))
+    est_m = dataclasses.replace(est, mesh=mesh)
+    t0 = time.perf_counter()
+    fe = tg.FixedEffectDataset.build(
+        "global", train, "global", dtype="bfloat16", device=device,
+        mesh=mesh)
+    build_s = time.perf_counter() - t0
+    blocks = fe.design.n_shards
+    # the random effects' datasets do not depend on the mesh: phase 3's
+    # serve, their lane slices placed per slot at the first solve
+    mesh_sets = {"global": fe, "perUser": datasets["perUser"],
+                 "perSong": datasets["perSong"]}
+    evals = []
+
+    def count(fn):
+        def wrapper(self, *a, **kw):
+            evals.append(1)
+            return fn(self, *a, **kw)
+        return wrapper
+
+    with Patched(distributed.DistributedGLMObjective, "value_and_grad",
+                 count):
+        result, wall, launches = counted_call(
+            lambda: est_m.fit(train, [tg.GameOptimizationConfiguration(
+                E2E_LAMBDAS)], validation=(valid, evaluators),
+                datasets=mesh_sets)[0])
+    out["a"] = launches
+    auc, auc3 = result.evaluation.primary[1], result3.evaluation.primary[1]
+    fe_gap = float((result.model.coordinates["global"].model.coefficients
+                    .means - result3.model.coordinates["global"].model
+                    .coefficients.means).abs().max())
+    t1 = time.perf_counter()
+    gaps = {cid: float(np.abs(m.score(valid) - result3.model.coordinates[cid]
+                              .score(valid)).max())
+            for cid, m in result.model.coordinates.items()}
+    by_cid = ", ".join(f"{cid} {g:.3e}" for cid, g in gaps.items())
+    fe_s_gap = gaps["global"]
+    s_gap = float(np.abs(result.model.score(valid)
+                         - result3.model.score(valid)).max())
+    score_s = time.perf_counter() - t1
+    log(f"[20a] GameEstimator.fit on make_mesh({MESH_FIT_AXES}) of "
+        f"{MESH_SLOTS} slots on {mesh.devices[0]}: {wall:.2f} s (the "
+        f"sharded fixed effect built in {build_s:.2f} s: {blocks} blocks "
+        f"of {fe.design.rows_per_shard} rows); AUC {auc:.6f}, phase 3 "
+        f"{auc3:.6f} (|diff| {abs(auc - auc3):.2e}); max |fixed-effect "
+        f"coefficient - phase 3's| {fe_gap:.3e}, its validation scores "
+        f"{fe_s_gap:.3e}, the model's {s_gap:.3e} (limit "
+        f"{MESH_FIT_ATOL:g}; by coordinate: {by_cid}; scored in "
+        f"{score_s:.2f} s); launches "
+        f"{launches}; fixed-effect evaluations {len(evals)} x {blocks} "
+        f"blocks")
+    for sweep, cid, sec in result.step_seconds:
+        log(f"  sweep {sweep} {cid}: {sec:.3f} s")
+    assert max(fe_gap, fe_s_gap, s_gap) <= MESH_FIT_ATOL, (fe_gap, fe_s_gap,
+                                                           s_gap)
+    assert launches["fused_glm"] == blocks * len(evals) > 0, (launches,
+                                                               len(evals))
+    assert launches["fused_re"] > 0, launches
+
+    # (b) one bucket, whole and over 4 entity slots, from zero
+    ds = datasets["perUser"]
+    cfg = est.coordinate_configs["perUser"]
+    widest = max(ds.buckets, key=lambda b: b.n_entities)
+    head = max(ds.buckets, key=lambda b: b.tensor_shape[1])
+    offsets = torch.zeros(train.n_samples, device=device)
+    parts = {}
+    for name, bucket in (("widest", widest), ("head", head)):
+        one = dataclasses.replace(
+            ds, buckets=[bucket], config=dataclasses.replace(
+                ds.config, cache_device_buckets=False))
+        runs = []
+        for m in (None, make_mesh({"entity": MESH_SLOTS},
+                                  devices=slots(MESH_SLOTS, device))):
+            solver = RandomEffectSolver(
+                task=est.task, config=cfg.optimization,
+                design_dtype=cfg.design_dtype, device=device, mesh=m)
+            (model, scores), _, launch = counted_call(
+                solver.train, one, offsets, E2E_LAMBDAS["perUser"], None,
+                train.shards["item"].dim)
+            runs.append((model, scores.cpu().numpy(), launch))
+        (m0, s0, l0), (m1, s1, l1) = runs
+        same_w = (np.array_equal(m0.keys, m1.keys)
+                  and np.array_equal(m0.coeffs, m1.coeffs))
+        same_s = np.array_equal(s0, s1)
+        same = same_w and same_s
+        gap = float(np.abs(m0.coeffs - m1.coeffs).max())
+        s_gap = float(np.abs(s0 - s1).max())
+        parts[name] = same
+        out[f"b_{name}"] = {k: l0[k] + l1[k] for k in l0}
+        e, s_rows, d = bucket.tensor_shape
+        per = -(-e // MESH_SLOTS)
+        log(f"[20b] {name} perUser bucket {e}x{s_rows}x{d}: unsharded vs "
+            f"{{'entity': {MESH_SLOTS}}} (slices of {per} lanes): bit for "
+            f"bit {same} (coefficients {same_w}, scores {same_s}), max "
+            f"|coefficient gap| {gap:.3e}, |score gap| {s_gap:.3e}; kernel "
+            f"2's chunks an entity {entity_plan(e, s_rows, d).chunks} "
+            f"whole, {entity_plan(per, s_rows, d, e).chunks} in a slice "
+            f"(the whole bucket's plan; "
+            f"{entity_plan(per, s_rows, d).chunks} were the slice's own); "
+            f"launches {l0['fused_re']} / {l1['fused_re']}")
+    assert parts["widest"] and parts["head"], parts
+    return out
+
+
+def mesh_glm(train, lam, device="cuda"):
+    """Phase 20 (c) on phase 6's 200k x 1024 f32 data (``train``, on the
+    card), at phase 15 (a)'s coefficients and direction. Returns {part:
+    launches}."""
+    from photon_ml_tpu_torch import glm
+    from photon_ml_tpu_torch.ops import losses as tl
+    from photon_ml_tpu_torch.ops.design import DenseDesign
+    from photon_ml_tpu_torch.ops.objective import GLMData, GLMObjective
+    from photon_ml_tpu_torch.parallel import distributed
+    from photon_ml_tpu_torch.parallel.mesh import make_mesh
+
+    obj = GLMObjective(loss=tl.LogisticLoss)
+    l2 = lam
+    w, v = mp_probe(train.dim, device)
+    want_vg = obj.value_and_grad(w, train, l2)
+    want_hv = obj.hvp(w, v, train, l2)
+    out = {}
+    t0 = time.perf_counter()
+    data_mesh = make_mesh({"data": MESH_SLOTS},
+                          devices=slots(MESH_SLOTS, device))
+    sharded = distributed.shard_glm_data(train, MESH_SLOTS,
+                                         device_put_mesh=data_mesh)
+    feat_mesh = make_mesh({"feature": MESH_SLOTS},
+                          devices=slots(MESH_SLOTS, device))
+    cols, d_pad = distributed.shard_glm_data_features(
+        train, MESH_SLOTS, device_put_mesh=feat_mesh)
+    layout_s = time.perf_counter() - t0
+    assert d_pad == w.shape[0], d_pad
+    dist = distributed.DistributedGLMObjective(obj, mesh=data_mesh)
+    tp = distributed.FeatureShardedGLMObjective(obj, feat_mesh)
+    worst = 0.0
+    for name, o, data in (("data", dist, sharded), ("feature", tp, cols)):
+        (got_vg, got_hv), wall, launches = counted_call(
+            lambda o=o, data=data: (o.value_and_grad(w, data, l2),
+                                    o.hvp(w, v, data, l2)))
+        _, err_vg = _max_err(got_vg, want_vg)
+        _, err_hv = _grad_err(got_hv, want_hv)
+        worst = max(worst, err_vg, err_hv)
+        out[f"c_{name}"] = launches
+        log(f"[20c] {name} axis on {MESH_SLOTS} slots: value+gradient "
+            f"relative error {err_vg:.2e}, Hvp {err_hv:.2e} vs the unsharded "
+            f"kernels (limit {KERNEL_RTOL:g}); launches {launches}")
+        assert err_vg <= KERNEL_RTOL and err_hv <= KERNEL_RTOL, (
+            name, err_vg, err_hv)
+    # one L-BFGS solve at lambda, sharded over rows and whole
+    cfg = glm_configs()[1]
+    solves = {}
+    for name, o, data in (("unsharded", obj, train),
+                          ("data", dist, sharded)):
+        res, wall, launches = counted_call(
+            glm.OptimizationProblem(o, cfg).run, data,
+            torch.zeros(w.shape[0], device=device), lam)
+        solves[name] = (res, wall, launches)
+    x64 = GLMData(design=DenseDesign(x=train.design.x.double()),
+                  labels=train.labels.double(),
+                  offsets=train.offsets.double(),
+                  weights=train.weights.double())
+    f64 = {k: float(obj.value(r.w[0].double(), x64,
+                              cfg.regularization.l2_weight(lam)))
+           for k, (r, _, _) in solves.items()}
+    del x64
+    both = all(bool(r.converged[0]) for r, _, _ in solves.values())
+    rel = abs(f64["data"] - f64["unsharded"]) / abs(f64["unsharded"])
+    gap = float((solves["data"][0].w - solves["unsharded"][0].w).abs().max())
+    out["c_lbfgs"] = solves["data"][2]
+    log(f"[20c] L-BFGS at lambda {lam:g}: sharded {solves['data'][1]:.2f} s "
+        f"({int(solves['data'][0].iterations[0])} iterations, launches "
+        f"{solves['data'][2]['fused_glm']}) vs unsharded "
+        f"{solves['unsharded'][1]:.2f} s "
+        f"({int(solves['unsharded'][0].iterations[0])}, "
+        f"{solves['unsharded'][2]['fused_glm']}); f64 objective relative "
+        f"gap {rel:.2e} (limit {OBJECTIVE_RTOL[both]:g}, converged {both}); "
+        f"max |coefficient gap| {gap:.3e}; layouts built in {layout_s:.2f} s")
+    assert rel <= OBJECTIVE_RTOL[both], rel
+    del sharded, cols
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_cli(tmp, small_train, small_valid, device="cuda"):
+    """Phase 20 (d): ``train_game --mesh data=1,entity=1`` against the same
+    run without ``--mesh`` at SMALL's rows, and ``--mesh data=2`` refused
+    on this one card. Returns {part: launches}."""
+    from photon_ml_tpu_torch.cli import train_game
+
+    runs = {}
+    for name, extra in (("plain", []), ("mesh", ["--mesh",
+                                                 "data=1,entity=1"])):
+        out = os.path.join(tmp, f"mesh_cli_{name}")
+        res, wall, launches = counted_call(train_game.run, cli_args(
+            small_train, small_valid, out) + extra + ["--device", device])
+        runs[name] = (res, wall, launches, out)
+    (r0, w0, l0, o0), (r1, w1, l1, o1) = runs["plain"], runs["mesh"]
+    same = same_records(os.path.join(o0, "best"), os.path.join(o1, "best"))
+    a0, a1 = r0["best_evaluation"]["AUC"], r1["best_evaluation"]["AUC"]
+    log(f"[20d] train_game at {SMALL['rows']} rows: --mesh data=1,entity=1 "
+        f"{w1:.2f} s (launches {l1}) vs without {w0:.2f} s (launches {l0}); "
+        f"records equal {same}; AUC {a1!r} vs {a0!r}")
+    assert same and a0 == a1 and l0 == l1, (same, a0, a1, l0, l1)
+    if device != "cuda":
+        # on the CPU every slot is the CPU: the refusal needs the card
+        return {"d_plain": l0, "d_mesh": l1}
+    try:
+        train_game.run(cli_args(small_train, small_valid, os.path.join(
+            tmp, "mesh_cli_refused")) + ["--mesh", "data=2"])
+    except SystemExit as e:
+        message = str(e)
+    else:
+        raise AssertionError("--mesh data=2 was not refused on one card")
+    log(f"[20d] --mesh data=2 on {torch.cuda.device_count()} card(s): "
+        f"refused: {message!r}")
+    assert "needs 2 devices, have 1" in message, message
+    return {"d_plain": l0, "d_mesh": l1}
+
+
+def mesh_index(sm, users, device="cuda"):
+    """Phase 20 (e): ``sm``'s perSong index (phase 8's model, f32) spread
+    over ``{"entity": 4}`` slots, ranking ``users`` at RANK_KS against the
+    unsharded index. It runs inside phase 14's count, so its launches are
+    read as the counts' growth across it, none reset. Returns {part:
+    launches}."""
+    from photon_ml_tpu_torch.parallel.mesh import make_mesh
+    from photon_ml_tpu_torch.retrieval import ItemIndex, RankingEngine
+
+    def rank():
+        index = ItemIndex.build(sm.stores["perSong"], "perSong",
+                                mesh=make_mesh({"entity": MESH_SLOTS},
+                                               devices=slots(MESH_SLOTS,
+                                                             device)))
+        engine = RankingEngine(sm.engine, index, max_k=RANK_MAX_K)
+        worst, n = 0.0, 0
+        for user in users:
+            for k in RANK_KS:
+                ((ids0, s0),) = sm.rank([user], [k])
+                ((ids1, s1),) = engine.rank([user], [k])
+                assert ids1 == ids0, (user["metadataMap"], k)
+                worst = max(worst, float(np.abs(s1 - s0).max()))
+                n += 1
+        return index, engine, worst, n
+
+    counters = kernel_counters()
+    before = {k: c.launches for k, c in counters.items()}
+    t0 = time.perf_counter()
+    index, engine, worst, n = rank()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches - before[k] for k, c in counters.items()}
+    log(f"[20e] perSong index over {{'entity': {MESH_SLOTS}}}: "
+        f"{index.n_items} items in a bucket of {index.bucket}, "
+        f"{len(index.parts)} parts of {index.bucket // len(index.parts)}; "
+        f"{n} rankings ({len(users)} users x k in {RANK_KS}) with ids equal "
+        f"to the unsharded index's, max |score gap| {worst:.3e}; captures "
+        f"{engine.compile_count}; {wall:.2f} s; launches {launches}")
+    assert worst == 0.0, worst
+    return {"e": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6751,7 +7074,14 @@ def main() -> int:
                        for k, v in datasets[cid]._device_cache.items()),
                       key=lambda kv: str(kv[0]))]
     t2 = time_re(fused_re, tl.LogisticLoss, buckets)
-    del datasets, train, valid, result, fe_only, buckets
+    del buckets
+
+    # 20 (a), (b). phase 3's fit over mesh slots ---------------------------
+    t0 = time.perf_counter()
+    mesh_launches = mesh_fit(tg, est, datasets, train, valid, result,
+                             evaluators)
+    log(f"[20ab] done in {time.perf_counter() - t0:.1f} s")
+    del datasets, train, valid, result, fe_only
     torch.cuda.empty_cache()
 
     # 4. card vs CPU -------------------------------------------------------
@@ -6860,7 +7190,12 @@ def main() -> int:
     phase6 = {name: (trained[best].regularization_weight,
                      trained[best].evaluation.primary[1])
               for name, (trained, best, _, _) in glm_runs.items()}
-    del train, valid, glm_runs, x
+
+    # 20 (c). the sharded GLM objectives at this shape ---------------------
+    t0 = time.perf_counter()
+    mesh_launches.update(mesh_glm(train, GLM_LAMBDAS[2]))
+    log(f"[20c] done in {time.perf_counter() - t0:.1f} s")
+    del train, valid, glm_runs, x, w_mid
     torch.cuda.empty_cache()
 
     # 7. the GLM sweeps, card vs CPU ----------------------------------------
@@ -6970,10 +7305,18 @@ def main() -> int:
         # 13. the remaining GAME training options, on phase 8's files -------
         options_launches = run_options_phase(tg, e2e_run, auc_fe, e2e_tmp)
 
+        # 20 (d). train_game --mesh on phase 13's SMALL files --------------
+        t0 = time.perf_counter()
+        mesh_launches.update(mesh_cli(
+            e2e_tmp, os.path.join(e2e_tmp, "small_train.avro"),
+            os.path.join(e2e_tmp, "small_valid.avro")))
+        log(f"[20d] done in {time.perf_counter() - t0:.1f} s")
+
         # 14. model quality and ranked retrieval ----------------------------
-        rank_ms, _, quality_launches = counted_call(
+        (rank_ms, mesh_e), _, quality_launches = counted_call(
             run_quality_phase, e2e_run, refresh_run, records, glm_paths,
             phase6["batched"][0], e2e_tmp)
+        mesh_launches.update(mesh_e)
         log(f"[14] kernel launches {quality_launches}; /rank p50 "
             f"{rank_ms[0]:.2f} ms, p99 {rank_ms[1]:.2f} ms")
         assert quality_launches["fused_glm"] > 0, quality_launches
@@ -7028,6 +7371,15 @@ def main() -> int:
         and the autopilot's refresh of (b)."""
         return {name: n[kernel] for name, n in loop_launches.items()}
 
+    def mesh(kernel):
+        """Phase 20's launches of ``kernel`` by part."""
+        return {name: n[kernel] for name, n in mesh_launches.items()}
+
+    log("[20] launches by part: " + "; ".join(
+        f"{part} {n}" for part, n in mesh_launches.items()))
+    for kernel in ("fused_glm", "fused_re", "fused_hvp"):
+        assert sum(mesh(kernel).values()) > 0, (kernel, mesh_launches)
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [
         dict(name="fused_value_and_grad", route="cuda", status="redesigned",
@@ -7045,6 +7397,7 @@ def main() -> int:
              telemetry=dict(launches=telemetry("fused_glm")),
              retained=dict(launches=retained_launches["fused_glm"]),
              loop=dict(launches=loop("fused_glm")),
+             mesh=dict(launches=mesh("fused_glm")),
              glm_path=dict(launches=glm_launches["tron"]["fused_glm"],
                            **t1_glm),
              glm_small=dict(launches=runs["cuda"]["tron"][3]["fused_glm"],
@@ -7064,7 +7417,8 @@ def main() -> int:
              fleet=dict(launches=fleet_launches["fused_re"]),
              telemetry=dict(launches=telemetry("fused_re")),
              retained=dict(launches=retained_launches["fused_re"]),
-             loop=dict(launches=loop("fused_re"))),
+             loop=dict(launches=loop("fused_re")),
+             mesh=dict(launches=mesh("fused_re"))),
         dict(name="fused_hvp", route="cuda", status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_hvp.cu",
              replaces="photon_ml_tpu/ops/pallas_glm.py:447",
@@ -7080,7 +7434,8 @@ def main() -> int:
              fleet=dict(launches=fleet_launches["fused_hvp"]),
              telemetry=dict(launches=telemetry("fused_hvp")),
              retained=dict(launches=retained_launches["fused_hvp"]),
-             loop=dict(launches=loop("fused_hvp"))),
+             loop=dict(launches=loop("fused_hvp")),
+             mesh=dict(launches=mesh("fused_hvp"))),
         dict(name="fused_value_and_grad_multi", route="cuda",
              status="redesigned",
              source="photon_ml_tpu_torch/csrc/fused_glm_multi.cu",
@@ -7094,7 +7449,8 @@ def main() -> int:
              fleet=dict(launches=fleet_launches["fused_glm_multi"]),
              telemetry=dict(launches=telemetry("fused_glm_multi")),
              retained=dict(launches=retained_launches["fused_glm_multi"]),
-             loop=dict(launches=loop("fused_glm_multi"))),
+             loop=dict(launches=loop("fused_glm_multi")),
+             mesh=dict(launches=mesh("fused_glm_multi"))),
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"):

@@ -3,9 +3,11 @@
 fused GLM value+gradient (one, M or E coefficient rows at a time) and the
 Hessian-vector product of TRON; the CLIs around them, batch and online
 scoring with ranked retrieval, the model-quality layer (training
-diagnostics, quality baselines, the canary and the drift monitor), and
+diagnostics, quality baselines, the canary and the drift monitor),
 multi-process training and scoring over ``torch.distributed``, one process
-a card (``parallel/``, ``game/multiprocess.py``, the fleet supervisor).
+a card (``parallel/``, ``game/multiprocess.py``, the fleet supervisor), and
+one process over a mesh of several slots (``parallel/mesh.py``,
+``train_game --mesh``).
 
 Runs on ``cuda`` by default; pass ``device="cpu"`` to run on the CPU (the
 kernels' plain PyTorch versions). The JAX package ``photon_ml_tpu`` stays

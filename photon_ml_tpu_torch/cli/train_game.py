@@ -51,9 +51,16 @@ outputs, the others log under ``workers/proc-N``, and ``--checkpoint``
 writes per-process sweep states under ``checkpoints-mp``. ``--supervise
 N`` runs N such processes under the fleet supervisor
 (:mod:`photon_ml_tpu_torch.resilience.supervisor`), which restarts them
-from the checkpoint on a crash or a stale heartbeat. ``--mesh`` (one
-process over several cards) is not ported: one process drives one card,
-and several cards take ``--multihost``.
+from the checkpoint on a crash or a stale heartbeat.
+
+``--mesh data=4,entity=2`` drives several slots from one process
+(:mod:`photon_ml_tpu_torch.parallel.mesh`): the fixed effects' rows in
+blocks over ``data`` (kernel 1 a block an evaluation, the partials summed
+on the first slot), the random effects' bucket lanes over ``entity``
+(kernel 2 a slot's slice). With ``--device cuda`` the slots are
+``cuda:0…N-1`` and a mesh wider than the visible cards is refused; with
+``--device cpu`` every slot is the CPU. It is refused beside a
+multi-process ``--multihost``.
 
 ``--telemetry-dir`` writes the run's span tree (``trace.jsonl``: the
 ``train_game`` root, the stages, ``cd.sweep`` / ``cd.step`` /
@@ -203,9 +210,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "environment (one process per card): per-process "
                         "file reads, entity-partitioned random effects, a "
                         "distributed fixed effect; process 0 writes")
-    p.add_argument("--mesh", default=None,
-                   help="not ported: one process drives one card; several "
-                        "cards take --multihost")
+    p.add_argument("--mesh", default="",
+                   help="device mesh axes, e.g. 'data=4,entity=2': shards "
+                        "fixed-effect samples over 'data' (psum'd compiled "
+                        "optimizer) and random-effect entity lanes over "
+                        "'entity'. Default: single device")
     add_supervision_flags(p)
     add_resilience_flags(p)
     add_telemetry_flags(p)
@@ -269,18 +278,39 @@ def _tune(args, est: GameEstimator, data, validation, evaluators,
     return results
 
 
-def _refuse_mesh(multiproc: bool) -> None:
-    """``--mesh``: the JAX driver's refusal beside ``--multihost`` over
-    several processes; otherwise not ported."""
-    if multiproc:
-        raise SystemExit(
-            "multi-process --multihost training does not take --mesh: the "
-            "ranks' data layout is built automatically, the entity axis is "
-            "subsumed by the entity->process partition, and feature "
-            "sharding across processes has no photon-scale workload")
-    raise NotImplementedError(
-        "--mesh is not ported: one process drives one card; several cards "
-        "take --multihost (one process per card)")
+def parse_mesh(spec: str, device="cuda"):
+    """'data=4,entity=2' → :class:`~photon_ml_tpu_torch.parallel.mesh.Mesh`
+    (None when empty): on ``cuda`` over the visible cards, refused when
+    there are fewer; on ``cpu`` every slot the CPU."""
+    if not spec:
+        return None
+    from photon_ml_tpu_torch.parallel.mesh import make_mesh
+
+    axes = {}
+    for part in spec.split(","):
+        name, _, size = part.partition("=")
+        name = name.strip()
+        if name in axes:
+            raise SystemExit(f"duplicate mesh axis {name!r}")
+        try:
+            axes[name] = int(size)
+        except ValueError:
+            raise SystemExit(f"bad --mesh entry {part!r}; want axis=<int>")
+        if name not in ("data", "entity", "feature"):
+            raise SystemExit(
+                f"unknown mesh axis {name!r}; choose from data/entity/feature")
+        if axes[name] < 1:
+            raise SystemExit(f"mesh axis {name!r} must be >= 1, got {axes[name]}")
+    devices = None
+    if torch.device(device).type == "cpu":
+        n = 1
+        for size in axes.values():
+            n *= size
+        devices = [torch.device("cpu")] * n
+    try:
+        return make_mesh(axes, devices=devices)
+    except ValueError as e:  # more slots than visible cards
+        raise SystemExit(f"--mesh {spec!r}: {e}")
 
 
 def _run_supervised(raw_argv: Sequence[str], args) -> dict:
@@ -367,8 +397,6 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     args = build_parser().parse_args(raw_argv)
     if args.supervise:
         return _run_supervised(raw_argv, args)
-    if args.mesh and not args.multihost:
-        _refuse_mesh(False)
     task = TaskType(args.task)
     # the retry policy goes in before anything that may retry (the job's
     # formation is the first)
@@ -379,8 +407,14 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     if args.multihost:
         multiproc = multihost.initialize(device=args.device)
         device = multihost.local_device()
-    if args.mesh:
-        _refuse_mesh(multiproc)
+    if multiproc and args.mesh:
+        raise SystemExit(
+            "multi-process --multihost training does not take --mesh: the "
+            "ranks' data layout is built automatically, the entity axis is "
+            "subsumed by the entity->process partition, and feature "
+            "sharding across processes has no photon-scale workload")
+    # a bad mesh spec or too few cards fails before the reads
+    mesh = parse_mesh(args.mesh, device)
     chief = multihost.is_chief()
     # a non-chief process logs under its own directory: N processes
     # appending to one photon.log / metrics.jsonl would interleave
@@ -448,7 +482,8 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         # the estimator checks its configuration before the reads
         est = GameEstimator(task=task, coordinate_configs=coordinate_configs,
                             update_sequence=update_sequence,
-                            n_cd_iterations=args.cd_iterations, device=device)
+                            n_cd_iterations=args.cd_iterations, device=device,
+                            mesh=mesh)
         configurations = None
         if args.tuning == "NONE":
             grid = parse_grid(args.grid)

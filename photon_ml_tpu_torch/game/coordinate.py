@@ -6,9 +6,9 @@ against the residual offsets coordinate descent supplies and returns
 ``(model, scores)``, ``scores`` being this coordinate's margin per global
 sample as a device vector. ``sweep`` is the coordinate-descent sweep, which
 keys the fixed effect's down-sampling draw. The fixed-effect solve is
-profiled as ``game.fixed_effect``
-(:mod:`~photon_ml_tpu_torch.telemetry.profiling`), and under a trace its
-optimizer trace is folded into telemetry.
+profiled as ``game.fixed_effect`` (``game.fixed_effect.dist`` on a data
+mesh; :mod:`~photon_ml_tpu_torch.telemetry.profiling`), and under a trace
+its optimizer trace is folded into telemetry.
 """
 
 from __future__ import annotations
@@ -54,6 +54,24 @@ _fixed_effect_solve_profiled = profiling.profile_fn(
     _fixed_effect_solve, "game.fixed_effect")
 
 
+def _fixed_effect_solve_dist(problem: OptimizationProblem, data, w0, lam,
+                             n_samples: int):
+    """The sharded train step over a :class:`~photon_ml_tpu_torch.parallel.
+    distributed.MeshGLMData`: the solve, its variances over every block and
+    the offset-free margins (coordinate descent owns the offsets), cut to
+    the ``n_samples`` real rows."""
+    result = problem.run(data, w0, lam)
+    w = result.w[0]
+    no_off = data.replace_rows(offsets=torch.zeros(
+        data.n_samples, dtype=torch.float32))
+    scores = problem.objective.margins(w, no_off).reshape(-1)[:n_samples]
+    return (result, w, problem.compute_variances(w, data, lam), scores)
+
+
+_fixed_effect_solve_dist_profiled = profiling.profile_fn(
+    _fixed_effect_solve_dist, "game.fixed_effect.dist")
+
+
 @dataclasses.dataclass(frozen=True)
 class FixedEffectCoordinate:
     """The global GLM solve (reference ``FixedEffectCoordinate.scala``):
@@ -65,7 +83,10 @@ class FixedEffectCoordinate:
     takes the closed forms. Variances, when configured, are computed at the
     solution. With a ``downsampler`` each sweep trains on a fresh weight
     vector drawn on the host (rows dropped weigh 0, kept rows 1/rate): only
-    the device weights change, the design stays."""
+    the device weights change, the design stays. A dataset sharded over a
+    data mesh trains through :class:`~photon_ml_tpu_torch.parallel.
+    distributed.DistributedGLMObjective` (each evaluation a launch on every
+    block); its scores come back to the device of ``offsets``."""
 
     coordinate_id: str
     dataset: FixedEffectDataset
@@ -81,22 +102,42 @@ class FixedEffectCoordinate:
               warm_start: Optional[FixedEffectModel] = None,
               sweep: int = 0) -> tuple[FixedEffectModel, torch.Tensor]:
         data = self.dataset.glm_data(offsets)
-        device = offsets.device
+        sharded = self.dataset.n_shards > 1
+        # the solve's device: the first block's slot on a data mesh
+        device = data.device if sharded else offsets.device
         if self.downsampler is not None:
             # keyed per (seed, sweep, row id): the same draw on any device
-            labels = data.labels.cpu().numpy()
+            # and any number of blocks (padding rows draw too, at weight 0)
+            labels = (data.gather("labels") if sharded
+                      else data.labels).cpu().numpy()
+            old = (data.gather("weights") if sharded
+                   else data.weights).cpu().numpy()
             weights = self.downsampler.downsample(
-                labels, data.weights.cpu().numpy(), sweep=sweep,
+                labels, old, sweep=sweep,
                 uids=np.arange(labels.size, dtype=np.int64))
-            data = dataclasses.replace(
-                data, weights=torch.as_tensor(weights, device=device))
+            data = (data.replace_rows(weights=torch.as_tensor(weights))
+                    if sharded else dataclasses.replace(
+                        data, weights=torch.as_tensor(weights,
+                                                      device=device)))
         w0 = (torch.zeros(self.dataset.dim, dtype=torch.float32, device=device)
               if warm_start is None
               else warm_start.model.coefficients.means.to(device))
-        problem = OptimizationProblem(
-            GLMObjective(loss=loss_for_task(self.task)), self.config)
-        result, w, variances, scores = _fixed_effect_solve_profiled(
-            problem, data, w0, self.lam)
+        objective = GLMObjective(loss=loss_for_task(self.task))
+        if sharded:
+            from photon_ml_tpu_torch.parallel.distributed import (
+                DistributedGLMObjective,
+            )
+
+            problem = OptimizationProblem(
+                DistributedGLMObjective(objective, mesh=self.dataset.mesh),
+                self.config)
+            result, w, variances, scores = _fixed_effect_solve_dist_profiled(
+                problem, data, w0, self.lam, self.dataset.n_samples)
+            scores = scores.to(offsets.device)
+        else:
+            problem = OptimizationProblem(objective, self.config)
+            result, w, variances, scores = _fixed_effect_solve_profiled(
+                problem, data, w0, self.lam)
         if tracing.enabled():
             # the optimizer's (loss, |grad|) table into trace.jsonl and the
             # registry; gated, since reading it syncs the device
@@ -119,7 +160,10 @@ class RandomEffectCoordinate:
     ``RandomEffectCoordinate.scala``). Active samples are scored on the
     device in the bucket layout; passive samples (rows excluded from
     training by the active-data bounds) are scored by the trained model's
-    host join (through the projection for a RANDOM-projected model)."""
+    host join (through the projection for a RANDOM-projected model). A
+    ``mesh`` with an ``"entity"`` axis splits each bucket's lanes over its
+    slots (:class:`~photon_ml_tpu_torch.game.random_effect.
+    RandomEffectSolver`)."""
 
     coordinate_id: str
     dataset: RandomEffectDataset
@@ -128,6 +172,7 @@ class RandomEffectCoordinate:
     config: GLMOptimizationConfiguration
     lam: float = 0.0
     design_dtype: str = "float32"
+    mesh: Optional[object] = None
 
     def __post_init__(self):
         self.config.regularization.check_weight(self.lam)
@@ -137,7 +182,7 @@ class RandomEffectCoordinate:
               sweep: int = 0) -> tuple[RandomEffectModel, torch.Tensor]:
         solver = RandomEffectSolver(task=self.task, config=self.config,
                                     design_dtype=self.design_dtype,
-                                    device=offsets.device)
+                                    device=offsets.device, mesh=self.mesh)
         shard_dim = self.data.shards[self.dataset.config.feature_shard_id].dim
         model, scores = solver.train(self.dataset, offsets, self.lam,
                                      warm_start, dim=shard_dim)

@@ -68,12 +68,27 @@ class CoordinateDescentResult:
     regularization_weights: dict = dataclasses.field(default_factory=dict)
 
 
+def _device_memory_bytes(device: torch.device) -> int:
+    """The card's memory for the score-memory guard; on the CPU the JAX
+    package's fallback of 16 GiB."""
+    if device.type == "cuda":
+        return int(torch.cuda.get_device_properties(device).total_memory)
+    return 16 << 30
+
+
 @dataclasses.dataclass(frozen=True)
 class CoordinateDescent:
-    """Drives the sweep loop over an ordered update sequence."""
+    """Drives the sweep loop over an ordered update sequence.
+
+    ``max_score_memory_bytes`` guards the memory cliff of the score
+    decomposition the run keeps on the device: K+1 vectors of
+    ``n_samples`` f32 (K coordinate scores and the running total). Past
+    the budget the run refuses up front, with guidance, rather than failing
+    in the allocator mid-sweep. ``None`` is half the device's memory."""
 
     update_sequence: Sequence[str]
     n_iterations: int = 1
+    max_score_memory_bytes: Optional[int] = None
 
     def run(self, coordinates: Mapping[str, Coordinate], data: GameData,
             task: TaskType, device: torch.device, validation=None,
@@ -107,6 +122,21 @@ class CoordinateDescent:
             if cid not in coordinates and cid not in locked:
                 raise KeyError(
                     f"update sequence names unknown coordinate {cid!r}")
+        # the memory-cliff guard: K coordinate score vectors and the
+        # running total, f32 on the device for the whole run
+        score_bytes = (len(self.update_sequence) + 1) * data.n_samples * 4
+        budget = (self.max_score_memory_bytes
+                  if self.max_score_memory_bytes is not None
+                  else _device_memory_bytes(torch.device(device)) // 2)
+        if score_bytes > budget:
+            raise ValueError(
+                f"score decomposition needs {score_bytes / 2**30:.1f} GiB "
+                f"device memory ({len(self.update_sequence)}+1 vectors x "
+                f"{data.n_samples} samples x 4 B) — over the "
+                f"{budget / 2**30:.1f} GiB budget. Shard the run across "
+                f"more cards or processes (game/multiprocess.py, "
+                f"--multihost), or raise max_score_memory_bytes if you "
+                f"know the design fits")
         models: dict[str, CoordinateModel] = dict(initial_models or {})
         n = data.n_samples
         scores = {cid: torch.zeros(n, dtype=torch.float32, device=device)

@@ -248,35 +248,72 @@ def design_dtype_of(dtype) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class FixedEffectDataset:
     """Device-ready data for one fixed-effect coordinate; coordinate descent
-    binds fresh residual offsets every sweep via :meth:`glm_data`."""
+    binds fresh residual offsets every sweep via :meth:`glm_data`.
+
+    With a ``mesh`` whose ``"data"`` axis has more than one slot, the
+    design, labels and weights are built once as a
+    :class:`~photon_ml_tpu_torch.parallel.distributed.MeshGLMData` (block
+    ``i`` of the rows on data slot ``i``, the reference's RDD
+    partitioning) held in ``design``; ``labels`` and ``weights`` are then
+    the padded vectors gathered on the first slot, and only the per-sweep
+    offsets are placed again."""
 
     coordinate_id: str
     feature_shard_id: str
-    design: object  # DenseDesign or ChunkedSparseDesign on the device
+    design: object  # DenseDesign, ChunkedSparseDesign or MeshGLMData
     labels: torch.Tensor
     weights: torch.Tensor
     dim: int
     n_samples: int = 0
+    mesh: Optional[object] = None
+    n_shards: int = 1
 
     @staticmethod
     def build(coordinate_id: str, data: GameData, feature_shard_id: str, *,
-              dtype=torch.float32, device=None) -> "FixedEffectDataset":
+              dtype=torch.float32, device=None,
+              mesh=None) -> "FixedEffectDataset":
         """The design is densified on ``device`` (``cuda`` unless the caller
         passes ``device="cpu"``) in ``dtype``; a shard that
         :func:`choose_dense_design` rejects becomes a chunked sparse design
         there, its values in f32 whatever ``dtype`` says (the JAX
-        package's single-chip wide-sparse branch)."""
+        package's single-chip wide-sparse branch). On a data mesh the host
+        design (dense in ``dtype``, or COO, by the same rule at one block's
+        size) is split into blocks on the host and each block goes to its
+        slot: the whole design is never on one device."""
         from photon_ml_tpu_torch.device import resolve_device
         from photon_ml_tpu_torch.ops.design import (
             ChunkedSparseDesign,
             DenseDesign,
         )
+        from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS
 
         device = resolve_device(device)
 
         shard = data.shards[feature_shard_id]
         dtype = design_dtype_of(dtype)
         itemsize = torch.empty((), dtype=dtype).element_size()
+        n_shards = 1 if mesh is None else int(mesh.shape.get(DATA_AXIS, 1))
+        if n_shards > 1:
+            from photon_ml_tpu_torch.ops.objective import GLMData
+            from photon_ml_tpu_torch.parallel.distributed import (
+                shard_glm_data,
+            )
+
+            host = host_design_for_shard(
+                shard, dtype=dtype, dense=choose_dense_design_stats(
+                    shard.n_samples, shard.dim, shard.nnz,
+                    n_shards=n_shards, itemsize=itemsize))
+            sharded = shard_glm_data(
+                GLMData(design=host, labels=torch.from_numpy(data.labels),
+                        offsets=torch.zeros(shard.n_samples),
+                        weights=torch.from_numpy(data.weights)),
+                n_shards, device_put_mesh=mesh)
+            return FixedEffectDataset(
+                coordinate_id=coordinate_id,
+                feature_shard_id=feature_shard_id, design=sharded,
+                labels=sharded.gather("labels"),
+                weights=sharded.gather("weights"), dim=shard.dim,
+                n_samples=shard.n_samples, mesh=mesh, n_shards=n_shards)
         if choose_dense_design(shard, itemsize=itemsize):
             design = DenseDesign(
                 x=data.device_dense_shard(feature_shard_id, dtype, device))
@@ -291,8 +328,12 @@ class FixedEffectDataset:
             n_samples=shard.n_samples)
 
     def glm_data(self, offsets: torch.Tensor):
+        """The data with this sweep's residual ``offsets``: on a data mesh
+        the sharded layout with the offsets padded and placed per slot."""
         from photon_ml_tpu_torch.ops.objective import GLMData
 
+        if self.n_shards > 1:
+            return self.design.replace_rows(offsets=offsets.to(torch.float32))
         return GLMData(design=self.design, labels=self.labels,
                        offsets=offsets.to(torch.float32), weights=self.weights)
 

@@ -6,13 +6,19 @@ buckets), then runs coordinate descent for each hyperparameter point (a set
 of per-coordinate regularization weights) and evaluates validation data.
 The first validation evaluator is the model-selection criterion.
 
-``device`` takes the place of the JAX version's ``mesh``: the fit runs on
-one device, ``cuda`` unless the caller passes ``device="cpu"``. Warm starts
-(``initial_models``), partial retraining (``locked``), checkpoints and
-resume, the divergence guard, ``on_result``, L1 / elastic-net coordinates
-(OWL-QN), coefficient variances, the RANDOM projector, factored random
-effects, down-sampling, streaming buckets and a deferred (callable)
-validation set are ported; meshes are not.
+The fit runs on ``device``, ``cuda`` unless the caller passes
+``device="cpu"``: the score decomposition lives there. ``mesh`` (a
+:class:`~photon_ml_tpu_torch.parallel.mesh.Mesh` of this process's slots)
+shards the work as in the JAX package: a ``"data"`` axis splits every
+fixed-effect solve's rows into blocks, one a slot; an ``"entity"`` axis
+splits every random-effect coordinate's bucket lanes. The JAX estimator's
+device prefetch has no counterpart to skip under a mesh: the port builds
+its device images where they are used. Warm starts (``initial_models``),
+partial retraining (``locked``), checkpoints and resume, the divergence
+guard, ``on_result``, L1 / elastic-net coordinates (OWL-QN), coefficient
+variances, the RANDOM projector, factored random effects, down-sampling,
+streaming buckets, a deferred (callable) validation set and the
+score-memory guard (``max_score_memory_bytes``) are ported.
 """
 
 from __future__ import annotations
@@ -122,6 +128,12 @@ class GameEstimator:
     n_cd_iterations: int = 1
     #: the device every solve runs on (default ``"cuda"``)
     device: object = None
+    #: a mesh of slots: ``"data"`` shards the fixed effects' rows,
+    #: ``"entity"`` the random effects' bucket lanes
+    mesh: Optional[object] = None
+    #: the score-memory guard's budget (None: half the device's memory;
+    #: the guard's error names this knob)
+    max_score_memory_bytes: Optional[int] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -150,12 +162,21 @@ class GameEstimator:
                 f"locked coordinates {sorted(missing)} must appear in the "
                 f"update sequence to stay part of the model")
 
+    def _entity_shards(self) -> int:
+        """The slots of the mesh's ``"entity"`` axis (1 without one)."""
+        if self.mesh is None:
+            return 1
+        from photon_ml_tpu_torch.parallel.mesh import ENTITY_AXIS
+
+        return int(self.mesh.shape.get(ENTITY_AXIS, 1))
+
     def prepare(self, data: GameData,
                 locked: Sequence[str] = ()) -> dict[str, object]:
         """Build every trained coordinate's dataset (once per training
         set); a locked coordinate gets none."""
         self._check_sequence(locked)
         datasets: dict[str, object] = {}
+        ep = self._entity_shards()
         for cid in self.update_sequence:
             if cid in locked:
                 continue
@@ -163,7 +184,7 @@ class GameEstimator:
             if isinstance(cfg, FixedEffectCoordinateConfig):
                 datasets[cid] = FixedEffectDataset.build(
                     cid, data, cfg.feature_shard_id, dtype=cfg.design_dtype,
-                    device=self.device)
+                    device=self.device, mesh=self.mesh)
             elif isinstance(cfg, FactoredRandomEffectCoordinateConfig):
                 # rebuilt each alternation around the learned projection
                 datasets[cid] = None
@@ -171,8 +192,9 @@ class GameEstimator:
                 ds = RandomEffectDataset.build(cid, data, cfg.dataset)
                 datasets[cid] = ds
                 logger.info("coordinate %s: %d active entities in %d buckets,"
-                            " %d passive rows", cid, ds.n_active_entities,
-                            len(ds.buckets), len(ds.passive_sample_idx))
+                            " %d passive rows, %d entity shard(s)", cid,
+                            ds.n_active_entities, len(ds.buckets),
+                            len(ds.passive_sample_idx), ep)
         return datasets
 
     def _coordinates(self, data: GameData, datasets: Mapping[str, object],
@@ -195,12 +217,14 @@ class GameEstimator:
                     config=ccfg.optimization,
                     projection_config=ccfg.projection_optimization,
                     lam=config.lam(cid), lam_projection=ccfg.lam_projection,
-                    n_factored_iterations=ccfg.n_factored_iterations)
+                    n_factored_iterations=ccfg.n_factored_iterations,
+                    mesh=self.mesh)
             else:
                 out[cid] = RandomEffectCoordinate(
                     coordinate_id=cid, dataset=datasets[cid], data=data,
                     task=self.task, config=ccfg.optimization,
-                    lam=config.lam(cid), design_dtype=ccfg.design_dtype)
+                    lam=config.lam(cid), design_dtype=ccfg.design_dtype,
+                    mesh=self.mesh)
         return out
 
     def fingerprint(self, data: GameData,
@@ -245,8 +269,10 @@ class GameEstimator:
                 "checkpointing supports exactly one configuration")
         if datasets is None:
             datasets = self.prepare(data, locked=locked)
-        cd = CoordinateDescent(update_sequence=self.update_sequence,
-                               n_iterations=self.n_cd_iterations)
+        cd = CoordinateDescent(
+            update_sequence=self.update_sequence,
+            n_iterations=self.n_cd_iterations,
+            max_score_memory_bytes=self.max_score_memory_bytes)
         results: list[GameResult] = []
         for config in configurations:
             coordinates = self._coordinates(data, datasets, config, locked)

@@ -93,6 +93,8 @@ class FactoredRandomEffectCoordinate:
     lam_projection: float = 0.0
     #: alternations per call (reference numberOfFactoredIterations)
     n_factored_iterations: int = 2
+    #: a mesh with an ``"entity"`` axis splits the latent solves' lanes
+    mesh: Optional[object] = None
 
     def __post_init__(self):
         if self.dataset_config.projector_type is not ProjectorType.RANDOM:
@@ -158,7 +160,7 @@ class FactoredRandomEffectCoordinate:
             p = RandomProjector.build(shard.dim, self.latent_dim,
                                       self.dataset_config.seed).matrix
         solver = RandomEffectSolver(task=self.task, config=self.config,
-                                    device=device)
+                                    device=device, mesh=self.mesh)
         problem = OptimizationProblem(
             GLMObjective(loss=loss_for_task(self.task)),
             self.projection_config)

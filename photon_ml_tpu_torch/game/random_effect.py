@@ -16,6 +16,22 @@ profiled as ``game.re.solve_bucket``
 (:mod:`~photon_ml_tpu_torch.telemetry.profiling`); the JAX package's
 ``game.re.sweep_fused`` label has no counterpart.
 
+Entity parallelism (the reference's ``RandomEffectDatasetPartitioner``):
+with a mesh that has an ``"entity"`` axis, each bucket's lanes are padded
+to the product of every mesh axis (entity last, the JAX package's
+``_lane_axes``) with zero-data lanes and cut into contiguous slices, one a
+slot; each slice is a batched solve of its own on its slot (kernel 2 over
+the slice), and the scores and coefficients go back in lane order. The
+slices are solved in turn. The batched optimizers freeze each lane on its
+own, so a lane's iterates do not depend on the other lanes of its solve,
+and kernel 2 cuts a slice's rows into the whole bucket's chunks
+(:func:`~photon_ml_tpu_torch.ops.fused_re.entity_plan`'s ``plan_lanes``)
+and the scores are per-row sums: on the card a sharded solve equals the
+unsharded one bit for bit. On the CPU the plain version's PyTorch kernels
+compute some elements of a small tensor by another path
+(``torch.sigmoid``; a batched product of one lane), so thin slices part
+from the whole bucket at roundoff there.
+
 Padding is inert: padded sample rows carry weight 0, padded feature columns
 are all-zero, so with a zero start their coefficients stay exactly 0 (under
 L1 too: their pseudo-gradient is 0).
@@ -40,13 +56,14 @@ from photon_ml_tpu_torch.glm.problem import (
     GLMOptimizationConfiguration,
     OptimizationProblem,
 )
-from photon_ml_tpu_torch.ops.design import DenseDesign
+from photon_ml_tpu_torch.ops.design import DenseDesign, accumulation_dtype
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.ops.objective import (
     GLMData,
     GLMObjective,
     seed_live_rows,
 )
+from photon_ml_tpu_torch.parallel.mesh import ENTITY_AXIS, on_slot
 from photon_ml_tpu_torch.telemetry import profiling
 from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
 
@@ -89,45 +106,85 @@ class _BucketStatics:
 class RandomEffectSolver:
     """Per-coordinate solver bound to a task type, a design dtype
     (``"float32"`` or ``"bfloat16"``) and a device (``cuda`` unless the
-    caller passes ``device="cpu"``)."""
+    caller passes ``device="cpu"``), where the scores are returned.
+    ``mesh``/``entity_axis`` opt into entity-parallel solves (see the
+    module docstring); a mesh without ``entity_axis`` solves unsharded."""
 
     task: TaskType
     config: GLMOptimizationConfiguration
     design_dtype: str = "float32"
     device: Optional[torch.device] = None
+    mesh: Optional[object] = None
+    entity_axis: str = ENTITY_AXIS
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
+        if (self.mesh is not None
+                and self.entity_axis not in self.mesh.shape):
+            # a data-only (or feature-only) mesh has no lanes to shard
+            object.__setattr__(self, "mesh", None)
         # per-iteration traces would be carried for every entity lane
         if self.config.optimizer_config.track_states:
             object.__setattr__(self, "config", dataclasses.replace(
                 self.config, optimizer_config=dataclasses.replace(
                     self.config.optimizer_config, track_states=False)))
 
-    def _problem(self) -> OptimizationProblem:
-        return OptimizationProblem(GLMObjective(loss=loss_for_task(self.task)),
-                                   self.config)
+    def _problem(self, plan_lanes: Optional[int] = None
+                 ) -> OptimizationProblem:
+        """The bucket problem; ``plan_lanes`` (a lane slice's whole bucket)
+        keeps kernel 2's row chunks those of the whole bucket."""
+        return OptimizationProblem(
+            GLMObjective(loss=loss_for_task(self.task),
+                         entity_plan_lanes=plan_lanes), self.config)
+
+    def _lane_axes(self) -> tuple:
+        """Every mesh axis name, entity last: bucket lanes split over all
+        of them, so a ``(data, entity)`` mesh solves on every slot."""
+        names = [a for a in self.mesh.axis_names if a != self.entity_axis]
+        return tuple(names) + (self.entity_axis,)
+
+    def _slices(self, n_lanes: int) -> list:
+        """``(slot, first lane, lanes)`` of each lane slice: the whole
+        bucket on the solver's device, or on a mesh the lanes padded to a
+        multiple of the slots and cut into contiguous slices in slot
+        order."""
+        if self.mesh is None:
+            return [(self.device, 0, n_lanes)]
+        slots = self.mesh.lane_devices(self._lane_axes())
+        per = -(-n_lanes // len(slots))
+        return [(dev, k * per, per) for k, dev in enumerate(slots)]
 
     def _statics(self, dataset: RandomEffectDataset, i: int,
-                 bucket: REBucket) -> _BucketStatics:
-        """Device images of bucket ``i``: cached on the dataset, or under
-        ``cache_device_buckets=False`` uploaded for this solve only."""
-        key = ("bucket", i, self.design_dtype, str(self.device))
+                 bucket: REBucket, dev: torch.device, lo: int,
+                 n_lanes: int) -> _BucketStatics:
+        """Device images of lanes ``[lo, lo + n_lanes)`` of bucket ``i`` on
+        ``dev`` (lanes past the bucket's padded with zero data): cached on
+        the dataset, or under ``cache_device_buckets=False`` uploaded for
+        this solve only."""
+        key = ("bucket", i, self.design_dtype, str(dev), lo, n_lanes)
         st = dataset._device_cache.get(key)
         if st is None:
-            dev = self.device
-            si = bucket.sample_idx
+            def lanes(a, fill=0):
+                part = a[lo:lo + n_lanes]
+                if part.shape[0] < n_lanes:
+                    part = np.concatenate([part, np.full(
+                        (n_lanes - part.shape[0],) + a.shape[1:], fill,
+                        a.dtype)])
+                return part
+
+            si = lanes(bucket.sample_idx, -1)
             live = si >= 0
+            weights = lanes(bucket.weights)
             st = _BucketStatics(
-                x=torch.as_tensor(bucket.x, device=dev).to(
+                x=torch.as_tensor(lanes(bucket.x), device=dev).to(
                     design_dtype_of(self.design_dtype)),
-                labels=torch.as_tensor(bucket.labels, device=dev),
-                weights=torch.as_tensor(bucket.weights, device=dev),
+                labels=torch.as_tensor(lanes(bucket.labels), device=dev),
+                weights=torch.as_tensor(weights, device=dev),
                 gather_idx=torch.as_tensor(np.maximum(si, 0), device=dev),
                 slots=torch.as_tensor(np.flatnonzero(live), device=dev),
                 rows=torch.as_tensor(si[live], device=dev))
             # the live rows the kernel dispatch counts, from the host copy
-            seed_live_rows(st.weights, bucket.weights)
+            seed_live_rows(st.weights, weights)
             if dataset.config.cache_device_buckets:
                 dataset._device_cache[key] = st
         return st
@@ -146,31 +203,43 @@ class RandomEffectSolver:
             shard_dim = dataset.projector.projected_dim
         else:
             shard_dim = dim if dim is not None else _shard_dim(dataset)
-        problem = self._problem()
         want_var = (self.config.variance_type
                     != VarianceComputationType.NONE)
         scores = torch.zeros_like(offsets, dtype=torch.float32)
         solved, solved_var = [], []
         for i, bucket in enumerate(dataset.buckets):
-            st = self._statics(dataset, i, bucket)
-            live = st.weights > 0
-            boff = torch.where(live, offsets[st.gather_idx],
-                               torch.zeros_like(st.weights))
-            w0 = torch.as_tensor(_gather_warm_start(bucket, warm_start,
-                                                    shard_dim),
-                                 device=self.device)
-            data = GLMData(design=DenseDesign(x=st.x), labels=st.labels,
-                           offsets=boff, weights=st.weights)
             e, s, d = bucket.tensor_shape
-            # a profiler range per bucket solve: device time by bucket shape
-            with torch.profiler.record_function(f"re.bucket[{e}x{s}x{d}]"):
-                w, var = _bucket_solve_profiled(problem, data, w0, lam,
-                                                want_var)
+            warm = _gather_warm_start(bucket, warm_start, shard_dim)
+            problem = self._problem(None if self.mesh is None else e)
+            ws, vs = [], []
+            for dev, lo, n_lanes in self._slices(e):
+                st = self._statics(dataset, i, bucket, dev, lo, n_lanes)
+                w0 = np.zeros((n_lanes, d), np.float32)
+                w0[:max(0, min(n_lanes, e - lo))] = warm[lo:lo + n_lanes]
+                with on_slot(dev):
+                    live = st.weights > 0
+                    boff = torch.where(live, offsets.to(dev)[st.gather_idx],
+                                       torch.zeros_like(st.weights))
+                    data = GLMData(design=DenseDesign(x=st.x),
+                                   labels=st.labels, offsets=boff,
+                                   weights=st.weights)
+                    # a profiler range per bucket solve: device time by
+                    # bucket shape
+                    with torch.profiler.record_function(
+                            f"re.bucket[{n_lanes}x{s}x{d}]"):
+                        w, var = _bucket_solve_profiled(
+                            problem, data, torch.as_tensor(w0, device=dev),
+                            lam, want_var)
+                    margins = _lane_margins(st.x, w)  # (E, S) f32
+                scores[st.rows.to(scores.device)] = \
+                    margins.reshape(-1)[st.slots].to(scores.device)
+                ws.append(w.to(self.device))
+                if want_var:
+                    vs.append(var.reshape(n_lanes, d).to(self.device))
+            # back in lane order, the padding lanes dropped
+            solved.append(torch.cat(ws)[:e].reshape(-1))
             if want_var:
-                solved_var.append(var)
-            margins = DenseDesign(x=st.x).matvec(w)  # (E, S) f32
-            scores[st.rows] = margins.reshape(-1)[st.slots]
-            solved.append(w.reshape(-1))
+                solved_var.append(torch.cat(vs)[:e].reshape(-1))
         keys, coeffs, variances = [], [], []
         if solved:
             # one device-to-host copy of every coefficient and variance
@@ -199,6 +268,16 @@ class RandomEffectSolver:
             dim=shard_dim, keys=keys[order], coeffs=coeffs[order],
             variances=var, projector=dataset.projector)
         return model, scores
+
+
+def _lane_margins(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``(E, S)`` margins of an ``(E, S, D)`` bucket at ``(E, D)`` lanes,
+    accumulated in at least f32: a product and a sum over each row's D
+    terms, whose bits do not depend on how many lanes the call holds (a
+    batched matrix product picks its algorithm by the batch), so a lane's
+    scores are the same in a slice and in the whole bucket."""
+    acc = accumulation_dtype(x.dtype)
+    return (x.to(acc) * w.to(acc)[:, None, :]).sum(-1)
 
 
 def _shard_dim(dataset: RandomEffectDataset) -> int:

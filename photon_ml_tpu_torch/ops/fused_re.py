@@ -13,7 +13,7 @@ VMEM block plan and its entity padding have no counterpart.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -50,7 +50,8 @@ class EntityPlan(NamedTuple):
     blocks: int
 
 
-def entity_plan(e: int, s: int, d: int) -> EntityPlan:
+def entity_plan(e: int, s: int, d: int,
+                plan_lanes: Optional[int] = None) -> EntityPlan:
     """Kernel 2's chunk plan for an (E, S, D) bucket, a function of the
     shape alone (so the fold order, and every bit of the result, is too).
     Entities are split into chunks of at least MIN_CHUNK_ROWS rows until
@@ -58,8 +59,12 @@ def entity_plan(e: int, s: int, d: int) -> EntityPlan:
     entities with ~10^5 rows each covers the card. Narrow rows (D <=
     NARROW_MAX_D) get one thread per row, the smallest power of two of
     threads covering a chunk, so many small entities share a block; wider
-    rows get a block per unit."""
-    chunks = max(1, min(-(-TARGET_BLOCKS // max(e, 1)),
+    rows get a block per unit. ``plan_lanes`` (default ``e``) is the lane
+    count the rows are chunked for: a slice of a bucket passes the whole
+    bucket's, so each entity's rows fold as they do in the whole bucket
+    (the slice's blocks still cover its own ``e`` lanes)."""
+    lanes = e if plan_lanes is None else plan_lanes
+    chunks = max(1, min(-(-TARGET_BLOCKS // max(lanes, 1)),
                         -(-s // MIN_CHUNK_ROWS)))
     chunk_rows = max(1, -(-s // chunks))
     chunks = max(1, -(-s // chunk_rows))
@@ -101,10 +106,11 @@ def fused_entity_value_and_grad_plain(loss: PointwiseLoss, x, ws, labels,
 
 
 def fused_entity_value_and_grad(loss: PointwiseLoss, x, ws, labels, offsets,
-                                weights):
+                                weights, plan_lanes: Optional[int] = None):
     """``(values (E,), grads (E, D))`` — the kernel on a CUDA device, the
     plain version on the CPU. ``x`` is ``(E, S, D)`` f32 or bf16; ``ws``
-    ``(E, D)`` and the ``(E, S)`` arrays f32, all contiguous on one device."""
+    ``(E, D)`` and the ``(E, S)`` arrays f32, all contiguous on one device.
+    ``plan_lanes``: see :func:`entity_plan`."""
     if x.device.type == "cpu":
         return fused_entity_value_and_grad_plain(loss, x, ws, labels,
                                                  offsets, weights)
@@ -119,7 +125,7 @@ def fused_entity_value_and_grad(loss: PointwiseLoss, x, ws, labels, offsets,
     grads = torch.empty((e, d), dtype=torch.float32, device=x.device)
     if e == 0 or s == 0 or d == 0:
         return values.zero_(), grads.zero_()
-    plan = entity_plan(e, s, d)
+    plan = entity_plan(e, s, d, plan_lanes)
     partials = torch.empty(
         (e, plan.chunks, d + 1) if plan.chunks > 1 else (0,),
         dtype=torch.float32, device=x.device)

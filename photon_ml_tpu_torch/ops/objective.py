@@ -173,11 +173,16 @@ class GLMObjective:
     optional 0/1 ``reg_mask`` selecting the coefficients the L2 term
     touches. ``w`` is ``(d,)``; ``(M, d)`` against an ``(n, d)`` design
     (M objectives sharing the data); or ``(E, D)`` against an
-    ``(E, S, D)`` bucket (one objective per entity lane)."""
+    ``(E, S, D)`` bucket (one objective per entity lane).
+    ``entity_plan_lanes`` is the lane count kernel 2 chunks a bucket's rows
+    for (``ops/fused_re.py::entity_plan``; None: the call's own): a slice
+    of a bucket passes the whole bucket's, so its lanes fold as they do
+    there."""
 
     loss: PointwiseLoss
     normalization: NormalizationContext = NoNormalization
     reg_mask: Optional[Tensor] = None
+    entity_plan_lanes: Optional[int] = None
 
     def __post_init__(self):
         # the closed forms use curvature l2·mask, which equals the true
@@ -227,7 +232,8 @@ class GLMObjective:
             if x.dim() == 3:
                 kernel = fused_entity_value_and_grad
                 value, grad = kernel(
-                    self.loss, x, w, data.labels, data.offsets, data.weights)
+                    self.loss, x, w, data.labels, data.offsets, data.weights,
+                    self.entity_plan_lanes)
                 if counting:
                     e, s, d = x.shape
                     profiling.count(*_fused_re.work(

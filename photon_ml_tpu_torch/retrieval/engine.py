@@ -13,8 +13,10 @@ best:
    whole padded item axis, dequantizing the item matrix through
    :func:`~photon_ml_tpu_torch.serving.store.gather_rows` and reducing
    ``(x[:, None, :] * tab[None]).sum(dim=2)`` in f64, the same row
-   reduction as the engine's ``(x * tab).sum(dim=1)``;
-3. it sums every coordinate through
+   reduction as the engine's ``(x * tab).sum(dim=1)`` (an index spread
+   over a mesh: each part on its slot, the parts' margins concatenated in
+   item order on the first slot);
+3. it sums every coordinate and then the index's static margins through
    :func:`~photon_ml_tpu_torch.game.model.sum_coordinate_margins` in the
    model's coordinate order, masks
    the padding to ``-inf`` and sorts each row descending with a stable
@@ -28,8 +30,11 @@ hold the store's bounds.
 **Captures.** On the card each (user-batch bucket, k bucket, item bucket)
 is one CUDA graph over static buffers: the user inputs (offsets, the
 user-side f32 margins, the item shard's features) and the item tables
-(matrix and scales) with the live item count as a device scalar, so a patch that grows the vocabulary inside the padding changes no
-shape. :meth:`RankingEngine.warmup` captures the grid; steady state
+(matrix and scales, a pair a part, and the static margins) with the live
+item count as a device scalar, so a patch that grows the vocabulary inside
+the padding changes no shape. An index whose parts lie on other devices
+than the engine's runs its program eagerly (a graph is captured on one
+device). :meth:`RankingEngine.warmup` captures the grid; steady state
 captures nothing. A patch-derived version whose coordinate structure
 matches its parent's (the reference's ``_trace_compatible``) shares the
 parent's programs (``share_from``) and captures nothing: before a replay,
@@ -52,6 +57,7 @@ from photon_ml_tpu_torch.game.model import (
     FixedEffectModel,
     sum_coordinate_margins,
 )
+from photon_ml_tpu_torch.parallel.mesh import on_slot
 from photon_ml_tpu_torch.resilience import fault_point
 from photon_ml_tpu_torch.retrieval.index import ItemIndex
 from photon_ml_tpu_torch.serving import stages as _stages
@@ -87,7 +93,7 @@ class _RankProgram:
     """One (user bucket, k bucket, item bucket) program: its static
     buffers and, on the card, the CUDA graph captured over them."""
 
-    __slots__ = ("lock", "offsets", "margins", "x", "matrix", "scales",
+    __slots__ = ("lock", "offsets", "margins", "x", "parts", "static",
                  "n_items", "loaded", "vals", "idx", "graph")
 
     def __init__(self, b: int, n_coords: int, dim: int, index: ItemIndex):
@@ -97,9 +103,10 @@ class _RankProgram:
         self.margins = torch.zeros((n_coords, b), dtype=torch.float32,
                                    device=dev)
         self.x = torch.zeros((b, dim), dtype=torch.float32, device=dev)
-        self.matrix = torch.empty_like(index.matrix)
-        self.scales = (None if index.scales is None
-                       else torch.empty_like(index.scales))
+        self.parts = tuple(
+            (torch.empty_like(m), None if sc is None
+             else torch.empty_like(sc)) for m, sc in index.parts)
+        self.static = torch.empty_like(index.static)
         self.n_items = torch.zeros((), dtype=torch.int64, device=dev)
         #: the index whose item tables the buffers hold
         self.loaded = None
@@ -109,9 +116,11 @@ class _RankProgram:
         """Stage ``index``'s item tables (a no-op when already staged)."""
         if self.loaded is index:
             return
-        self.matrix.copy_(index.matrix)
-        if self.scales is not None:
-            self.scales.copy_(index.scales)
+        for (m, sc), (im, isc) in zip(self.parts, index.parts):
+            m.copy_(im)
+            if sc is not None:
+                sc.copy_(isc)
+        self.static.copy_(index.static)
         self.n_items.fill_(index.n_items)
         self.loaded = index
 
@@ -189,6 +198,7 @@ class RankingEngine:
             and self._rank_re_order == other._rank_re_order
             and self.index.dim == other.index.dim
             and self.index.table_dtype == other.index.table_dtype
+            and self.index.slots == other.index.slots
             and self.engine.device == other.engine.device)
 
     # --- the ranking program ------------------------------------------------
@@ -196,16 +206,26 @@ class RankingEngine:
         """``(scores (b, k_b) f32, item positions (b, k_b))`` of one padded
         user batch against the staged item tables."""
         f64 = torch.float64
-        n_rows = prog.matrix.shape[0]
-        item_rows = torch.arange(n_rows, device=prog.matrix.device)
-        tab = _store.gather_rows((prog.matrix, prog.scales), item_rows, f64)
-        x = prog.x.to(f64)
-        item_margin = (x[:, None, :] * tab[None, :, :]).sum(dim=2).to(
-            torch.float32)
+        first = prog.x.device
+        item_parts = []
+        for matrix, scales in prog.parts:
+            dev = matrix.device
+            with on_slot(dev):
+                rows = torch.arange(matrix.shape[0], device=dev)
+                tab = _store.gather_rows((matrix, scales), rows, f64)
+                x = prog.x.to(dev).to(f64)
+                item_parts.append((x[:, None, :] * tab[None, :, :]).sum(
+                    dim=2).to(torch.float32).to(first))
+        item_margin = (item_parts[0] if len(item_parts) == 1
+                       else torch.cat(item_parts, dim=1))
+        item_rows = torch.arange(item_margin.shape[1], device=first)
         margins = [item_margin if j == self._item_pos
                    else prog.margins[j][:, None]
                    for j in range(len(self._coords))]
-        total = sum_coordinate_margins(prog.offsets[:, None], margins)
+        # the static vector rides as a trailing term: all zeros without an
+        # item-feature source, which leaves the pair scores bit-identical
+        total = sum_coordinate_margins(prog.offsets[:, None],
+                                       margins + [prog.static[None, :]])
         masked = torch.where(item_rows[None, :] < prog.n_items, total,
                              torch.full_like(total, -np.inf))
         vals, idx = torch.sort(masked, dim=1, descending=True, stable=True)
@@ -215,7 +235,7 @@ class RankingEngine:
         prog = _RankProgram(b, len(self._coords), self.index.dim, self.index)
         prog.load(self.index)
         dev = prog.x.device
-        if dev.type != "cuda":
+        if dev.type != "cuda" or any(d != dev for d in self.index.slots):
             return prog
         with CAPTURE_LOCK:  # one graph build at a time (serving/engine.py)
             # one eager run on a side stream first (the sort's and the

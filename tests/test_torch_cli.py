@@ -391,7 +391,7 @@ _TELEMETRY_FLAGS = ("--profile", "--debug-nans", "--telemetry-dir",
 @pytest.mark.parametrize("extra", [
     ["--tuning", "RANDOM"], ["--tuning", "BAYESIAN"],
     ["--tuning-iterations", "5"], ["--tuning-range", "1:10"],
-    ["--multihost"], ["--mesh", "data=2"],
+    ["--multihost"],
     ["--supervise", "2"], ["--max-restarts", "1"],
     ["--heartbeat-timeout-s", "5"], ["--restart-deadline-s", "5"],
     ["--profile"], ["--debug-nans"], ["--telemetry-dir", "t"],

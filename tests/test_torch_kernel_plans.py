@@ -16,7 +16,9 @@ compute.
   bucket (a few entities with ~10^5 rows each) is spread over at least
   132 blocks (one per SM of an H100); many small entities share a block.
   The plain version summed per chunk, then folded over the chunks in
-  order, equals the plain version on the whole bucket (f64, 1e-6);
+  order, equals the plain version on the whole bucket (f64, 1e-6); a lane
+  slice planned for its whole bucket (``plan_lanes``) keeps the bucket's
+  chunks, and its blocks cover its own units;
 - kernel 3 (photon_ml_tpu_torch.ops.fused_hvp.hvp_plan): kernel 1's plan
   with kernel 3's shared memory, held to the same rules; the plain version
   summed per block equals the plain version on the whole design (f64,
@@ -72,6 +74,27 @@ def test_entity_plan_covers_every_row_once(e, s, d):
         assert plan.unit_threads >= min(plan.chunk_rows,
                                         fused_re.BLOCK_THREADS)
         assert plan.unit_threads // 2 < plan.chunk_rows
+
+
+@pytest.mark.parametrize("e,s,d", HEAD_BUCKETS + [(14, 89_281, 8),
+                                                 (195, 6_005, 8),
+                                                 (1_000, 300, 64)])
+@pytest.mark.parametrize("slots", [2, 4, 8])
+def test_a_slice_keeps_the_whole_buckets_chunks(e, s, d, slots):
+    """A lane slice planned for the whole bucket's lane count cuts each
+    entity's rows into the whole bucket's chunks (so its fold order, and
+    its bits, are the whole bucket's), and its blocks cover its own units
+    with threads to spare for at most one block."""
+    per = -(-e // slots)
+    whole = fused_re.entity_plan(e, s, d)
+    part = fused_re.entity_plan(per, s, d, plan_lanes=e)
+    assert (part.chunks, part.chunk_rows, part.unit_threads) == (
+        whole.chunks, whole.chunk_rows, whole.unit_threads)
+    units_per_block = fused_re.BLOCK_THREADS // part.unit_threads
+    assert (part.blocks - 1) * units_per_block < per * part.chunks \
+        <= part.blocks * units_per_block
+    assert fused_re.entity_plan(per, s, d, plan_lanes=per) == \
+        fused_re.entity_plan(per, s, d)
 
 
 @pytest.mark.parametrize("e,s,d", HEAD_BUCKETS)
