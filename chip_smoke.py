@@ -326,6 +326,11 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    have 1"); (e) in phase 14 (c), phase 8's ``perSong`` index spread over
    ``{"entity": 4}`` ranks the 32 users with ids and scores equal to the
    unsharded index's. Each part's launches are counted around it.
+21. the port's lint: ``python -m photon_ml_tpu_torch.analysis --json``
+   over the checkout as shipped, in a process of its own on the card's
+   host (``photon_ml_tpu_torch/`` and the root scripts, every rule): it
+   must exit 0 (no finding); the files, rules and suppressions it counted
+   and its wall are printed. It launches no kernel.
 
 ``python3 chip_smoke.py --mp-gap-seeds 0,1,2`` runs phase 15 (b) alone
 over seeds of phase 6's problem and prints its gaps.
@@ -3061,7 +3066,7 @@ def serve_loop_phase(run, patch, merged, records, want, tmp,
     assert not mismatch, mismatch[:5]
 
     t0 = time.perf_counter()
-    logged = {e["requestId"]: e for e in iter_reqlog(log_dir)}
+    logged = {e["requestId"]: e for e in iter_reqlog(log_dir)}  # photon-lint: disable=res-reqlog-read-home -- an audit of the log against the replies it answered, the reference's replay tool's read
     bad = [rid for rid, (_, body) in replies.items()
            if rid not in logged
            or logged[rid]["records"][0]["score"] != body["scores"][0]
@@ -6952,6 +6957,30 @@ def mesh_index(sm, users, device="cuda"):
     return {"e": launches}
 
 
+LINT_TIMEOUT_S = 300
+
+
+def run_lint_phase(root):
+    """Phase 21: the port's lint over the checkout at ``root``, in a
+    process of its own; any exit but 0 fails the run."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "photon_ml_tpu_torch.analysis", root,
+         "--json"], cwd=root, capture_output=True, text=True,
+        timeout=LINT_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-8000:], proc.stderr[-8000:])
+        raise RuntimeError(f"[21] the lint exited {proc.returncode}")
+    doc = json.loads(proc.stdout)
+    counts = doc["counts"]
+    assert counts["findings"] == 0, counts
+    log(f"[21] python -m photon_ml_tpu_torch.analysis: exit 0 over "
+        f"{counts['files']} files, {len(doc['rules'])} rules, "
+        f"{counts['suppressed']} suppressions, wall {wall:.2f} s")
+    return wall
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7379,6 +7408,9 @@ def main() -> int:
         f"{part} {n}" for part, n in mesh_launches.items()))
     for kernel in ("fused_glm", "fused_re", "fused_hvp"):
         assert sum(mesh(kernel).values()) > 0, (kernel, mesh_launches)
+
+    # 21. the port's lint over the checkout --------------------------------
+    run_lint_phase(root)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [

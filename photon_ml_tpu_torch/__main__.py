@@ -1,8 +1,8 @@
 """Subcommand dispatch: ``python -m photon_ml_tpu_torch <command> [args...]``
 (counterpart of ``photon_ml_tpu/__main__.py``). ``train_game``,
 ``refresh_game``, ``train_glm``, ``score_game``, ``serve_game``,
-``serve_fleet``, ``build_index`` and ``join_feedback`` are the commands
-ported so far."""
+``serve_fleet``, ``build_index`` and ``join_feedback`` are the commands;
+the lint runs as ``python -m photon_ml_tpu_torch.analysis``."""
 
 from __future__ import annotations
 

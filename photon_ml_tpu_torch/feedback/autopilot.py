@@ -250,9 +250,7 @@ class FeedbackAutopilot:
             os.rename(run_dir, entry)
             self.config.prior_dir = entry
             if join.last_ts is not None:
-                # the log's timestamps are wall clock (possibly another
-                # machine's): a monotonic timer cannot span processes
-                _LAG.set(max(time.time() - join.last_ts, 0.0))
+                _LAG.set(max(time.time() - join.last_ts, 0.0))  # photon-lint: disable=tel-wall-clock -- freshness lag anchors to the log's wall-clock ts (possibly another machine's); a monotonic timer cannot span processes
             _REFRESHES.inc()
             with self._lock:
                 self.n_refreshes += 1

@@ -20,11 +20,11 @@ serving fleet-wide.
   heat, the SLO burn tracker and ``/statusz``;
 - :mod:`~photon_ml_tpu_torch.fleet.watcher`: router-side pickup of
   published per-shard patch sets;
+- :mod:`~photon_ml_tpu_torch.fleet.advisor`: the hot-shard advisor
+  behind the router's ``/advisor`` (its ``/history`` is the retained
+  plane of ``telemetry/history.py``);
 - ``python -m photon_ml_tpu_torch serve_fleet``: a router and N local
   hosts in one process.
-
-Not ported: the hot-shard advisor and the retained-telemetry plane behind
-the router's ``/history`` and ``/advisor``.
 """
 
 from photon_ml_tpu_torch.fleet.sharding import (  # noqa: F401

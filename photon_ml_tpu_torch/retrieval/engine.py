@@ -47,7 +47,6 @@ built on the CPU) of the shared cache.
 from __future__ import annotations
 
 import threading
-import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -259,10 +258,8 @@ class RankingEngine:
             with root._build_lock:
                 prog = root._programs.get(key)
                 if prog is None:
-                    t0 = time.perf_counter()
-                    prog = self._build(b, k_b)
-                    _profiling.record_compile(RANKING_FN_LABEL,
-                                              time.perf_counter() - t0)
+                    with _profiling.timed_compile(RANKING_FN_LABEL):
+                        prog = self._build(b, k_b)
                     root._programs[key] = prog
                     root._compiles += 1
         return prog

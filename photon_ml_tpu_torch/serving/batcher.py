@@ -126,7 +126,7 @@ class MicroBatcher:
         self._cond = threading.Condition()
         # bounded by the max_queue admission check in submit() (a maxlen
         # deque would silently evict — shedding must be loud and typed)
-        self._queue: collections.deque = collections.deque()  # guarded-by: _cond
+        self._queue: collections.deque = collections.deque()  # guarded-by: _cond  # photon-lint: disable=res-bounded-queue -- bounded by the explicit max_queue Shed check in submit(); maxlen would drop silently
         self._closed = False  # guarded-by: _cond
         #: the BaseException that killed the worker, None while healthy
         self._dead: Optional[BaseException] = None  # guarded-by: _cond

@@ -60,7 +60,6 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -301,10 +300,8 @@ class ScoringEngine:
             with root._build_lock:
                 prog = root._programs.get(b)
                 if prog is None:
-                    t0 = time.perf_counter()
-                    prog = self._build(b)
-                    _profiling.record_compile(SCORING_FN_LABEL,
-                                              time.perf_counter() - t0)
+                    with _profiling.timed_compile(SCORING_FN_LABEL):
+                        prog = self._build(b)
                     root._programs[b] = prog
                     root._compiles += 1
         return prog

@@ -309,7 +309,7 @@ class ModelRegistry:
                           name=name),
             patch_dir, activate)
 
-    def _register(self, load, path: str, activate: bool,
+    def _register(self, load, path: str, activate: bool,  # photon-lint: disable=tel-perf-counter -- load_seconds is the version's own record of its load steps (ServingModel.load_seconds); no metric family carries model-load walls
                   canary: bool = True) -> ServingModel:
         """Run ``load`` (the validated candidate's fields), warm its engine
         when configured, then register it under the next version id and
@@ -411,7 +411,7 @@ class ModelRegistry:
                                  "another version before retiring it")
             self._versions.pop(version, None)
 
-    def prepare_reshard(self, shard_map) -> "tuple[ServingModel, dict]":
+    def prepare_reshard(self, shard_map) -> "tuple[ServingModel, dict]":  # photon-lint: disable=tel-perf-counter -- load_seconds is the version's own record of its load steps (ServingModel.load_seconds); no metric family carries model-load walls
         """Phase one of a live reshard: repack the active version's tables
         under a candidate bucket → shard map and register the result,
         warmed, without activating it. Returns ``(prepared, moved)``, where
@@ -505,7 +505,7 @@ class ModelRegistry:
         return sm, moved
 
     # --- internals --------------------------------------------------------
-    def _load_validated(self, model_dir: str) -> dict:
+    def _load_validated(self, model_dir: str) -> dict:  # photon-lint: disable=tel-perf-counter -- load_seconds is the version's own record of its load steps (ServingModel.load_seconds); no metric family carries model-load walls
         t0 = time.perf_counter()
         model_dir = resolve_game_model_dir(model_dir)
         index_dir = find_feature_index_dir(model_dir)
@@ -616,7 +616,7 @@ class ModelRegistry:
             bound=cfg.bound_for(self.table_dtype), gate=cfg.gate,
             candidate_dir=loaded["model_dir"], bus=self.bus)
 
-    def _load_patch_validated(self, patch_dir: str) -> dict:
+    def _load_patch_validated(self, patch_dir: str) -> dict:  # photon-lint: disable=tel-perf-counter -- load_seconds is the version's own record of its load steps (ServingModel.load_seconds); no metric family carries model-load walls
         t0 = time.perf_counter()
         parent = self.active_or_none()
         if parent is None:

@@ -95,8 +95,8 @@ class RequestLog:
         self._in_flight = 0  # guarded-by: _lock
         self._seq = 0  # guarded-by: _lock
         #: [path, records, bytes] of live segments, oldest first (what
-        #: rotation walks); bounded by max_bytes
-        self._segments: list[list] = []  # guarded-by: _lock
+        #: rotation walks)
+        self._segments: list[list] = []  # guarded-by: _lock  # photon-lint: disable=res-bounded-queue -- bounded by max_bytes: _rotate()'s pop(0) IS the bound (retention, not a request queue)
         self._closed = False  # guarded-by: _lock
         #: this log's outstanding segment futures, pruned as they complete
         self._futures: list = []  # guarded-by: _lock

@@ -68,7 +68,9 @@ class ModelDirectoryWatcher:
         self._lock = threading.Lock()
         #: (entry name, content key) pairs already attempted
         self._seen: set[tuple[str, str]] = set()  # guarded-by: _lock
-        self._stop = threading.Event()
+        #: set by stop(), cleared by start() before the thread exists (an
+        #: Event is safe across threads; the loop only waits on it)
+        self._stop = threading.Event()  # guarded-by: caller
         #: start/stop are lifecycle calls from one control thread
         self._thread: Optional[threading.Thread] = None  # guarded-by: caller
         self.n_applied = 0  # guarded-by: _lock

@@ -64,8 +64,9 @@ class _Timer:
         return self
 
     def elapsed(self) -> float:
-        """Running read of the open timer (for a mid-region log line) —
-        the observation itself still happens once, at exit."""
+        """Seconds since the timer opened, a running read (for a
+        mid-region log line, or a wall that goes on past the timed
+        region) — the observation itself still happens once, at exit."""
         return time.perf_counter() - self._t0
 
     def discard(self) -> None:

@@ -31,9 +31,10 @@ program to compile per call, so its two halves are:
     among them, where the JAX gauge is one program's arguments, outputs
     and temporaries. The gauge keeps the largest call under the name.
 
-- :func:`record_compile` counts real builds: each ``nvcc`` build of a
-  kernel library (``ops/cuda_build.py``, ``fn="cuda.<library>"``, with
-  the nvcc wall; a cached library counts nothing) and each CUDA-graph
+- :func:`record_compile` (or :func:`timed_compile` around the build)
+  counts real builds: each ``nvcc`` build of a kernel library
+  (``ops/cuda_build.py``, ``fn="cuda.<library>"``, with the nvcc wall; a
+  cached library counts nothing) and each CUDA-graph
   capture of the serving engines (``fn="serving.score"`` and
   ``fn="serving.rank"``, the JAX package's labels).
 
@@ -53,8 +54,10 @@ port runs as a per-bucket loop (each bucket under
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Callable, Optional
+import time
+from typing import Callable, Iterator, Optional
 
 from photon_ml_tpu_torch.telemetry import metrics as _metrics
 from photon_ml_tpu_torch.telemetry.metrics import MetricsRegistry
@@ -63,6 +66,7 @@ __all__ = [
     "ProfiledFunction",
     "profile_fn",
     "record_compile",
+    "timed_compile",
     "total_compiles",
     "set_accounting",
     "accounting",
@@ -116,6 +120,17 @@ def record_compile(name: str, seconds: float = 0.0,
     fams["compiles"].labels(fn=name).inc()
     if seconds > 0:
         fams["compile_seconds"].labels(fn=name).inc(seconds)
+
+
+@contextlib.contextmanager
+def timed_compile(name: str, registry: Optional[MetricsRegistry] = None,
+                  ) -> Iterator[None]:
+    """``with timed_compile(name): <build>`` — :func:`record_compile` with
+    the block's wall, once the block returns (a build that raises counts
+    nothing)."""
+    t0 = time.perf_counter()
+    yield
+    record_compile(name, time.perf_counter() - t0, registry)
 
 
 def total_compiles(registry: Optional[MetricsRegistry] = None) -> float:

@@ -109,7 +109,8 @@ def test_pyproject_lists_every_subpackage_of_the_port():
         listed = set(tomllib.load(f)["tool"]["setuptools"]["packages"])
     packages = {".".join(p.parent.relative_to(ROOT).parts)
                 for p in PORT.rglob("__init__.py")}
-    assert "photon_ml_tpu_torch.resilience" in packages
+    assert {"photon_ml_tpu_torch.resilience",
+            "photon_ml_tpu_torch.analysis"} <= packages
     assert sorted(packages - listed) == []
 
 

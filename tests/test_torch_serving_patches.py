@@ -50,6 +50,7 @@ from photon_ml_tpu_torch.game.model import RandomEffectModel as TREModel
 from photon_ml_tpu_torch.io.model_io import model_lineage_id
 from photon_ml_tpu_torch.resilience import FaultPlan, FaultSpec, injected
 from photon_ml_tpu_torch.serving import (
+    ModelDirectoryWatcher,
     ModelRegistry,
     RequestLog,
     ServingService,
@@ -453,6 +454,39 @@ def test_watch_dir_applies_patch_then_full(runs, tmp_path):
     finally:
         server.stop()
     assert server.watcher._thread is None
+
+
+@pytest.mark.parametrize("drive", ["scan_once", "thread"])
+def test_watch_tick_fault_retries_next_tick(runs, tmp_path, drive):
+    """tests/test_overload.py's ``serving.watch_tick`` case on the port's
+    watcher: the faulted tick applies nothing and marks nothing seen, and
+    the next tick applies the candidate. Driven tick by tick, and through
+    the watcher's own thread, whose loop logs the fault and polls again."""
+    watch = str(tmp_path / "publish")
+    os.makedirs(watch)
+    _publish(runs["r"][0], watch, "m1")
+    registry = _registry()
+    plan = FaultPlan([FaultSpec(site="serving.watch_tick", at=(0,))])
+    with injected(plan):
+        if drive == "scan_once":
+            watcher = ModelDirectoryWatcher(registry, watch, poll_s=999.0)
+            with pytest.raises(tres.InjectedFault):
+                watcher.scan_once()
+            assert registry.active_or_none() is None
+            assert watcher.scan_once() == 1
+        else:
+            watcher = ModelDirectoryWatcher(registry, watch,
+                                            poll_s=0.05).start()
+            try:
+                deadline = time.monotonic() + 30.0
+                while watcher.n_applied == 0 \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.02)
+            finally:
+                watcher.stop()
+    assert len(plan.fired("serving.watch_tick")) == 1
+    assert (watcher.n_applied, watcher.n_rejected) == (1, 0)
+    assert registry.active_version == 1
 
 
 def test_served_requests_are_logged(runs, tmp_path):
