@@ -12,15 +12,24 @@ dataset groups entities into fixed-shape size buckets — dense
 feature space (the INDEX_MAP projector), or in the shared space of the
 RANDOM projector, ``(entities, samples, projected_dim)`` — that the
 batched solves run one lane per entity. Bucket shapes come from the
-geometric or the histogram strategy; the host packing is the JAX package's
-numpy path. With ``cache_device_buckets=False`` the solver uploads each
-bucket for its solve and drops it (upload-and-drop streaming) instead of
-keeping every bucket on the device.
+geometric or the histogram strategy. The buckets are packed by the native
+packer (``native/bucket_pack.cc`` through :mod:`photon_ml_tpu_torch.native`,
+two linear passes over the rows) when the library loads, else by the numpy
+packer; both give the same buckets. A resident INDEX_MAP bucket is built
+as index maps only: its ``(E, S, D)`` host fill is a deferred thunk, since
+the solver rebuilds the tensors on the device from the index maps and the
+dataset's ``source_data``. With ``cache_device_buckets=False`` the solver
+uploads each bucket for its solve and drops it (upload-and-drop streaming)
+instead of keeping every bucket on the device; the build turns a
+coordinate to streaming when its resident buckets would pass
+:data:`RE_FAT_CACHE_MAX_BYTES`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import threading
 from typing import Optional
 
 import numpy as np
@@ -29,6 +38,9 @@ import torch
 from photon_ml_tpu_torch.game.projector import ProjectorType, RandomProjector
 from photon_ml_tpu_torch.util import group_starts as _group_starts
 from photon_ml_tpu_torch.util import hash_uniform as _hash_uniform
+from photon_ml_tpu_torch.util import materialize_thunk
+
+logger = logging.getLogger(__name__)
 
 #: fixed-effect designs at or below this width densify when they fit the
 #: byte caps; wider ones take the chunked sparse design
@@ -39,6 +51,17 @@ DENSE_CROSSOVER_NNZ_MULT = 512
 DENSE_DESIGN_MAX_BYTES = 4 << 30
 #: host byte cap for the f32 image the dense decision assumes
 DENSE_DESIGN_MAX_HOST_BYTES = 8 << 30
+#: per-device cap on a random-effect coordinate's device-resident bucket
+#: tensors, as :func:`resident_fat_bytes` counts them; past it the build
+#: turns the coordinate to upload-and-drop streaming (peak device memory:
+#: one bucket) instead of running out of memory. Chosen for one NVIDIA H100
+#: 80GB HBM3 at a 700.00 W power limit: 30 GiB of its 80 GB, the share of
+#: the device the JAX package gives the resident buckets, since the device
+#: also holds the shared dense shard image (at most
+#: DENSE_DESIGN_MAX_BYTES), the score vectors and the solvers'
+#: temporaries, and the port's statics hold int64 row indices beside the
+#: f32 count's four (E, S) arrays.
+RE_FAT_CACHE_MAX_BYTES = 30 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +159,15 @@ class GameData:
         """Release the cached device images."""
         self._device_cache.clear()
 
+    @staticmethod
+    def _device_key(device) -> str:
+        """``device`` as a cache key: ``cuda`` names the current card, as
+        a tensor's ``cuda:<index>`` does, so both find one image."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return str(dev)
+
     def _cached(self, key, make):
         out = self._device_cache.get(key)
         if out is None:
@@ -144,11 +176,11 @@ class GameData:
         return out
 
     def device_labels(self, device) -> torch.Tensor:
-        return self._cached(("labels", str(device)),
+        return self._cached(("labels", self._device_key(device)),
                             lambda: torch.as_tensor(self.labels, device=device))
 
     def device_weights(self, device) -> torch.Tensor:
-        return self._cached(("weights", str(device)),
+        return self._cached(("weights", self._device_key(device)),
                             lambda: torch.as_tensor(self.weights,
                                                     device=device))
 
@@ -167,8 +199,8 @@ class GameData:
             x.index_put_((rows, cols), vals, accumulate=True)
             return x.to(dtype)
 
-        return self._cached(("dense_shard", shard_id, str(dtype), str(device)),
-                            make)
+        return self._cached(("dense_shard", shard_id, str(dtype),
+                             self._device_key(device)), make)
 
     @staticmethod
     def build(labels, shards, offsets=None, weights=None,
@@ -441,6 +473,9 @@ def _histogram_pad(x: np.ndarray, max_buckets: int,
     return bounds[pos]
 
 
+_THUNK_LOCK = threading.Lock()
+
+
 @dataclasses.dataclass(frozen=True)
 class REBucket:
     """One fixed-shape bucket of entities: the unit of a batched solve.
@@ -449,14 +484,35 @@ class REBucket:
     ``feature_index`` maps local column j of entity e to the shard feature id
     (``-1`` on padding columns, whose x-values are zero); ``weights`` is zero
     on padded sample rows; ``sample_idx`` is each slot's global sample row
-    (``-1`` on padding)."""
+    (``-1`` on padding; an entity's rows fill its first slots).
+
+    An index-only build passes one zero-argument thunk returning ``(x,
+    labels, weights)`` as all three; the first read of any of them runs it
+    once, under a lock, and keeps its arrays. :attr:`tensor_shape` reads
+    the index maps and runs nothing."""
 
     entity_ids: np.ndarray  # (E,) int64
-    x: np.ndarray  # (E, S, D) float32
-    labels: np.ndarray  # (E, S) float32
-    weights: np.ndarray  # (E, S) float32
+    x: np.ndarray  # (E, S, D) float32, or the deferred fill
+    labels: np.ndarray  # (E, S) float32, or the deferred fill
+    weights: np.ndarray  # (E, S) float32, or the deferred fill
     sample_idx: np.ndarray  # (E, S) int64
     feature_index: np.ndarray  # (E, D) int64
+
+    def __getattribute__(self, name):
+        if name in ("x", "labels", "weights"):
+            val = object.__getattribute__(self, name)
+            if callable(val):
+                materialize_thunk(self, ("x", "labels", "weights"),
+                                  _THUNK_LOCK)
+                return object.__getattribute__(self, name)
+            return val
+        return object.__getattribute__(self, name)
+
+    @property
+    def materialized(self) -> bool:
+        """Whether the host tensors exist (an eager build, or a deferred
+        fill that has run)."""
+        return not callable(object.__getattribute__(self, "x"))
 
     @property
     def n_entities(self) -> int:
@@ -464,7 +520,9 @@ class REBucket:
 
     @property
     def tensor_shape(self) -> tuple[int, int, int]:
-        return tuple(self.x.shape)
+        """``(E, S, D)``, without running a deferred fill."""
+        e, s = self.sample_idx.shape
+        return (e, s, int(self.feature_index.shape[1]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -481,9 +539,15 @@ class RandomEffectDataset:
     #: set under the RANDOM projector: the buckets hold projected features
     #: and models train in the projected space
     projector: Optional[RandomProjector] = None
-    #: device images of the bucket arrays, filled by the solver and kept
-    #: for the dataset's lifetime (one upload per bucket per run) unless
-    #: the config streams them
+    #: the GameData an INDEX_MAP dataset was bucketed from: the solver
+    #: rebuilds resident bucket tensors on the device by gathers through
+    #: its dense shard image, instead of uploading padded host fills
+    source_data: Optional[GameData] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    #: device images of the bucket arrays (and the index maps they are
+    #: rebuilt from), filled by the solver and kept for the dataset's
+    #: lifetime (one upload per bucket per run) unless the config streams
+    #: them
     _device_cache: dict = dataclasses.field(
         default_factory=dict, compare=False, repr=False)
 
@@ -499,13 +563,20 @@ class RandomEffectDataset:
     def build(coordinate_id: str, data: GameData,
               config: RandomEffectDatasetConfig,
               projector: Optional[RandomProjector] = None,
-              sample_uids: Optional[np.ndarray] = None
+              use_native: Optional[bool] = None,
+              sample_uids: Optional[np.ndarray] = None,
+              n_entity_shards: int = 1,
               ) -> "RandomEffectDataset":
         """``projector`` overrides the seeded Gaussian matrix of the RANDOM
         projector (the factored coordinate passes its learned
-        projection). ``sample_uids`` (default: the row indices) key the
-        active-data subsample: a multi-process build passes global row ids,
-        so each rank keeps the rows a single-process build keeps."""
+        projection). ``use_native`` picks the INDEX_MAP bucket packer: the
+        native one (True: raise when the library is missing), the numpy
+        one (False), or the native one when the library loads (None).
+        ``sample_uids`` (default: the row indices) key the active-data
+        subsample: a multi-process build passes global row ids, so each
+        rank keeps the rows a single-process build keeps.
+        ``n_entity_shards`` (the slots of an entity mesh axis) divides the
+        resident bytes the memory guard holds to the per-device cap."""
         shard = data.shards[config.feature_shard_id]
         entities = data.id_columns[config.random_effect_type]
         n = data.n_samples
@@ -513,7 +584,7 @@ class RandomEffectDataset:
             sample_uids = np.arange(n, dtype=np.int64)
 
         present = entities >= 0
-        order = np.argsort(entities[present], kind="stable")
+        order = _stable_group_order(entities[present])
         sample_rows = np.flatnonzero(present)[order]  # grouped by entity
         ent_sorted = entities[sample_rows]
         if len(ent_sorted):
@@ -565,15 +636,66 @@ class RandomEffectDataset:
             buckets = _random_projection_buckets(
                 data, shard, all_active, ent_of_active, act_entity,
                 projector, config)
-        else:
-            projector = None
-            buckets = (_index_map_buckets(data, shard, all_active,
-                                          ent_of_active, act_entity, config)
-                       if n_active else [])
+            config = _guard_fat_cache(coordinate_id, config, buckets,
+                                      n_entity_shards)
+            return RandomEffectDataset(
+                coordinate_id=coordinate_id, config=config, buckets=buckets,
+                passive_sample_idx=passive,
+                passive_entity_ids=entities[passive],
+                n_entities_total=n_entities_total, projector=projector)
+        buckets = _index_map_buckets(data, shard, all_active, ent_of_active,
+                                     act_entity, config, use_native)
+        config = _guard_fat_cache(coordinate_id, config, buckets,
+                                  n_entity_shards)
         return RandomEffectDataset(
             coordinate_id=coordinate_id, config=config, buckets=buckets,
             passive_sample_idx=passive, passive_entity_ids=entities[passive],
-            n_entities_total=n_entities_total, projector=projector)
+            n_entities_total=n_entities_total, source_data=data)
+
+
+def resident_fat_bytes(buckets) -> int:
+    """Device bytes of a coordinate's resident bucket tensors, counted as
+    f32: x ``(E, S, D)`` and four ``(E, S)`` arrays (labels, weights and
+    two row indices). The one home of the formula: the build's guard and
+    the estimator's budget both read it."""
+    return sum(e * s * d * 4 + 4 * e * s * 4
+               for (e, s, d) in (b.tensor_shape for b in buckets))
+
+
+def _guard_fat_cache(coordinate_id: str, config: RandomEffectDatasetConfig,
+                     buckets, n_entity_shards: int
+                     ) -> RandomEffectDatasetConfig:
+    """Resident buckets keep every bucket's tensors on the device for the
+    dataset's lifetime. Past :data:`RE_FAT_CACHE_MAX_BYTES` per device (the
+    total over the entity axis's slots, which each hold 1/K of the lanes)
+    the coordinate streams instead (upload-and-drop: peak device memory
+    one bucket). The sum over coordinates is held by
+    ``GameEstimator.prepare``, which sees them all."""
+    if not config.cache_device_buckets:
+        return config
+    fat = resident_fat_bytes(buckets) // max(int(n_entity_shards), 1)
+    if fat <= RE_FAT_CACHE_MAX_BYTES:
+        return config
+    logger.warning(
+        "random-effect coordinate %s: device-resident buckets would hold "
+        "%.1f GiB of fat tensors per device (> %.1f GiB cap) — reverting "
+        "to upload-and-drop streaming (peak device memory = one bucket; "
+        "slower sweeps). Shard entities across more processes "
+        "(--multihost) or slots (--mesh entity=K) to regain the resident "
+        "path.", coordinate_id, fat / 2**30, RE_FAT_CACHE_MAX_BYTES / 2**30)
+    return dataclasses.replace(config, cache_device_buckets=False)
+
+
+def _stable_group_order(ids: np.ndarray) -> np.ndarray:
+    """Stable argsort of a dense non-negative id column: the native O(n)
+    counting sort when the library loads, else numpy's stable sort."""
+    from photon_ml_tpu_torch import native
+
+    if native.available():
+        out = native.counting_sort(ids)
+        if out is not None:
+            return out
+    return np.argsort(ids, kind="stable")
 
 
 def _padded_shapes(n_samp_per_entity: np.ndarray,
@@ -588,10 +710,112 @@ def _padded_shapes(n_samp_per_entity: np.ndarray,
 
 
 def _index_map_buckets(data, shard, all_active, ent_of_active, act_entity,
-                       config) -> list[REBucket]:
+                       config, use_native: Optional[bool]) -> list[REBucket]:
     """INDEX_MAP buckets: each entity's observed shard features (pruned to
     ``max_active_features`` by support), compact-indexed, grouped by padded
-    (samples, features) shape."""
+    (samples, features) shape. The native packer when ``use_native`` is
+    not False and the library loads, else the numpy packer: the same
+    buckets in the same order."""
+    if not len(act_entity):
+        return []
+    if use_native is None or use_native:
+        from photon_ml_tpu_torch import native
+
+        if native.available():
+            bks = _index_map_buckets_native(
+                data, shard, all_active, ent_of_active, act_entity, config)
+            if bks is not None:
+                return bks
+        if use_native:
+            raise RuntimeError("native bucket packer requested but the "
+                               "native library is unavailable")
+    return _index_map_buckets_numpy(
+        data, shard, all_active, ent_of_active, act_entity, config)
+
+
+def _index_map_buckets_native(data, shard, all_active, ent_of_active,
+                              act_entity, config) -> Optional[list[REBucket]]:
+    """The native packer: pass A counts each entity's kept features, the
+    bucket shapes follow, and pass B packs each bucket. A resident bucket
+    whose shard the solver can densify on the device is packed as index
+    maps only, with the fill deferred to a thunk. None when the library
+    goes away mid-build."""
+    from photon_ml_tpu_torch import native
+
+    n_active = len(act_entity)
+    n_samp_per_entity = np.bincount(ent_of_active, minlength=n_active
+                                    ).astype(np.int64)
+    ent_starts = np.zeros(n_active + 1, np.int64)
+    np.cumsum(n_samp_per_entity, out=ent_starts[1:])
+    # the library's argument types (no copy when they already match)
+    indptr = np.ascontiguousarray(shard.indptr, np.int64)
+    cols = np.ascontiguousarray(shard.cols, np.int32)
+    vals = np.ascontiguousarray(shard.vals, np.float32)
+    aa = np.ascontiguousarray(all_active, np.int64)
+    scratch = native.BucketPackScratch(shard.dim)
+    n_feat_per_entity = native.re_feature_counts(
+        indptr, cols, aa, ent_starts, shard.dim, config.max_active_features,
+        scratch)
+    if n_feat_per_entity is None:
+        return None
+    s_pad, d_pad = _padded_shapes(n_samp_per_entity, n_feat_per_entity, config)
+    bucket_key = s_pad * np.int64(1 << 40) + d_pad
+    labels32 = np.ascontiguousarray(data.labels, np.float32)
+    weights32 = np.ascontiguousarray(data.weights, np.float32)
+    # the solver's compact path (random_effect.py::_compact_shared) needs a
+    # resident coordinate and a shard whose dense image fits the device cap
+    indices_only = (config.cache_device_buckets
+                    and shard.n_samples * shard.dim * 4
+                    <= DENSE_DESIGN_MAX_BYTES)
+    # one scratch for every deferred fill of this build, made at the first:
+    # each bucket fills at most once and the buckets' entities are disjoint,
+    # so its stamps never collide
+    lazy_scratch: list = []
+    buckets: list[REBucket] = []
+    for key in np.unique(bucket_key):
+        sel = np.flatnonzero(bucket_key == key)
+        S, D = int(s_pad[sel[0]]), int(d_pad[sel[0]])
+        if indices_only:
+            packed = native.re_bucket_indices(
+                indptr, cols, aa, ent_starts, sel, S, D,
+                config.max_active_features, scratch)
+            if packed is None:
+                return None
+            sample_idx, feature_index = packed
+
+            def fill(sel=sel, S=S, D=D):
+                if not lazy_scratch:
+                    lazy_scratch.append(native.BucketPackScratch(shard.dim))
+                out = native.re_bucket_fill(
+                    indptr, cols, vals, aa, ent_starts, labels32, weights32,
+                    sel, S, D, shard.dim, config.max_active_features,
+                    lazy_scratch[0])
+                if out is None:
+                    raise RuntimeError("the native library became "
+                                       "unavailable for a deferred bucket "
+                                       "fill")
+                return out[:3]
+
+            buckets.append(REBucket(
+                entity_ids=act_entity[sel], x=fill, labels=fill,
+                weights=fill, sample_idx=sample_idx,
+                feature_index=feature_index))
+            continue
+        packed = native.re_bucket_fill(
+            indptr, cols, vals, aa, ent_starts, labels32, weights32, sel,
+            S, D, shard.dim, config.max_active_features, scratch)
+        if packed is None:
+            return None
+        x, labels, weights, sample_idx, feature_index = packed
+        buckets.append(REBucket(
+            entity_ids=act_entity[sel], x=x, labels=labels, weights=weights,
+            sample_idx=sample_idx, feature_index=feature_index))
+    return buckets
+
+
+def _index_map_buckets_numpy(data, shard, all_active, ent_of_active,
+                             act_entity, config) -> list[REBucket]:
+    """The numpy packer: sorts of the nnz stream, every bucket filled."""
     n_active = len(act_entity)
     sub = shard.take(all_active)  # CSR over active rows, entity-grouped
     nnz_ent = np.repeat(ent_of_active, sub.row_counts())

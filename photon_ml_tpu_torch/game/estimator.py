@@ -11,9 +11,13 @@ The fit runs on ``device``, ``cuda`` unless the caller passes
 :class:`~photon_ml_tpu_torch.parallel.mesh.Mesh` of this process's slots)
 shards the work as in the JAX package: a ``"data"`` axis splits every
 fixed-effect solve's rows into blocks, one a slot; an ``"entity"`` axis
-splits every random-effect coordinate's bucket lanes. The JAX estimator's
-device prefetch has no counterpart to skip under a mesh: the port builds
-its device images where they are used. Warm starts (``initial_models``),
+splits every random-effect coordinate's bucket lanes. Before the bucket
+builds, :meth:`GameEstimator.prepare` builds the device images the
+coordinates will read (dense shard images, labels, weights; not under a
+mesh, whose paths place their own), and after them it holds the resident
+buckets of all coordinates together to
+:data:`~photon_ml_tpu_torch.game.data.RE_FAT_CACHE_MAX_BYTES`, turning the
+largest to streaming until they fit. Warm starts (``initial_models``),
 partial retraining (``locked``), checkpoints and resume, the divergence
 guard, ``on_result``, L1 / elastic-net coordinates (OWL-QN), coefficient
 variances, the RANDOM projector, factored random effects, down-sampling,
@@ -28,6 +32,8 @@ import json
 import logging
 from typing import Mapping, Optional, Sequence
 
+import torch
+
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.evaluation import EvaluationResults, Evaluator
 from photon_ml_tpu_torch.game.coordinate import (
@@ -40,8 +46,10 @@ from photon_ml_tpu_torch.game.data import (
     GameData,
     RandomEffectDataset,
     RandomEffectDatasetConfig,
+    choose_dense_design,
     design_dtype_of,
 )
+from photon_ml_tpu_torch.game.projector import ProjectorType
 from photon_ml_tpu_torch.game.factored import FactoredRandomEffectCoordinate
 from photon_ml_tpu_torch.game.model import GameModel
 from photon_ml_tpu_torch.glm.problem import GLMOptimizationConfiguration
@@ -170,11 +178,47 @@ class GameEstimator:
 
         return int(self.mesh.shape.get(ENTITY_AXIS, 1))
 
+    def _prefetch_device_feed(self, data: GameData,
+                              locked: Sequence[str]) -> None:
+        """Build on the estimator's device, before the bucket builds, the
+        images the coordinates will read: each dense shard image a fixed
+        effect or a resident INDEX_MAP random effect reads, and the labels
+        and weights. Not under a mesh, whose paths place their own."""
+        if self.mesh is not None:
+            return
+        seen: set = set()
+        for cid in self.update_sequence:
+            if cid in locked:
+                continue
+            cfg = self.coordinate_configs.get(cid)
+            if isinstance(cfg, FixedEffectCoordinateConfig):
+                sid = cfg.feature_shard_id
+            elif isinstance(cfg, RandomEffectCoordinateConfig):
+                if (not cfg.dataset.cache_device_buckets
+                        or cfg.dataset.projector_type
+                        is ProjectorType.RANDOM):
+                    continue  # the solver reads no shared image
+                sid = cfg.dataset.feature_shard_id
+            else:
+                continue
+            dtype = design_dtype_of(cfg.design_dtype)
+            if (sid, dtype) in seen:
+                continue
+            seen.add((sid, dtype))
+            # FixedEffectDataset.build's rule, so the image prefetched is
+            # the one it reads
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            if choose_dense_design(data.shards[sid], itemsize=itemsize):
+                data.device_dense_shard(sid, dtype, self.device)
+            data.device_labels(self.device)
+            data.device_weights(self.device)
+
     def prepare(self, data: GameData,
                 locked: Sequence[str] = ()) -> dict[str, object]:
         """Build every trained coordinate's dataset (once per training
         set); a locked coordinate gets none."""
         self._check_sequence(locked)
+        self._prefetch_device_feed(data, locked)
         datasets: dict[str, object] = {}
         ep = self._entity_shards()
         for cid in self.update_sequence:
@@ -189,13 +233,56 @@ class GameEstimator:
                 # rebuilt each alternation around the learned projection
                 datasets[cid] = None
             else:
-                ds = RandomEffectDataset.build(cid, data, cfg.dataset)
+                ds = RandomEffectDataset.build(cid, data, cfg.dataset,
+                                               n_entity_shards=ep)
                 datasets[cid] = ds
                 logger.info("coordinate %s: %d active entities in %d buckets,"
                             " %d passive rows, %d entity shard(s)", cid,
                             ds.n_active_entities, len(ds.buckets),
                             len(ds.passive_sample_idx), ep)
+        self._apply_fat_budget(data, datasets)
         return datasets
+
+    def _apply_fat_budget(self, data: GameData, datasets) -> None:
+        """Hold the resident buckets of all coordinates together to the
+        per-device cap (each build's guard sees only its own): turn the
+        largest to streaming until the total fits, then drop the dense
+        shard images that no fixed effect and no resident coordinate
+        reads."""
+        from photon_ml_tpu_torch.game import data as gdata
+
+        ep = self._entity_shards()
+        resident = [
+            (cid, ds, gdata.resident_fat_bytes(ds.buckets) // ep)
+            for cid, ds in datasets.items()
+            if isinstance(ds, RandomEffectDataset)
+            and ds.config.cache_device_buckets]
+        total = sum(f for _, _, f in resident)
+        for cid, ds, f in sorted(resident, key=lambda t: -t[2]):
+            if total <= gdata.RE_FAT_CACHE_MAX_BYTES:
+                break
+            logger.warning(
+                "coordinate %s: flipping to upload-and-drop streaming — "
+                "the coordinates' combined resident fat tensors "
+                "(%.1f GiB/device) exceed the %.1f GiB cap",
+                cid, total / 2**30, gdata.RE_FAT_CACHE_MAX_BYTES / 2**30)
+            datasets[cid] = dataclasses.replace(
+                ds, config=dataclasses.replace(
+                    ds.config, cache_device_buckets=False))
+            total -= f
+        keep = set()
+        for cid, cfg in self.coordinate_configs.items():
+            if isinstance(cfg, FixedEffectCoordinateConfig):
+                keep.add(cfg.feature_shard_id)
+            elif isinstance(cfg, RandomEffectCoordinateConfig):
+                ds = datasets.get(cid)
+                if (isinstance(ds, RandomEffectDataset)
+                        and ds.config.cache_device_buckets):
+                    keep.add(cfg.dataset.feature_shard_id)
+        # keys are ("dense_shard", shard id, dtype, device)
+        for key in list(data._device_cache):
+            if key[0] == "dense_shard" and key[1] not in keep:
+                del data._device_cache[key]
 
     def _coordinates(self, data: GameData, datasets: Mapping[str, object],
                      config: GameOptimizationConfiguration,

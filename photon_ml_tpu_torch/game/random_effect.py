@@ -10,8 +10,12 @@ bucket, a RANDOM-projected ``(E, S, P)`` bucket included. Variances, when
 configured, are computed per bucket at the solution and kept on the real
 ``(entity, feature)`` slots. The sweep is a plain loop over buckets — the
 JAX package's fused whole-sweep program (``_sweep_fused``) has no
-counterpart yet. A streaming dataset (``cache_device_buckets=False``)
-uploads each bucket for its solve and drops it. Each bucket solve is
+counterpart yet. A resident bucket of an INDEX_MAP dataset is rebuilt on
+the device, once, by gathers through its index maps into the dense image
+of its shard (:func:`_materialize_fat`), so its host fill is never made;
+a projected, streaming or mesh dataset uploads its host fill instead. A
+streaming dataset (``cache_device_buckets=False``) uploads each bucket
+for its solve and drops it. Each bucket solve is
 profiled as ``game.re.solve_bucket``
 (:mod:`~photon_ml_tpu_torch.telemetry.profiling`); the JAX package's
 ``game.re.sweep_fused`` label has no counterpart.
@@ -47,6 +51,7 @@ import torch
 
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.game.data import (
+    DENSE_DESIGN_MAX_BYTES,
     RandomEffectDataset,
     REBucket,
     design_dtype_of,
@@ -159,35 +164,107 @@ class RandomEffectSolver:
                  n_lanes: int) -> _BucketStatics:
         """Device images of lanes ``[lo, lo + n_lanes)`` of bucket ``i`` on
         ``dev`` (lanes past the bucket's padded with zero data): cached on
-        the dataset, or under ``cache_device_buckets=False`` uploaded for
-        this solve only."""
+        the dataset, or under ``cache_device_buckets=False`` built for this
+        solve only. Rebuilt on the device from the bucket's index maps
+        when :meth:`_compact_shared` allows, else uploaded from the host
+        fill; both give the same tensors."""
         key = ("bucket", i, self.design_dtype, str(dev), lo, n_lanes)
         st = dataset._device_cache.get(key)
         if st is None:
-            def lanes(a, fill=0):
-                part = a[lo:lo + n_lanes]
-                if part.shape[0] < n_lanes:
-                    part = np.concatenate([part, np.full(
-                        (n_lanes - part.shape[0],) + a.shape[1:], fill,
-                        a.dtype)])
-                return part
-
-            si = lanes(bucket.sample_idx, -1)
-            live = si >= 0
-            weights = lanes(bucket.weights)
-            st = _BucketStatics(
-                x=torch.as_tensor(lanes(bucket.x), device=dev).to(
-                    design_dtype_of(self.design_dtype)),
-                labels=torch.as_tensor(lanes(bucket.labels), device=dev),
-                weights=torch.as_tensor(weights, device=dev),
-                gather_idx=torch.as_tensor(np.maximum(si, 0), device=dev),
-                slots=torch.as_tensor(np.flatnonzero(live), device=dev),
-                rows=torch.as_tensor(si[live], device=dev))
-            # the live rows the kernel dispatch counts, from the host copy
-            seed_live_rows(st.weights, weights)
+            shared = self._compact_shared(dataset, dev)
+            if shared is not None:
+                st = self._statics_compact(dataset, i, bucket, dev, shared)
+            else:
+                st = self._statics_host(bucket, dev, lo, n_lanes)
             if dataset.config.cache_device_buckets:
                 dataset._device_cache[key] = st
         return st
+
+    def _statics_host(self, bucket: REBucket, dev: torch.device, lo: int,
+                      n_lanes: int) -> _BucketStatics:
+        """The statics uploaded from the bucket's host fill."""
+        def lanes(a, fill=0):
+            part = a[lo:lo + n_lanes]
+            if part.shape[0] < n_lanes:
+                part = np.concatenate([part, np.full(
+                    (n_lanes - part.shape[0],) + a.shape[1:], fill,
+                    a.dtype)])
+            return part
+
+        si = lanes(bucket.sample_idx, -1)
+        live = si >= 0
+        weights = lanes(bucket.weights)
+        st = _BucketStatics(
+            x=torch.as_tensor(lanes(bucket.x), device=dev).to(
+                design_dtype_of(self.design_dtype)),
+            labels=torch.as_tensor(lanes(bucket.labels), device=dev),
+            weights=torch.as_tensor(weights, device=dev),
+            gather_idx=torch.as_tensor(np.maximum(si, 0), device=dev),
+            slots=torch.as_tensor(np.flatnonzero(live), device=dev),
+            rows=torch.as_tensor(si[live], device=dev))
+        # the live rows the kernel dispatch counts, from the host copy
+        seed_live_rows(st.weights, weights)
+        return st
+
+    def _statics_compact(self, dataset: RandomEffectDataset, i: int,
+                         bucket: REBucket, dev: torch.device,
+                         shared) -> _BucketStatics:
+        """The statics rebuilt on ``dev`` from the bucket's index maps and
+        the shared dense image: the bucket's host fill is never read."""
+        perm, counts, fi = self._compact_arrays(dataset, i, bucket, dev)
+        n_fi = bucket.feature_index.shape[1]
+        identity = (n_fi == shared[0].shape[1] and bool(
+            (bucket.feature_index == np.arange(n_fi)).all()))
+        st = _BucketStatics(*_materialize_fat(
+            *shared, perm, counts, fi, S=int(bucket.sample_idx.shape[1]),
+            identity_cols=identity))
+        # the live rows the kernel dispatch counts, from the host weights
+        # of the bucket's rows (the fill's weights are exactly these)
+        si = bucket.sample_idx
+        seed_live_rows(st.weights, (si >= 0) & (
+            dataset.source_data.weights[np.maximum(si, 0)] > 0))
+        return st
+
+    def _compact_shared(self, dataset: RandomEffectDataset,
+                        dev: torch.device):
+        """``(dense shard image, labels, weights)`` of the dataset's
+        source data on ``dev``, shared by every coordinate on the shard;
+        None when the bucket tensors come from the host fill: no source
+        data, a projected dataset, a streaming one (upload-and-drop bounds
+        device memory at one bucket; the image would stay for the run), a
+        mesh (each slot would hold a copy of the image) or an image over
+        the device cap."""
+        data = dataset.source_data
+        if data is None or dataset.projector is not None:
+            return None
+        if not dataset.config.cache_device_buckets or self.mesh is not None:
+            return None
+        sid = dataset.config.feature_shard_id
+        shard = data.shards[sid]
+        dtype = design_dtype_of(self.design_dtype)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if shard.n_samples * shard.dim * itemsize > DENSE_DESIGN_MAX_BYTES:
+            return None
+        return (data.device_dense_shard(sid, dtype, dev),
+                data.device_labels(dev), data.device_weights(dev))
+
+    def _compact_arrays(self, dataset: RandomEffectDataset, i: int,
+                        bucket: REBucket, dev: torch.device):
+        """A bucket's index maps on ``dev``, uploaded once and cached,
+        without their padding: ``perm`` (the bucket's rows in entity order;
+        an entity's rows fill its first slots), per-entity ``counts`` and
+        ``feature_index``. :func:`_materialize_fat` rebuilds the padded
+        ``(E, S)`` row index from the first two."""
+        key = ("compact", i, str(dev))
+        cached = dataset._device_cache.get(key)
+        if cached is None:
+            si = bucket.sample_idx
+            mask = si >= 0
+            cached = (torch.as_tensor(si[mask], device=dev),
+                      torch.as_tensor(mask.sum(axis=1), device=dev),
+                      torch.as_tensor(bucket.feature_index, device=dev))
+            dataset._device_cache[key] = cached
+        return cached
 
     def train(self, dataset: RandomEffectDataset, offsets: torch.Tensor,
               lam: float, warm_start: Optional[RandomEffectModel] = None,
@@ -268,6 +345,42 @@ class RandomEffectSolver:
             dim=shard_dim, keys=keys[order], coeffs=coeffs[order],
             variances=var, projector=dataset.projector)
         return model, scores
+
+
+def _materialize_fat(shard_x: torch.Tensor, labels_g: torch.Tensor,
+                     weights_g: torch.Tensor, perm: torch.Tensor,
+                     counts: torch.Tensor, fi: torch.Tensor, *, S: int,
+                     identity_cols: bool = False):
+    """A bucket's statics built on the device from its compact index maps:
+    ``(x, labels, weights, gather_idx, slots, rows)``, the tensors
+    :meth:`RandomEffectSolver._statics_host` uploads, gathered from the
+    shared dense image ``shard_x`` (already in the design dtype) and the
+    data's labels and weights. The padded ``(E, S)`` row index comes from
+    ``perm`` and ``counts``; padding reads 0 (a where, not a product, so
+    no -0.0). ``identity_cols`` (every entity's feature map is
+    ``arange(dim)``) turns the element gather into a row gather."""
+    e = int(counts.shape[0])
+    starts = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(S, device=counts.device)
+    valid = slot[None, :] < counts[:, None]
+    if perm.numel():
+        pos = (starts[:, None] + slot[None, :]).clamp(max=perm.numel() - 1)
+        idx = torch.where(valid, perm[pos], -1)
+    else:  # a bucket of only zero-row entities
+        idx = torch.full((e, S), -1, dtype=torch.int64, device=counts.device)
+    clip = idx.clamp(min=0)
+    rmask = idx >= 0
+    zero = torch.zeros((), dtype=shard_x.dtype, device=shard_x.device)
+    if identity_cols:
+        x = torch.where(rmask[:, :, None], shard_x[clip], zero)
+    else:
+        keep = rmask[:, :, None] & (fi >= 0)[:, None, :]
+        x = torch.where(keep, shard_x[clip[:, :, None],
+                                      fi.clamp(min=0)[:, None, :]], zero)
+    labels = torch.where(rmask, labels_g[clip], 0.0)
+    weights = torch.where(rmask, weights_g[clip], 0.0)
+    slots = torch.nonzero(rmask.reshape(-1)).reshape(-1)
+    return x, labels, weights, clip, slots, idx.reshape(-1)[slots]
 
 
 def _lane_margins(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

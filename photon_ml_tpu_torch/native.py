@@ -8,9 +8,10 @@ port's own, ``build/torch_native/libphoton_native.so`` at the root of the
 checkout, on first use. The build writes a temporary file and renames it
 into place, so processes building at once never load a half-written
 library. Callers treat this as an optional fast path: :func:`available` is
-False when no compiler or library is usable, and ``AvroDataReader`` and the
+False when no compiler or library is usable, ``AvroDataReader`` and the
 model writer fall back to the pure-Python codec
-(:mod:`photon_ml_tpu_torch.io.avro`).
+(:mod:`photon_ml_tpu_torch.io.avro`), and the random-effect dataset build
+to its numpy bucket packer.
 """
 
 from __future__ import annotations
@@ -103,6 +104,23 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.photon_shard_split_fill.argtypes = [
         i64p, i32p, f64p, ctypes.c_int64, i32p, ctypes.c_int32, i64p, i32p,
         f32p]
+    lib.photon_counting_sort.restype = None
+    lib.photon_counting_sort.argtypes = [i64p, ctypes.c_int64, i64p, i64p]
+    lib.photon_re_feature_counts.restype = None
+    lib.photon_re_feature_counts.argtypes = [
+        i64p, i32p, i64p, i64p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, i64p, i64p, i64p]
+    lib.photon_re_bucket_fill.restype = None
+    lib.photon_re_bucket_fill.argtypes = [
+        i64p, i32p, f32p, i64p, i64p, f32p, f32p, i64p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, i64p, i64p, i64p, i64p,
+        f32p, f32p, f32p, i64p, i64p]
+    lib.photon_re_bucket_indices.restype = None
+    lib.photon_re_bucket_indices.argtypes = [
+        i64p, i32p, i64p, i64p, i64p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        i64p, i64p, i64p, i64p]
     lib.photon_write_re_models.restype = ctypes.c_int64
     lib.photon_write_re_models.argtypes = [
         ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int64,
@@ -333,6 +351,122 @@ def decode_training_file(path: str, id_keys: Sequence[str] = ()
             feature_keys=feature_keys, id_cols=id_cols, id_vocabs=id_vocabs)
     finally:
         lib.photon_result_free(rp)
+
+
+class BucketPackScratch:
+    """Dim-sized scratch shared by one dataset build's packer calls.
+
+    ``native/bucket_pack.cc`` marks a feature as seen for an entity by
+    writing the entity's dense id into a stamp array, so a stamp array is
+    set to -1 once and then shared by every call of one pass of one build
+    (dense ids never repeat across its calls). Pass A and pass B need
+    distinct stamp arrays: pass A has stamped every entity, so pass B on
+    pass A's array would see every feature as already seen. A deferred
+    fill runs after the build's pass B and takes a scratch of its own."""
+
+    def __init__(self, dim: int):
+        self.stamp_a = np.full(dim, -1, np.int64)
+        self.stamp_b = np.full(dim, -1, np.int64)
+        self.kept_stamp = np.full(dim, -1, np.int64)
+        self.support = np.empty(dim, np.int64)
+        self.local = np.empty(dim, np.int64)
+
+
+def _max_features(max_active_features: Optional[int]) -> int:
+    return -1 if max_active_features is None else int(max_active_features)
+
+
+def re_feature_counts(indptr: np.ndarray, cols: np.ndarray,
+                      all_active: np.ndarray, ent_starts: np.ndarray,
+                      dim: int, max_active_features: Optional[int],
+                      scratch: BucketPackScratch) -> Optional[np.ndarray]:
+    """Each active entity's count of kept features, after pruning to
+    ``max_active_features`` by support (pass A of
+    ``bucket_pack.cc::photon_re_feature_counts``), over the entity-grouped
+    active rows ``all_active`` (entity ``e``'s rows are
+    ``all_active[ent_starts[e]:ent_starts[e + 1]]``). None when the
+    library is unavailable. The arrays' dtypes are the ndpointer
+    argtypes'."""
+    lib = _load()
+    if lib is None:
+        return None
+    n_entities = len(ent_starts) - 1
+    out = np.empty(n_entities, np.int64)
+    lib.photon_re_feature_counts(
+        indptr, cols, all_active, ent_starts, n_entities, int(dim),
+        _max_features(max_active_features), scratch.stamp_a,
+        scratch.support, out)
+    return out
+
+
+def re_bucket_fill(indptr, cols, vals, all_active, ent_starts, labels_all,
+                   weights_all, sel, S: int, D: int, dim: int,
+                   max_active_features: Optional[int],
+                   scratch: BucketPackScratch):
+    """One bucket's ``(E, S, D)`` tensors for the dense entity ids ``sel``
+    (pass B, ``photon_re_bucket_fill``): ``(x, labels, weights,
+    sample_idx, feature_index)``, equal to the numpy packer's, or None
+    when the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    sel = np.ascontiguousarray(sel, np.int64)
+    e = len(sel)
+    x = np.zeros((e, S, D), np.float32)
+    labels = np.zeros((e, S), np.float32)
+    weights = np.zeros((e, S), np.float32)
+    sample_idx = np.full((e, S), -1, np.int64)
+    feature_index = np.full((e, D), -1, np.int64)
+    lib.photon_re_bucket_fill(
+        indptr, cols, vals, all_active, ent_starts, labels_all, weights_all,
+        sel, e, int(S), int(D), int(dim), _max_features(max_active_features),
+        scratch.stamp_b, scratch.support, scratch.kept_stamp, scratch.local,
+        x, labels, weights, sample_idx, feature_index)
+    return x, labels, weights, sample_idx, feature_index
+
+
+def re_bucket_indices(indptr, cols, all_active, ent_starts, sel, S: int,
+                      D: int, max_active_features: Optional[int],
+                      scratch: BucketPackScratch):
+    """One bucket's index maps only (``photon_re_bucket_indices``):
+    ``(sample_idx, feature_index)``, equal to :func:`re_bucket_fill`'s,
+    without the ``(E, S, D)`` fill, or None when the library is
+    unavailable. The solver rebuilds the tensors on the device from
+    them."""
+    lib = _load()
+    if lib is None:
+        return None
+    sel = np.ascontiguousarray(sel, np.int64)
+    e = len(sel)
+    sample_idx = np.full((e, S), -1, np.int64)
+    feature_index = np.full((e, D), -1, np.int64)
+    lib.photon_re_bucket_indices(
+        indptr, cols, all_active, ent_starts, sel, e, int(S), int(D),
+        _max_features(max_active_features), scratch.stamp_b,
+        scratch.support, sample_idx, feature_index)
+    return sample_idx, feature_index
+
+
+def counting_sort(ids: np.ndarray) -> Optional[np.ndarray]:
+    """The stable order of dense non-negative ids
+    (``photon_counting_sort``, O(n)): the permutation of
+    ``np.argsort(ids, kind="stable")``, or None when the library is
+    unavailable. Its counters take O(max(ids)) memory, so sparse ids (a
+    maximum above 4 x their count) take the comparison sort instead."""
+    ids = np.ascontiguousarray(ids, np.int64)
+    if ids.size == 0:
+        return np.zeros(0, np.int64)
+    if int(ids.max()) > 4 * ids.size:
+        return np.argsort(ids, kind="stable")
+    lib = _load()
+    if lib is None:
+        return None
+    cnt = np.bincount(ids)
+    cursors = np.zeros(len(cnt), np.int64)
+    np.cumsum(cnt[:-1], out=cursors[1:])
+    order = np.empty(ids.size, np.int64)
+    lib.photon_counting_sort(ids, ids.size, cursors, order)
+    return order
 
 
 def _concat_strings(strings) -> tuple[bytes, np.ndarray]:

@@ -29,3 +29,17 @@ def hash_uniform(ids: np.ndarray, seed: int) -> np.ndarray:
     z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
     z = z ^ (z >> np.uint64(31))
     return z.astype(np.float64) / float(2**64)
+
+
+def materialize_thunk(obj, fields: tuple, lock) -> None:
+    """Run a deferred fill at most once: ``fields[0]`` of ``obj`` holds
+    either its value or a zero-argument thunk returning one value per
+    field. Under ``lock``, a thunk still in place is called and its
+    results are set with ``object.__setattr__`` (the holders are frozen
+    dataclasses). The thunks share native scratch, so two racing calls
+    would corrupt it: hence the lock and the second look under it."""
+    with lock:
+        val = object.__getattribute__(obj, fields[0])
+        if callable(val):
+            for f, v in zip(fields, val()):
+                object.__setattr__(obj, f, v)

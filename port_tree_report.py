@@ -3,6 +3,7 @@ by which two checkouts (a commit and its parent, unpacked with ``git
 archive``) can be compared on one machine:
 
     python3 port_tree_report.py --tree DIR [--out FILE.json] [--sass-only]
+        [--build-walls N] [--k4-bf16-seeds N]
 
 - ``sass``: a hash of the SASS of every kernel in the libraries of all
   four kernels (``cuobjdump -sass``), by mangled name, so a change that
@@ -26,6 +27,11 @@ archive``) can be compared on one machine:
   the f64 sum of the lanes' objective values as the solver saw them (f32)
   and as the closed form computes them in f64 at the lanes' solutions;
   the fit's validation AUC and wall;
+- ``build_walls`` (with ``--build-walls N``): ``GameEstimator.prepare``
+  of ``chip_smoke.py``'s phase 3 (the 1M-row e2e data, its estimator) N
+  times, each followed by one fit on its datasets: the build's wall, the
+  fit's wall (whose first sweep places the bucket tensors on the card),
+  launches and AUC;
 - ``k4_bf16_seeds`` (with ``--k4-bf16-seeds N``): bf16 kernel 4 against
   its plain version at the 1024-wide cases of ``chip_smoke.py``'s phase 5
   (100,003 rows, M in {1, 2, 5, 8, 9, 11, 16}, four losses) over N seeds:
@@ -314,6 +320,39 @@ def fit_report(tg, cs, device, data) -> dict:
                 calls=sum(s["calls"] for s in solves), solves=solves)
 
 
+def build_walls(tg, cs, fused_glm, fused_re, reps) -> list:
+    """Phase 3's dataset build and the fit that follows it, ``reps``
+    times on one draw of the data."""
+    from photon_ml_tpu_torch.evaluation import parse_evaluators
+
+    train, valid = cs.make_e2e(tg, **cs.E2E)
+    out = []
+    for _ in range(reps):
+        est = cs.e2e_estimator(tg, "cuda", cs.E2E_MAX_ITER)
+        t0 = time.perf_counter()
+        datasets = est.prepare(train)
+        torch.cuda.synchronize()
+        build = time.perf_counter() - t0
+        fused_glm.fused_value_and_grad.launches = 0
+        fused_re.fused_entity_value_and_grad.launches = 0
+        t0 = time.perf_counter()
+        res = est.fit(train, [tg.GameOptimizationConfiguration(
+            cs.E2E_LAMBDAS)], validation=(valid, parse_evaluators(["AUC"])),
+            datasets=datasets)[0]
+        torch.cuda.synchronize()
+        out.append(dict(
+            build_s=build, fit_s=time.perf_counter() - t0,
+            launches=[fused_glm.fused_value_and_grad.launches,
+                      fused_re.fused_entity_value_and_grad.launches],
+            auc=res.evaluation.primary[1]))
+        print(f"build {build:.3f} s, {out[-1]}", file=sys.stderr)
+        del datasets, res
+        train.clear_device_cache()
+        valid.clear_device_cache()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(HERE),
@@ -325,6 +364,8 @@ def main() -> int:
     ap.add_argument("--k4-bf16-seeds", type=int, default=0, metavar="N",
                     help="also read bf16 kernel 4 against its plain version "
                          "over N seeds")
+    ap.add_argument("--build-walls", type=int, default=0, metavar="N",
+                    help="also time phase 3's dataset build and fit N times")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_tree_report: no CUDA device is available",
@@ -354,6 +395,9 @@ def main() -> int:
                       fit=fit_report(tg, cs, "cuda", cs.E2E),
                       re_precision=re_precision(fused_re, tl),
                       multi=multi_times(cs, fused_glm, tl))
+    if args.build_walls:
+        report["build_walls"] = build_walls(tg, cs, fused_glm, fused_re,
+                                            args.build_walls)
     if args.k4_bf16_seeds:
         report["k4_bf16_seeds"] = k4_bf16_seeds(cs, fused_glm, tl,
                                                 args.k4_bf16_seeds)
