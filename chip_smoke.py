@@ -747,10 +747,10 @@ def time_glm(fused_glm, loss, x, w, labels, weights):
 def time_re(fused_re, loss, buckets):
     """Kernel 2 at every bucket of the main path (the e2e buckets of both
     random effects, as the solver uploads them): one evaluation of each,
-    kernel, plain version and torch.bmm form timed in turns per bucket,
-    then summed."""
-    tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-               bound_ms=0.0, bound_by="bytes")
+    kernel, its device time (:func:`captured`), plain version and
+    torch.bmm form timed in turns per bucket, then summed."""
+    tot = dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
+               library_ms=0.0, bound_ms=0.0, bound_by="bytes")
     for st in buckets:
         x = st.x
         e, s, d = x.shape
@@ -761,11 +761,15 @@ def time_re(fused_re, loss, buckets):
                             fused_re.fused_entity_value_and_grad_plain(*args))
         assert rel <= KERNEL_RTOL, ("kernel2 on an e2e bucket", err, rel)
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        calls = 20
         t = time_turns({
             "ms": lambda: fused_re.fused_entity_value_and_grad(*args),
+            "device_ms": captured(
+                lambda: fused_re.fused_entity_value_and_grad(*args), calls),
             "plain_ms": lambda: fused_re.fused_entity_value_and_grad_plain(
                 *args),
             "library_ms": lambda: re_closed_form_library(*args)}, reps=10)
+        t["device_ms"] /= calls
         n_live = int((st.weights > 0).sum())
         work = fused_re.work(n_live, e, s, d, x.element_size())
         b, by = roofline_ms(work.nbytes, work.ops)
@@ -773,14 +777,91 @@ def time_re(fused_re, loss, buckets):
             tot["bound_by"] = by
         plan = fused_re.entity_plan(e, s, d)
         log(f"  kernel2 E={e} S={s} D={d} live rows={n_live} ({plan.chunks}"
-            f" chunks, {plan.blocks} blocks): kernel {t['ms']:.4f} ms, plain"
-            f" {t['plain_ms']:.4f} ms, torch.bmm closed form "
+            f" chunks, {plan.blocks} blocks): kernel {t['ms']:.4f} ms "
+            f"({t['device_ms']:.4f} ms of device time, in a CUDA graph), "
+            f"plain {t['plain_ms']:.4f} ms, torch.bmm closed form "
             f"{t['library_ms']:.4f} ms, bound {b:.5f} ms ({by})")
         t["bound_ms"] = b
         for k, v in t.items():
             tot[k] += v
     tot["shape"] = f"sum over {len(buckets)} e2e buckets"
     return tot
+
+
+def sweep_reads(reads):
+    """A :class:`Patched` wrap of ``RandomEffectSolver.train`` adding each
+    call's host reads (``optimize/common.py::drive.reads``: one a device a
+    round of the lockstep driver) to ``reads[coordinate]``."""
+    from photon_ml_tpu_torch.optimize.common import drive
+
+    def wrap(train):
+        def wrapper(self, dataset, *a, **kw):
+            r0 = drive.reads
+            out = train(self, dataset, *a, **kw)
+            cid = dataset.coordinate_id
+            reads[cid] = reads.get(cid, 0) + drive.reads - r0
+            return out
+        return wrapper
+    return wrap
+
+
+def timed_warm(walls):
+    """A :class:`Patched` wrap of ``RandomEffectSolver._warm_compile`` (the
+    background build ``GameEstimator.prepare`` starts a thread for)
+    recording its wall by coordinate."""
+    def wrap(warm):
+        def wrapper(self, dataset, *a, **kw):
+            t0 = time.perf_counter()
+            warm(self, dataset, *a, **kw)
+            walls[dataset.coordinate_id] = time.perf_counter() - t0
+        return wrapper
+    return wrap
+
+
+def compare_fused_looped(tg, est, datasets, train, valid, fused, evaluators,
+                         fused_launches, fused_reads):
+    """Phase 3's fit again on the same datasets through the per-bucket
+    loop (the solver's fused path turned off for the call): coefficients,
+    validation scores, AUC and kernel launches must equal the fused
+    sweep's bit for bit; prints both random-effect walls and host reads
+    per coordinate."""
+    from photon_ml_tpu_torch.game.random_effect import RandomEffectSolver
+
+    reads = {}
+    with Patched(RandomEffectSolver, "_fused_eligible",
+                 lambda fn: lambda self, dataset: False), \
+            Patched(RandomEffectSolver, "train", sweep_reads(reads)):
+        looped, wall, launches = counted_call(lambda: est.fit(
+            train, [tg.GameOptimizationConfiguration(E2E_LAMBDAS)],
+            validation=(valid, evaluators), datasets=datasets)[0])
+    same = {}
+    for cid, a in fused.model.coordinates.items():
+        b = looped.model.coordinates[cid]
+        if isinstance(a, tg.FixedEffectModel):
+            same[cid] = _same_bits(a.model.coefficients.means,
+                                   b.model.coefficients.means)
+        else:
+            same[cid] = (np.array_equal(a.keys, b.keys) and np.array_equal(
+                a.coeffs.view(np.int32), b.coeffs.view(np.int32)))
+    sf, sl = fused.model.score(valid), looped.model.score(valid)
+    same_scores = np.array_equal(sf.view(np.int32), sl.view(np.int32))
+    auc_f, auc_l = fused.evaluation.primary[1], looped.evaluation.primary[1]
+    walls_f = {cid: sec for _, cid, sec in fused.step_seconds}
+    walls_l = {cid: sec for _, cid, sec in looped.step_seconds}
+    launches = {k: launches[k] for k in fused_launches}
+    log(f"[3] the same fit through the per-bucket loop: {wall:.2f} s; "
+        f"bit for bit: coefficients {same}, validation scores "
+        f"{same_scores}, AUC {auc_l!r} ({auc_l == auc_f}); launches "
+        f"{launches} (fused {fused_launches})")
+    for cid in ("perUser", "perSong"):
+        log(f"  {cid}: wall fused {walls_f[cid]:.3f} s, loop "
+            f"{walls_l[cid]:.3f} s; host reads fused {fused_reads[cid]}, "
+            f"loop {reads[cid]}")
+    assert all(same.values()) and same_scores and auc_l == auc_f, (
+        same, same_scores, auc_l, auc_f)
+    assert launches == fused_launches, (launches, fused_launches)
+    for cid in ("perUser", "perSong"):
+        assert fused_reads[cid] < reads[cid], (cid, fused_reads, reads)
 
 
 def compare_bucket_solves(tg, data, lam):
@@ -996,8 +1077,8 @@ def check_forced_streaming(tg, small, small_valid, resident, evaluators,
                            device="cuda"):
     """The 20k-row fit on the card again with the resident cap lowered:
     both random effects turn to upload-and-drop streaming (host fills,
-    nothing kept) and the fit must equal the resident one (statics rebuilt
-    on the card) bit for bit."""
+    nothing kept, the per-bucket loop) and the fit must equal the resident
+    one (statics rebuilt on the card, the fused sweep) bit for bit."""
     from photon_ml_tpu_torch.game import data as gdata
 
     cap = gdata.RE_FAT_CACHE_MAX_BYTES
@@ -1026,9 +1107,10 @@ def check_forced_streaming(tg, small, small_valid, resident, evaluators,
             assert np.array_equal(a.keys, b.keys), cid
             assert np.array_equal(a.coeffs, b.coeffs), cid
     assert resident.evaluation.primary == streamed.evaluation.primary
-    log(f"[4] forced streaming (cap 1024 B): both random effects streamed, "
-        f"the item image evicted; prepare + fit {wall:.2f} s; model and AUC "
-        f"bit-identical to the resident fit")
+    log(f"[4] forced streaming (cap 1024 B): both random effects streamed "
+        f"through the per-bucket loop, the item image evicted; prepare + fit "
+        f"{wall:.2f} s; model and AUC bit-identical to the resident fit "
+        f"(the fused sweep)")
     small.clear_device_cache()
 
 
@@ -5733,11 +5815,29 @@ def scrape_while(url, fn, also=(), period_s=None):
         th.join()
 
 
+def recorded_re_work(work):
+    """A :class:`Patched` wrap of kernel 2's wrapper as the objective
+    dispatch calls it, appending ``ops/fused_re.py::work`` of each call
+    (the live rows from the count kept on the weights, no device read) to
+    ``work``."""
+    from photon_ml_tpu_torch.ops import fused_re
+    from photon_ml_tpu_torch.ops.objective import live_rows
+
+    def wrap(kernel):
+        def wrapper(loss, x, ws, labels, offsets, weights, *a, **kw):
+            e, s, d = x.shape
+            work.append(fused_re.work(sum(live_rows(weights)), e, s, d,
+                                      x.element_size()))
+            return kernel(loss, x, ws, labels, offsets, weights, *a, **kw)
+        return wrapper
+    return wrap
+
+
 def telemetry_train_game(e2e_run, phase8_launches, tmp, device="cuda"):
     """(a): phase 8's run again with the live plane on. Returns its kernel
     launches."""
     from photon_ml_tpu_torch.cli import train_game
-    from photon_ml_tpu_torch.ops import fused_glm
+    from photon_ml_tpu_torch.ops import fused_glm, objective
     from photon_ml_tpu_torch.resilience.supervisor import _free_loopback_port
 
     out = os.path.join(tmp, "telemetry_game")
@@ -5746,9 +5846,12 @@ def telemetry_train_game(e2e_run, phase8_launches, tmp, device="cuda"):
     args = cli_args(e2e_run["train"], e2e_run["valid"], out) + [
         "--telemetry-dir", tel, "--telemetry-poll-s", str(TELEMETRY_POLL_S),
         "--metrics-port", str(port), "--device", device]
-    (result, wall, launches), scrapes = scrape_while(
-        f"http://127.0.0.1:{port}/metrics",
-        lambda: counted_call(train_game.run, args))
+    re_work = []
+    with Patched(objective, "fused_entity_value_and_grad",
+                 recorded_re_work(re_work)):
+        (result, wall, launches), scrapes = scrape_while(
+            f"http://127.0.0.1:{port}/metrics",
+            lambda: counted_call(train_game.run, args))
     auc = result["best_evaluation"]["AUC"]
     log(f"[17] (a) train_game with --telemetry-dir --telemetry-poll-s "
         f"{TELEMETRY_POLL_S:g} --metrics-port: {wall:.2f} s (phase 8: "
@@ -5790,9 +5893,22 @@ def telemetry_train_game(e2e_run, phase8_launches, tmp, device="cuda"):
         f"{per.nbytes:.0f} bytes; photon_flops_total {fe_ops:.0f}")
     assert fe_bytes == launches["fused_glm"] * per.nbytes, (fe_bytes, per)
     assert fe_ops == launches["fused_glm"] * per.ops, (fe_ops, per)
+    # the random effects' bytes: kernel 2's count summed over the run's
+    # kernel-2 launches (recorded beside each launch, from the same
+    # live-row counts), all of them inside the two fused sweeps
     (re_bytes,) = series(prom, "photon_bytes_accessed_total",
-                         fn="game.re.solve_bucket")
-    assert re_bytes > 0
+                         fn="game.re.sweep_fused")
+    (re_ops,) = series(prom, "photon_flops_total", fn="game.re.sweep_fused")
+    want_bytes = sum(w.nbytes for w in re_work)
+    want_ops = sum(w.ops for w in re_work)
+    log(f"  photon_bytes_accessed_total{{fn=game.re.sweep_fused}} "
+        f"{re_bytes:.0f} = the sum of fused_re.work over {len(re_work)} "
+        f"launches ({want_bytes:.0f}); photon_flops_total {re_ops:.0f} "
+        f"({want_ops:.0f}); game.re.solve_bucket series: "
+        f"{series(prom, 'photon_bytes_accessed_total', fn='game.re.solve_bucket')}")
+    assert len(re_work) == launches["fused_re"] > 0, (len(re_work), launches)
+    assert re_bytes == want_bytes and re_ops == want_ops, (
+        re_bytes, want_bytes, re_ops, want_ops)
     in_use = series(prom, "photon_device_bytes_in_use")
     limit = series(prom, "photon_device_bytes_limit")
     peak = series(prom, "photon_peak_memory_bytes", fn="game.fixed_effect")
@@ -6873,8 +6989,6 @@ def mesh_fit(tg, est, datasets, train, valid, result3, evaluators,
              device="cuda"):
     """Phase 20 (a) and (b) on phase 3's data, datasets and fit. Returns
     {part: launches}."""
-    from photon_ml_tpu_torch.game.random_effect import RandomEffectSolver
-    from photon_ml_tpu_torch.ops.fused_re import entity_plan
     from photon_ml_tpu_torch.parallel import distributed
     from photon_ml_tpu_torch.parallel.mesh import make_mesh
 
@@ -6938,7 +7052,21 @@ def mesh_fit(tg, est, datasets, train, valid, result3, evaluators,
                                                                len(evals))
     assert launches["fused_re"] > 0, launches
 
-    # (b) one bucket, whole and over 4 entity slots, from zero
+    out.update(mesh_bucket(tg, est, datasets, train, device))
+    return out
+
+
+def mesh_bucket(tg, est, datasets, train, device="cuda"):
+    """Phase 20 (b): one bucket, whole and over 4 entity slots, from zero,
+    as a streaming dataset of the one bucket (the per-bucket loop, its lane
+    slices one after another) and a resident one (the fused sweep, its
+    members the whole bucket or the 4 lane slices), each with a cache of
+    its own. Returns {part: launches}."""
+    from photon_ml_tpu_torch.game.random_effect import RandomEffectSolver
+    from photon_ml_tpu_torch.ops.fused_re import entity_plan
+    from photon_ml_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
     ds = datasets["perUser"]
     cfg = est.coordinate_configs["perUser"]
     widest = max(ds.buckets, key=lambda b: b.n_entities)
@@ -6946,40 +7074,54 @@ def mesh_fit(tg, est, datasets, train, valid, result3, evaluators,
     offsets = torch.zeros(train.n_samples, device=device)
     parts = {}
     for name, bucket in (("widest", widest), ("head", head)):
-        one = dataclasses.replace(
-            ds, buckets=[bucket], config=dataclasses.replace(
-                ds.config, cache_device_buckets=False))
-        runs = []
-        for m in (None, make_mesh({"entity": MESH_SLOTS},
-                                  devices=slots(MESH_SLOTS, device))):
-            solver = RandomEffectSolver(
-                task=est.task, config=cfg.optimization,
-                design_dtype=cfg.design_dtype, device=device, mesh=m)
-            (model, scores), _, launch = counted_call(
-                solver.train, one, offsets, E2E_LAMBDAS["perUser"], None,
-                train.shards["item"].dim)
-            runs.append((model, scores.cpu().numpy(), launch))
-        (m0, s0, l0), (m1, s1, l1) = runs
-        same_w = (np.array_equal(m0.keys, m1.keys)
-                  and np.array_equal(m0.coeffs, m1.coeffs))
-        same_s = np.array_equal(s0, s1)
-        same = same_w and same_s
-        gap = float(np.abs(m0.coeffs - m1.coeffs).max())
-        s_gap = float(np.abs(s0 - s1).max())
-        parts[name] = same
-        out[f"b_{name}"] = {k: l0[k] + l1[k] for k in l0}
         e, s_rows, d = bucket.tensor_shape
         per = -(-e // MESH_SLOTS)
-        log(f"[20b] {name} perUser bucket {e}x{s_rows}x{d}: unsharded vs "
-            f"{{'entity': {MESH_SLOTS}}} (slices of {per} lanes): bit for "
-            f"bit {same} (coefficients {same_w}, scores {same_s}), max "
-            f"|coefficient gap| {gap:.3e}, |score gap| {s_gap:.3e}; kernel "
-            f"2's chunks an entity {entity_plan(e, s_rows, d).chunks} "
-            f"whole, {entity_plan(per, s_rows, d, e).chunks} in a slice "
-            f"(the whole bucket's plan; "
-            f"{entity_plan(per, s_rows, d).chunks} were the slice's own); "
-            f"launches {l0['fused_re']} / {l1['fused_re']}")
-    assert parts["widest"] and parts["head"], parts
+        runs = {}
+        for path, resident in (("loop", False), ("fused", True)):
+            one = dataclasses.replace(
+                ds, buckets=[bucket], _device_cache={},
+                config=dataclasses.replace(
+                    ds.config, cache_device_buckets=resident))
+            for m in (None, make_mesh({"entity": MESH_SLOTS},
+                                      devices=slots(MESH_SLOTS, device))):
+                solver = RandomEffectSolver(
+                    task=est.task, config=cfg.optimization,
+                    design_dtype=cfg.design_dtype, device=device, mesh=m)
+                assert solver._fused_eligible(one) == resident
+                (model, scores), _, launch = counted_call(
+                    solver.train, one, offsets, E2E_LAMBDAS["perUser"],
+                    None, train.shards["item"].dim)
+                runs[path, m is not None] = (model, scores.cpu().numpy(),
+                                             launch)
+            del one
+        out[f"b_{name}"] = {k: sum(r[2][k] for r in runs.values())
+                            for k in runs["loop", False][2]}
+        same = {}
+        for path, members in (("loop", "one solve after another"),
+                              ("fused", "one member vs 4")):
+            (m0, s0, l0), (m1, s1, l1) = runs[path, False], runs[path, True]
+            same_w = (np.array_equal(m0.keys, m1.keys)
+                      and np.array_equal(m0.coeffs, m1.coeffs))
+            same_s = np.array_equal(s0, s1)
+            same[path] = same_w and same_s
+            log(f"[20b] {name} perUser bucket {e}x{s_rows}x{d}, {path} "
+                f"({members}): unsharded vs {{'entity': {MESH_SLOTS}}} "
+                f"(slices of {per} lanes): bit for bit {same[path]} "
+                f"(coefficients {same_w}, scores {same_s}), max |coefficient "
+                f"gap| {float(np.abs(m0.coeffs - m1.coeffs).max()):.3e}, "
+                f"|score gap| {float(np.abs(s0 - s1).max()):.3e}; launches "
+                f"{l0['fused_re']} / {l1['fused_re']}")
+        (mf, sf, _), (ml, sl, _) = runs["fused", False], runs["loop", False]
+        same["fused=loop"] = (np.array_equal(mf.coeffs, ml.coeffs)
+                              and np.array_equal(sf, sl))
+        log(f"[20b] {name}: unsharded fused sweep = streaming loop, bit for "
+            f"bit {same['fused=loop']}; kernel 2's chunks an entity "
+            f"{entity_plan(e, s_rows, d).chunks} whole, "
+            f"{entity_plan(per, s_rows, d, e).chunks} in a slice (the whole "
+            f"bucket's plan; {entity_plan(per, s_rows, d).chunks} were the "
+            f"slice's own)")
+        parts[name] = same
+    assert all(all(v.values()) for v in parts.values()), parts
     return out
 
 
@@ -7209,12 +7351,18 @@ def main() -> int:
     log(f"[3] generated e2e data ({E2E}) in {time.perf_counter() - t0:.1f} s")
     est = e2e_estimator(tg, "cuda", E2E_MAX_ITER)
     assert native.available(), "the native library (bucket packer) failed"
+    from photon_ml_tpu_torch.game.random_effect import RandomEffectSolver
+
     t0 = time.perf_counter()
-    datasets = est.prepare(train)
+    warm_walls = {}
+    # the threads bind the timed build as they start, inside the block
+    with Patched(RandomEffectSolver, "_warm_compile", timed_warm(warm_walls)):
+        datasets = est.prepare(train)
     log(f"[3] built coordinate datasets in {time.perf_counter() - t0:.2f} s "
         f"through the native bucket packer, index maps only (the numpy "
         f"packer with host fills took 3.4 s on an NVIDIA H100 80GB HBM3 at "
-        f"700 W)")
+        f"700 W); the statics, joins and key orders build on a thread a "
+        f"coordinate")
     shapes = []
     for cid in ("perUser", "perSong"):
         ds = datasets[cid]
@@ -7254,8 +7402,11 @@ def main() -> int:
     fused_glm.fused_value_and_grad.launches = 0
     fused_re.fused_entity_value_and_grad.launches = 0
     t0 = time.perf_counter()
-    result = est.fit(train, [tg.GameOptimizationConfiguration(E2E_LAMBDAS)],
-                     validation=(valid, evaluators), datasets=datasets)[0]
+    fused_reads = {}
+    with Patched(RandomEffectSolver, "train", sweep_reads(fused_reads)):
+        result = est.fit(train, [tg.GameOptimizationConfiguration(
+            E2E_LAMBDAS)], validation=(valid, evaluators),
+            datasets=datasets)[0]
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = {"fused_glm": fused_glm.fused_value_and_grad.launches,
@@ -7265,8 +7416,12 @@ def main() -> int:
         f"lambda {E2E_LAMBDAS}) in {fit_s:.2f} s; validation AUC {auc:.6f}")
     for sweep, cid, sec in result.step_seconds:
         log(f"  sweep {sweep} {cid}: {sec:.3f} s")
-    log(f"  launches: {launches}")
+    log(f"  launches: {launches}; random effects through the fused sweep, "
+        f"host reads {fused_reads}; the background builds took "
+        + ", ".join(f"{cid} {sec:.3f} s" for cid, sec in
+                    sorted(warm_walls.items())))
     assert launches["fused_glm"] > 0 and launches["fused_re"] > 0, launches
+    assert set(warm_walls) == {"perUser", "perSong"}, warm_walls
     for cid, m in result.model.coordinates.items():
         c = (m.model.coefficients.means.cpu().numpy()
              if isinstance(m, tg.FixedEffectModel) else m.coeffs)
@@ -7278,6 +7433,8 @@ def main() -> int:
     auc_fe = fe_only.evaluation.primary[1]
     log(f"  fixed-effect-only AUC {auc_fe:.6f}")
     assert auc > auc_fe + 0.01, (auc, auc_fe)
+    compare_fused_looped(tg, est, datasets, train, valid, result, evaluators,
+                         launches, fused_reads)
     check_compact_buckets(tg, est, datasets, train)
     check_duplicate_rebuild(tg)
 

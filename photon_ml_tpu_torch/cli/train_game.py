@@ -657,6 +657,9 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                                 update_sequence, initial_models, locked,
                                 guard, mp_fit=mp_fit, on_result=note_result)
             # the last solves finish inside this stage, not in "Save models"
+            # (one element of the last table still on the device is read;
+            # the synchronize covers a mesh's other slots)
+            results[-1].model.device_wait()
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         if guard.failures:

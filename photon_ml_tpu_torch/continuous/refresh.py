@@ -156,7 +156,8 @@ def partition_patch_by_shard(patch: Mapping[str, object],
                 model, keys=keys[mask],
                 coeffs=np.asarray(model.coeffs)[mask],
                 variances=(None if model.variances is None
-                           else np.asarray(model.variances)[mask]))
+                           else np.asarray(model.variances)[mask]),
+                coeffs_device=None)
         for cid, raws in (removed_raw or {}).items():
             mine = [raw for raw in raws
                     if shard_of_id(raw, n_shards) == shard]

@@ -24,7 +24,11 @@ from photon_ml_tpu_torch.game.data import (
     GameData,
     RandomEffectDataset,
 )
-from photon_ml_tpu_torch.game.model import FixedEffectModel, RandomEffectModel
+from photon_ml_tpu_torch.game.model import (
+    FixedEffectModel,
+    RandomEffectModel,
+    key_join,
+)
 from photon_ml_tpu_torch.game.random_effect import RandomEffectSolver
 from photon_ml_tpu_torch.glm.problem import (
     GLMOptimizationConfiguration,
@@ -159,8 +163,10 @@ class RandomEffectCoordinate:
     """Per-entity solves for one random-effect coordinate (reference
     ``RandomEffectCoordinate.scala``). Active samples are scored on the
     device in the bucket layout; passive samples (rows excluded from
-    training by the active-data bounds) are scored by the trained model's
-    host join (through the projection for a RANDOM-projected model). A
+    training by the active-data bounds) are scored on the device too,
+    from the model's ``coeffs_device`` through a cached join
+    (:meth:`_passive_scores_device`), and by the model's host join where
+    it has no device table (a projected, loaded or empty model). A
     ``mesh`` with an ``"entity"`` axis splits each bucket's lanes over its
     slots (:class:`~photon_ml_tpu_torch.game.random_effect.
     RandomEffectSolver`)."""
@@ -188,10 +194,69 @@ class RandomEffectCoordinate:
                                      warm_start, dim=shard_dim)
         passive = self.dataset.passive_sample_idx
         if len(passive):
-            scores[torch.as_tensor(passive, device=scores.device)] = \
-                torch.as_tensor(model.score(self.data, sample_idx=passive),
-                                device=scores.device)
+            if (model.coeffs_device is not None and len(model.keys)
+                    and model.projector is None):
+                self._passive_scores_device(model, scores)
+            else:
+                scores[torch.as_tensor(passive, device=scores.device)] = \
+                    torch.as_tensor(model.score(self.data,
+                                                sample_idx=passive),
+                                    device=scores.device)
         return model, scores
+
+    def _passive_scores_device(self, model: RandomEffectModel,
+                               scores: torch.Tensor) -> None:
+        """Score the passive rows into ``scores`` on the device: each
+        row's nonzeros laid out densely, ``(rows, most nonzeros of a
+        row)`` with 0 on padding, their positions in the model's key table
+        and whether each was found, built once on the host and cached with
+        the key table they join (a model of another key table rebuilds
+        them). A sweep is then one gather from ``coeffs_device`` and a sum
+        over each row in f32, whose order is fixed by the layout: the same
+        bits on every run, where a scatter-add on the card adds in a
+        varying order."""
+        cache = self.dataset._device_cache
+        key = ("passive", str(scores.device))
+        entry = cache.get(key)
+        if entry is not None and not (entry[0] is model.keys
+                                      or np.array_equal(entry[0], model.keys)):
+            entry = None
+        if entry is None:
+            passive = self.dataset.passive_sample_idx
+            sub = self.data.shards[
+                self.dataset.config.feature_shard_id].take(passive)
+            counts = sub.row_counts()
+            rows = sub.rows()
+            slot = np.arange(sub.nnz) - np.repeat(sub.indptr[:-1], counts)
+            ents = self.data.id_columns[
+                self.dataset.config.random_effect_type][passive][rows]
+            pos, found = key_join(model.keys, model.dim, ents, sub.cols)
+            shape = (len(passive), max(int(counts.max(initial=0)), 1))
+            vals_d = np.zeros(shape, np.float32)
+            pos_d = np.zeros(shape, np.int64)
+            found_d = np.zeros(shape, bool)
+            vals_d[rows, slot] = sub.vals
+            pos_d[rows, slot] = pos
+            found_d[rows, slot] = found
+            dev = scores.device
+            entry = (model.keys, tuple(
+                torch.as_tensor(a, device=dev)
+                for a in (vals_d, pos_d, found_d, passive)))
+            if self.dataset.config.cache_device_buckets:
+                # a streaming dataset keeps nothing between sweeps
+                cache[key] = entry
+        vals, pos, found, rows = entry[1]
+        scores[rows] = _passive_segment_scores(model.coeffs_device, vals, pos,
+                                               found)
+
+
+def _passive_segment_scores(coeffs_device: torch.Tensor, vals: torch.Tensor,
+                            pos: torch.Tensor,
+                            found: torch.Tensor) -> torch.Tensor:
+    """Each passive row's margin: its nonzeros times their coefficients
+    (0 where a slot is absent or padding), summed over the row in f32."""
+    coeff = torch.where(found, coeffs_device.to(vals.device)[pos], 0.0)
+    return (vals * coeff).sum(-1)
 
 
 Coordinate = Union[FixedEffectCoordinate, RandomEffectCoordinate]

@@ -63,6 +63,10 @@ DENSE_DESIGN_MAX_HOST_BYTES = 8 << 30
 #: f32 count's four (E, S) arrays.
 RE_FAT_CACHE_MAX_BYTES = 30 << 30
 
+#: held while :meth:`GameData._cached` makes a device image, so one image
+#: is made once whichever thread asks first
+_IMAGE_LOCK = threading.Lock()
+
 
 @dataclasses.dataclass(frozen=True)
 class FeatureShard:
@@ -169,10 +173,17 @@ class GameData:
         return str(dev)
 
     def _cached(self, key, make):
+        """The image under ``key``, made by ``make`` once: the estimator's
+        build threads (one per random-effect coordinate) share this cache,
+        so a second thread asking for an image in the making waits for it
+        and gets the same tensor."""
         out = self._device_cache.get(key)
         if out is None:
-            out = make()
-            self._device_cache[key] = out
+            with _IMAGE_LOCK:
+                out = self._device_cache.get(key)
+                if out is None:
+                    out = make()
+                    self._device_cache[key] = out
         return out
 
     def device_labels(self, device) -> torch.Tensor:

@@ -17,7 +17,9 @@ coordinates will read (dense shard images, labels, weights; not under a
 mesh, whose paths place their own), and after them it holds the resident
 buckets of all coordinates together to
 :data:`~photon_ml_tpu_torch.game.data.RE_FAT_CACHE_MAX_BYTES`, turning the
-largest to streaming until they fit. Warm starts (``initial_models``),
+largest to streaming until they fit. Then it starts, for each resident
+random-effect dataset, a thread that builds what its sweeps reuse
+(:func:`_start_warm_compile`). Warm starts (``initial_models``),
 partial retraining (``locked``), checkpoints and resume, the divergence
 guard, ``on_result``, L1 / elastic-net coordinates (OWL-QN), coefficient
 variances, the RANDOM projector, factored random effects, down-sampling,
@@ -30,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import threading
 from typing import Mapping, Optional, Sequence
 
 import torch
@@ -42,6 +45,7 @@ from photon_ml_tpu_torch.game.coordinate import (
 )
 from photon_ml_tpu_torch.game.coordinate_descent import CoordinateDescent
 from photon_ml_tpu_torch.game.data import (
+    DENSE_DESIGN_MAX_BYTES,
     FixedEffectDataset,
     GameData,
     RandomEffectDataset,
@@ -52,6 +56,7 @@ from photon_ml_tpu_torch.game.data import (
 from photon_ml_tpu_torch.game.projector import ProjectorType
 from photon_ml_tpu_torch.game.factored import FactoredRandomEffectCoordinate
 from photon_ml_tpu_torch.game.model import GameModel
+from photon_ml_tpu_torch.game.random_effect import RandomEffectSolver
 from photon_ml_tpu_torch.glm.problem import GLMOptimizationConfiguration
 from photon_ml_tpu_torch.sampling import DownSampler
 from photon_ml_tpu_torch.types import TaskType
@@ -202,13 +207,19 @@ class GameEstimator:
             else:
                 continue
             dtype = design_dtype_of(cfg.design_dtype)
-            if (sid, dtype) in seen:
+            fixed = isinstance(cfg, FixedEffectCoordinateConfig)
+            if (sid, dtype, fixed) in seen:
                 continue
-            seen.add((sid, dtype))
-            # FixedEffectDataset.build's rule, so the image prefetched is
-            # the one it reads
+            seen.add((sid, dtype, fixed))
+            # the rule of the coordinate that reads the image
+            # (FixedEffectDataset.build's, or the random-effect solver's
+            # cap), so every image a coordinate reads exists before the
+            # build threads start
+            shard = data.shards[sid]
             itemsize = torch.empty((), dtype=dtype).element_size()
-            if choose_dense_design(data.shards[sid], itemsize=itemsize):
+            if (choose_dense_design(shard, itemsize=itemsize) if fixed else
+                    shard.n_samples * shard.dim * itemsize
+                    <= DENSE_DESIGN_MAX_BYTES):
                 data.device_dense_shard(sid, dtype, self.device)
             data.device_labels(self.device)
             data.device_weights(self.device)
@@ -240,7 +251,18 @@ class GameEstimator:
                             " %d passive rows, %d entity shard(s)", cid,
                             ds.n_active_entities, len(ds.buckets),
                             len(ds.passive_sample_idx), ep)
+        # after the residency budget: the threads build for the datasets
+        # that stay resident
         self._apply_fat_budget(data, datasets)
+        for cid, ds in datasets.items():
+            if isinstance(ds, RandomEffectDataset):
+                cfg = self.coordinate_configs[cid]
+                _start_warm_compile(
+                    RandomEffectSolver(
+                        task=self.task, config=cfg.optimization,
+                        design_dtype=cfg.design_dtype, device=self.device,
+                        mesh=self.mesh),
+                    ds, data.shards[cfg.dataset.feature_shard_id].dim)
         return datasets
 
     def _apply_fat_budget(self, data: GameData, datasets) -> None:
@@ -394,3 +416,22 @@ class GameEstimator:
             if ev.better_than(val, best.evaluation.primary[1]):
                 best = r
         return best
+
+
+def _start_warm_compile(solver: RandomEffectSolver,
+                        dataset: RandomEffectDataset, dim: int) -> None:
+    """Start, on a daemon thread, the build of what every sweep of a
+    resident random-effect dataset reuses (:meth:`~photon_ml_tpu_torch.
+    game.random_effect.RandomEffectSolver._warm_compile`: statics, index
+    uploads, joins, the key order), so it overlaps the fixed-effect stage.
+    The JAX package compiles its sweep program there; the port has nothing
+    to compile. ``solver`` is the one the coordinate builds (task,
+    configuration, dtype, device, mesh), so its caches are the ones the
+    sweeps read; ``train`` joins the thread before it reads them."""
+    if not solver._fused_eligible(dataset):
+        return
+    th = threading.Thread(target=solver._warm_compile, args=(dataset, dim),
+                          daemon=True,
+                          name=f"photon-re-warm-{dataset.coordinate_id}")
+    object.__setattr__(dataset, "_warm_thread", th)
+    th.start()

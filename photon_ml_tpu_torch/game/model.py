@@ -8,11 +8,20 @@ coefficient vector; a random-effect model is a flat, key-sorted
 dataset is one searchsorted join. A model trained under the RANDOM
 projector keeps its table in the projected space and scores by projecting
 features first; :meth:`RandomEffectModel.to_shard_space` exports it.
+
+A trained random-effect table may stay on the device until it is first
+read: the solver installs a thunk that carries the flat device payload
+(``device_payload``) in place of ``coeffs``/``variances``, and the first
+access copies it to the host, once, under one lock.
+:meth:`GameModel.materialize` copies every pending table and every
+fixed-effect tensor of a model in one transfer; :meth:`GameModel.
+device_wait` waits for the device work behind them without copying them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -22,6 +31,12 @@ from photon_ml_tpu_torch.game.data import FeatureShard, GameData
 from photon_ml_tpu_torch.game.projector import RandomProjector
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_ml_tpu_torch.types import TaskType
+from photon_ml_tpu_torch.util import materialize_thunk
+
+#: guards the deferred tables' materialization (a model's first access,
+#: :meth:`GameModel.materialize`), which may run on the background saver's
+#: threads; it is rare, so one lock serves every model
+_THUNK_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +97,15 @@ class RandomEffectModel:
 
     With a ``projector`` the table lives in the projected space: ``dim`` is
     the projected dim and scoring projects shard features through the
-    shared matrix first."""
+    shared matrix first.
+
+    ``coeffs`` (and ``variances`` when configured) may be a zero-argument
+    thunk returning ``(coeffs, variances)``, with the flat device tensor
+    it copies from as its ``device_payload``; the first access runs it
+    (see the module docstring), so every reader sees numpy.
+    ``coeffs_device`` holds the same values as ``coeffs`` on the device,
+    where the solver left them (None for a loaded, merged or projected
+    model): warm starts and passive scoring read it there."""
 
     random_effect_type: str
     feature_shard_id: str
@@ -92,6 +115,31 @@ class RandomEffectModel:
     coeffs: np.ndarray
     variances: Optional[np.ndarray] = None
     projector: Optional[RandomProjector] = None
+    coeffs_device: Optional[torch.Tensor] = dataclasses.field(
+        default=None, compare=False, repr=False)
+
+    def __getattribute__(self, name):
+        if name in ("coeffs", "variances"):
+            val = object.__getattribute__(self, name)
+            if callable(val):
+                materialize_thunk(self, ("coeffs", "variances"), _THUNK_LOCK)
+                return object.__getattribute__(self, name)
+            return val
+        return object.__getattribute__(self, name)
+
+    def __getstate__(self):
+        # a pickled model carries its host tables, not the thunk (a closure
+        # over device tensors) nor the device table
+        state = dict(object.__getattribute__(self, "__dict__"))
+        state["coeffs"], state["variances"] = self.coeffs, self.variances
+        state["coeffs_device"] = None
+        return state
+
+    @property
+    def pending(self):
+        """The deferred table's thunk, or None once it is on the host."""
+        val = object.__getattribute__(self, "coeffs")
+        return val if callable(val) else None
 
     @property
     def n_entities(self) -> int:
@@ -171,7 +219,8 @@ class RandomEffectModel:
             self, keys=keys[order],
             coeffs=np.asarray(self.coeffs, np.float32)[order],
             variances=(None if self.variances is None
-                       else np.asarray(self.variances, np.float32)[order]))
+                       else np.asarray(self.variances, np.float32)[order]),
+            coeffs_device=None)
 
     def entity_rows(self, dense_ids: Sequence[int]) -> np.ndarray:
         """Dense ``(len(dense_ids), dim)`` coefficient rows of the given
@@ -264,6 +313,65 @@ class GameModel:
 
     coordinates: Mapping[str, FixedEffectModel | RandomEffectModel]
     task: TaskType
+
+    def _device_tensors(self) -> list:
+        """``(install, flat device tensor)`` of every table still on the
+        device: each random effect's pending payload, each fixed-effect
+        tensor on a CUDA device."""
+        jobs = []
+        for m in self.coordinates.values():
+            if isinstance(m, RandomEffectModel):
+                thunk = m.pending
+                if thunk is None:
+                    continue
+
+                def install_re(flat, m=m, thunk=thunk):
+                    c, v = thunk(flat)
+                    object.__setattr__(m, "coeffs", c)
+                    object.__setattr__(m, "variances", v)
+
+                jobs.append((install_re, thunk.device_payload))
+            elif isinstance(m, FixedEffectModel):
+                coeffs = m.model.coefficients
+                for field in ("means", "variances"):
+                    t = getattr(coeffs, field)
+                    if isinstance(t, torch.Tensor) and t.is_cuda:
+
+                        def install_fe(flat, coeffs=coeffs, field=field,
+                                       t=t):
+                            # a copy out of the shared transfer buffer
+                            object.__setattr__(coeffs, field, torch.as_tensor(
+                                flat.reshape(t.shape).copy()).to(t.dtype))
+
+                        jobs.append((install_fe, t.detach().reshape(-1)))
+        return jobs
+
+    def device_wait(self) -> None:
+        """Wait until the device work behind this model's tables has
+        finished, without copying them: one element of the last table
+        still on the device is read (the coordinates' solves are chained
+        by their scores, so that read drains them all). A stage's wall then
+        holds its device work."""
+        jobs = self._device_tensors()
+        if jobs:
+            jobs[-1][1][:1].cpu()
+
+    def materialize(self) -> None:
+        """Copy every table still on the device to the host in one
+        concatenated transfer: the random effects' pending payloads become
+        their numpy tables, the fixed effects' CUDA tensors host tensors.
+        Nothing happens when all of them are on the host already."""
+        with _THUNK_LOCK:
+            jobs = self._device_tensors()
+            if not jobs:
+                return
+            sizes = [int(t.numel()) for _, t in jobs]
+            device = jobs[0][1].device
+            flat = torch.cat([t.to(device=device, dtype=torch.float32)
+                              for _, t in jobs]).cpu().numpy()
+            bounds = np.cumsum([0] + sizes)
+            for (install, _), lo, hi in zip(jobs, bounds[:-1], bounds[1:]):
+                install(flat[lo:hi])
 
     def score(self, data: GameData) -> np.ndarray:
         """Total margin per sample: offsets + sum of coordinate scores."""

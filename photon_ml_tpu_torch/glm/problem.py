@@ -29,10 +29,11 @@ from photon_ml_tpu_torch.ops.regularization import (
 from photon_ml_tpu_torch.optimize import (
     OptimizerConfig,
     OptimizerResult,
-    minimize_lbfgs,
-    minimize_owlqn,
-    minimize_tron,
 )
+from photon_ml_tpu_torch.optimize.common import Steps, run_alone
+from photon_ml_tpu_torch.optimize.lbfgs import lbfgs_steps
+from photon_ml_tpu_torch.optimize.owlqn import owlqn_steps
+from photon_ml_tpu_torch.optimize.tron import tron_steps
 from photon_ml_tpu_torch.types import OptimizerType, VarianceComputationType
 
 
@@ -93,6 +94,13 @@ class OptimizationProblem:
         design runs once per step and every CG product is one further pass
         (kernel 3 on the card for a dense design). With an L1 part the
         solve is OWL-QN's, the L1 weight per lane."""
+        return run_alone(self.steps(data, w0, lam))
+
+    def steps(self, data: GLMData, w0: torch.Tensor, lam=0.0) -> Steps:
+        """:meth:`run` as a member of
+        :func:`~photon_ml_tpu_torch.optimize.common.drive`: solves driven
+        together share each host read, and each returns what it returns
+        alone, bit for bit."""
         obj, cfg = self.objective, self.config.optimizer_config
         lanes = w0 if w0.dim() > 1 else w0[None, :]
         l2 = self._l2(lam, lanes)
@@ -112,10 +120,10 @@ class OptimizationProblem:
                 return obj.hvp_operator(w, data, l2)
 
         if self.config.optimizer == OptimizerType.TRON:
-            return minimize_tron(fun, hvp_at, lanes, cfg)
+            return tron_steps(fun, hvp_at, lanes, cfg)
         if self.config.regularization.has_l1:
-            return minimize_owlqn(fun, lanes, self._l1(lam, lanes), cfg)
-        return minimize_lbfgs(fun, lanes, cfg)
+            return owlqn_steps(fun, lanes, self._l1(lam, lanes), cfg)
+        return lbfgs_steps(fun, lanes, cfg)
 
     # --- variance (reference VarianceComputationType SIMPLE / FULL) -------
     def compute_variances(self, w: torch.Tensor, data: GLMData,

@@ -225,9 +225,12 @@ def save_game_model(
     pool) writes the coordinates' part files concurrently, each in a copy
     of the caller's context; the bytes are the same either way, and the
     first writer error propagates. ``lineage`` fills
-    :data:`LINEAGE_FIELDS`."""
+    :data:`LINEAGE_FIELDS`. The model's tables still on the device are
+    copied first, in one transfer (:meth:`GameModel.materialize`)."""
     import contextvars
 
+    # every table still on the device comes to the host in one transfer
+    model.materialize()
     os.makedirs(output_dir, exist_ok=True)
     metadata = {"task": model.task.value, "coordinates": {}}
     _apply_lineage(metadata, lineage)

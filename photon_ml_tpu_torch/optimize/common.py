@@ -9,15 +9,99 @@ still needs it, and only those lanes take its new values.
 
 Convergence follows the reference: gradient-norm tolerance relative to the
 initial gradient norm, and an iteration cap.
+
+Each loop needs one host read per round: does any lane still run? The
+optimizers do not make that read themselves. Each is a generator that
+``yield``s its 0-d "any lane still running" tensor and receives the answer
+(``yield from`` for the line search and TRON's CG loop); :func:`drive`
+advances several such members together, reads all their tests in one
+device-to-host copy per device, and sends each member its answer. A member
+runs exactly the operations it runs alone, in the same order, so a solve
+driven with others equals the same solve driven alone bit for bit; only the
+host's interleaving changes. The ``minimize_*`` functions are one-member
+drives.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from typing import Callable, Generator, Optional, Sequence
 
 import torch
 
 Tensor = torch.Tensor
+
+#: a solve as :func:`drive` runs it: yields 0-d bool tests, receives their
+#: values, returns its result
+Steps = Generator[Tensor, bool, object]
+
+
+def drive(members: Sequence[Steps],
+          slots: Optional[Sequence[Optional[Callable]]] = None) -> list:
+    """Run every member to its end in lockstep and return their results in
+    order. A round advances each unfinished member to its next test, then
+    reads the tests of all of them at once: one device-to-host copy per
+    device the tests lie on. A member ends after as many rounds as it makes
+    reads alone, so the rounds are those of the member that reads most.
+    ``slots[k]``, when given, returns a context entered around each advance
+    of member ``k`` (its device made current for the kernel launches).
+
+    Counts its reads in ``drive.reads`` and its rounds in ``drive.rounds``
+    (process-wide, like a kernel wrapper's ``launches``)."""
+    results: list = [None] * len(members)
+
+    def advance(k, answer):
+        ctx = slots[k]() if slots is not None and slots[k] is not None \
+            else contextlib.nullcontext()
+        with ctx:
+            try:
+                return members[k].send(answer)
+            except StopIteration as stop:
+                results[k] = stop.value
+                return None
+
+    pending = {}
+    for k in range(len(members)):
+        test = advance(k, None)
+        if test is not None:
+            pending[k] = test
+    while pending:
+        answers = _read_tests(list(pending.values()))
+        drive.rounds += 1
+        nxt = {}
+        for k, answer in zip(list(pending), answers):
+            test = advance(k, answer)
+            if test is not None:
+                nxt[k] = test
+        pending = nxt
+    return results
+
+
+#: host reads and rounds made by :func:`drive` in this process
+drive.reads = 0
+drive.rounds = 0
+
+
+def _read_tests(tests: list) -> list:
+    """The bool value of each 0-d test: the tests of one device stacked
+    and copied to the host together."""
+    by_device: dict = {}
+    for k, t in enumerate(tests):
+        by_device.setdefault(t.device, []).append(k)
+    out = [False] * len(tests)
+    for ks in by_device.values():
+        stacked = (tests[ks[0]].reshape(1) if len(ks) == 1
+                   else torch.stack([tests[k] for k in ks]))
+        drive.reads += 1
+        for k, v in zip(ks, stacked.tolist()):
+            out[k] = bool(v)
+    return out
+
+
+def run_alone(member: Steps):
+    """The result of one member driven alone."""
+    return drive([member])[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,15 +170,16 @@ def armijo_backtracking(trial, sufficient, alpha0: Tensor, max_steps: int,
     ``alpha`` ``(L,)``; ``sufficient(alpha, w_t, f_t) -> (L,) bool`` is the
     acceptance predicate and must be False for NaN trial values, so an
     overflowing step shrinks. Lanes outside ``active`` never search (the
-    caller discards their results). Syncs with the device once per step to
-    test whether any lane still searches.
+    caller discards their results). A generator: yields whether any lane
+    still searches once per step (see :func:`drive`) and returns
+    ``(alpha, w_t, f_t, g_t, ok)``.
     """
     w_t, f_t, g_t = trial(alpha0)
     alpha = alpha0
     steps = torch.zeros_like(alpha0, dtype=torch.int32)
     while True:
         searching = active & ~sufficient(alpha, w_t, f_t) & (steps < max_steps)
-        if not bool(searching.any()):
+        if not (yield searching.any()):
             break
         half = alpha * 0.5
         w_n, f_n, g_n = trial(half)

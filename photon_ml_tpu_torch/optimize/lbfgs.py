@@ -11,7 +11,10 @@ here every lane steps together and a lane whose loop condition is false
 keeps its whole state, its iteration count included — vmap's semantics. A
 fixed-effect solve is one lane; a random-effect bucket is one lane per
 entity. The loop tests on the host whether any lane is still running: one
-device sync per iteration (and per extra line-search step).
+read per iteration (and per extra line-search step), which
+:func:`lbfgs_steps` hands to its driver
+(:func:`~photon_ml_tpu_torch.optimize.common.drive`) so that several solves
+share each read.
 """
 
 from __future__ import annotations
@@ -21,9 +24,11 @@ import torch
 from photon_ml_tpu_torch.optimize.common import (
     OptimizerConfig,
     OptimizerResult,
+    Steps,
     armijo_backtracking,
     init_trace,
     record_trace,
+    run_alone,
     update_history,
 )
 
@@ -67,7 +72,8 @@ def two_loop_direction(g: Tensor, s_hist: Tensor, y_hist: Tensor,
 def backtracking_line_search(fun, w: Tensor, f: Tensor, g: Tensor,
                              d: Tensor, alpha0: Tensor, max_steps: int,
                              active: Tensor):
-    """Armijo backtracking per lane; ``(alpha, f_new, g_new, w_new, ok)``."""
+    """Armijo backtracking per lane, a generator (``yield from`` it)
+    returning ``(alpha, f_new, g_new, w_new, ok)``."""
     gd = _dot(g, d)
 
     def trial(alpha):
@@ -78,7 +84,7 @@ def backtracking_line_search(fun, w: Tensor, f: Tensor, g: Tensor,
     def sufficient(alpha, w_t, f_t):
         return f_t <= f + _ARMIJO_C1 * alpha * gd
 
-    alpha, w_new, f_new, g_new, ok = armijo_backtracking(
+    alpha, w_new, f_new, g_new, ok = yield from armijo_backtracking(
         trial, sufficient, alpha0, max_steps, active)
     return alpha, f_new, g_new, w_new, ok
 
@@ -91,6 +97,13 @@ def minimize_lbfgs(fun, w0: Tensor,
     ``fun(w (L, d)) -> (values (L,), grads (L, d))``; lane l's objective
     must depend on ``w[l]`` only.
     """
+    return run_alone(lbfgs_steps(fun, w0, config))
+
+
+def lbfgs_steps(fun, w0: Tensor,
+                config: OptimizerConfig = OptimizerConfig()) -> Steps:
+    """:func:`minimize_lbfgs` as a member of
+    :func:`~photon_ml_tpu_torch.optimize.common.drive`."""
     m, d = config.history, w0.shape[-1]
     lanes = w0.shape[0]
     f0, g0 = fun(w0)
@@ -114,7 +127,7 @@ def minimize_lbfgs(fun, w0: Tensor,
         s = state
         active = (~s["converged"]) & (~s["failed"]) & (
             s["it"] < config.max_iterations)
-        if not bool(active.any()):
+        if not (yield active.any()):
             break
         d_dir = two_loop_direction(s["g"], s["s_hist"], s["y_hist"], s["rho"],
                                    s["n_pairs"], m)
@@ -125,7 +138,7 @@ def minimize_lbfgs(fun, w0: Tensor,
         dnorm = torch.linalg.vector_norm(d_dir, dim=-1)
         alpha0 = torch.where(s["n_pairs"] > 0, torch.ones_like(dnorm),
                              1.0 / torch.clamp(dnorm, min=1.0))
-        _, f_new, g_new, w_new, ok = backtracking_line_search(
+        _, f_new, g_new, w_new, ok = yield from backtracking_line_search(
             fun, s["w"], s["f"], s["g"], d_dir, alpha0,
             config.max_line_search, active)
         s_hist, y_hist, rho, n_pairs = update_history(

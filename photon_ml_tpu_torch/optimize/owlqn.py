@@ -16,7 +16,8 @@ As :func:`~photon_ml_tpu_torch.optimize.lbfgs.minimize_lbfgs`, every lane
 steps together and a lane whose loop has ended keeps its whole state
 (``jax.vmap``'s semantics), so the lambdas of a batched sweep share each
 evaluation (kernel 4 on a dense design). The two-loop recursion and the
-line-search constants are L-BFGS's.
+line-search constants are L-BFGS's, and as there the host reads are handed
+to a driver (:func:`owlqn_steps`).
 """
 
 from __future__ import annotations
@@ -26,9 +27,11 @@ import torch
 from photon_ml_tpu_torch.optimize.common import (
     OptimizerConfig,
     OptimizerResult,
+    Steps,
     armijo_backtracking,
     init_trace,
     record_trace,
+    run_alone,
     update_history,
 )
 from photon_ml_tpu_torch.optimize.lbfgs import (
@@ -67,6 +70,13 @@ def minimize_owlqn(fun, w0: Tensor, l1_weight,
     lambda per lane) or a full ``(L, d)``. ``grad_norm``/``grad_norms`` are
     the pseudo-gradient's norms.
     """
+    return run_alone(owlqn_steps(fun, w0, l1_weight, config))
+
+
+def owlqn_steps(fun, w0: Tensor, l1_weight,
+                config: OptimizerConfig = OptimizerConfig()) -> Steps:
+    """:func:`minimize_owlqn` as a member of
+    :func:`~photon_ml_tpu_torch.optimize.common.drive`."""
     m, d = config.history, w0.shape[-1]
     lanes = w0.shape[0]
     dev, dt = w0.device, w0.dtype
@@ -95,7 +105,7 @@ def minimize_owlqn(fun, w0: Tensor, l1_weight,
         s = state
         active = (~s["converged"]) & (~s["failed"]) & (
             s["it"] < config.max_iterations)
-        if not bool(active.any()):
+        if not (yield active.any()):
             break
         w, pg = s["w"], s["pg"]
         d_dir = two_loop_direction(pg, s["s_hist"], s["y_hist"], s["rho"],
@@ -124,7 +134,7 @@ def minimize_owlqn(fun, w0: Tensor, l1_weight,
             # Armijo on the projected step, directional derivative pg·(w_t - w)
             return f_t <= s["f"] + _ARMIJO_C1 * _dot(pg, w_t - w)
 
-        _, w_new, f_new, g_new, ok = armijo_backtracking(
+        _, w_new, f_new, g_new, ok = yield from armijo_backtracking(
             trial, sufficient, alpha0, config.max_line_search, active)
         # curvature pairs from smooth-gradient differences
         s_hist, y_hist, rho, n_pairs = update_history(

@@ -15,7 +15,8 @@ outer condition is false keeps its whole state; the CG loop runs while any
 lane still iterates and only those lanes take the new values. One lane
 serves a GLM or a GAME fixed effect, M lanes a batched lambda sweep, E
 lanes a random-effect bucket. Both loops test on the host whether any lane
-still runs: one device sync per CG step and per Newton step.
+still runs: one read per CG step and per Newton step, handed to a driver
+(:func:`tron_steps`).
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ import torch
 from photon_ml_tpu_torch.optimize.common import (
     OptimizerConfig,
     OptimizerResult,
+    Steps,
     init_trace,
     record_trace,
+    run_alone,
 )
 
 Tensor = torch.Tensor
@@ -57,7 +60,7 @@ def _trcg(hvp, g: Tensor, delta: Tensor, max_cg: int, active: Tensor):
     -(g·s + 0.5 s·Hs)``, tracked from the CG internals (interior step:
     ``q -= 0.5·alpha·r·r``; boundary step: ``q += -tau·r·r +
     0.5·tau²·p·Hp``, using ``r·p = r·r``). Lanes outside ``active`` start
-    done and keep ``s = 0``."""
+    done and keep ``s = 0``. A generator (``yield from`` it)."""
     cg_tol = _CG_TOL * _norm(g)
     r = -g
     rr = _dot(r, r)
@@ -67,7 +70,7 @@ def _trcg(hvp, g: Tensor, delta: Tensor, max_cg: int, active: Tensor):
               done=(_norm(r) <= cg_tol) | ~active)
     while True:
         running = ~st["done"] & (st["i"] < max_cg)
-        if not bool(running.any()):
+        if not (yield running.any()):
             break
         s, r, p, rr, q = st["s"], st["r"], st["p"], st["rr"], st["q"]
         hp = hvp(p)
@@ -117,6 +120,13 @@ def minimize_tron(fun, hvp_at, w0: Tensor,
     product; the JAX package's per-call ``hvp(w, v)`` is
     ``lambda w: lambda v: hvp(w, v)``.
     """
+    return run_alone(tron_steps(fun, hvp_at, w0, config))
+
+
+def tron_steps(fun, hvp_at, w0: Tensor,
+               config: OptimizerConfig = OptimizerConfig()) -> Steps:
+    """:func:`minimize_tron` as a member of
+    :func:`~photon_ml_tpu_torch.optimize.common.drive`."""
     f0, g0 = fun(w0)
     gnorm0 = _norm(g0)
     values, gnorms = init_trace(config, f0, gnorm0)
@@ -133,10 +143,10 @@ def minimize_tron(fun, hvp_at, w0: Tensor,
         s = state
         active = (~s["converged"]) & (~s["failed"]) & (
             s["it"] < config.max_iterations)
-        if not bool(active.any()):
+        if not (yield active.any()):
             break
         w = s["w"]
-        step, prered = _trcg(hvp_at(w), s["g"], s["delta"],
+        step, prered = yield from _trcg(hvp_at(w), s["g"], s["delta"],
                              config.cg_max_iterations, active)
         snorm = _norm(step)
         w_new = w + step

@@ -44,12 +44,14 @@ The accounting runs while a telemetry session is live
 call is the bare call, and no live-row count (one host read per weights
 tensor, ``ops/objective.py::live_rows``) is ever taken.
 
+The random effects carry the JAX package's labels: a resident
+coordinate's whole sweep under ``game.re.sweep_fused`` (one lockstep
+drive of every bucket's solve), a streaming or projected one's bucket
+solves each under ``game.re.solve_bucket``.
+
 No counterpart, by design: ``install_xla_hooks`` and its
 ``photon_xla_compiles_total`` / ``photon_xla_compile_seconds_total``
-families, which read XLA's compile pipeline; and the label
-``game.re.sweep_fused``, the JAX package's whole-sweep program, which the
-port runs as a per-bucket loop (each bucket under
-``game.re.solve_bucket``).
+families, which read XLA's compile pipeline.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@ by which two checkouts (a commit and its parent, unpacked with ``git
 archive``) can be compared on one machine:
 
     python3 port_tree_report.py --tree DIR [--out FILE.json] [--sass-only]
-        [--build-walls N] [--k4-bf16-seeds N]
+        [--build-walls N [--warm-build MODES]] [--k4-bf16-seeds N]
 
 - ``sass``: a hash of the SASS of every kernel in the libraries of all
   four kernels (``cuobjdump -sass``), by mangled name, so a change that
@@ -21,7 +21,8 @@ archive``) can be compared on one machine:
   inputs (the error of the kernel's f32 sums), beside the plain version's
   own f32 error;
 - ``fit``: the end-to-end GLMix fit of ``chip_smoke.py`` (its data,
-  settings and λs): for every L-BFGS solve the calls to kernel 1 or 2, the
+  settings and λs): for every L-BFGS solve (a fused sweep's members
+  each) the calls to kernel 1 or 2, the
   lanes' iterations, how each lane stopped (converged, at the iteration
   cap, or earlier: a failed line search or two steps without decrease),
   the f64 sum of the lanes' objective values as the solver saw them (f32)
@@ -30,8 +31,11 @@ archive``) can be compared on one machine:
 - ``build_walls`` (with ``--build-walls N``): ``GameEstimator.prepare``
   of ``chip_smoke.py``'s phase 3 (the 1M-row e2e data, its estimator) N
   times, each followed by one fit on its datasets: the build's wall, the
-  fit's wall (whose first sweep places the bucket tensors on the card),
-  launches and AUC;
+  fit's wall and its sweeps' (whose first sweep places the bucket
+  tensors on the card unless the background build did), launches and
+  AUC; ``--warm-build thread,inline,none`` runs each rep once with the
+  random effects' background build on its thread, inline in ``prepare``
+  and not at all, in turns;
 - ``k4_bf16_seeds`` (with ``--k4-bf16-seeds N``): bf16 kernel 4 against
   its plain version at the 1024-wide cases of ``chip_smoke.py``'s phase 5
   (100,003 rows, M in {1, 2, 5, 8, 9, 11, 16}, four losses) over N seeds:
@@ -47,6 +51,7 @@ b, b, a).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import importlib.util
 import json
@@ -281,18 +286,18 @@ def fit_report(tg, cs, device, data) -> dict:
 
     solves = []
     run = pm.OptimizationProblem.run
+    steps = getattr(pm.OptimizationProblem, "steps", None)
 
-    def recorded(self, glm_data, w0, lam=0.0):
-        calls = (fused_glm.fused_value_and_grad.launches,
-                 fused_re.fused_entity_value_and_grad.launches)
-        res = run(self, glm_data, w0, lam)
+    def launches():
+        return (fused_glm.fused_value_and_grad.launches
+                + fused_re.fused_entity_value_and_grad.launches)
+
+    def record(self, glm_data, w0, lam, res, calls):
         cap = self.config.optimizer_config.max_iterations
         it = res.iterations.cpu()
         conv = res.converged.cpu()
         solves.append(dict(
-            shape=list(glm_data.design.x.shape),
-            calls=fused_glm.fused_value_and_grad.launches - calls[0]
-            + fused_re.fused_entity_value_and_grad.launches - calls[1],
+            shape=list(glm_data.design.x.shape), calls=calls,
             lanes=int(it.numel()), iterations_max=int(it.max()),
             iterations_sum=int(it.sum()), converged=int(conv.sum()),
             at_cap=int(((~conv) & (it >= cap)).sum()),
@@ -300,9 +305,37 @@ def fit_report(tg, cs, device, data) -> dict:
             objective=float(res.value.double().sum()),
             objective_f64=f64_objective(
                 self, glm_data, res.w[0] if w0.dim() == 1 else res.w, lam)))
+
+    def recorded_steps(self, glm_data, w0, lam=0.0):
+        # every solve, alone or a member of a lockstep drive (the fused
+        # random-effect sweep): its calls are the launches made while it
+        # advances, which the driver does one member at a time
+        inner = steps(self, glm_data, w0, lam)
+        calls, answer = 0, None
+        while True:
+            before = launches()
+            try:
+                test = inner.send(answer)
+            except StopIteration as stop:
+                calls += launches() - before
+                res = stop.value
+                break
+            calls += launches() - before
+            answer = yield test
+        record(self, glm_data, w0, lam, res, calls)
         return res
 
-    pm.OptimizationProblem.run = recorded
+    def recorded_run(self, glm_data, w0, lam=0.0):
+        # a tree from before the lockstep driver: every solve is a run
+        before = launches()
+        res = run(self, glm_data, w0, lam)
+        record(self, glm_data, w0, lam, res, launches() - before)
+        return res
+
+    if steps is not None:
+        pm.OptimizationProblem.steps = recorded_steps
+    else:
+        pm.OptimizationProblem.run = recorded_run
     try:
         train, valid = cs.make_e2e(tg, **data)
         est = cs.e2e_estimator(tg, device, cs.E2E_MAX_ITER)
@@ -315,41 +348,70 @@ def fit_report(tg, cs, device, data) -> dict:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        pm.OptimizationProblem.run = run
+        if steps is not None:
+            pm.OptimizationProblem.steps = steps
+        else:
+            pm.OptimizationProblem.run = run
     return dict(auc=float(result.evaluation.primary[1]), wall_s=wall,
                 calls=sum(s["calls"] for s in solves), solves=solves)
 
 
-def build_walls(tg, cs, fused_glm, fused_re, reps) -> list:
-    """Phase 3's dataset build and the fit that follows it, ``reps``
-    times on one draw of the data."""
-    from photon_ml_tpu_torch.evaluation import parse_evaluators
+#: ``--warm-build`` modes: how ``GameEstimator.prepare`` runs the random
+#: effects' background build (``RandomEffectSolver._warm_compile``):
+#: "thread" as the tree does it (a tree without the build: as it is),
+#: "inline" at the end of ``prepare``, "none" not at all (each sweep's
+#: first use builds what it reads)
+WARM_BUILDS = {
+    "thread": None,
+    "inline": lambda start: (
+        lambda solver, ds, dim: solver._warm_compile(ds, dim)),
+    "none": lambda start: lambda solver, ds, dim: None,
+}
 
+
+def build_walls(tg, cs, fused_glm, fused_re, reps,
+                modes=("thread",)) -> list:
+    """Phase 3's dataset build and the fit that follows it, ``reps``
+    times on one draw of the data, each time once in every mode of
+    ``modes`` (:data:`WARM_BUILDS`), in turns (A B C, C B A, ...)."""
+    from photon_ml_tpu_torch.evaluation import parse_evaluators
+    from photon_ml_tpu_torch.game import estimator as gest
+
+    if set(modes) - {"thread"}:
+        assert hasattr(gest, "_start_warm_compile"), (
+            "this tree has no background build", modes)
     train, valid = cs.make_e2e(tg, **cs.E2E)
     out = []
-    for _ in range(reps):
-        est = cs.e2e_estimator(tg, "cuda", cs.E2E_MAX_ITER)
-        t0 = time.perf_counter()
-        datasets = est.prepare(train)
-        torch.cuda.synchronize()
-        build = time.perf_counter() - t0
-        fused_glm.fused_value_and_grad.launches = 0
-        fused_re.fused_entity_value_and_grad.launches = 0
-        t0 = time.perf_counter()
-        res = est.fit(train, [tg.GameOptimizationConfiguration(
-            cs.E2E_LAMBDAS)], validation=(valid, parse_evaluators(["AUC"])),
-            datasets=datasets)[0]
-        torch.cuda.synchronize()
-        out.append(dict(
-            build_s=build, fit_s=time.perf_counter() - t0,
-            launches=[fused_glm.fused_value_and_grad.launches,
-                      fused_re.fused_entity_value_and_grad.launches],
-            auc=res.evaluation.primary[1]))
-        print(f"build {build:.3f} s, {out[-1]}", file=sys.stderr)
-        del datasets, res
-        train.clear_device_cache()
-        valid.clear_device_cache()
-        torch.cuda.empty_cache()
+    for r in range(reps):
+        for mode in (modes if r % 2 == 0 else modes[::-1]):
+            wrap = WARM_BUILDS[mode]
+            with (cs.Patched(gest, "_start_warm_compile", wrap) if wrap
+                  else contextlib.nullcontext()):
+                est = cs.e2e_estimator(tg, "cuda", cs.E2E_MAX_ITER)
+                t0 = time.perf_counter()
+                datasets = est.prepare(train)
+                torch.cuda.synchronize()
+                build = time.perf_counter() - t0
+                fused_glm.fused_value_and_grad.launches = 0
+                fused_re.fused_entity_value_and_grad.launches = 0
+                t0 = time.perf_counter()
+                res = est.fit(train, [tg.GameOptimizationConfiguration(
+                    cs.E2E_LAMBDAS)], validation=(
+                        valid, parse_evaluators(["AUC"])),
+                    datasets=datasets)[0]
+                torch.cuda.synchronize()
+            fit = time.perf_counter() - t0
+            out.append(dict(
+                mode=mode, build_s=build, fit_s=fit,
+                sweeps={cid: sec for _, cid, sec in res.step_seconds},
+                launches=[fused_glm.fused_value_and_grad.launches,
+                          fused_re.fused_entity_value_and_grad.launches],
+                auc=res.evaluation.primary[1]))
+            print(f"build {build:.3f} s, {out[-1]}", file=sys.stderr)
+            del datasets, res
+            train.clear_device_cache()
+            valid.clear_device_cache()
+            torch.cuda.empty_cache()
     return out
 
 
@@ -366,6 +428,10 @@ def main() -> int:
                          "over N seeds")
     ap.add_argument("--build-walls", type=int, default=0, metavar="N",
                     help="also time phase 3's dataset build and fit N times")
+    ap.add_argument("--warm-build", default="thread", metavar="MODES",
+                    help="with --build-walls: comma-separated modes of the "
+                         "random effects' background build, each run N "
+                         "times in turns (thread, inline, none)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_tree_report: no CUDA device is available",
@@ -396,8 +462,9 @@ def main() -> int:
                       re_precision=re_precision(fused_re, tl),
                       multi=multi_times(cs, fused_glm, tl))
     if args.build_walls:
-        report["build_walls"] = build_walls(tg, cs, fused_glm, fused_re,
-                                            args.build_walls)
+        report["build_walls"] = build_walls(
+            tg, cs, fused_glm, fused_re, args.build_walls,
+            tuple(args.warm_build.split(",")))
     if args.k4_bf16_seeds:
         report["k4_bf16_seeds"] = k4_bf16_seeds(cs, fused_glm, tl,
                                                 args.k4_bf16_seeds)

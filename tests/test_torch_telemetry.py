@@ -80,9 +80,9 @@ NOT_IN_PORT = ("photon_xla_compiles_total", "photon_xla_compile_seconds_total")
 PORT_ONLY_LABELS = {"photon_build_info": ({"torch_version"},
                                           {"jax_version"})}
 #: ``fn`` label values of the JAX package with no port counterpart, by the
-#: port's label for the same work: the whole-sweep program of the random
-#: effects (the port runs a per-bucket loop, each bucket's solve profiled)
-FN_IN_PORT = {"game.re.sweep_fused": "game.re.solve_bucket"}
+#: port's label for the same work: none (the port sweeps a resident
+#: random-effect coordinate as one program too, ``game.re.sweep_fused``)
+FN_IN_PORT = {}
 #: the port's stage around its manifest build, which the JAX package
 #: builds outside a stage (both hand the write to the background saver)
 PORT_ONLY_STAGES = {"Build data manifest"}
